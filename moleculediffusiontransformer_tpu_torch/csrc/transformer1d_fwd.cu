@@ -1,0 +1,448 @@
+// Transformer1d stack forward for Hopper (sm_90a): GroupNorm(32, eps 1e-6)
+// -> 1x1 conv in -> per layer [pre-LN self-attention; pre-LN
+// cross-attention on the context; exact-GELU feed-forward], each residual
+// -> 1x1 conv out.
+//
+// Replaces: moleculediffusiontransformer_tpu/ops/transformer_fusion.py
+// `_kernel` (launched by `_fused_forward`), the whole-stack Pallas
+// megakernel of the JAX package.
+//
+// What bounds it on this card.  At the flagship shapes (batch 2x512 under
+// CFG; L 8 at C 256, L 2 at C 512; 8 heads x 64; ctx 12 x 128) almost all
+// of the work is matrix products with M = batch*L rows and N, K in
+// 256..1024, so the stack is bound by the multiply rate, not by memory: the
+// largest activation of a stack (8192 x 512 bf16, 8 MB) and a layer's
+// weights (at most 5 MB bf16) both fit the 50 MB L2.  At small batch it is
+// bound by launch latency instead (about 14 launches per layer).
+//
+// What the design does about it.  The TPU kernel keeps every layer's
+// weights resident in VMEM (~22 MB at C=512), which cannot fit in 227 KB of
+// shared memory, and packs (batch, head) pairs block-diagonally to fill the
+// TPU's 128x128 matrix unit; neither carries over.  Here the stack runs as
+// a short sequence of simple kernels, launched back to back on the caller's
+// stream by one host entry point (`t1d_forward`):
+//   * GroupNorm: one block per (batch, group), float32 two-pass statistics;
+//   * LayerNorm: one warp per row, float32 two-pass statistics;
+//   * a tiled GEMM, C = A W^T with W in torch's (out, in) layout, float32
+//     accumulation on the CUDA cores (64x64 tile, 4x4 outputs a thread) and
+//     a fused epilogue: + bias, exact GELU (erff), + residual;
+//   * attention: one block per (batch, head), q/k/v and the L x m score
+//     matrix in shared memory (L, m <= 64), float32 scores and stable
+//     softmax, float32 P.V.
+// Ragged edges are masked everywhere; nothing assumes L or M is a multiple
+// of a tile.  Rounding follows the Pallas kernel: q and kv are cast to the
+// compute dtype after projection, probabilities before P.V, every
+// projection's (acc + bias) before the residual add, and the residual
+// stream stays in the compute dtype; the feed-forward hidden activation is
+// float32 until after the GELU.  This first version uses no tensor cores
+// and keeps activations in global memory between kernels: making it fast
+// (wgmma tiles, fusing the per-layer chain) is later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+enum Epilogue { EPI_NONE = 0, EPI_BIAS = 1, EPI_BIAS_RES = 2, EPI_BIAS_GELU = 3 };
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
+}
+
+// value rounded to T and widened back (a no-op for float)
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f<T>(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum over the block; every thread gets the result.  `red` holds 32 floats.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < nwarps ? red[lane] : 0.f;
+  return warp_sum(t);
+}
+
+// ---------------------------------------------------------------- GroupNorm
+// x (B, L, C) -> y (B, L, C) in T; one block per (batch, group).
+template <typename T>
+__global__ void group_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                  const float* __restrict__ gamma,
+                                  const float* __restrict__ beta, int L, int C,
+                                  int groups, float eps) {
+  __shared__ float red[32];
+  const int b = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int cpg = C / groups, n = L * cpg;
+  const size_t base = (size_t)b * L * C + (size_t)g * cpg;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s += to_f(x[base + (size_t)(i / cpg) * C + i % cpg]);
+  const float mean = block_sum(s, red) / n;
+  float v = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float d = to_f(x[base + (size_t)(i / cpg) * C + i % cpg]) - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(v, red) / n + eps);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
+    const int c = g * cpg + i % cpg;
+    y[idx] = from_f<T>((to_f(x[idx]) - mean) * rstd * gamma[c] + beta[c]);
+  }
+}
+
+// ---------------------------------------------------------------- LayerNorm
+// x (rows, C) -> y (rows, C) in T; one warp per row.
+template <typename T>
+__global__ void layer_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                  const float* __restrict__ gamma,
+                                  const float* __restrict__ beta, int rows, int C,
+                                  float eps) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
+  const float mean = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f(xr[c]) - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / C + eps);
+  T* yr = y + (size_t)row * C;
+  for (int c = lane; c < C; c += 32)
+    yr[c] = from_f<T>((to_f(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
+}
+
+// --------------------------------------------------------------------- GEMM
+// out (M, N) = epilogue(A (M, K) . W (N, K)^T); A, W, res, out in T, bias
+// float32.  `res` may alias `out`: each output element's residual is read by
+// the thread that writes it.
+constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
+            const float* __restrict__ bias, const T* res, T* out, int M, int N,
+            int K, int epi) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Ws[BK][BN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
+      const int r = i / BK, kk = i % BK;
+      const int gm = m0 + r, gn = n0 + r, gk = k0 + kk;
+      As[kk][r] = (gm < M && gk < K) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
+      Ws[kk][r] = (gn < N && gk < K) ? to_f(W[(size_t)gn * K + gk]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn >= N) continue;
+      const size_t idx = (size_t)gm * N + gn;
+      float v = acc[i][j];
+      if (epi != EPI_NONE) v += bias[gn];
+      if (epi == EPI_BIAS_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      if (epi == EPI_BIAS_RES) v = round_to<T>(v) + to_f(res[idx]);
+      out[idx] = from_f<T>(v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- attention
+// q (B*L, heads*d), kv (B*m, 2*heads*d) with k in the first heads*d columns
+// and v in the last -> o (B*L, heads*d).  One block per (batch, head).
+constexpr int ATTN_THREADS = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(ATTN_THREADS)
+attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                 T* __restrict__ o, int L, int m, int heads, int d, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int inner = heads * d, dp = d + 1;  // +1: no bank conflicts across rows
+  float* qs = smem;           // L x dp
+  float* ks = qs + L * dp;    // m x dp
+  float* vs = ks + m * dp;    // m x d
+  float* ps = vs + m * d;     // L x m
+  const T* qb = q + (size_t)b * L * inner + h * d;
+  const T* kb = kv + (size_t)b * m * 2 * inner + h * d;
+  const T* vb = kb + inner;
+  for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    qs[r * dp + c] = to_f(qb[(size_t)r * inner + c]);
+  }
+  for (int i = threadIdx.x; i < m * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    ks[r * dp + c] = to_f(kb[(size_t)r * 2 * inner + c]);
+    vs[r * d + c] = to_f(vb[(size_t)r * 2 * inner + c]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * m; i += blockDim.x) {
+    const int r = i / m, j = i % m;
+    float s = 0.f;
+    for (int t = 0; t < d; ++t) s = fmaf(qs[r * dp + t], ks[j * dp + t], s);
+    ps[i] = s * scale;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < L; r += nwarps) {
+    float* pr = ps + r * m;
+    float mx = -INFINITY;
+    for (int j = lane; j < m; j += 32) mx = fmaxf(mx, pr[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < m; j += 32) {
+      const float e = expf(pr[j] - mx);
+      pr[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < m; j += 32) pr[j] = round_to<T>(pr[j] / sum);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    float s = 0.f;
+    for (int j = 0; j < m; ++j) s = fmaf(ps[r * m + j], vs[j * d + c], s);
+    o[((size_t)b * L + r) * inner + h * d + c] = from_f<T>(s);
+  }
+}
+
+// ------------------------------------------------------------- host helpers
+constexpr int DTYPE_F32 = 0, DTYPE_BF16 = 1;
+
+inline long long align64(long long n) { return (n + 63) / 64 * 64; }
+
+struct Workspace {
+  long long lnq, lnkv, y, q, kv, o, h, total;
+};
+
+Workspace plan_workspace(long long B, long long L, long long C, long long ctx_len,
+                         long long ctx_c, long long heads, long long head_dim,
+                         long long mult) {
+  const long long R = B * L, I = heads * head_dim;
+  const long long kv_rows = R > B * ctx_len ? R : B * ctx_len;
+  const long long lnkv = R * C > B * ctx_len * ctx_c ? R * C : B * ctx_len * ctx_c;
+  Workspace w;
+  w.lnq = 0;
+  w.lnkv = w.lnq + align64(R * C);
+  w.y = w.lnkv + align64(lnkv);
+  w.q = w.y + align64(R * C);
+  w.kv = w.q + align64(R * I);
+  w.o = w.kv + align64(kv_rows * 2 * I);
+  w.h = w.o + align64(R * I);
+  w.total = w.h + align64(R * mult * C);
+  return w;
+}
+
+size_t attention_smem_bytes(int L, int m, int d) {
+  return sizeof(float) * ((size_t)L * (d + 1) + (size_t)m * (d + 1) + (size_t)m * d +
+                          (size_t)L * m);
+}
+
+template <typename T>
+int launch_gemm(const T* A, const T* W, const float* bias, const T* res, T* out, int M,
+                int N, int K, int epi, cudaStream_t s) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_kernel<T><<<grid, GEMM_THREADS, 0, s>>>(A, W, bias, res, out, M, N, K, epi);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_layer_norm(const T* x, T* y, const float* g, const float* b, int rows, int C,
+                      cudaStream_t s) {
+  const int warps = 8;
+  layer_norm_kernel<T><<<(rows + warps - 1) / warps, warps * 32, 0, s>>>(x, y, g, b, rows,
+                                                                        C, 1e-5f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_attention(const T* q, const T* kv, T* o, int B, int L, int m, int heads, int d,
+                     cudaStream_t s) {
+  const size_t smem = attention_smem_bytes(L, m, d);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  attention_kernel<T><<<B * heads, ATTN_THREADS, smem, s>>>(q, kv, o, L, m, heads, d,
+                                                           1.0f / sqrtf((float)d));
+  return (int)cudaGetLastError();
+}
+
+#define T1D_CHECK(call)      \
+  do {                       \
+    const int err_ = (call); \
+    if (err_ != 0) return err_; \
+  } while (0)
+
+// One pre-LN attention sub-block, residual into y (in place).
+template <typename T>
+int attention_block(T* y, const T* kv_src, int kv_rows, int kv_c, int m,
+                    const void* const* w, T* lnq, T* lnkv, T* qb, T* kvb, T* ob, int B,
+                    int L, int C, int heads, int d, cudaStream_t s) {
+  const int R = B * L, I = heads * d;
+  const float* ns = (const float*)w[0];
+  const float* nb = (const float*)w[1];
+  const float* cs = (const float*)w[2];
+  const float* cb = (const float*)w[3];
+  const T* wq = (const T*)w[4];
+  const T* wkv = (const T*)w[5];
+  const T* wout = (const T*)w[6];
+  const float* bout = (const float*)w[7];
+  T1D_CHECK(launch_layer_norm<T>(y, lnq, ns, nb, R, C, s));
+  T1D_CHECK(launch_layer_norm<T>(kv_src, lnkv, cs, cb, kv_rows, kv_c, s));
+  T1D_CHECK(launch_gemm<T>(lnq, wq, nullptr, nullptr, qb, R, I, C, EPI_NONE, s));
+  T1D_CHECK(launch_gemm<T>(lnkv, wkv, nullptr, nullptr, kvb, kv_rows, 2 * I, kv_c,
+                           EPI_NONE, s));
+  T1D_CHECK(launch_attention<T>(qb, kvb, ob, B, L, m, heads, d, s));
+  T1D_CHECK(launch_gemm<T>(ob, wout, bout, y, y, R, C, I, EPI_BIAS_RES, s));
+  return 0;
+}
+
+template <typename T>
+int stack_forward(const T* x, const T* ctx, T* out, const void* const* w, T* ws, int B,
+                  int L, int C, int ctx_len, int ctx_c, int num_layers, int heads,
+                  int head_dim, int mult, cudaStream_t s) {
+  const Workspace p = plan_workspace(B, L, C, ctx_len, ctx_c, heads, head_dim, mult);
+  T* lnq = ws + p.lnq;
+  T* lnkv = ws + p.lnkv;
+  T* y = ws + p.y;
+  T* qb = ws + p.q;
+  T* kvb = ws + p.kv;
+  T* ob = ws + p.o;
+  T* hb = ws + p.h;
+  const int R = B * L, groups = 32;
+  const bool cross = ctx != nullptr;
+
+  group_norm_kernel<T><<<B * groups, 128, 0, s>>>(x, lnq, (const float*)w[0],
+                                                  (const float*)w[1], L, C, groups, 1e-6f);
+  T1D_CHECK((int)cudaGetLastError());
+  T1D_CHECK(launch_gemm<T>(lnq, (const T*)w[2], (const float*)w[3], nullptr, y, R, C, C,
+                           EPI_BIAS, s));
+  int k = 4;
+  for (int layer = 0; layer < num_layers; ++layer) {
+    T1D_CHECK(attention_block<T>(y, y, R, C, L, w + k, lnq, lnkv, qb, kvb, ob, B, L, C,
+                                 heads, head_dim, s));
+    k += 8;
+    if (cross) {
+      T1D_CHECK(attention_block<T>(y, ctx, B * ctx_len, ctx_c, ctx_len, w + k, lnq, lnkv,
+                                   qb, kvb, ob, B, L, C, heads, head_dim, s));
+      k += 8;
+    }
+    T1D_CHECK(launch_gemm<T>(y, (const T*)w[k], (const float*)w[k + 1], nullptr, hb, R,
+                             mult * C, C, EPI_BIAS_GELU, s));
+    T1D_CHECK(launch_gemm<T>(hb, (const T*)w[k + 2], (const float*)w[k + 3], y, y, R, C,
+                             mult * C, EPI_BIAS_RES, s));
+    k += 4;
+  }
+  T1D_CHECK(launch_gemm<T>(y, (const T*)w[k], (const float*)w[k + 1], nullptr, out, R, C,
+                           C, EPI_BIAS, s));
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Elements of the compute dtype the caller allocates as `workspace`.
+long long t1d_workspace_elems(int B, int L, int C, int ctx_len, int ctx_c, int heads,
+                              int head_dim, int mult) {
+  return plan_workspace(B, L, C, ctx_len, ctx_c, heads, head_dim, mult).total;
+}
+
+// Number of weight pointers `t1d_forward` expects, in the order of the JAX
+// package's `_abi_paths`: GroupNorm scale/bias, conv-in W/b; per layer the
+// self-attention's [norm w/b, norm_context w/b, to_q, to_kv, to_out W/b],
+// the same for the cross-attention when there is a context, then the
+// feed-forward's W0/b0/W2/b2; conv-out W/b.  Matrices are in torch's
+// (out, in) layout and the compute dtype, vectors float32.
+int t1d_num_weights(int num_layers, int cross) {
+  return 4 + num_layers * ((cross ? 16 : 8) + 4) + 2;
+}
+
+// Runs the stack on `stream` of `device`.  x, out (B, L, C); ctx
+// (B, ctx_len, ctx_c) or null; dtype 0 = float32, 1 = bfloat16.  Returns 0,
+// a cudaError_t from the first call that failed, or -1 for arguments the
+// kernels do not take.
+int t1d_forward(const void* x, const void* ctx, void* out, const void* const* weights,
+                int n_weights, void* workspace, int B, int L, int C, int ctx_len,
+                int ctx_c, int num_layers, int heads, int head_dim, int mult, int dtype,
+                int device, void* stream) {
+  if (n_weights != t1d_num_weights(num_layers, ctx != nullptr) || C % 32 != 0 ||
+      L < 1 || L > 64 || head_dim < 1 || head_dim > 128 ||
+      (ctx != nullptr && (ctx_len < 1 || ctx_len > 64)))
+    return -1;
+  T1D_CHECK((int)cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return stack_forward<float>((const float*)x, (const float*)ctx, (float*)out, weights,
+                                (float*)workspace, B, L, C, ctx_len, ctx_c, num_layers,
+                                heads, head_dim, mult, s);
+  if (dtype == DTYPE_BF16)
+    return stack_forward<__nv_bfloat16>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)ctx, (__nv_bfloat16*)out, weights,
+        (__nv_bfloat16*)workspace, B, L, C, ctx_len, ctx_c, num_layers, heads, head_dim,
+        mult, s);
+  return -1;
+}
+
+const char* t1d_error_string(int err) {
+  return err < 0 ? "invalid arguments" : cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

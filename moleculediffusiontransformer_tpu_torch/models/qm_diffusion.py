@@ -1,0 +1,169 @@
+"""The QM9 inverse-design diffusion model (port of
+`models/qm_diffusion.py`).
+
+``QMDiffusion``: a property vector (b, 12) conditions a diffusion over
+one-hot SMILES tracks (b, L, vocab).  A conditioning head (per-scalar
+Linear(1, d) + GELU, concatenated with a Fourier position code) feeds a CFG
+UNet through the K-diffusion objective (sigma_data 0.1).  ``sample`` is the
+serving path: ADPM2 (rho 1) over a Karras (1e-3, 9.0, rho 3) schedule with
+batched classifier-free guidance — two doubled-batch UNet evaluations per
+step.
+
+Parameter names (``fc1``, ``unet.*``) are the reference's, so the JAX
+package's params (``nn.jax_import.state_dict_from_jax_params``) and
+reference checkpoints load with ``load_state_dict(strict=True)``.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..diffusion.objectives import KDiffusion
+from ..diffusion.samplers import sample as run_sampler
+from ..diffusion.schedules import karras_schedule
+from ..nn.embeddings import positional_encoding_1d
+from ..nn.primitives import Dense, gelu, init_parameters
+from ..nn.unet import XUNet1d
+
+
+class QMDiffusionBase(nn.Module):
+    """Shared assembly of the QM diffusion models."""
+
+    def __init__(self, max_length: int = 1024, channels: int = 128,
+                 pred_dim: int = 1, unet_type: str = "cfg",
+                 pos_emb_fourier: bool = True,
+                 pos_emb_fourier_add: bool = False,
+                 text_embed_dim: int = 1024, embed_dim_position: int = 64,
+                 context_embedding_max_length: int = 32,
+                 patch_size: int = 4,
+                 multipliers: Sequence[int] = (1, 2, 4),
+                 factors: Sequence[int] = (4, 4),
+                 num_blocks: Sequence[int] = (3, 3),
+                 attentions: Sequence[int] = (2, 2),
+                 attention_heads: int = 8, attention_features: int = 64,
+                 attention_multiplier: int = 2, pre_transformer: int = 0,
+                 sigma_data: float = 0.1, dynamic_threshold: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.max_length, self.pred_dim = max_length, pred_dim
+        self.unet_type, self.dtype = unet_type, dtype
+        self.pos_emb_fourier = pos_emb_fourier
+        self.pos_emb_fourier_add = pos_emb_fourier_add
+        self.embed_dim_position = embed_dim_position
+        self.objective = KDiffusion(sigma_data=sigma_data,
+                                    dynamic_threshold=dynamic_threshold)
+        if pos_emb_fourier and not pos_emb_fourier_add:
+            conditioning_features = text_embed_dim + embed_dim_position
+        else:
+            conditioning_features = text_embed_dim
+        self.fc1 = Dense(1, text_embed_dim, dtype=dtype)
+        kwargs = dict(in_channels=pred_dim, channels=channels,
+                      patch_size=patch_size, multipliers=tuple(multipliers),
+                      factors=tuple(factors), num_blocks=tuple(num_blocks),
+                      attentions=tuple(attentions),
+                      attention_heads=attention_heads,
+                      attention_features=attention_features,
+                      attention_multiplier=attention_multiplier,
+                      pre_transformer=pre_transformer, dtype=dtype)
+        if unet_type == "cfg":
+            kwargs.update(
+                context_embedding_features=conditioning_features,
+                context_embedding_max_length=context_embedding_max_length)
+        self.unet = XUNet1d(type=unet_type, **kwargs)
+
+    def embed_conditioning(self, sequences: torch.Tensor) -> torch.Tensor:
+        """(b, n) conditioning scalars -> (b, n, features): per-scalar
+        Linear(1, d) + GELU, concatenated with (or added to) a Fourier
+        position code."""
+        x = gelu(self.fc1(sequences.float()[..., None]))
+        if self.pos_emb_fourier:
+            pe = positional_encoding_1d(x.shape[1], self.embed_dim_position,
+                                        dtype=x.dtype, device=x.device)
+            pe = pe[None].expand(x.shape[0], -1, -1)
+            x = x + pe if self.pos_emb_fourier_add else torch.cat(
+                [x, pe], dim=-1)
+        return x
+
+    def denoise(self, x: torch.Tensor, sigmas: torch.Tensor,
+                embedding: Optional[torch.Tensor],
+                cond_scale: float = 1.0) -> torch.Tensor:
+        """One preconditioned denoise evaluation — the sampler's closure."""
+        if self.unet_type == "cfg":
+            def net(xn, t):
+                return self.unet(xn, t, embedding=embedding,
+                                 embedding_scale=cond_scale)
+        else:
+            def net(xn, t):
+                return self.unet(xn, t)
+        return self.objective.denoise(net, x, sigmas)
+
+
+class QMDiffusion(QMDiffusionBase):
+    """Inverse generative model: 12 properties -> one-hot SMILES (notebook
+    preset pred_dim 22, channels 128, max_length 32, pre_transformer 2,
+    patch_size 1, attentions (4, 4): 90,965,554 parameters)."""
+
+    def __init__(self, *, patch_size: int = 1, pre_transformer: int = 2,
+                 attentions: Sequence[int] = (4, 4), **kwargs):
+        super().__init__(patch_size=patch_size,
+                         pre_transformer=pre_transformer,
+                         attentions=attentions, **kwargs)
+
+
+def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
+                device: Optional[torch.device] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> QMDiffusionBase:
+    """Build a QM model from a ``QMDiffusionConfig`` preset (the JAX
+    package's framework-neutral ``core/config.py``, e.g.
+    ``inverse_diffusion_qm9(22)``; read by attribute, so the port does not
+    import that package) on ``device``, its parameters drawn from
+    ``generator`` (a CPU generator; torch's global RNG when None)."""
+    model = cls(
+        max_length=config.max_length, channels=config.channels,
+        pred_dim=config.pred_dim, unet_type=config.unet_type,
+        pos_emb_fourier=config.pos_emb_fourier,
+        pos_emb_fourier_add=config.pos_emb_fourier_add,
+        text_embed_dim=config.text_embed_dim,
+        embed_dim_position=config.embed_dim_position,
+        context_embedding_max_length=config.context_embedding_max_length,
+        patch_size=config.patch_size, num_blocks=config.num_blocks,
+        attentions=config.attentions, pre_transformer=config.pre_transformer,
+        sigma_data=config.diffusion.sigma_data,
+        dynamic_threshold=config.diffusion.dynamic_threshold, dtype=dtype)
+    if generator is not None:
+        init_parameters(model, generator)
+    return model.to(device) if device is not None else model
+
+
+@torch.no_grad()
+def sample(model: QMDiffusionBase, sequences: torch.Tensor,
+           generator: Optional[torch.Generator] = None, *,
+           num_steps: int = 100, cond_scale: float = 1.0, clamp: bool = False,
+           sigma_min: float = 1e-3, sigma_max: float = 9.0, rho: float = 3.0,
+           noise: Optional[torch.Tensor] = None,
+           step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ADPM2 (rho 1) sampling over a Karras(sigma_min, sigma_max, rho)
+    schedule — the serving path.  ``sequences`` (b, 12) on the model's
+    device; returns (b, max_length, pred_dim) float32, channels-last.
+
+    The initial ``noise`` (b, max_length, pred_dim) and the per-step
+    ``step_noise`` (num_steps - 1, b, max_length, pred_dim) are drawn from
+    ``generator`` (on the model's device) unless given."""
+    device = sequences.device
+    shape = (sequences.shape[0], model.max_length, model.pred_dim)
+    if noise is None:
+        if generator is None:
+            raise ValueError("sample needs a generator or explicit noise")
+        noise = torch.randn(shape, generator=generator, device=device)
+    emb = model.embed_conditioning(sequences)
+    sigmas = karras_schedule(num_steps, sigma_min, sigma_max, rho)
+
+    def denoise(x, s):
+        return model.denoise(x, s, emb, cond_scale)
+
+    return run_sampler(denoise, noise.float(), sigmas, num_steps,
+                       sampler="adpm2", clamp=clamp, objective_alias="k",
+                       step_noise=step_noise, generator=generator, rho=1.0)

@@ -1,0 +1,188 @@
+"""Attention and transformer blocks inside the UNet (port of
+`nn/attention.py`).
+
+Channels-last; softmax in float32.  ``AttentionBase`` computes plain
+scaled-dot-product attention: the JAX package's ``packed_sdpa`` packs
+(batch, head) pairs block-diagonally only to fill the TPU's 128x128 matrix
+unit, and its math is exactly this.
+
+``Transformer1d`` dispatches the whole stack to
+``ops.transformer_fusion.transformer1d_forward`` (the hand-written CUDA
+kernel on a GPU tensor, its plain PyTorch version on a CPU tensor) whenever
+the stack is one the kernel takes, as the JAX module dispatches to its Pallas
+kernel; otherwise, or with ``disable_fusion``, it runs the module
+composition below.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops import transformer_fusion as tf
+from .primitives import Conv1d, Dense, GroupNorm, LayerNorm
+
+
+def feed_forward(features: int, multiplier: int,
+                 dtype: torch.dtype = torch.float32) -> nn.Sequential:
+    """Linear-GELU-Linear, children ``0`` / ``2`` as in the reference."""
+    return nn.Sequential(Dense(features, features * multiplier, dtype=dtype),
+                         nn.GELU(),
+                         Dense(features * multiplier, features, dtype=dtype))
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+         dtype: torch.dtype) -> torch.Tensor:
+    """(b, h, n|m, d) -> (b, h, n, d): float32 scores and softmax, the
+    probabilities cast to ``dtype`` before the product with v."""
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    attn = torch.softmax(sim, dim=-1)
+    return torch.matmul(attn.to(dtype), v.to(dtype))
+
+
+class AttentionBase(nn.Module):
+    """Multi-head SDPA core + output projection."""
+
+    def __init__(self, features: int, head_features: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.head_features, self.num_heads, self.dtype = (
+            head_features, num_heads, dtype)
+        self.to_out = Dense(head_features * num_heads, features, dtype=dtype)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        b, n, _ = q.shape
+        h, d = self.num_heads, self.head_features
+
+        def split_heads(t):
+            return t.reshape(b, -1, h, d).transpose(1, 2)
+
+        out = sdpa(split_heads(q), split_heads(k), split_heads(v),
+                   d ** -0.5, self.dtype)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))
+
+
+class Attention(nn.Module):
+    """Pre-LN attention with a fused KV projection; cross-attention when
+    ``context_features`` is set."""
+
+    def __init__(self, features: int, head_features: int, num_heads: int,
+                 context_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.context_features = context_features
+        mid = head_features * num_heads
+        ctx = context_features or features
+        self.norm = LayerNorm(features, dtype=dtype)
+        self.norm_context = LayerNorm(ctx, dtype=dtype)
+        self.to_q = Dense(features, mid, bias=False, dtype=dtype)
+        self.to_kv = Dense(ctx, mid * 2, bias=False, dtype=dtype)
+        self.attention = AttentionBase(features, head_features, num_heads,
+                                       dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        assert not (self.context_features and context is None), \
+            "You must provide a context when using context_features"
+        context = context if context is not None else x
+        q = self.to_q(self.norm(x))
+        k, v = self.to_kv(self.norm_context(context)).chunk(2, dim=-1)
+        return self.attention(q, k, v)
+
+
+class TransformerBlock(nn.Module):
+    """Self-attention [+ cross-attention] + feed-forward, all residual."""
+
+    def __init__(self, features: int, num_heads: int, head_features: int,
+                 multiplier: int, context_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_cross = context_features is not None and context_features > 0
+        self.attention = Attention(features, head_features, num_heads,
+                                   dtype=dtype)
+        if self.use_cross:
+            self.cross_attention = Attention(
+                features, head_features, num_heads,
+                context_features=context_features, dtype=dtype)
+        self.feed_forward = feed_forward(features, multiplier, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.attention(x) + x
+        if self.use_cross:
+            x = self.cross_attention(x, context=context) + x
+        return self.feed_forward(x) + x
+
+
+class Transformer1d(nn.Module):
+    """Stack of TransformerBlocks wrapped in GroupNorm(32, eps 1e-6) + 1x1
+    convs.  Channels-last makes the reference's ``b c t <-> b t c``
+    rearranges no-ops: ``to_out.0`` is kept as an identity so the conv stays
+    at the reference key ``to_out.1``.
+
+    ``disable_fusion`` pins this instance to the module composition (the JAX
+    module's field of the same name)."""
+
+    def __init__(self, num_layers: int, channels: int, num_heads: int,
+                 head_features: int, multiplier: int,
+                 use_rel_pos: bool = False,
+                 context_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 disable_fusion: bool = False):
+        super().__init__()
+        if use_rel_pos:
+            raise NotImplementedError(
+                "RelativePositionBias is not ported yet")
+        self.num_layers, self.channels = num_layers, channels
+        self.num_heads, self.head_features = num_heads, head_features
+        self.multiplier, self.context_features = multiplier, context_features
+        self.dtype, self.disable_fusion = dtype, disable_fusion
+        self.to_in = nn.Sequential(
+            GroupNorm(32, channels, eps=1e-6, dtype=dtype),
+            Conv1d(channels, channels, kernel_size=1, padding=0, dtype=dtype))
+        self.blocks = nn.ModuleList([
+            TransformerBlock(channels, num_heads=num_heads,
+                             head_features=head_features,
+                             multiplier=multiplier,
+                             context_features=context_features, dtype=dtype)
+            for _ in range(num_layers)])
+        self.to_out = nn.Sequential(
+            nn.Identity(),
+            Conv1d(channels, channels, kernel_size=1, padding=0, dtype=dtype))
+        self._stack_params: Optional[tuple] = None
+
+    def kernel_params(self) -> Dict[str, torch.Tensor]:
+        """This stack's parameters as the stack kernel takes them: matmul
+        weights in the compute dtype, vectors in float32.  Cached; the cache
+        is rebuilt when a parameter is replaced or modified in place."""
+        params = dict(self.named_parameters())
+        key = tuple((p.data_ptr(), p._version, p.device)
+                    for p in params.values())
+        if self._stack_params is None or self._stack_params[0] != key:
+            with torch.no_grad():
+                cast = {name: (p.detach().float() if p.dim() == 1
+                               else p.detach().to(self.dtype))
+                        for name, p in params.items()}
+            self._stack_params = (key, cast)
+        return self._stack_params[1]
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        has_cross = (self.context_features is not None
+                     and self.context_features > 0)
+        ctx = context if has_cross else None
+        if not self.disable_fusion and tf.stack_kernel_takes(
+                x, ctx, channels=self.channels, dtype=self.dtype):
+            # the kernel reads dense (b, L, C) rows; a conv's channels-last
+            # output is a transposed view
+            return tf.transformer1d_forward(
+                self.kernel_params(), x.contiguous(), ctx,
+                num_layers=self.num_layers,
+                heads=self.num_heads, head_dim=self.head_features,
+                multiplier=self.multiplier)
+        x = self.to_in(x)
+        for block in self.blocks:
+            x = block(x, context=context)
+        return self.to_out(x)

@@ -1,0 +1,140 @@
+"""Loading JAX params into the PyTorch port, and the port's import hygiene.
+
+``state_dict_from_jax_params`` must give exactly the keys, shapes and values
+of the JAX package's ``params_to_state_dict`` and load into the port with
+``strict=True``; the port must import neither jax nor flax (nor the JAX
+package), and must import with no CUDA toolchain present."""
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moleculediffusiontransformer_tpu.core.config import inverse_diffusion_qm9
+from moleculediffusiontransformer_tpu.models import qm_diffusion as jqm
+from moleculediffusiontransformer_tpu.nn.torch_import import (
+    _flatten, flax_path_to_torch_key, params_to_state_dict)
+from moleculediffusiontransformer_tpu_torch.models import qm_diffusion as tqm
+from moleculediffusiontransformer_tpu_torch.nn.jax_import import (
+    state_dict_from_jax_params, torch_key)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(max_length=32, channels=32, pred_dim=8, text_embed_dim=16,
+             embed_dim_position=16, context_embedding_max_length=12,
+             multipliers=(1, 2), factors=(2,), num_blocks=(1,),
+             attentions=(1,), attention_heads=2, attention_features=16,
+             pre_transformer=1)
+PORT_MODULES = [
+    "moleculediffusiontransformer_tpu_torch",
+    "moleculediffusiontransformer_tpu_torch.nn.primitives",
+    "moleculediffusiontransformer_tpu_torch.nn.embeddings",
+    "moleculediffusiontransformer_tpu_torch.nn.blocks",
+    "moleculediffusiontransformer_tpu_torch.nn.attention",
+    "moleculediffusiontransformer_tpu_torch.nn.unet",
+    "moleculediffusiontransformer_tpu_torch.nn.jax_import",
+    "moleculediffusiontransformer_tpu_torch.ops.cuda_build",
+    "moleculediffusiontransformer_tpu_torch.ops.transformer_fusion",
+    "moleculediffusiontransformer_tpu_torch.diffusion.schedules",
+    "moleculediffusiontransformer_tpu_torch.diffusion.objectives",
+    "moleculediffusiontransformer_tpu_torch.diffusion.samplers",
+    "moleculediffusiontransformer_tpu_torch.models.qm_diffusion",
+]
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    model = jqm.QMDiffusion(**SMALL)
+    key = jax.random.PRNGKey(3)
+    variables = jax.jit(model.init)(key, jnp.zeros((2, 12)),
+                                    jnp.zeros((2, 32, 8)), key)
+    return variables["params"]
+
+
+def test_keys_and_shapes_match_port(jax_params):
+    sd = state_dict_from_jax_params(jax_params)
+    port = tqm.QMDiffusion(**SMALL)
+    want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in sd.items()} == want
+    port.load_state_dict(sd, strict=True)
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, sd[k])
+
+
+def test_values_match_params_to_state_dict(jax_params):
+    sd = state_dict_from_jax_params(jax_params)
+    ref = params_to_state_dict(jax_params)
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        assert sd[k].dtype == torch.float32
+        np.testing.assert_array_equal(sd[k].numpy(), v)
+
+
+def test_torch_key_matches_jax_package(jax_params):
+    for path in _flatten(jax_params):
+        assert torch_key(path) == flax_path_to_torch_key(path)
+    assert torch_key(("layers_0_2_1", "to_in_0", "block1")) == \
+        "layers.0.2.1.to_in.0.block1"
+
+
+def _meta_model(**kw):
+    with torch.device("meta"):
+        return kw.pop("build")(**kw)
+
+
+def test_flagship_parameter_count():
+    model = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusion,
+                        config=inverse_diffusion_qm9(22))
+    assert sum(p.numel() for p in model.parameters()) == 90_965_554
+
+
+def test_chip_smoke_builds_the_flagship():
+    """``chip_smoke.py`` spells the 91M preset out (it may not import the
+    JAX package's config); it must be the same architecture."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    a = _meta_model(build=tqm.QMDiffusion, **smoke.FLAGSHIP)
+    b = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusion,
+                    config=inverse_diffusion_qm9(22))
+    assert ({k: v.shape for k, v in a.state_dict().items()}
+            == {k: v.shape for k, v in b.state_dict().items()})
+
+
+def _run(code: str, env=None) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in PORT_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'flax', "
+              "'moleculediffusiontransformer_tpu'))\n"
+              "print(bad)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_port_imports_without_cuda_toolchain(tmp_path):
+    """No nvcc, no CUDA, no triton: importing builds and loads nothing."""
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="")
+    env.pop("CUDA_HOME", None)
+    code = ("import sys, moleculediffusiontransformer_tpu_torch.ops."
+            "transformer_fusion as tf, moleculediffusiontransformer_tpu_torch."
+            "models.qm_diffusion\n"
+            "from moleculediffusiontransformer_tpu_torch.ops import "
+            "cuda_build\n"
+            "assert tf._LIB is None and not cuda_build._LOADED\n"
+            "assert 'triton' not in sys.modules\n"
+            "print(cuda_build.library_path(tf.SOURCE).name)\n")
+    proc = _run(code, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("libtransformer1d_fwd_")
