@@ -1,0 +1,722 @@
+// Transformer1d stack backward for Hopper (sm_90a): the three segment
+// kernels the training step chains after the stash forward
+// (`transformer1d_fwd.cu` with a stash):
+//   conv-out backward -> per layer, last first: feed-forward, cross-attention,
+//   self-attention backward -> GroupNorm + conv-in backward.
+//
+// Replaces, in moleculediffusiontransformer_tpu/ops/transformer_fusion.py:
+//   K3 `_bwd_convout_kernel`   (launched by `_bwd_conv_out`)  -> t1d_bwd_conv_out
+//   K2 `_bwd_layer_kernel`     (launched by `_bwd_layer`)     -> t1d_bwd_layer
+//   K4 `_bwd_convin_gn_kernel` (launched by `_bwd_conv_in_gn`) -> t1d_bwd_conv_in_gn
+//
+// What bounds it on this card.  As in the forward, matrix products with
+// M = batch*L rows (4096 at the flagship's L 8 and micro-batch 512) and N, K
+// in 256..1024: the backward does about twice the forward's multiplies plus
+// the recomputed q/kv and feed-forward hidden, on the CUDA cores.  The weight
+// grads are the awkward part: their output is only C x C..2I x C, so a
+// 64x64-tile grid has 16..128 blocks for 132 SMs, each reducing over all
+// 4096 rows.
+//
+// What the design does about it.  The TPU kernels zero the weight-grad banks
+// at grid step 0 and then `+=` across the batch grid, which is right only
+// because a TPU grid runs in order.  Here every weight grad is one GEMM,
+// dW = G^T A (`gemm_tn` in gemm.cuh), whose reduction runs over all rows
+// inside the block that owns the output tile; bias, LayerNorm and GroupNorm
+// parameter grads are column sums by one block per 32 columns, each column
+// summed in a fixed order.  There is no float atomicAdd, so two calls on the
+// same inputs give bitwise the same grads.  (Splitting the rows over more
+// blocks, with a second pass over the partials, would fill the card: later
+// work, with tensor cores.)  Attention is one block per (batch, head): q, k,
+// v, dO and the L x m probability and dP matrices sit in shared memory
+// (L, m <= 64, d <= 128: at most 165 KB, asked for with
+// cudaFuncSetAttribute), P is recomputed from q and k.
+//
+// Rounding follows the Pallas kernels: g and dO in the compute dtype before
+// their products, the probabilities rounded before dV (and the recomputed
+// forward output before dW_out), dS rounded before dQ and dK, dq and dkv
+// rounded before their weight and input grads, the GELU derivative exact
+// (cdf + h phi(h)) and dh rounded after it, the running dy float32 inside a
+// layer and rounded at the layer's output, dcontext rounded per layer and
+// summed across layers in the compute dtype, the recomputed GroupNorm output
+// rounded before dW_in; every weight grad float32.
+#include "gemm.cuh"
+
+namespace {
+
+constexpr long long GRID_CAP = 4096;
+
+template <typename TI, typename TO>
+__global__ void cast_kernel(const TI* __restrict__ in, TO* __restrict__ out, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    out[i] = from_f<TO>(to_f(in[i]));
+}
+
+template <typename TI, typename TO>
+int launch_cast(const TI* in, TO* out, long long n, cudaStream_t s) {
+  const long long blocks = (n + 255) / 256 < GRID_CAP ? (n + 255) / 256 : GRID_CAP;
+  cast_kernel<TI, TO><<<(int)blocks, 256, 0, s>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+
+// h (float32) -> gval = gelu(h) rounded to T; h is overwritten with the
+// exact derivative cdf(h) + h * pdf(h).
+template <typename T>
+__global__ void gelu_grad_kernel(float* __restrict__ h, T* __restrict__ gval, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float v = h[i];
+    const float cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
+    gval[i] = from_f<T>(v * cdf);
+    h[i] = cdf + v * 0.39894228040143268f * expf(-0.5f * v * v);
+  }
+}
+
+// --------------------------------------------------------------- LayerNorm
+// Forward recompute: y = LN(x) in T, plus each row's mean and rstd.  One warp
+// per row, the forward kernel's arithmetic.
+template <typename T>
+__global__ void ln_stats_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                                const float* __restrict__ gamma,
+                                const float* __restrict__ beta, int rows, int C) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
+  const float mean = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f(xr[c]) - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / C + 1e-5f);
+  T* yr = y + (size_t)row * C;
+  for (int c = lane; c < C; c += 32)
+    yr[c] = from_f<T>((to_f(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
+  if (lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
+// Input grad of y = LN(x) * gamma + beta given dL/dy (float32):
+//   dx = rstd * (dxh - mean(dxh) - xhat * mean(dxh * xhat)),  dxh = dy * gamma.
+// Added to `acc32` (the layer's float32 running grad) when it is given;
+// otherwise rounded to T and written to `out_t`, or added to it in T when
+// `accumulate` (dcontext summed across layers in the compute dtype).
+template <typename T>
+__global__ void ln_bwd_kernel(const float* __restrict__ dy, const T* __restrict__ x,
+                              const float* __restrict__ mean, const float* __restrict__ rstd,
+                              const float* __restrict__ gamma, int rows, int C, float* acc32,
+                              T* out_t, int accumulate) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float mu = mean[row], rs = rstd[row];
+  const float* dyr = dy + (size_t)row * C;
+  const T* xr = x + (size_t)row * C;
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dyr[c] * gamma[c];
+    s1 += dxh;
+    s2 += dxh * ((to_f(xr[c]) - mu) * rs);
+  }
+  const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+  for (int c = lane; c < C; c += 32) {
+    const float xhat = (to_f(xr[c]) - mu) * rs;
+    const float dx = rs * (dyr[c] * gamma[c] - m1 - xhat * m2);
+    const size_t idx = (size_t)row * C + c;
+    if (acc32 != nullptr) {
+      acc32[idx] += dx;
+    } else {
+      float v = round_to<T>(dx);
+      if (accumulate) v = to_f(out_t[idx]) + v;
+      out_t[idx] = from_f<T>(v);
+    }
+  }
+}
+
+// ------------------------------------------------------------ column sums
+// sum[c] = sum_r a[r, c]; with x given, also xsum[c] = sum_r a[r, c] * xhat[r, c]
+// where xhat = (x - mean[s]) * rstd[s] and the statistic index is
+// s = (r / rows_per_stat) * stats_per_row + c / cols_per_stat (LayerNorm: one
+// per row; GroupNorm: one per (batch, group)).  One block per 32 columns,
+// 32 row lanes, each column's partials added in a fixed order.  (The block
+// count is only C/32: on an H100 with 8 lanes the LayerNorm grads took 10% of
+// a flagship train step's device time.  A split over rows with a second pass
+// would fill the card.)
+constexpr int CS_COLS = 32, CS_LANES = 32;
+
+template <typename TA, typename T>
+__global__ void colsum_kernel(const TA* __restrict__ a, int rows, int cols,
+                              float* __restrict__ sum, float* __restrict__ xsum,
+                              const T* __restrict__ x, const float* __restrict__ mean,
+                              const float* __restrict__ rstd, int rows_per_stat,
+                              int stats_per_row, int cols_per_stat) {
+  __shared__ float red_s[CS_LANES][CS_COLS + 1];
+  __shared__ float red_x[CS_LANES][CS_COLS + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * CS_COLS + tx;
+  float s = 0.f, xs = 0.f;
+  if (c < cols) {
+    for (int r = ty; r < rows; r += CS_LANES) {
+      const size_t idx = (size_t)r * cols + c;
+      const float v = to_f(a[idx]);
+      s += v;
+      if (x != nullptr) {
+        const int st = (r / rows_per_stat) * stats_per_row + c / cols_per_stat;
+        xs += v * ((to_f(x[idx]) - mean[st]) * rstd[st]);
+      }
+    }
+  }
+  red_s[ty][tx] = s;
+  red_x[ty][tx] = xs;
+  __syncthreads();
+  if (ty == 0 && c < cols) {
+    float ts = 0.f, tx_sum = 0.f;
+    for (int i = 0; i < CS_LANES; ++i) {
+      ts += red_s[i][tx];
+      tx_sum += red_x[i][tx];
+    }
+    sum[c] = ts;
+    if (xsum != nullptr) xsum[c] = tx_sum;
+  }
+}
+
+template <typename TA, typename T>
+int launch_colsum(const TA* a, int rows, int cols, float* sum, float* xsum, const T* x,
+                  const float* mean, const float* rstd, int rows_per_stat, int stats_per_row,
+                  int cols_per_stat, cudaStream_t s) {
+  colsum_kernel<TA, T><<<(cols + CS_COLS - 1) / CS_COLS, dim3(CS_COLS, CS_LANES), 0, s>>>(
+      a, rows, cols, sum, xsum, x, mean, rstd, rows_per_stat, stats_per_row, cols_per_stat);
+  return (int)cudaGetLastError();
+}
+
+template <typename TA>
+int launch_colsum(const TA* a, int rows, int cols, float* sum, cudaStream_t s) {
+  return launch_colsum<TA, TA>(a, rows, cols, sum, nullptr, nullptr, nullptr, nullptr, 1, 1,
+                               cols, s);
+}
+
+// --------------------------------------------------------------- GroupNorm
+// Forward recompute, one block per (batch, group): y = GN(x) rounded to T,
+// plus the group's mean and rstd (the forward kernel's arithmetic).
+template <typename T>
+__global__ void gn_stats_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                                const float* __restrict__ gamma,
+                                const float* __restrict__ beta, int L, int C, int groups,
+                                float eps) {
+  __shared__ float red[32];
+  const int b = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int cpg = C / groups, n = L * cpg;
+  const size_t base = (size_t)b * L * C + (size_t)g * cpg;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s += to_f(x[base + (size_t)(i / cpg) * C + i % cpg]);
+  const float mean = block_sum(s, red) / n;
+  float v = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float d = to_f(x[base + (size_t)(i / cpg) * C + i % cpg]) - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(v, red) / n + eps);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
+    const int c = g * cpg + i % cpg;
+    y[idx] = from_f<T>((to_f(x[idx]) - mean) * rstd * gamma[c] + beta[c]);
+  }
+  if (threadIdx.x == 0) {
+    mean_out[blockIdx.x] = mean;
+    rstd_out[blockIdx.x] = rstd;
+  }
+}
+
+// dx = rstd * (dxh - mean_g(dxh) - xhat * mean_g(dxh * xhat)), dxh = dgn * gamma,
+// means over the group's L x C/groups values; one block per (batch, group).
+template <typename T>
+__global__ void gn_bwd_kernel(const float* __restrict__ dgn, const T* __restrict__ x,
+                              const float* __restrict__ mean, const float* __restrict__ rstd,
+                              const float* __restrict__ gamma, T* __restrict__ dx, int L,
+                              int C, int groups) {
+  __shared__ float red[32];
+  const int b = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int cpg = C / groups, n = L * cpg;
+  const size_t base = (size_t)b * L * C + (size_t)g * cpg;
+  const float mu = mean[blockIdx.x], rs = rstd[blockIdx.x];
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
+    const float dxh = dgn[idx] * gamma[g * cpg + i % cpg];
+    s1 += dxh;
+    s2 += dxh * ((to_f(x[idx]) - mu) * rs);
+  }
+  const float m1 = block_sum(s1, red) / n;
+  const float m2 = block_sum(s2, red) / n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
+    const float xhat = (to_f(x[idx]) - mu) * rs;
+    dx[idx] = from_f<T>(rs * (dgn[idx] * gamma[g * cpg + i % cpg] - m1 - xhat * m2));
+  }
+}
+
+// ---------------------------------------------------------------- attention
+// Backward of o = softmax(q k^T * scale) v for one (batch, head) per block.
+// q (B*L, heads*d), kv (B*m, 2*heads*d) with k then v, dout (B*L, heads*d),
+// all T.  Writes the recomputed forward output o (B*L, heads*d), dq (B*L,
+// heads*d) and dkv (B*m, 2*heads*d), each rounded to T.
+constexpr int ATTN_BWD_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(ATTN_BWD_THREADS)
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                     const T* __restrict__ dout, T* __restrict__ o, T* __restrict__ dq,
+                     T* __restrict__ dkv, int L, int m, int heads, int d, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int inner = heads * d, dp = d + 1;  // +1: no bank conflicts across rows
+  float* qs = smem;            // L x dp
+  float* ks = qs + L * dp;     // m x dp
+  float* vs = ks + m * dp;     // m x dp
+  float* dos = vs + m * dp;    // L x dp
+  float* ps = dos + L * dp;    // L x m: probabilities, float32
+  float* dps = ps + L * m;     // L x m: dP, then dS rounded to T
+  const T* qb = q + (size_t)b * L * inner + h * d;
+  const T* kb = kv + (size_t)b * m * 2 * inner + h * d;
+  const T* vb = kb + inner;
+  const T* dob = dout + (size_t)b * L * inner + h * d;
+  for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    qs[r * dp + c] = to_f(qb[(size_t)r * inner + c]);
+    dos[r * dp + c] = to_f(dob[(size_t)r * inner + c]);
+  }
+  for (int i = threadIdx.x; i < m * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    ks[r * dp + c] = to_f(kb[(size_t)r * 2 * inner + c]);
+    vs[r * dp + c] = to_f(vb[(size_t)r * 2 * inner + c]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * m; i += blockDim.x) {
+    const int r = i / m, j = i % m;
+    float s = 0.f, t = 0.f;
+    for (int k = 0; k < d; ++k) {
+      s = fmaf(qs[r * dp + k], ks[j * dp + k], s);
+      t = fmaf(dos[r * dp + k], vs[j * dp + k], t);
+    }
+    ps[i] = s * scale;
+    dps[i] = t;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < L; r += nwarps) {
+    float* pr = ps + r * m;
+    float mx = -INFINITY;
+    for (int j = lane; j < m; j += 32) mx = fmaxf(mx, pr[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < m; j += 32) {
+      const float e = expf(pr[j] - mx);
+      pr[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < m; j += 32) pr[j] = pr[j] / sum;
+  }
+  __syncthreads();
+  // the forward output (for dW_out) and dV, both from the rounded P
+  for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    float s = 0.f;
+    for (int j = 0; j < m; ++j) s = fmaf(round_to<T>(ps[r * m + j]), vs[j * dp + c], s);
+    o[((size_t)b * L + r) * inner + h * d + c] = from_f<T>(s);
+  }
+  for (int i = threadIdx.x; i < m * d; i += blockDim.x) {
+    const int j = i / d, c = i % d;
+    float s = 0.f;
+    for (int r = 0; r < L; ++r) s = fmaf(round_to<T>(ps[r * m + j]), dos[r * dp + c], s);
+    dkv[((size_t)b * m + j) * 2 * inner + inner + h * d + c] = from_f<T>(s);
+  }
+  // dS = P (dP - rowsum(dP P)) scale, rounded; one warp per row
+  for (int r = threadIdx.x >> 5; r < L; r += nwarps) {
+    const float* pr = ps + r * m;
+    float* dr = dps + r * m;
+    float rs = 0.f;
+    for (int j = lane; j < m; j += 32) rs += dr[j] * pr[j];
+    rs = warp_sum(rs);
+    for (int j = lane; j < m; j += 32) dr[j] = round_to<T>(pr[j] * (dr[j] - rs) * scale);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
+    const int r = i / d, c = i % d;
+    float s = 0.f;
+    for (int j = 0; j < m; ++j) s = fmaf(dps[r * m + j], ks[j * dp + c], s);
+    dq[((size_t)b * L + r) * inner + h * d + c] = from_f<T>(s);
+  }
+  for (int i = threadIdx.x; i < m * d; i += blockDim.x) {
+    const int j = i / d, c = i % d;
+    float s = 0.f;
+    for (int r = 0; r < L; ++r) s = fmaf(dps[r * m + j], qs[r * dp + c], s);
+    dkv[((size_t)b * m + j) * 2 * inner + h * d + c] = from_f<T>(s);
+  }
+}
+
+size_t attention_bwd_smem_bytes(int L, int m, int d) {
+  return sizeof(float) * ((size_t)(2 * L + 2 * m) * (d + 1) + 2 * (size_t)L * m);
+}
+
+// ------------------------------------------------------------- host helpers
+inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+// Byte offsets into the caller's workspace.  float32 buffers first, then
+// buffers of the compute dtype (element size `es`).
+struct BwdWorkspace {
+  size_t dy32, h32, dh32, dq_in32, dkv_in32, q_mean, q_rstd, kv_mean, kv_rstd, gn_mean,
+      gn_rstd, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
+};
+
+BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
+                      long long ctx_c, long long heads, long long head_dim, long long mult,
+                      size_t es) {
+  const long long R = B * L, I = heads * head_dim, H = mult * C;
+  const long long kv_rows = R > B * ctx_len ? R : B * ctx_len;
+  const long long kv_in = R * C > B * ctx_len * ctx_c ? R * C : B * ctx_len * ctx_c;
+  BwdWorkspace w;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    const size_t here = at;
+    at += align256(bytes);
+    return here;
+  };
+  w.dy32 = take(4 * R * C);
+  w.h32 = take(4 * R * H);
+  w.dh32 = take(4 * R * H);
+  w.dq_in32 = take(4 * R * C);
+  w.dkv_in32 = take(4 * kv_in);
+  w.q_mean = take(4 * R);
+  w.q_rstd = take(4 * R);
+  w.kv_mean = take(4 * kv_rows);
+  w.kv_rstd = take(4 * kv_rows);
+  w.gn_mean = take(4 * B * 32);
+  w.gn_rstd = take(4 * B * 32);
+  w.dy_dt = take(es * R * C);
+  w.gd = take(es * R * H);
+  w.dh_dt = take(es * R * H);
+  w.q_in = take(es * R * C);
+  w.kv_in = take(es * kv_in);
+  w.q = take(es * R * I);
+  w.kv = take(es * kv_rows * 2 * I);
+  w.dout = take(es * R * I);
+  w.o = take(es * R * I);
+  w.dq = take(es * R * I);
+  w.dkv = take(es * kv_rows * 2 * I);
+  w.total = at;
+  return w;
+}
+
+template <typename T>
+struct Buffers {
+  float *dy32, *h32, *dh32, *dq_in32, *dkv_in32, *q_mean, *q_rstd, *kv_mean, *kv_rstd,
+      *gn_mean, *gn_rstd;
+  T *dy_dt, *gd, *dh_dt, *q_in, *kv_in, *q, *kv, *dout, *o, *dq, *dkv;
+};
+
+template <typename T>
+Buffers<T> carve(char* base, const BwdWorkspace& w) {
+  Buffers<T> b;
+  b.dy32 = (float*)(base + w.dy32);
+  b.h32 = (float*)(base + w.h32);
+  b.dh32 = (float*)(base + w.dh32);
+  b.dq_in32 = (float*)(base + w.dq_in32);
+  b.dkv_in32 = (float*)(base + w.dkv_in32);
+  b.q_mean = (float*)(base + w.q_mean);
+  b.q_rstd = (float*)(base + w.q_rstd);
+  b.kv_mean = (float*)(base + w.kv_mean);
+  b.kv_rstd = (float*)(base + w.kv_rstd);
+  b.gn_mean = (float*)(base + w.gn_mean);
+  b.gn_rstd = (float*)(base + w.gn_rstd);
+  b.dy_dt = (T*)(base + w.dy_dt);
+  b.gd = (T*)(base + w.gd);
+  b.dh_dt = (T*)(base + w.dh_dt);
+  b.q_in = (T*)(base + w.q_in);
+  b.kv_in = (T*)(base + w.kv_in);
+  b.q = (T*)(base + w.q);
+  b.kv = (T*)(base + w.kv);
+  b.dout = (T*)(base + w.dout);
+  b.o = (T*)(base + w.o);
+  b.dq = (T*)(base + w.dq);
+  b.dkv = (T*)(base + w.dkv);
+  return b;
+}
+
+constexpr int ROW_WARPS = 8;
+
+template <typename T>
+int launch_ln_stats(const T* x, T* y, float* mean, float* rstd, const float* g,
+                    const float* b, int rows, int C, cudaStream_t s) {
+  ln_stats_kernel<T><<<(rows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
+      x, y, mean, rstd, g, b, rows, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ln_bwd(const float* dy, const T* x, const float* mean, const float* rstd,
+                  const float* gamma, int rows, int C, float* acc32, T* out_t, int accumulate,
+                  cudaStream_t s) {
+  ln_bwd_kernel<T><<<(rows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
+      dy, x, mean, rstd, gamma, rows, C, acc32, out_t, accumulate);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_attention_bwd(const T* q, const T* kv, const T* dout, T* o, T* dq, T* dkv, int B,
+                         int L, int m, int heads, int d, cudaStream_t s) {
+  const size_t smem = attention_bwd_smem_bytes(L, m, d);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  attention_bwd_kernel<T><<<B * heads, ATTN_BWD_THREADS, smem, s>>>(
+      q, kv, dout, o, dq, dkv, L, m, heads, d, 1.0f / sqrtf((float)d));
+  return (int)cudaGetLastError();
+}
+
+// Backward through one pre-LN attention sub-block evaluated at the stashed
+// input `a` (q side) and `kv_src` (kv side).  Adds the q path's input grad
+// to dy32; the kv path's input grad is added to dy32 too (self-attention,
+// dctx == null) or goes to dctx (cross-attention).  w: the sub-block's 8
+// ABI weights; dw: their 8 float32 grads.
+template <typename T>
+int attention_bwd(float* dy32, const T* a, const T* kv_src, int kv_rows, int kv_c, int m,
+                  const void* const* w, void* const* dw, T* dctx, int dctx_accumulate,
+                  const Buffers<T>& bf, int B, int L, int C, int heads, int d,
+                  cudaStream_t s) {
+  const int R = B * L, I = heads * d;
+  const float* ns = (const float*)w[0];
+  const float* nb = (const float*)w[1];
+  const float* cs = (const float*)w[2];
+  const float* cb = (const float*)w[3];
+  const T* wq = (const T*)w[4];
+  const T* wkv = (const T*)w[5];
+  const T* wout = (const T*)w[6];
+  float* const* g = (float* const*)dw;
+  // recompute the forward's norms and projections
+  T1D_CHECK(launch_ln_stats<T>(a, bf.q_in, bf.q_mean, bf.q_rstd, ns, nb, R, C, s));
+  T1D_CHECK(launch_ln_stats<T>(kv_src, bf.kv_in, bf.kv_mean, bf.kv_rstd, cs, cb, kv_rows,
+                               kv_c, s));
+  T1D_CHECK(launch_gemm(gemm_nt<T, T>(bf.q_in, wq, bf.q, R, I, C), s));
+  T1D_CHECK(launch_gemm(gemm_nt<T, T>(bf.kv_in, wkv, bf.kv, kv_rows, 2 * I, kv_c), s));
+  // out-projection backward
+  T1D_CHECK(launch_cast<float, T>(dy32, bf.dy_dt, (long long)R * C, s));
+  T1D_CHECK(launch_gemm(gemm_nn<T, T>(bf.dy_dt, wout, bf.dout, R, I, C), s));
+  T1D_CHECK(launch_colsum<float>(dy32, R, C, g[7], s));
+  T1D_CHECK(launch_attention_bwd<T>(bf.q, bf.kv, bf.dout, bf.o, bf.dq, bf.dkv, B, L, m,
+                                    heads, d, s));
+  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dy_dt, bf.o, g[6], R, C, I), s));
+  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dq, bf.q_in, g[4], R, I, C), s));
+  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dkv, bf.kv_in, g[5], kv_rows, 2 * I, kv_c), s));
+  T1D_CHECK(launch_gemm(gemm_nn<T, float>(bf.dq, wq, bf.dq_in32, R, C, I), s));
+  T1D_CHECK(launch_gemm(gemm_nn<T, float>(bf.dkv, wkv, bf.dkv_in32, kv_rows, kv_c, 2 * I),
+                        s));
+  // LayerNorm parameter grads, then input grads
+  T1D_CHECK(launch_colsum<float, T>(bf.dq_in32, R, C, g[1], g[0], a, bf.q_mean, bf.q_rstd, 1,
+                                    1, C, s));
+  T1D_CHECK(launch_colsum<float, T>(bf.dkv_in32, kv_rows, kv_c, g[3], g[2], kv_src,
+                                    bf.kv_mean, bf.kv_rstd, 1, 1, kv_c, s));
+  T1D_CHECK(launch_ln_bwd<T>(bf.dq_in32, a, bf.q_mean, bf.q_rstd, ns, R, C, dy32, nullptr, 0,
+                             s));
+  if (dctx != nullptr)
+    return launch_ln_bwd<T>(bf.dkv_in32, kv_src, bf.kv_mean, bf.kv_rstd, cs, kv_rows, kv_c,
+                            nullptr, dctx, dctx_accumulate, s);
+  return launch_ln_bwd<T>(bf.dkv_in32, kv_src, bf.kv_mean, bf.kv_rstd, cs, kv_rows, kv_c,
+                          dy32, nullptr, 0, s);
+}
+
+// K2: one layer's backward, feed-forward, then cross-attention, then
+// self-attention, from the layer's stashed inputs a (self), c (cross) and
+// f (feed-forward).
+template <typename T>
+int layer_bwd(const T* dy, const T* a, const T* c, const T* f, const T* ctx,
+              const void* const* w, T* dy_prev, T* dctx, int dctx_accumulate,
+              void* const* dw, const Buffers<T>& bf, int B, int L, int C, int ctx_len,
+              int ctx_c, int heads, int d, int mult, cudaStream_t s) {
+  const int R = B * L, H = mult * C;
+  const bool cross = ctx != nullptr;
+  const int ff0 = cross ? 16 : 8;
+  const T* w0 = (const T*)w[ff0];
+  const float* b0 = (const float*)w[ff0 + 1];
+  const T* w2 = (const T*)w[ff0 + 2];
+  float* const* g = (float* const*)dw;
+
+  T1D_CHECK(launch_cast<T, float>(dy, bf.dy32, (long long)R * C, s));
+  // feed-forward backward at the stashed input f: recompute h, then
+  // dW2 = dy^T gelu(h), dh = (dy W2) * gelu'(h), dW0 = dh^T f, dy += dh W0
+  GemmArgs<T, float> h = gemm_nt<T, float>(f, w0, bf.h32, R, H, C);
+  h.epi = EPI_BIAS;
+  h.bias = b0;
+  T1D_CHECK(launch_gemm(h, s));
+  {
+    const long long n = (long long)R * H;
+    const long long blocks = (n + 255) / 256 < GRID_CAP ? (n + 255) / 256 : GRID_CAP;
+    gelu_grad_kernel<T><<<(int)blocks, 256, 0, s>>>(bf.h32, bf.gd, n);
+    T1D_CHECK((int)cudaGetLastError());
+  }
+  T1D_CHECK(launch_gemm(gemm_tn<T>(dy, bf.gd, g[ff0 + 2], R, C, H), s));
+  T1D_CHECK(launch_colsum<T>(dy, R, C, g[ff0 + 3], s));
+  GemmArgs<T, float> dh = gemm_nn<T, float>(dy, w2, bf.dh32, R, H, C);
+  dh.epi = EPI_MUL;
+  dh.mul = bf.h32;
+  dh.out_t = bf.dh_dt;
+  T1D_CHECK(launch_gemm(dh, s));
+  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dh_dt, f, g[ff0], R, H, C), s));
+  T1D_CHECK(launch_colsum<float>(bf.dh32, R, H, g[ff0 + 1], s));
+  GemmArgs<T, float> res = gemm_nn<T, float>(bf.dh_dt, w0, bf.dy32, R, C, H);
+  res.epi = EPI_RES;
+  res.res = bf.dy32;
+  T1D_CHECK(launch_gemm(res, s));
+
+  if (cross)
+    T1D_CHECK(attention_bwd<T>(bf.dy32, c, ctx, B * ctx_len, ctx_c, ctx_len, w + 8, dw + 8,
+                               dctx, dctx_accumulate, bf, B, L, C, heads, d, s));
+  T1D_CHECK(attention_bwd<T>(bf.dy32, a, a, R, C, L, w, dw, (T*)nullptr, 0, bf, B, L, C,
+                             heads, d, s));
+  return launch_cast<float, T>(bf.dy32, dy_prev, (long long)R * C, s);
+}
+
+// K3: dW = g^T y, db = sum g, dy = g W.
+template <typename T>
+int conv_out_bwd(const T* g, const T* y, const T* w, T* dy, float* dw, float* db, int R,
+                 int C, cudaStream_t s) {
+  T1D_CHECK(launch_gemm(gemm_tn<T>(g, y, dw, R, C, C), s));
+  T1D_CHECK(launch_colsum<T>(g, R, C, db, s));
+  return launch_gemm(gemm_nn<T, T>(g, w, dy, R, C, C), s);
+}
+
+// K4: recompute GroupNorm(32, eps 1e-6), then the conv-in and GroupNorm
+// backward.
+template <typename T>
+int conv_in_gn_bwd(const T* x, const T* dy0, const T* w, const float* gs, const float* gb,
+                   T* dx, float* dw, float* db, float* dgs, float* dgb, const Buffers<T>& bf,
+                   int B, int L, int C, cudaStream_t s) {
+  const int R = B * L, groups = 32;
+  gn_stats_kernel<T><<<B * groups, 128, 0, s>>>(x, bf.q_in, bf.gn_mean, bf.gn_rstd, gs, gb, L,
+                                                C, groups, 1e-6f);
+  T1D_CHECK((int)cudaGetLastError());
+  T1D_CHECK(launch_gemm(gemm_tn<T>(dy0, bf.q_in, dw, R, C, C), s));
+  T1D_CHECK(launch_colsum<T>(dy0, R, C, db, s));
+  T1D_CHECK(launch_gemm(gemm_nn<T, float>(dy0, w, bf.dq_in32, R, C, C), s));
+  T1D_CHECK(launch_colsum<float, T>(bf.dq_in32, R, C, dgb, dgs, x, bf.gn_mean, bf.gn_rstd, L,
+                                    groups, C / groups, s));
+  gn_bwd_kernel<T><<<B * groups, 128, 0, s>>>(bf.dq_in32, x, bf.gn_mean, bf.gn_rstd, gs, dx,
+                                              L, C, groups);
+  return (int)cudaGetLastError();
+}
+
+bool shapes_ok(int L, int C, int ctx_len, bool cross, int head_dim) {
+  return C % 32 == 0 && L >= 1 && L <= 64 && head_dim >= 1 && head_dim <= 128 &&
+         (!cross || (ctx_len >= 1 && ctx_len <= 64));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of workspace `t1d_bwd_layer` and `t1d_bwd_conv_in_gn` take.
+long long t1d_bwd_workspace_bytes(int B, int L, int C, int ctx_len, int ctx_c, int heads,
+                                  int head_dim, int mult, int dtype) {
+  return (long long)plan_bwd(B, L, C, ctx_len, ctx_c, heads, head_dim, mult,
+                             dtype == DTYPE_BF16 ? 2 : 4)
+      .total;
+}
+
+// K3.  g, y (rows, C) and w (C, C) in the compute dtype; dy (rows, C) out in
+// the compute dtype, dw (C, C) and db (C,) float32.
+int t1d_bwd_conv_out(const void* g, const void* y, const void* w, void* dy, void* dw,
+                     void* db, int rows, int C, int dtype, int device, void* stream) {
+  if (rows < 1 || C < 1) return -1;
+  T1D_CHECK((int)cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return conv_out_bwd<float>((const float*)g, (const float*)y, (const float*)w,
+                               (float*)dy, (float*)dw, (float*)db, rows, C, s);
+  if (dtype == DTYPE_BF16)
+    return conv_out_bwd<__nv_bfloat16>(
+        (const __nv_bfloat16*)g, (const __nv_bfloat16*)y, (const __nv_bfloat16*)w,
+        (__nv_bfloat16*)dy, (float*)dw, (float*)db, rows, C, s);
+  return -1;
+}
+
+// K2.  dy, a, c, f (B, L, C) and ctx (B, ctx_len, ctx_c) or null (c is null
+// too then), in the compute dtype; weights: the layer's ABI entries (self
+// attention's 8, the cross-attention's 8 with a context, the feed-forward's
+// 4: matrices (out, in) in the compute dtype, vectors float32).  Out:
+// dy_prev (B, L, C) and, with a context, dctx (B, ctx_len, ctx_c) in the
+// compute dtype (added to what it holds when `dctx_accumulate`); dweights:
+// float32 grads in the order and shapes of `weights`.
+int t1d_bwd_layer(const void* dy, const void* a, const void* c, const void* f,
+                  const void* ctx, const void* const* weights, int n_weights, void* dy_prev,
+                  void* dctx, int dctx_accumulate, void* const* dweights, void* workspace,
+                  int B, int L, int C, int ctx_len, int ctx_c, int heads, int head_dim,
+                  int mult, int dtype, int device, void* stream) {
+  const bool cross = ctx != nullptr;
+  if (n_weights != (cross ? 20 : 12) || !shapes_ok(L, C, ctx_len, cross, head_dim) ||
+      (cross && (c == nullptr || dctx == nullptr)))
+    return -1;
+  T1D_CHECK((int)cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32) {
+    const BwdWorkspace p = plan_bwd(B, L, C, ctx_len, ctx_c, heads, head_dim, mult, 4);
+    return layer_bwd<float>((const float*)dy, (const float*)a, (const float*)c,
+                            (const float*)f, (const float*)ctx, weights, (float*)dy_prev,
+                            (float*)dctx, dctx_accumulate, dweights,
+                            carve<float>((char*)workspace, p), B, L, C, ctx_len, ctx_c,
+                            heads, head_dim, mult, s);
+  }
+  if (dtype == DTYPE_BF16) {
+    typedef __nv_bfloat16 bf;
+    const BwdWorkspace p = plan_bwd(B, L, C, ctx_len, ctx_c, heads, head_dim, mult, 2);
+    return layer_bwd<bf>((const bf*)dy, (const bf*)a, (const bf*)c, (const bf*)f,
+                         (const bf*)ctx, weights, (bf*)dy_prev, (bf*)dctx, dctx_accumulate,
+                         dweights, carve<bf>((char*)workspace, p), B, L, C, ctx_len, ctx_c,
+                         heads, head_dim, mult, s);
+  }
+  return -1;
+}
+
+// K4.  x, dy0 (B, L, C) and w (C, C) in the compute dtype, gs, gb (C,)
+// float32; out dx (B, L, C) in the compute dtype, dw (C, C), db, dgs, dgb
+// (C,) float32.  The workspace is sized by `t1d_bwd_workspace_bytes` for the
+// same B, L, C (any heads/mult).
+int t1d_bwd_conv_in_gn(const void* x, const void* dy0, const void* w, const void* gs,
+                       const void* gb, void* dx, void* dw, void* db, void* dgs, void* dgb,
+                       void* workspace, int B, int L, int C, int dtype, int device,
+                       void* stream) {
+  if (!shapes_ok(L, C, 0, false, 1)) return -1;
+  T1D_CHECK((int)cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32) {
+    const BwdWorkspace p = plan_bwd(B, L, C, 0, 0, 1, 1, 1, 4);
+    return conv_in_gn_bwd<float>((const float*)x, (const float*)dy0, (const float*)w,
+                                 (const float*)gs, (const float*)gb, (float*)dx, (float*)dw,
+                                 (float*)db, (float*)dgs, (float*)dgb,
+                                 carve<float>((char*)workspace, p), B, L, C, s);
+  }
+  if (dtype == DTYPE_BF16) {
+    typedef __nv_bfloat16 bf;
+    const BwdWorkspace p = plan_bwd(B, L, C, 0, 0, 1, 1, 1, 2);
+    return conv_in_gn_bwd<bf>((const bf*)x, (const bf*)dy0, (const bf*)w, (const float*)gs,
+                              (const float*)gb, (bf*)dx, (float*)dw, (float*)db,
+                              (float*)dgs, (float*)dgb, carve<bf>((char*)workspace, p), B, L,
+                              C, s);
+  }
+  return -1;
+}
+
+const char* t1d_bwd_error_string(int err) {
+  return err < 0 ? "invalid arguments" : cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -5,7 +5,9 @@
 //
 // Replaces: moleculediffusiontransformer_tpu/ops/transformer_fusion.py
 // `_kernel` (launched by `_fused_forward`), the whole-stack Pallas
-// megakernel of the JAX package.
+// megakernel of the JAX package, with and without its activation stash
+// (`with_stash`: the input of every residual sub-block, kept for the
+// backward in `transformer1d_bwd.cu`).
 //
 // What bounds it on this card.  At the flagship shapes (batch 2x512 under
 // CFG; L 8 at C 256, L 2 at C 512; 8 heads x 64; ctx 12 x 128) almost all
@@ -23,9 +25,10 @@
 // stream by one host entry point (`t1d_forward`):
 //   * GroupNorm: one block per (batch, group), float32 two-pass statistics;
 //   * LayerNorm: one warp per row, float32 two-pass statistics;
-//   * a tiled GEMM, C = A W^T with W in torch's (out, in) layout, float32
-//     accumulation on the CUDA cores (64x64 tile, 4x4 outputs a thread) and
-//     a fused epilogue: + bias, exact GELU (erff), + residual;
+//   * the tiled GEMM of `gemm.cuh` (shared with the backward), C = A W^T
+//     with W in torch's (out, in) layout, float32 accumulation on the CUDA
+//     cores (64x64 tile, 4x4 outputs a thread) and a fused epilogue: + bias,
+//     exact GELU (erff), + residual;
 //   * attention: one block per (batch, head), q/k/v and the L x m score
 //     matrix in shared memory (L, m <= 64), float32 scores and stable
 //     softmax, float32 P.V.
@@ -37,54 +40,9 @@
 // float32 until after the GELU.  This first version uses no tensor cores
 // and keeps activations in global memory between kernels: making it fast
 // (wgmma tiles, fusing the per-layer chain) is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gemm.cuh"
 
 namespace {
-
-enum Epilogue { EPI_NONE = 0, EPI_BIAS = 1, EPI_BIAS_RES = 2, EPI_BIAS_GELU = 3 };
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
-}
-
-// value rounded to T and widened back (a no-op for float)
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Sum over the block; every thread gets the result.  `red` holds 32 floats.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < nwarps ? red[lane] : 0.f;
-  return warp_sum(t);
-}
 
 // ---------------------------------------------------------------- GroupNorm
 // x (B, L, C) -> y (B, L, C) in T; one block per (batch, group).
@@ -137,68 +95,6 @@ __global__ void layer_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
   T* yr = y + (size_t)row * C;
   for (int c = lane; c < C; c += 32)
     yr[c] = from_f<T>((to_f(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
-}
-
-// --------------------------------------------------------------------- GEMM
-// out (M, N) = epilogue(A (M, K) . W (N, K)^T); A, W, res, out in T, bias
-// float32.  `res` may alias `out`: each output element's residual is read by
-// the thread that writes it.
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
-            const float* __restrict__ bias, const T* res, T* out, int M, int N,
-            int K, int epi) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-      const int r = i / BK, kk = i % BK;
-      const int gm = m0 + r, gn = n0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
-      Ws[kk][r] = (gn < N && gk < K) ? to_f(W[(size_t)gn * K + gk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const size_t idx = (size_t)gm * N + gn;
-      float v = acc[i][j];
-      if (epi != EPI_NONE) v += bias[gn];
-      if (epi == EPI_BIAS_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-      if (epi == EPI_BIAS_RES) v = round_to<T>(v) + to_f(res[idx]);
-      out[idx] = from_f<T>(v);
-    }
-  }
 }
 
 // ---------------------------------------------------------------- attention
@@ -262,7 +158,6 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 }
 
 // ------------------------------------------------------------- host helpers
-constexpr int DTYPE_F32 = 0, DTYPE_BF16 = 1;
 
 inline long long align64(long long n) { return (n + 63) / 64 * 64; }
 
@@ -293,12 +188,15 @@ size_t attention_smem_bytes(int L, int m, int d) {
                           (size_t)L * m);
 }
 
+// out = epilogue(A W^T): the forward's one product shape
 template <typename T>
-int launch_gemm(const T* A, const T* W, const float* bias, const T* res, T* out, int M,
-                int N, int K, int epi, cudaStream_t s) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<T><<<grid, GEMM_THREADS, 0, s>>>(A, W, bias, res, out, M, N, K, epi);
-  return (int)cudaGetLastError();
+int fwd_gemm(const T* A, const T* W, const float* bias, const T* res, T* out, int M, int N,
+             int K, int epi, cudaStream_t s) {
+  GemmArgs<T, T> g = gemm_nt<T, T>(A, W, out, M, N, K);
+  g.epi = epi;
+  g.bias = bias;
+  g.res = res;
+  return launch_gemm(g, s);
 }
 
 template <typename T>
@@ -324,15 +222,10 @@ int launch_attention(const T* q, const T* kv, T* o, int B, int L, int m, int hea
   return (int)cudaGetLastError();
 }
 
-#define T1D_CHECK(call)      \
-  do {                       \
-    const int err_ = (call); \
-    if (err_ != 0) return err_; \
-  } while (0)
-
-// One pre-LN attention sub-block, residual into y (in place).
+// One pre-LN attention sub-block: y_out = y_in + attention(y_in, kv_src).
+// y_out may be y_in (in place) or the next stash slot.
 template <typename T>
-int attention_block(T* y, const T* kv_src, int kv_rows, int kv_c, int m,
+int attention_block(const T* y_in, T* y_out, const T* kv_src, int kv_rows, int kv_c, int m,
                     const void* const* w, T* lnq, T* lnkv, T* qb, T* kvb, T* ob, int B,
                     int L, int C, int heads, int d, cudaStream_t s) {
   const int R = B * L, I = heads * d;
@@ -344,54 +237,62 @@ int attention_block(T* y, const T* kv_src, int kv_rows, int kv_c, int m,
   const T* wkv = (const T*)w[5];
   const T* wout = (const T*)w[6];
   const float* bout = (const float*)w[7];
-  T1D_CHECK(launch_layer_norm<T>(y, lnq, ns, nb, R, C, s));
+  T1D_CHECK(launch_layer_norm<T>(y_in, lnq, ns, nb, R, C, s));
   T1D_CHECK(launch_layer_norm<T>(kv_src, lnkv, cs, cb, kv_rows, kv_c, s));
-  T1D_CHECK(launch_gemm<T>(lnq, wq, nullptr, nullptr, qb, R, I, C, EPI_NONE, s));
-  T1D_CHECK(launch_gemm<T>(lnkv, wkv, nullptr, nullptr, kvb, kv_rows, 2 * I, kv_c,
-                           EPI_NONE, s));
+  T1D_CHECK(fwd_gemm<T>(lnq, wq, nullptr, nullptr, qb, R, I, C, EPI_NONE, s));
+  T1D_CHECK(fwd_gemm<T>(lnkv, wkv, nullptr, nullptr, kvb, kv_rows, 2 * I, kv_c, EPI_NONE,
+                        s));
   T1D_CHECK(launch_attention<T>(qb, kvb, ob, B, L, m, heads, d, s));
-  T1D_CHECK(launch_gemm<T>(ob, wout, bout, y, y, R, C, I, EPI_BIAS_RES, s));
+  T1D_CHECK(fwd_gemm<T>(ob, wout, bout, y_in, y_out, R, C, I, EPI_BIAS_RES, s));
   return 0;
 }
 
+// `stash` is null or (n_stash_slots, B, L, C): the residual stream lives in
+// its slots, each sub-block reading slot i and writing slot i + 1, so the
+// input of every sub-block (and of conv out) stays there for the backward.
+// Without a stash the stream is updated in place in the workspace.
 template <typename T>
-int stack_forward(const T* x, const T* ctx, T* out, const void* const* w, T* ws, int B,
-                  int L, int C, int ctx_len, int ctx_c, int num_layers, int heads,
+int stack_forward(const T* x, const T* ctx, T* out, T* stash, const void* const* w, T* ws,
+                  int B, int L, int C, int ctx_len, int ctx_c, int num_layers, int heads,
                   int head_dim, int mult, cudaStream_t s) {
   const Workspace p = plan_workspace(B, L, C, ctx_len, ctx_c, heads, head_dim, mult);
   T* lnq = ws + p.lnq;
   T* lnkv = ws + p.lnkv;
-  T* y = ws + p.y;
   T* qb = ws + p.q;
   T* kvb = ws + p.kv;
   T* ob = ws + p.o;
   T* hb = ws + p.h;
   const int R = B * L, groups = 32;
   const bool cross = ctx != nullptr;
+  const size_t slot = stash != nullptr ? (size_t)R * C : 0;
+  T* y = stash != nullptr ? stash : ws + p.y;
 
   group_norm_kernel<T><<<B * groups, 128, 0, s>>>(x, lnq, (const float*)w[0],
                                                   (const float*)w[1], L, C, groups, 1e-6f);
   T1D_CHECK((int)cudaGetLastError());
-  T1D_CHECK(launch_gemm<T>(lnq, (const T*)w[2], (const float*)w[3], nullptr, y, R, C, C,
-                           EPI_BIAS, s));
+  T1D_CHECK(fwd_gemm<T>(lnq, (const T*)w[2], (const float*)w[3], nullptr, y, R, C, C,
+                        EPI_BIAS, s));
   int k = 4;
   for (int layer = 0; layer < num_layers; ++layer) {
-    T1D_CHECK(attention_block<T>(y, y, R, C, L, w + k, lnq, lnkv, qb, kvb, ob, B, L, C,
-                                 heads, head_dim, s));
+    T1D_CHECK(attention_block<T>(y, y + slot, y, R, C, L, w + k, lnq, lnkv, qb, kvb, ob, B,
+                                 L, C, heads, head_dim, s));
+    y += slot;
     k += 8;
     if (cross) {
-      T1D_CHECK(attention_block<T>(y, ctx, B * ctx_len, ctx_c, ctx_len, w + k, lnq, lnkv,
-                                   qb, kvb, ob, B, L, C, heads, head_dim, s));
+      T1D_CHECK(attention_block<T>(y, y + slot, ctx, B * ctx_len, ctx_c, ctx_len, w + k,
+                                   lnq, lnkv, qb, kvb, ob, B, L, C, heads, head_dim, s));
+      y += slot;
       k += 8;
     }
-    T1D_CHECK(launch_gemm<T>(y, (const T*)w[k], (const float*)w[k + 1], nullptr, hb, R,
-                             mult * C, C, EPI_BIAS_GELU, s));
-    T1D_CHECK(launch_gemm<T>(hb, (const T*)w[k + 2], (const float*)w[k + 3], y, y, R, C,
-                             mult * C, EPI_BIAS_RES, s));
+    T1D_CHECK(fwd_gemm<T>(y, (const T*)w[k], (const float*)w[k + 1], nullptr, hb, R,
+                          mult * C, C, EPI_BIAS_GELU, s));
+    T1D_CHECK(fwd_gemm<T>(hb, (const T*)w[k + 2], (const float*)w[k + 3], y, y + slot, R, C,
+                          mult * C, EPI_BIAS_RES, s));
+    y += slot;
     k += 4;
   }
-  T1D_CHECK(launch_gemm<T>(y, (const T*)w[k], (const float*)w[k + 1], nullptr, out, R, C,
-                           C, EPI_BIAS, s));
+  T1D_CHECK(fwd_gemm<T>(y, (const T*)w[k], (const float*)w[k + 1], nullptr, out, R, C, C,
+                        EPI_BIAS, s));
   return 0;
 }
 
@@ -415,14 +316,23 @@ int t1d_num_weights(int num_layers, int cross) {
   return 4 + num_layers * ((cross ? 16 : 8) + 4) + 2;
 }
 
+// Number of stash slots `t1d_forward` fills when given a stash: each
+// layer's self-attention, cross-attention (with a context) and feed-forward
+// input, in processing order, then the conv-out input (the JAX package's
+// `n_stash_slots`).
+int t1d_num_stash_slots(int num_layers, int cross) {
+  return num_layers * (cross ? 3 : 2) + 1;
+}
+
 // Runs the stack on `stream` of `device`.  x, out (B, L, C); ctx
-// (B, ctx_len, ctx_c) or null; dtype 0 = float32, 1 = bfloat16.  Returns 0,
-// a cudaError_t from the first call that failed, or -1 for arguments the
+// (B, ctx_len, ctx_c) or null; stash null or (t1d_num_stash_slots, B, L, C),
+// all in the compute dtype; dtype 0 = float32, 1 = bfloat16.  Returns 0, a
+// cudaError_t from the first call that failed, or -1 for arguments the
 // kernels do not take.
-int t1d_forward(const void* x, const void* ctx, void* out, const void* const* weights,
-                int n_weights, void* workspace, int B, int L, int C, int ctx_len,
-                int ctx_c, int num_layers, int heads, int head_dim, int mult, int dtype,
-                int device, void* stream) {
+int t1d_forward(const void* x, const void* ctx, void* out, void* stash,
+                const void* const* weights, int n_weights, void* workspace, int B, int L,
+                int C, int ctx_len, int ctx_c, int num_layers, int heads, int head_dim,
+                int mult, int dtype, int device, void* stream) {
   if (n_weights != t1d_num_weights(num_layers, ctx != nullptr) || C % 32 != 0 ||
       L < 1 || L > 64 || head_dim < 1 || head_dim > 128 ||
       (ctx != nullptr && (ctx_len < 1 || ctx_len > 64)))
@@ -430,14 +340,14 @@ int t1d_forward(const void* x, const void* ctx, void* out, const void* const* we
   T1D_CHECK((int)cudaSetDevice(device));
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return stack_forward<float>((const float*)x, (const float*)ctx, (float*)out, weights,
-                                (float*)workspace, B, L, C, ctx_len, ctx_c, num_layers,
-                                heads, head_dim, mult, s);
+    return stack_forward<float>((const float*)x, (const float*)ctx, (float*)out,
+                                (float*)stash, weights, (float*)workspace, B, L, C,
+                                ctx_len, ctx_c, num_layers, heads, head_dim, mult, s);
   if (dtype == DTYPE_BF16)
     return stack_forward<__nv_bfloat16>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)ctx, (__nv_bfloat16*)out, weights,
-        (__nv_bfloat16*)workspace, B, L, C, ctx_len, ctx_c, num_layers, heads, head_dim,
-        mult, s);
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)ctx, (__nv_bfloat16*)out,
+        (__nv_bfloat16*)stash, weights, (__nv_bfloat16*)workspace, B, L, C, ctx_len, ctx_c,
+        num_layers, heads, head_dim, mult, s);
   return -1;
 }
 

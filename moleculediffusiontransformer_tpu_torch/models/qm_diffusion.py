@@ -7,7 +7,8 @@ Linear(1, d) + GELU, concatenated with a Fourier position code) feeds a CFG
 UNet through the K-diffusion objective (sigma_data 0.1).  ``sample`` is the
 serving path: ADPM2 (rho 1) over a Karras (1e-3, 9.0, rho 3) schedule with
 batched classifier-free guidance — two doubled-batch UNet evaluations per
-step.
+step.  Calling the model is the training path: the K-diffusion loss at
+LogNormal(-1.2, 1.2) noise levels, one UNet pass at embedding scale 1.
 
 Parameter names (``fc1``, ``unet.*``) are the reference's, so the JAX
 package's params (``nn.jax_import.state_dict_from_jax_params``) and
@@ -20,6 +21,7 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
+from ..diffusion.distributions import LogNormalDistribution
 from ..diffusion.objectives import KDiffusion
 from ..diffusion.samplers import sample as run_sampler
 from ..diffusion.schedules import karras_schedule
@@ -44,7 +46,8 @@ class QMDiffusionBase(nn.Module):
                  attentions: Sequence[int] = (2, 2),
                  attention_heads: int = 8, attention_features: int = 64,
                  attention_multiplier: int = 2, pre_transformer: int = 0,
-                 sigma_data: float = 0.1, dynamic_threshold: float = 0.0,
+                 sigma_data: float = 0.1, sigma_mean: float = -1.2,
+                 sigma_std: float = 1.2, dynamic_threshold: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_length, self.pred_dim = max_length, pred_dim
@@ -54,6 +57,7 @@ class QMDiffusionBase(nn.Module):
         self.embed_dim_position = embed_dim_position
         self.objective = KDiffusion(sigma_data=sigma_data,
                                     dynamic_threshold=dynamic_threshold)
+        self.sigma_distribution = LogNormalDistribution(sigma_mean, sigma_std)
         if pos_emb_fourier and not pos_emb_fourier_add:
             conditioning_features = text_embed_dim + embed_dim_position
         else:
@@ -85,6 +89,28 @@ class QMDiffusionBase(nn.Module):
             x = x + pe if self.pos_emb_fourier_add else torch.cat(
                 [x, pe], dim=-1)
         return x
+
+    def forward(self, sequences: torch.Tensor, output: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                sigmas: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Training loss (float32 scalar).  ``sequences`` (b, n)
+        conditioning scalars, ``output`` (b, L, pred_dim) channels-last
+        diffusion target.  The sigmas (b,) and noise (like ``output``) are
+        drawn from ``generator`` on the target's device unless handed in.
+
+        As in the reference, QM models train with no CFG dropout
+        (embedding_mask_proba 0): one UNet pass at embedding scale 1."""
+        emb = self.embed_conditioning(sequences)
+        if self.unet_type == "cfg":
+            def net(xn, t):
+                return self.unet(xn, t, embedding=emb)
+        else:
+            def net(xn, t):
+                return self.unet(xn, t)
+        return self.objective.loss_from_draws(
+            net, output.float(), self.sigma_distribution, generator,
+            sigmas=sigmas, noise=noise)
 
     def denoise(self, x: torch.Tensor, sigmas: torch.Tensor,
                 embedding: Optional[torch.Tensor],
@@ -132,6 +158,8 @@ def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
         patch_size=config.patch_size, num_blocks=config.num_blocks,
         attentions=config.attentions, pre_transformer=config.pre_transformer,
         sigma_data=config.diffusion.sigma_data,
+        sigma_mean=config.diffusion.sigma_mean,
+        sigma_std=config.diffusion.sigma_std,
         dynamic_threshold=config.diffusion.dynamic_threshold, dtype=dtype)
     if generator is not None:
         init_parameters(model, generator)

@@ -7,11 +7,13 @@ scaled-dot-product attention: the JAX package's ``packed_sdpa`` packs
 unit, and its math is exactly this.
 
 ``Transformer1d`` dispatches the whole stack to
-``ops.transformer_fusion.transformer1d_forward`` (the hand-written CUDA
-kernel on a GPU tensor, its plain PyTorch version on a CPU tensor) whenever
-the stack is one the kernel takes, as the JAX module dispatches to its Pallas
-kernel; otherwise, or with ``disable_fusion``, it runs the module
-composition below.
+``ops.transformer_fusion.transformer1d`` (the hand-written CUDA kernels on a
+GPU tensor, their plain PyTorch versions on a CPU tensor) whenever the stack
+is one the kernel takes, as the JAX module dispatches to its Pallas kernel;
+otherwise, or with ``disable_fusion``, it runs the module composition below.
+Under autograd the dispatch is differentiable: the forward keeps its stash
+and the backward runs the stack's backward kernels, giving the stack's own
+float32 parameters, x and the context their grads.
 """
 from __future__ import annotations
 
@@ -177,9 +179,9 @@ class Transformer1d(nn.Module):
                 x, ctx, channels=self.channels, dtype=self.dtype):
             # the kernel reads dense (b, L, C) rows; a conv's channels-last
             # output is a transposed view
-            return tf.transformer1d_forward(
-                self.kernel_params(), x.contiguous(), ctx,
-                num_layers=self.num_layers,
+            return tf.transformer1d(
+                self.kernel_params(), dict(self.named_parameters()),
+                x.contiguous(), ctx, num_layers=self.num_layers,
                 heads=self.num_heads, head_dim=self.head_features,
                 multiplier=self.multiplier)
         x = self.to_in(x)

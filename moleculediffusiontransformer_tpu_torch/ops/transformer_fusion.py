@@ -1,32 +1,42 @@
-"""The Transformer1d stack forward as one hand-written CUDA kernel (port of
-`ops/transformer_fusion.py`).
+"""The Transformer1d stack as hand-written CUDA kernels, forward and backward
+(port of `ops/transformer_fusion.py`).
 
 ``transformer1d_forward`` runs a whole ``nn.attention.Transformer1d`` stack:
 GroupNorm(32, eps 1e-6) -> 1x1 conv in -> per layer [pre-LN self-attention;
 pre-LN cross-attention on the context; exact-GELU feed-forward], each
-residual -> 1x1 conv out.  On a CUDA tensor it launches the kernel in
-``csrc/transformer1d_fwd.cu`` (built on first use by ``ops.cuda_build``) or
-raises; on a CPU tensor it runs ``transformer1d_reference``, the same
-computation in plain PyTorch.  There is no fallback from one to the other.
+residual -> 1x1 conv out; with ``with_stash`` it also returns the input of
+every residual sub-block and of conv out, which the backward reads.  The
+backward chain ``transformer1d_backward`` runs ``bwd_conv_out`` (K3), then
+``bwd_layer`` (K2) per layer from the last, then ``bwd_conv_in_gn`` (K4).
+``transformer1d`` joins the two as an autograd function, the counterpart of
+the JAX package's ``custom_vjp``.
 
-Numerics follow the JAX package's Pallas kernel (``_kernel``): norm and
-softmax statistics in float32, every product accumulated in float32, q/kv
-cast to the compute dtype after projection, probabilities cast before P.V,
-each projection's (acc + bias) rounded before the residual add, a residual
-stream in the compute dtype, and the feed-forward hidden activation float32
-through the GELU.
+Every wrapper launches its kernel (``csrc/transformer1d_fwd.cu``,
+``csrc/transformer1d_bwd.cu``, built on first use by ``ops.cuda_build``) on a
+CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch version
+(the ``*_reference`` functions), the same computation.  There is no fallback
+from one to the other.
+
+Numerics follow the JAX package's Pallas kernels: norm and softmax
+statistics in float32, every product accumulated in float32, q/kv cast to
+the compute dtype after projection, probabilities cast before P.V, each
+projection's (acc + bias) rounded before the residual add, a residual stream
+in the compute dtype, and the feed-forward hidden activation float32 through
+the GELU.  The backward rounds where the Pallas backward rounds (see
+``bwd_layer_reference``); every weight grad is float32.
 
 ``params`` is the stack's parameter dict under the reference torch names
 (``Transformer1d.named_parameters()``: ``to_in.0.weight``,
-``blocks.0.attention.to_q.weight``, ..., ``to_out.1.bias``).  The kernel
-wants matrices in the compute dtype and vectors in float32
+``blocks.0.attention.to_q.weight``, ..., ``to_out.1.bias``).  The kernels
+want matrices in the compute dtype and vectors in float32
 (``Transformer1d.kernel_params`` caches them so); any other dtype is cast
-here, per call.
+here, per call.  Weight grads come back in torch's layout: (out, in)
+matrices (a 1x1 conv's without its kernel axis) and vectors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,16 +44,23 @@ from ..nn.primitives import group_norm, layer_norm
 from . import cuda_build
 
 SOURCE = "transformer1d_fwd.cu"
+BWD_SOURCE = "transformer1d_bwd.cu"
 MAX_LENGTH = 64      # rows of q per (batch, head) block in the attention core
 MAX_CONTEXT = 64     # rows of k/v per (batch, head) block
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Stack kernel launches since import (or the last reset by the caller):
-# one per call of transformer1d_forward on a CUDA tensor.
+# Kernel launches since import (or the last reset by the caller), one per
+# wrapper call on a CUDA tensor: the stack forward without and with its
+# stash, and the three backward kernels.
 LAUNCHES = 0
+STASH_LAUNCHES = 0
+CONV_OUT_BWD_LAUNCHES = 0
+LAYER_BWD_LAUNCHES = 0
+CONV_IN_GN_BWD_LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 
 
 def stack_kernel_takes(x: torch.Tensor, context: Optional[torch.Tensor], *,
@@ -94,8 +111,13 @@ def _kernel_weights(params: Dict[str, torch.Tensor], num_layers: int,
     return out
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """(..., C) -> (rows, C)."""
+    return t.reshape(-1, t.shape[-1])
+
+
 # --------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # --------------------------------------------------------------------------
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -103,73 +125,303 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.float().t())
 
 
+def _mm_nn(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """g (..., N) . w (N, K) in float32: the input grad of ``_mm``."""
+    return torch.matmul(g.float(), w.float())
+
+
+def _mm_tn(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """g^T . a over all rows in float32: the (N, K) weight grad of ``_mm``."""
+    return torch.matmul(_rows(g).float().t(), _rows(a).float())
+
+
+def _colsum(t: torch.Tensor) -> torch.Tensor:
+    return _rows(t).float().sum(dim=0)
+
+
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    b, n, inner = t.shape
+    return t.reshape(b, n, heads, inner // heads).transpose(1, 2)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * d)
+
+
 def _attention(y: torch.Tensor, kv_src: torch.Tensor, w: List[torch.Tensor],
                heads: int, head_dim: int) -> torch.Tensor:
     ns, nb, cs, cb, wq, wkv, wout, bout = w
     dt = y.dtype
-    b, n, _ = y.shape
-    m = kv_src.shape[1]
     inner = heads * head_dim
     q = _mm(layer_norm(y, ns, nb).to(dt), wq).to(dt)
     kv = _mm(layer_norm(kv_src, cs, cb).to(dt), wkv).to(dt)
-    q = q.reshape(b, n, heads, head_dim).transpose(1, 2)
-    k = kv[..., :inner].reshape(b, m, heads, head_dim).transpose(1, 2)
-    v = kv[..., inner:].reshape(b, m, heads, head_dim).transpose(1, 2)
+    q = _split_heads(q, heads)
+    k = _split_heads(kv[..., :inner], heads)
+    v = _split_heads(kv[..., inner:], heads)
     sim = (torch.matmul(q.float(), k.float().transpose(-1, -2))
            * head_dim ** -0.5)
     att = torch.softmax(sim, dim=-1).to(dt)
-    o = torch.matmul(att.float(), v.float()).to(dt)
-    o = o.transpose(1, 2).reshape(b, n, inner)
+    o = _merge_heads(torch.matmul(att.float(), v.float()).to(dt))
     return (_mm(o, wout) + bout).to(dt)
 
 
 def transformer1d_reference(params: Dict[str, torch.Tensor], x: torch.Tensor,
                             context: Optional[torch.Tensor], *,
                             num_layers: int, heads: int, head_dim: int,
-                            multiplier: int) -> torch.Tensor:
+                            multiplier: int, with_stash: bool = False):
     """Plain PyTorch version of the stack kernel, with the kernel's
-    rounding.  x (b, L, C); context (b, m, C_ctx) or None."""
+    rounding.  x (b, L, C); context (b, m, C_ctx) or None.  Returns the
+    output (b, L, C), and with ``with_stash`` also the stash
+    (slots, b, L, C), both in x's dtype: each layer's self-attention,
+    cross-attention (with a context) and feed-forward input, in processing
+    order, then the conv-out input."""
     del multiplier   # implied by the feed-forward weights' shapes
     cross = context is not None
     dt = x.dtype
     w = iter(_kernel_weights(params, num_layers, cross, dt))
     ctx = context.to(dt) if cross else None
+    stash = []
 
     gn_scale, gn_bias, k_in, b_in = (next(w) for _ in range(4))
     y32 = group_norm(x, gn_scale, gn_bias, num_groups=32, eps=1e-6)
     y = (_mm(y32.to(dt), k_in) + b_in).to(dt)
     for _ in range(num_layers):
+        stash.append(y)
         y = _attention(y, y, [next(w) for _ in range(8)], heads, head_dim) + y
         if cross:
+            stash.append(y)
             y = _attention(y, ctx, [next(w) for _ in range(8)], heads,
                            head_dim) + y
         w0, b0, w2, b2 = (next(w) for _ in range(4))
+        stash.append(y)
         g = torch.nn.functional.gelu(_mm(y, w0) + b0)
         y = (_mm(g.to(dt), w2) + b2).to(dt) + y
     k_out, b_out = next(w), next(w)
-    return (_mm(y, k_out) + b_out).to(dt)
+    stash.append(y)
+    out = (_mm(y, k_out) + b_out).to(dt)
+    return (out, torch.stack(stash)) if with_stash else out
+
+
+def _ln_stats(x: torch.Tensor, eps: float = 1e-5
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LayerNorm's forward statistics in float32: (xhat, rstd)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return (x32 - mean) * rstd, rstd
+
+
+def _ln_bwd(dy32: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+            scale: torch.Tensor):
+    """Backward of y = xhat * scale + bias: (dx, dscale, dbias), float32."""
+    dxh = dy32 * scale
+    m1 = dxh.mean(dim=-1, keepdim=True)
+    m2 = (dxh * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (dxh - m1 - xhat * m2)
+    return dx, _colsum(dy32 * xhat), _colsum(dy32)
+
+
+def _gelu_value_and_grad(h32: torch.Tensor):
+    """Exact-erf GELU and its derivative cdf(h) + h * pdf(h), float32."""
+    cdf = 0.5 * (1.0 + torch.erf(h32 * 0.7071067811865476))
+    return h32 * cdf, cdf + h32 * 0.3989422804014327 * torch.exp(
+        -0.5 * h32 * h32)
+
+
+def _attention_bwd_reference(dy32, a, kv_src, w, heads, head_dim):
+    """Backward through one pre-LN attention sub-block evaluated at the
+    stashed input ``a`` (q side) and ``kv_src`` (kv side).  Returns the q
+    path's and the kv path's input grads (float32) and the 8 weight grads."""
+    ns, nb, cs, cb, wq, wkv, wout, _ = w
+    dt = a.dtype
+    inner = heads * head_dim
+    scale = head_dim ** -0.5
+    qhat, q_rstd = _ln_stats(a)
+    q_in = (qhat * ns + nb).to(dt)
+    kvhat, kv_rstd = _ln_stats(kv_src)
+    kv_in = (kvhat * cs + cb).to(dt)
+    q = _mm(q_in, wq).to(dt)
+    kv = _mm(kv_in, wkv).to(dt)
+    dy_dt = dy32.to(dt)
+    do = _mm_nn(dy_dt, wout).to(dt)
+    qh, doh = _split_heads(q, heads).float(), _split_heads(do, heads).float()
+    kh = _split_heads(kv[..., :inner], heads).float()
+    vh = _split_heads(kv[..., inner:], heads).float()
+    att = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, -1)
+    att_dt = att.to(dt).float()
+    o = _merge_heads(torch.matmul(att_dt, vh)).to(dt)
+    datt = torch.matmul(doh, vh.transpose(-1, -2))
+    dv = torch.matmul(att_dt.transpose(-1, -2), doh)
+    r = (datt * att).sum(dim=-1, keepdim=True)
+    ds = (att * (datt - r) * scale).to(dt).float()
+    dq = _merge_heads(torch.matmul(ds, kh)).to(dt)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dkv = torch.cat([_merge_heads(dk), _merge_heads(dv)], dim=-1).to(dt)
+    d_wout, d_bout = _mm_tn(dy_dt, o), _colsum(dy32)
+    d_wq, d_wkv = _mm_tn(dq, q_in), _mm_tn(dkv, kv_in)
+    da, dns, dnb = _ln_bwd(_mm_nn(dq, wq), qhat, q_rstd, ns)
+    dkv_src, dcs, dcb = _ln_bwd(_mm_nn(dkv, wkv), kvhat, kv_rstd, cs)
+    return da, dkv_src, [dns, dnb, dcs, dcb, d_wq, d_wkv, d_wout, d_bout]
+
+
+def bwd_conv_out_reference(g: torch.Tensor, y: torch.Tensor,
+                           w: torch.Tensor):
+    """Plain version of K3: the conv-out backward.  g, y (b, L, C) and
+    w (C, C) in the compute dtype -> (dy in the compute dtype, dW (C, C) and
+    db (C,) float32)."""
+    dt = g.dtype
+    return (_mm_nn(g, w.to(dt)).to(dt), _mm_tn(g, y), _colsum(g))
+
+
+def bwd_layer_reference(dy: torch.Tensor, a: torch.Tensor,
+                        c: Optional[torch.Tensor], f: torch.Tensor,
+                        context: Optional[torch.Tensor],
+                        weights: Sequence[torch.Tensor], *, heads: int,
+                        head_dim: int,
+                        dctx_sum: Optional[torch.Tensor] = None):
+    """Plain version of K2: one layer's backward from its stashed inputs
+    ``a`` (self-attention), ``c`` (cross-attention) and ``f``
+    (feed-forward), all (b, L, C) in the compute dtype, like ``dy`` and the
+    context.  ``weights``: the layer's ABI entries (8 self, 8 cross with a
+    context, 4 feed-forward).  Returns (dy_prev in the compute dtype,
+    dcontext or None, float32 weight grads in ``weights``' order).
+
+    dcontext is rounded to the compute dtype and added to ``dctx_sum`` (the
+    later layers' sum) in that dtype, as the JAX chain sums it.  The running
+    dy stays float32 inside the layer and is rounded at its output; dh is
+    rounded after the exact GELU derivative."""
+    dt = dy.dtype
+    cross = context is not None
+    ff0 = 16 if cross else 8
+    w0, b0, w2 = weights[ff0], weights[ff0 + 1], weights[ff0 + 2]
+    dy32 = dy.float()
+    # feed-forward backward at the stashed input f
+    gval, gder = _gelu_value_and_grad(_mm(f, w0) + b0)
+    d_w2, d_b2 = _mm_tn(dy, gval.to(dt)), _colsum(dy32)
+    dh32 = _mm_nn(dy, w2) * gder
+    dh_dt = dh32.to(dt)
+    d_w0, d_b0 = _mm_tn(dh_dt, f), _colsum(dh32)
+    dy32 = dy32 + _mm_nn(dh_dt, w0)
+    dctx = None
+    cross_grads: List[torch.Tensor] = []
+    if cross:
+        da, dctx32, cross_grads = _attention_bwd_reference(
+            dy32, c, context.to(dt), weights[8:16], heads, head_dim)
+        dy32 = dy32 + da
+        dctx = dctx32.to(dt)
+        if dctx_sum is not None:
+            dctx = dctx_sum + dctx
+    da, dkv_src, self_grads = _attention_bwd_reference(
+        dy32, a, a, weights[:8], heads, head_dim)
+    dy32 = dy32 + da + dkv_src
+    return (dy32.to(dt), dctx,
+            self_grads + cross_grads + [d_w0, d_b0, d_w2, d_b2])
+
+
+def bwd_conv_in_gn_reference(dy0: torch.Tensor, x: torch.Tensor,
+                             w: torch.Tensor, gn_scale: torch.Tensor,
+                             gn_bias: torch.Tensor):
+    """Plain version of K4: recompute GroupNorm(32, eps 1e-6), then the
+    conv-in and GroupNorm backward.  dy0, x (b, L, C) and w (C, C) in the
+    compute dtype, gn_scale/gn_bias (C,) -> (dx in the compute dtype, dW,
+    db, d gn_scale, d gn_bias float32)."""
+    dt = x.dtype
+    b, length, c = x.shape
+    groups = 32
+    xf = x.float().reshape(b, length, groups, c // groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(var + 1e-6)
+    xhat = ((xf - mean) * rstd).reshape(b, length, c)
+    gs = gn_scale.float()
+    y_dt = (xhat * gs + gn_bias.float()).to(dt)
+    d_w, d_b = _mm_tn(dy0, y_dt), _colsum(dy0)
+    dy32 = _mm_nn(dy0, w.to(dt))
+    d_gs, d_gb = _colsum(dy32 * xhat), _colsum(dy32)
+    dxh = (dy32 * gs).reshape(b, length, groups, c // groups)
+    xh = xhat.reshape(b, length, groups, c // groups)
+    m1 = dxh.mean(dim=(1, 3), keepdim=True)
+    m2 = (dxh * xh).mean(dim=(1, 3), keepdim=True)
+    dx = (rstd * (dxh - m1 - xh * m2)).reshape(b, length, c)
+    return dx.to(dt), d_w, d_b, d_gs, d_gb
 
 
 # --------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # --------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
 
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
-        lib.t1d_workspace_elems.argtypes = [ctypes.c_int] * 8
+        lib.t1d_workspace_elems.argtypes = [_I] * 8
         lib.t1d_workspace_elems.restype = ctypes.c_longlong
-        lib.t1d_num_weights.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.t1d_num_weights.restype = ctypes.c_int
-        lib.t1d_forward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-        lib.t1d_forward.restype = ctypes.c_int
-        lib.t1d_error_string.argtypes = [ctypes.c_int]
+        lib.t1d_num_weights.argtypes = [_I, _I]
+        lib.t1d_num_weights.restype = _I
+        lib.t1d_num_stash_slots.argtypes = [_I, _I]
+        lib.t1d_num_stash_slots.restype = _I
+        lib.t1d_forward.argtypes = [_P] * 5 + [_I, _P] + [_I] * 11 + [_P]
+        lib.t1d_forward.restype = _I
+        lib.t1d_error_string.argtypes = [_I]
         lib.t1d_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = cuda_build.load(BWD_SOURCE)
+        lib.t1d_bwd_workspace_bytes.argtypes = [_I] * 9
+        lib.t1d_bwd_workspace_bytes.restype = ctypes.c_longlong
+        lib.t1d_bwd_conv_out.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+        lib.t1d_bwd_conv_out.restype = _I
+        lib.t1d_bwd_layer.argtypes = ([_P] * 6 + [_I] + [_P] * 2 + [_I]
+                                      + [_P] * 2 + [_I] * 10 + [_P])
+        lib.t1d_bwd_layer.restype = _I
+        lib.t1d_bwd_conv_in_gn.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        lib.t1d_bwd_conv_in_gn.restype = _I
+        lib.t1d_bwd_error_string.argtypes = [_I]
+        lib.t1d_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def _raise_on(err: int, what: str, lib: ctypes.CDLL, strerror: str) -> None:
+    if err != 0:
+        msg = getattr(lib, strerror)(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    """True for CPU tensors (the plain version's case); False for CUDA
+    tensors; raises for anything else, or for a mix."""
+    devices = {t.device.type for t in tensors if t is not None}
+    if devices == {"cpu"}:
+        return True
+    if devices == {"cuda"}:
+        return False
+    raise ValueError(f"stack kernels take CPU or CUDA tensors (all on one), "
+                     f"not {sorted(devices)}")
+
+
+def _check_rows(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+                dtype: torch.dtype, device: torch.device) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous {tuple(shape)} {dtype} tensor on "
+            f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device} "
+            f"contiguous={t.is_contiguous()}")
 
 
 def _check_cuda_args(x: torch.Tensor, context: Optional[torch.Tensor],
@@ -210,17 +462,19 @@ def _check_cuda_args(x: torch.Tensor, context: Optional[torch.Tensor],
 def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
                           context: Optional[torch.Tensor], *,
                           num_layers: int, heads: int, head_dim: int,
-                          multiplier: int) -> torch.Tensor:
+                          multiplier: int, with_stash: bool = False):
     """Run a Transformer1d stack: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor; raises for anything the kernel does not
     take.  x (b, L, C); context (b, m, C_ctx) or None; returns (b, L, C) in
-    x's dtype."""
-    global LAUNCHES
+    x's dtype, and with ``with_stash`` also the stash (slots, b, L, C) of
+    ``transformer1d_reference``."""
+    global LAUNCHES, STASH_LAUNCHES
     if x.device.type == "cpu":
         return transformer1d_reference(params, x, context,
                                        num_layers=num_layers, heads=heads,
                                        head_dim=head_dim,
-                                       multiplier=multiplier)
+                                       multiplier=multiplier,
+                                       with_stash=with_stash)
     if x.device.type != "cuda":
         raise ValueError(f"stack kernel takes CPU or CUDA tensors, not "
                          f"{x.device}")
@@ -237,17 +491,294 @@ def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(f"kernel expects {n} weights, got {len(weights)}")
     ptrs = (ctypes.c_void_p * n)(*[wt.data_ptr() for wt in weights])
     out = torch.empty_like(x)
+    stash = (torch.empty((lib.t1d_num_stash_slots(num_layers, int(cross)),
+                          b, length, c), dtype=x.dtype, device=x.device)
+             if with_stash else None)
     work = torch.empty(
         lib.t1d_workspace_elems(b, length, c, ctx_len, ctx_c, heads, head_dim,
                                 multiplier),
         dtype=x.dtype, device=x.device)
     err = lib.t1d_forward(
         x.data_ptr(), ctx.data_ptr() if cross else None, out.data_ptr(),
-        ptrs, n, work.data_ptr(), b, length, c, ctx_len, ctx_c, num_layers,
-        heads, head_dim, multiplier, _DTYPES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"transformer1d stack kernel failed: "
-                           f"{lib.t1d_error_string(err).decode()} ({err})")
+        stash.data_ptr() if with_stash else None, ptrs, n, work.data_ptr(),
+        b, length, c, ctx_len, ctx_c, num_layers, heads, head_dim, multiplier,
+        _DTYPES[x.dtype], x.device.index, _stream(x))
+    _raise_on(err, "transformer1d stack kernel", lib, "t1d_error_string")
+    if with_stash:
+        STASH_LAUNCHES += 1
+        return out, stash
     LAUNCHES += 1
     return out
+
+
+def bwd_workspace(x: torch.Tensor, context: Optional[torch.Tensor], *,
+                  heads: int, head_dim: int, multiplier: int
+                  ) -> torch.Tensor:
+    """Scratch for ``bwd_layer`` and ``bwd_conv_in_gn`` on the card: one
+    buffer serves a whole backward chain."""
+    b, length, c = x.shape
+    ctx_len, ctx_c = ((context.shape[1], context.shape[2])
+                      if context is not None else (0, 0))
+    nbytes = _bwd_library().t1d_bwd_workspace_bytes(
+        b, length, c, ctx_len, ctx_c, heads, head_dim, multiplier,
+        _DTYPES[x.dtype])
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
+def _check_dtype(x: torch.Tensor) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"stack kernels take float32 or bfloat16, not "
+                        f"{x.dtype}")
+
+
+def bwd_conv_out(g: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+    """K3, the conv-out backward: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  g, y (b, L, C), w (C, C) in the compute
+    dtype -> (dy (b, L, C) in the compute dtype, dW (C, C), db (C,)
+    float32)."""
+    global CONV_OUT_BWD_LAUNCHES
+    if _on_cpu(g, y, w):
+        return bwd_conv_out_reference(g, y, w)
+    _check_dtype(g)
+    dt, dev = g.dtype, g.device
+    c = g.shape[-1]
+    _check_rows("g", g, g.shape, dt, dev)
+    _check_rows("y", y, g.shape, dt, dev)
+    _check_rows("w", w, (c, c), dt, dev)
+    dy = torch.empty_like(g)
+    dw = torch.empty((c, c), dtype=torch.float32, device=dev)
+    db = torch.empty((c,), dtype=torch.float32, device=dev)
+    lib = _bwd_library()
+    err = lib.t1d_bwd_conv_out(g.data_ptr(), y.data_ptr(), w.data_ptr(),
+                               dy.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                               g.numel() // c, c, _DTYPES[dt], dev.index,
+                               _stream(g))
+    _raise_on(err, "conv-out backward kernel", lib, "t1d_bwd_error_string")
+    CONV_OUT_BWD_LAUNCHES += 1
+    return dy, dw, db
+
+
+def bwd_layer(dy: torch.Tensor, a: torch.Tensor, c: Optional[torch.Tensor],
+              f: torch.Tensor, context: Optional[torch.Tensor],
+              weights: Sequence[torch.Tensor], *, heads: int, head_dim: int,
+              dctx_sum: Optional[torch.Tensor] = None,
+              workspace: Optional[torch.Tensor] = None):
+    """K2, one layer's backward: the CUDA kernel for CUDA tensors, the plain
+    version (``bwd_layer_reference``, which documents the arguments) for
+    CPU tensors.  On the card dcontext is added into ``dctx_sum`` in place
+    when it is given; either way the sum is returned."""
+    global LAYER_BWD_LAUNCHES
+    if _on_cpu(dy, a, c, f, context, *weights):
+        return bwd_layer_reference(dy, a, c, f, context, weights, heads=heads,
+                                   head_dim=head_dim, dctx_sum=dctx_sum)
+    _check_dtype(dy)
+    dt, dev = dy.dtype, dy.device
+    b, length, ch = dy.shape
+    cross = context is not None
+    if len(weights) != (20 if cross else 12):
+        raise ValueError(f"a layer takes {20 if cross else 12} weights, got "
+                         f"{len(weights)}")
+    if ch % 32 or not 1 <= length <= MAX_LENGTH or not (
+            1 <= head_dim <= MAX_HEAD_DIM):
+        raise ValueError(f"stack kernel takes C % 32 == 0, 1 <= L <= "
+                         f"{MAX_LENGTH} and head_dim <= {MAX_HEAD_DIM}, got "
+                         f"L={length}, C={ch}, head_dim={head_dim}")
+    if tuple(weights[4].shape) != (heads * head_dim, ch):
+        raise ValueError(f"to_q weight {tuple(weights[4].shape)} does not "
+                         f"fit {heads} heads x {head_dim} at C={ch}")
+    _check_rows("dy", dy, dy.shape, dt, dev)
+    _check_rows("a", a, dy.shape, dt, dev)
+    _check_rows("f", f, dy.shape, dt, dev)
+    mult = weights[-4].shape[0] // ch
+    ctx_len = ctx_c = 0
+    if cross:
+        if c is None:
+            raise ValueError("a cross-attention layer needs its stashed "
+                             "input c")
+        _check_rows("c", c, dy.shape, dt, dev)
+        ctx_len, ctx_c = context.shape[1], context.shape[2]
+        if not 1 <= ctx_len <= MAX_CONTEXT:
+            raise ValueError(f"context length {ctx_len} > {MAX_CONTEXT}")
+        _check_rows("context", context, (b, ctx_len, ctx_c), dt, dev)
+        if dctx_sum is None:
+            dctx = torch.empty_like(context)
+        else:
+            _check_rows("dctx_sum", dctx_sum, context.shape, dt, dev)
+            dctx = dctx_sum
+    for w in weights:
+        want = torch.float32 if w.dim() == 1 else dt
+        _check_rows("weight", w, tuple(w.shape), want, dev)
+    if workspace is None:
+        workspace = bwd_workspace(dy, context, heads=heads,
+                                  head_dim=head_dim, multiplier=mult)
+    grads = [torch.empty(w.shape, dtype=torch.float32, device=dev)
+             for w in weights]
+    dy_prev = torch.empty_like(dy)
+    n = len(weights)
+    wptrs = (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights])
+    gptrs = (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads])
+    lib = _bwd_library()
+    err = lib.t1d_bwd_layer(
+        dy.data_ptr(), a.data_ptr(), c.data_ptr() if cross else None,
+        f.data_ptr(), context.data_ptr() if cross else None, wptrs, n,
+        dy_prev.data_ptr(), dctx.data_ptr() if cross else None,
+        int(dctx_sum is not None), gptrs, workspace.data_ptr(), b, length,
+        ch, ctx_len, ctx_c, heads, head_dim, mult, _DTYPES[dt], dev.index,
+        _stream(dy))
+    _raise_on(err, "layer backward kernel", lib, "t1d_bwd_error_string")
+    LAYER_BWD_LAUNCHES += 1
+    return dy_prev, (dctx if cross else None), grads
+
+
+def bwd_conv_in_gn(dy0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                   gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                   workspace: Optional[torch.Tensor] = None):
+    """K4, the GroupNorm + conv-in backward: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  dy0, x (b, L, C), w (C, C)
+    in the compute dtype, gn_scale/gn_bias (C,) float32 -> (dx, dW, db,
+    d gn_scale, d gn_bias)."""
+    global CONV_IN_GN_BWD_LAUNCHES
+    if _on_cpu(dy0, x, w, gn_scale, gn_bias):
+        return bwd_conv_in_gn_reference(dy0, x, w, gn_scale, gn_bias)
+    _check_dtype(x)
+    dt, dev = x.dtype, x.device
+    b, length, c = x.shape
+    if c % 32 or not 1 <= length <= MAX_LENGTH:
+        raise ValueError(f"stack kernel takes C % 32 == 0 and 1 <= L <= "
+                         f"{MAX_LENGTH}, got L={length}, C={c}")
+    _check_rows("x", x, x.shape, dt, dev)
+    _check_rows("dy0", dy0, x.shape, dt, dev)
+    _check_rows("w", w, (c, c), dt, dev)
+    _check_rows("gn_scale", gn_scale, (c,), torch.float32, dev)
+    _check_rows("gn_bias", gn_bias, (c,), torch.float32, dev)
+    if workspace is None:
+        workspace = bwd_workspace(x, None, heads=1, head_dim=1, multiplier=1)
+    dx = torch.empty_like(x)
+    dw = torch.empty((c, c), dtype=torch.float32, device=dev)
+    db, dgs, dgb = (torch.empty((c,), dtype=torch.float32, device=dev)
+                    for _ in range(3))
+    lib = _bwd_library()
+    err = lib.t1d_bwd_conv_in_gn(
+        x.data_ptr(), dy0.data_ptr(), w.data_ptr(), gn_scale.data_ptr(),
+        gn_bias.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        dgs.data_ptr(), dgb.data_ptr(), workspace.data_ptr(), b, length, c,
+        _DTYPES[dt], dev.index, _stream(x))
+    _raise_on(err, "GroupNorm + conv-in backward kernel", lib,
+              "t1d_bwd_error_string")
+    CONV_IN_GN_BWD_LAUNCHES += 1
+    return dx, dw, db, dgs, dgb
+
+
+# --------------------------------------------------------------------------
+# the backward chain and the autograd function
+# --------------------------------------------------------------------------
+
+def _backward_chain(conv_out, layer, conv_in_gn, params, x, context, stash,
+                    g, num_layers, heads, head_dim, workspace):
+    cross = context is not None
+    dt = x.dtype
+    w = _kernel_weights(params, num_layers, cross, dt)
+    per_layer = (16 if cross else 8) + 4
+    per_stash = 3 if cross else 2
+    ctx = context.to(dt).contiguous() if cross else None
+    extra = {} if workspace is None else {"workspace": workspace}
+
+    dy, dk_out, db_out = conv_out(g, stash[-1], w[-2])
+    layer_grads: List[List[torch.Tensor]] = [[] for _ in range(num_layers)]
+    dctx = None
+    for i in reversed(range(num_layers)):
+        base, s0 = 4 + i * per_layer, i * per_stash
+        dy, dctx, layer_grads[i] = layer(
+            dy, stash[s0], stash[s0 + 1] if cross else None,
+            stash[s0 + per_stash - 1], ctx, w[base:base + per_layer],
+            heads=heads, head_dim=head_dim, dctx_sum=dctx, **extra)
+    dx, dk_in, db_in, dgs, dgb = conv_in_gn(dy, x, w[2], w[0], w[1], **extra)
+    flat = [dgs, dgb, dk_in, db_in]
+    for grads in layer_grads:
+        flat += grads
+    flat += [dk_out, db_out]
+    return (dict(zip(_abi_names(num_layers, cross), flat)), dx,
+            dctx.to(context.dtype) if cross else None)
+
+
+def transformer1d_backward_reference(params: Dict[str, torch.Tensor],
+                                     x: torch.Tensor,
+                                     context: Optional[torch.Tensor],
+                                     stash: torch.Tensor, g: torch.Tensor, *,
+                                     num_layers: int, heads: int,
+                                     head_dim: int):
+    """Plain version of the backward chain (the JAX ``_fused_backward``):
+    conv out, the layers from the last, GroupNorm + conv in.  Returns
+    ({name: float32 grad in the kernel weight's shape}, dx in x's dtype,
+    dcontext in the context's dtype or None)."""
+    return _backward_chain(bwd_conv_out_reference, bwd_layer_reference,
+                           bwd_conv_in_gn_reference, params, x, context,
+                           stash, g, num_layers, heads, head_dim, None)
+
+
+def transformer1d_backward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                           context: Optional[torch.Tensor],
+                           stash: torch.Tensor, g: torch.Tensor, *,
+                           num_layers: int, heads: int, head_dim: int,
+                           multiplier: int):
+    """The backward chain through the kernels (CUDA tensors) or their plain
+    versions (CPU tensors); returns what
+    ``transformer1d_backward_reference`` returns."""
+    workspace = None
+    if x.device.type == "cuda":
+        workspace = bwd_workspace(x, context, heads=heads, head_dim=head_dim,
+                                  multiplier=multiplier)
+    return _backward_chain(bwd_conv_out, bwd_layer, bwd_conv_in_gn, params,
+                           x, context, stash, g, num_layers, heads, head_dim,
+                           workspace)
+
+
+class _Stack(torch.autograd.Function):
+    """The stack forward with its stash, and the backward chain.  Inputs:
+    the static geometry, the kernel weights (compute-dtype casts, outside
+    the graph), x, the context, then the stack's float32 parameters in ABI
+    order, whose grads it returns."""
+
+    @staticmethod
+    def forward(ctx, geometry, kparams, x, context, *params):
+        num_layers, heads, head_dim, multiplier = geometry
+        out, stash = transformer1d_forward(
+            kparams, x, context, num_layers=num_layers, heads=heads,
+            head_dim=head_dim, multiplier=multiplier, with_stash=True)
+        ctx.geometry, ctx.kparams = geometry, kparams
+        ctx.shapes = [p.shape for p in params]
+        ctx.save_for_backward(x, context, stash)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, context, stash = ctx.saved_tensors
+        num_layers, heads, head_dim, multiplier = ctx.geometry
+        grads, dx, dctx = transformer1d_backward(
+            ctx.kparams, x, context, stash, g.contiguous(),
+            num_layers=num_layers, heads=heads, head_dim=head_dim,
+            multiplier=multiplier)
+        names = _abi_names(num_layers, context is not None)
+        return (None, None, dx, dctx,
+                *[grads[n].reshape(s) for n, s in zip(names, ctx.shapes)])
+
+
+def transformer1d(kparams: Dict[str, torch.Tensor],
+                  params: Dict[str, torch.Tensor], x: torch.Tensor,
+                  context: Optional[torch.Tensor], *, num_layers: int,
+                  heads: int, head_dim: int, multiplier: int) -> torch.Tensor:
+    """The stack with gradients: ``params`` are the stack's own (float32)
+    parameters, ``kparams`` the same cast as the kernels take them.  With
+    grad enabled and anything requiring grad, the forward stashes and the
+    backward runs the chain; otherwise this is ``transformer1d_forward``
+    (no stash), as in sampling."""
+    cross = context is not None
+    ordered = [params[n] for n in _abi_names(num_layers, cross)]
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (cross and context.requires_grad)
+            or any(p.requires_grad for p in ordered)):
+        return _Stack.apply((num_layers, heads, head_dim, multiplier),
+                            kparams, x, context, *ordered)
+    return transformer1d_forward(kparams, x, context, num_layers=num_layers,
+                                 heads=heads, head_dim=head_dim,
+                                 multiplier=multiplier)
