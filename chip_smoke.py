@@ -31,7 +31,31 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    is finite and each training kernel launched at least (its stacks or
    layers) x 2 x 6 times; then one float32 step at batch 8 through the
    kernels on the card is held against the same step through the plain
-   versions on the CPU.
+   versions on the CPU;
+8. the resnet-run kernel (K8, ``csrc/resnet_fwd.cu``, built with phase 2's)
+   against its plain version at the eight resnet runs of the 91M inverse
+   and the 18M forward presets, batch 1,024 (512 requests under CFG), in
+   float32 and bfloat16, with CUDA-event timings of the kernel, the plain
+   version and the module composition the switch-off path runs, and a
+   determinism check; then its gradients through the autograd function
+   against autograd of the composition at batch 512;
+9. K1's uniform-context variant (the shared-KV CFG null half) against its
+   plain version at the four cross-stack shapes of the two presets, batch
+   512, float32 and bfloat16, with timings;
+10. the 91M model serving with both switches on (``enable_resnet_fusion``,
+   ``enable_sharedkv``): three 64-step CFG requests (batch 1, 16, 512),
+   each launching K8 at least 4 x 126 times and the uniform-context kernel
+   at least 5 x 126 times; then one float32 batch-8 sample with both
+   switches on the card against phase 4's plain sample on the CPU;
+11. the 91M model training with K8 on: one warm-up and 2 steps of batch
+   1024 as 2 x 512;
+12. the 18M forward model (``QMDiffusionForward``) with K8 on: three
+   100-step requests at cond scale 1.0 (batch 1, 16, 512), one of 512 at
+   cond scale 2.0 with the shared-KV null half on too, one warm-up and 5
+   steps of batch 1024 as 2 x 512, and one float32 batch-8 step with K8 on
+   the card against the module composition on the CPU;
+13. for each model, both switches on against both off in turns
+   on/off/off/on: a request of 512 and 2 training steps of 2 x 512.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels and ``{"ok": true, "device": ...}``.
@@ -67,6 +91,38 @@ NUM_STEPS, COND_SCALE = 64, 2.0
 REQUESTS = (1, 16, 512)
 STACKS_PER_EVAL = 9          # pre + transformer in 2 down and 2 up blocks,
 EVALS = 2 * (NUM_STEPS - 1)  # plus the bottleneck; 2 evals per ADPM2 step
+CROSS_STACKS_PER_EVAL = 5    # the transformers with a context
+RESNET_RUNS_PER_EVAL = 4     # the blocks runs of 2 down and 2 up blocks
+# the 18M forward QM9 notebook preset (core/config.py::forward_diffusion_qm9)
+# and its predict path (design/inverse_design.py: 100 steps, cond scale 1.0,
+# token ids / the vocabulary size as the (b, 64) conditioning)
+FORWARD = dict(max_length=64, channels=64, pred_dim=1, text_embed_dim=64,
+               embed_dim_position=64, context_embedding_max_length=64,
+               multipliers=(1, 2, 4), factors=(4, 4), num_blocks=(3, 3),
+               attentions=(2, 2), attention_heads=8, attention_features=64,
+               attention_multiplier=2, pre_transformer=0, patch_size=4)
+FORWARD_STEPS, FORWARD_VOCAB = 100, 22
+# (name, L, C, blocks, layout, C_m) of the resnet runs: the 91M inverse
+# preset's, then the 18M forward preset's
+RESNET_RUNS = [("inverse down 0", 8, 256, 3, "down", 512),
+               ("inverse down 1", 2, 512, 3, "down", 512),
+               ("inverse up 0", 2, 512, 4, "up", 512),
+               ("inverse up 1", 8, 256, 4, "up", 512),
+               ("forward down 0", 4, 128, 3, "down", 256),
+               ("forward down 1", 1, 256, 3, "down", 256),
+               ("forward up 0", 1, 256, 4, "up", 256),
+               ("forward up 1", 4, 128, 4, "up", 256)]
+RESNET_BATCH = 1024          # 512 requests under CFG
+# (name, L, C, layers, context length) of the cross stacks' null half
+UNIFORM_STACKS = [("inverse transformer L8 C256", 8, 256, 4, 12),
+                  ("inverse transformer L2 C512", 2, 512, 4, 12),
+                  ("forward transformer L4 C128", 4, 128, 2, 64),
+                  ("forward transformer L1 C256", 1, 256, 2, 64)]
+NULL_HALF_BATCH = 512
+# K8 and the uniform-context kernel against their plain versions, as a
+# fraction of each output's largest magnitude (residual streams grow through
+# the blocks): the KERNEL_TOL bands
+AB_TRAIN_STEPS = 2
 # fp32 on unit-scale inputs, TF32 off: only the order of float32 sums
 # differs; bf16: the JAX fused-vs-composition band (0.016 on unit scale)
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -80,8 +136,11 @@ TRAIN_BATCH, MICRO_BATCHES, TIMED_STEPS = 1024, 2, 5
 # One float32 train step at batch 8, card vs CPU: the loss within 1e-4
 # relative, every grad within 1e-3 of its tensor's largest magnitude --
 # cuDNN's and the CPU's conv backward sum in other orders, and the loss
-# weight (up to ~1e4 at small sigma) magnifies float32 sum-order noise
-STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
+# weight (up to ~1e4 at small sigma) magnifies float32 sum-order noise.  A
+# magnitude under STEP_GRAD_FLOOR counts as the floor: a grad that is zero
+# but for that noise (a conv bias right before a GroupNorm, as in the
+# Patcher and Unpatcher) is held to 1e-6 absolute
+STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
 
 
 def phase(step: str, **fields) -> None:
@@ -156,9 +215,10 @@ def check_stacks(dev):
     return worst, ms, plain_ms
 
 
-def _rel_err(got, want) -> float:
-    """Largest |got - want| as a fraction of want's largest magnitude."""
-    scale = max(want.float().abs().max().item(), 1e-30)
+def _rel_err(got, want, floor: float = 1e-30) -> float:
+    """Largest |got - want| as a fraction of want's largest magnitude (or
+    of ``floor``, if that is larger)."""
+    scale = max(want.float().abs().max().item(), floor)
     return _abs_err(got, want) / scale
 
 
@@ -319,45 +379,25 @@ def train_path(dev):
     """Phase 7: the 91M model trains in bf16 at batch 1024 (2 x 512).
     Returns the launches of each training kernel during these steps."""
     import torch
-    import torch.nn.functional as F
     from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
         QMDiffusion
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
     from moleculediffusiontransformer_tpu_torch.nn.primitives import \
         init_parameters
-    from moleculediffusiontransformer_tpu_torch.ops import \
-        transformer_fusion as tf
-    from moleculediffusiontransformer_tpu_torch.train import trainer
 
     model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(dev).train()
     stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
     layers = sum(m.num_layers for m in stacks)
-    opt = trainer.make_optimizer(trainer.OptimizerConfig())
-    state = trainer.TrainState.create(model, opt)
-    step = trainer.make_diffusion_train_step(model, opt, MICRO_BATCHES)
     gen = torch.Generator(device=dev).manual_seed(3)
-    cond = torch.rand(TRAIN_BATCH, 12, generator=gen, device=dev) * 2 - 1
-    tokens = torch.randint(0, FLAGSHIP["pred_dim"],
-                           (TRAIN_BATCH, FLAGSHIP["max_length"]),
-                           generator=gen, device=dev)
-    target = F.one_hot(tokens, FLAGSHIP["pred_dim"]).float()
+    cond, target = inverse_batch(TRAIN_BATCH, gen, dev)
 
-    names = ("LAUNCHES", "STASH_LAUNCHES", "CONV_OUT_BWD_LAUNCHES",
-             "LAYER_BWD_LAUNCHES", "CONV_IN_GN_BWD_LAUNCHES")
-    for n in names:
-        setattr(tf, n, 0)
-    losses = [step(state, cond, target, gen).item()]      # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    timed = [step(state, cond, target, gen) for _ in range(TIMED_STEPS)]
-    torch.cuda.synchronize()
-    seconds = (time.perf_counter() - t0) / TIMED_STEPS
-    losses += [t.item() for t in timed]
-    counts = {n: getattr(tf, n) for n in names}
+    reset_counts()
+    losses, seconds, peak = train_steps(model, cond, target, gen,
+                                        TIMED_STEPS)
+    counts_ = counts()
     steps = 1 + TIMED_STEPS
     want = {"STASH_LAUNCHES": len(stacks), "CONV_OUT_BWD_LAUNCHES":
             len(stacks), "LAYER_BWD_LAUNCHES": layers,
@@ -366,43 +406,41 @@ def train_path(dev):
     phase("train", batch=TRAIN_BATCH, micro_batches=MICRO_BATCHES,
           steps=steps, seconds_per_step=seconds,
           samples_per_s=TRAIN_BATCH / seconds, losses=losses,
-          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-          stacks=len(stacks), layers=layers, launches=counts,
-          min_launches=want)
-    if not all(torch.isfinite(torch.tensor(losses))):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    short = {k: counts[k] for k, v in want.items() if counts[k] < v}
-    if short or counts["LAUNCHES"]:
-        raise AssertionError(f"training launched the kernels {counts}, "
+          max_memory_allocated=peak, stacks=len(stacks), layers=layers,
+          launches=counts_, min_launches=want)
+    short = {k: counts_[k] for k, v in want.items() if counts_[k] < v}
+    if short or counts_["LAUNCHES"]:
+        raise AssertionError(f"training launched the kernels {counts_}, "
                              f"expected at least {want} and no stash-less "
                              f"forward")
-    return counts
+    return counts_
 
 
-def fp32_step_vs_plain(dev):
-    """Phase 7, last: one fp32 step at batch 8 through the kernels on the
-    card against the same step through the plain versions on the CPU."""
+def fp32_step_vs_plain(dev, cls=None, preset=None, make_batch=None,
+                       card_switches=False, what="fp32_step_vs_plain"):
+    """One fp32 step at batch 8 through the kernels on the card (with both
+    switches set to ``card_switches``) against the same step through the
+    plain versions and the module composition on the CPU; the 91M inverse
+    model unless told otherwise."""
     import torch
-    import torch.nn.functional as F
     from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
         QMDiffusion
     from moleculediffusiontransformer_tpu_torch.nn.primitives import \
         init_parameters
     from moleculediffusiontransformer_tpu_torch.train import trainer
 
+    cls, preset = cls or QMDiffusion, preset or FLAGSHIP
+    make_batch = make_batch or inverse_batch
     cpu_gen = torch.Generator().manual_seed(4)
-    model32 = QMDiffusion(**FLAGSHIP, dtype=torch.float32)
+    model32 = cls(**preset, dtype=torch.float32)
     init_parameters(model32, torch.Generator().manual_seed(0))
     batch = 8
-    cond = torch.rand(batch, 12, generator=cpu_gen) * 2 - 1
-    target = F.one_hot(torch.randint(0, FLAGSHIP["pred_dim"],
-                                     (batch, FLAGSHIP["max_length"]),
-                                     generator=cpu_gen),
-                       FLAGSHIP["pred_dim"]).float()
+    cond, target = make_batch(batch, cpu_gen, torch.device("cpu"))
     sigmas = torch.exp(-1.2 + 1.2 * torch.randn(batch, generator=cpu_gen))
     noise = torch.randn(target.shape, generator=cpu_gen)
     results = []
-    for device in (dev, torch.device("cpu")):
+    for device, on in ((dev, card_switches), (torch.device("cpu"), False)):
+        switches(on)
         m = copy.deepcopy(model32).to(device)
         o = trainer.make_optimizer(trainer.OptimizerConfig())
         loss = trainer.make_diffusion_train_step(m, o, MICRO_BATCHES)(
@@ -411,15 +449,342 @@ def fp32_step_vs_plain(dev):
             noise=noise.to(device)).item()
         results.append((loss, {n: p.grad.cpu() for n, p in
                                m.named_parameters()}))
+    switches(False)
     (card_loss, card_grads), (cpu_loss, cpu_grads) = results
     loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    grad_err = max(_rel_err(card_grads[n], cpu_grads[n]) for n in cpu_grads)
-    phase("fp32_step_vs_plain", batch=batch, loss=card_loss,
-          plain_loss=cpu_loss, loss_rel_err=loss_err, grad_rel_err=grad_err,
+    grad_err = max(_rel_err(card_grads[n], cpu_grads[n], STEP_GRAD_FLOOR)
+                   for n in cpu_grads)
+    phase(what, model=cls.__name__, switches=card_switches, batch=batch,
+          loss=card_loss, plain_loss=cpu_loss, loss_rel_err=loss_err,
+          grad_rel_err=grad_err,
           tol={"loss": STEP_LOSS_TOL, "grad": STEP_GRAD_TOL})
     if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL):
-        raise AssertionError(f"fp32 train step: card vs CPU loss "
+        raise AssertionError(f"{what} {cls.__name__}: card vs CPU loss "
                              f"{loss_err}, grads {grad_err}")
+
+
+_COUNTERS = {"transformer_fusion": (
+    "LAUNCHES", "STASH_LAUNCHES", "UNIFORM_LAUNCHES", "CONV_OUT_BWD_LAUNCHES",
+    "LAYER_BWD_LAUNCHES", "CONV_IN_GN_BWD_LAUNCHES"),
+    "resnet_fusion": ("RESNET_LAUNCHES",)}
+
+
+def _ops():
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion
+    from moleculediffusiontransformer_tpu_torch.ops import transformer_fusion
+    return {"transformer_fusion": transformer_fusion,
+            "resnet_fusion": resnet_fusion}
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    mods = _ops()
+    return {n: getattr(mods[m], n) for m, names in _COUNTERS.items()
+            for n in names}
+
+
+def reset_counts() -> None:
+    mods = _ops()
+    for m, names in _COUNTERS.items():
+        for n in names:
+            setattr(mods[m], n, 0)
+
+
+def switches(on: bool) -> None:
+    """The resnet-run kernel and the shared-KV null half, both on or off."""
+    mods = _ops()
+    mods["resnet_fusion"].enable_resnet_fusion(on)
+    mods["transformer_fusion"].enable_sharedkv(on)
+
+
+def serve(model, requests, gen, num_steps, cond_scale, what, shape,
+          min_launches):
+    """Sample each request; check each output's shape (batch, *shape) and
+    finiteness and each request's launches against ``min_launches``.
+    Returns the launches of all requests together."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        sample
+    reset_counts()
+    results = []
+    for props in requests:
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(model, props, gen, num_steps=num_steps,
+                     cond_scale=cond_scale)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] - before[k]}
+        results.append((props.shape[0], out, seconds, launches))
+    total = counts()
+    for b, out, seconds, launches in results:
+        phase(what, batch=b, num_steps=num_steps, cond_scale=cond_scale,
+              seconds=seconds, per_s=b / seconds, launches=launches,
+              shape=list(out.shape), finite=bool(torch.isfinite(out).all()))
+        if tuple(out.shape) != (b, *shape):
+            raise AssertionError(f"{what} batch {b}: output shape "
+                                 f"{out.shape}")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{what} batch {b}: non-finite output")
+        short = {k: (launches.get(k, 0), v) for k, v in min_launches.items()
+                 if launches.get(k, 0) < v}
+        if short:
+            raise AssertionError(f"{what} batch {b}: launches (got, wanted) "
+                                 f"{short}")
+    return total
+
+
+def train_steps(model, cond, target, gen, steps):
+    """One warm-up and ``steps`` timed train steps at MICRO_BATCHES
+    micro-batches: (losses, seconds a step, peak bytes)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_diffusion_train_step(model, opt, MICRO_BATCHES)
+    losses = [step(state, cond, target, gen).item()]      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed = [step(state, cond, target, gen) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / max(steps, 1)
+    losses += [t.item() for t in timed]
+    if not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return losses, seconds, torch.cuda.max_memory_allocated()
+
+
+def inverse_batch(batch, gen, dev):
+    """Property targets (b, 12) and one-hot SMILES tracks (b, 32, 22)."""
+    import torch
+    import torch.nn.functional as F
+    cond = torch.rand(batch, 12, generator=gen, device=dev) * 2 - 1
+    tokens = torch.randint(0, FLAGSHIP["pred_dim"],
+                           (batch, FLAGSHIP["max_length"]), generator=gen,
+                           device=dev)
+    return cond, F.one_hot(tokens, FLAGSHIP["pred_dim"]).float()
+
+
+def forward_batch(batch, gen, dev):
+    """SMILES token ids / the vocabulary size (b, 64), and property tracks
+    (b, 64, 1): 12 scaled properties, zero-padded (train/recipes.py)."""
+    import torch
+    ids = torch.randint(0, FORWARD_VOCAB, (batch, FORWARD["max_length"]),
+                        generator=gen, device=dev)
+    target = torch.zeros(batch, FORWARD["max_length"], 1, device=dev)
+    target[:, :12, 0] = torch.rand(batch, 12, generator=gen,
+                                   device=dev) * 2 - 1
+    return ids.float() / FORWARD_VOCAB, target
+
+
+def _resnet_case(dev, length, c, n, layout, cm, dtype, batch, seed):
+    """A run of n blocks (modules and kernel weights) and its inputs."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.blocks import \
+        ResnetBlock1d
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
+    gen = torch.Generator().manual_seed(seed)
+    cin = 2 * c if layout == "up" else c
+    blocks = []
+    for _ in range(n):
+        blk = ResnetBlock1d(cin, c, num_groups=8, context_mapping_features=cm,
+                            dtype=dtype)
+        init_parameters(blk, gen)
+        with torch.no_grad():
+            for p in blk.parameters():
+                if p.dim() == 1:     # non-trivial norm scales and biases
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+        blocks.append(blk.to(dev))
+    x = torch.randn(batch, length, c, generator=gen).to(dev, dtype)
+    mp = torch.randn(batch, cm, generator=gen).to(dev, dtype)
+    skips = ([torch.randn(batch, length, c, generator=gen).to(dev, dtype)
+              for _ in range(n)] if layout == "up" else None)
+    kw = dict(skip_scale=2 ** -0.5 if layout == "up" else 1.0,
+              collect=layout == "down")
+    return blocks, rf.kernel_weights(blocks, dtype), x, mp, skips, kw
+
+
+def check_resnet(dev):
+    """Phase 8: K8 against its plain version at the eight resnet runs, then
+    its gradients against the composition's.  Returns the largest bf16
+    absolute error and the bf16 kernel, plain and composition milliseconds
+    summed over the runs."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
+    summary = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "composition_ms": 0.0}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = KERNEL_TOL[dname]
+        for name, length, c, n, layout, cm in RESNET_RUNS:
+            blocks, w, x, mp, skips, kw = _resnet_case(
+                dev, length, c, n, layout, cm, dtype, RESNET_BATCH,
+                seed=length * c + n)
+            with torch.no_grad():
+                out, outs = rf.resnet_stack_forward(w, x, mp, skips, **kw)
+                torch.cuda.synchronize()
+                ref, ref_outs = rf.resnet_stack_reference(w, x, mp, skips,
+                                                          **kw)
+                pairs = [(out, ref)] + list(zip(outs, ref_outs))
+                rel = max(_rel_err(a, b) for a, b in pairs)
+                err = max(_abs_err(a, b) for a, b in pairs)
+                again, _ = rf.resnet_stack_forward(w, x, mp, skips, **kw)
+                deterministic = torch.equal(out, again)
+                t_kernel = cuda_ms(
+                    lambda: rf.resnet_stack_forward(w, x, mp, skips, **kw))
+                t_plain = cuda_ms(
+                    lambda: rf.resnet_stack_reference(w, x, mp, skips, **kw))
+                t_comp = cuda_ms(lambda: rf.resnet_stack_composition(
+                    blocks, x, mp, skips, skip_scale=kw["skip_scale"]))
+            phase("resnet_kernel", run=name, dtype=dname, batch=RESNET_BATCH,
+                  max_abs_err=err, rel_err=rel, tol=tol,
+                  ref_max_abs=ref.float().abs().max().item(), ms=t_kernel,
+                  plain_ms=t_plain, composition_ms=t_comp,
+                  deterministic=deterministic)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {dname}: K8 differs from its "
+                                     f"plain version by {rel} of scale")
+            if not deterministic:
+                raise AssertionError(f"{name} {dname}: two K8 calls differ")
+            if dtype == torch.bfloat16:
+                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                summary["ms"] += t_kernel
+                summary["plain_ms"] += t_plain
+                summary["composition_ms"] += t_comp
+    try:        # a tensor the kernel does not take raises, on the card too
+        rf.resnet_stack_forward(w, x.half(), mp, skips, **kw)
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("K8 took a float16 input")
+
+    # gradients: the autograd function (kernel forward, autograd of the
+    # module composition backward) against autograd of the composition
+    for name, length, c, n, layout, cm in RESNET_RUNS:
+        blocks, w, x, mp, skips, kw = _resnet_case(
+            dev, length, c, n, layout, cm, torch.float32, RESNET_BATCH // 2,
+            seed=length * c + n + 1)
+        xg, mg = x.requires_grad_(), mp.requires_grad_()
+        sg = [s.requires_grad_() for s in skips] if skips else None
+        leaves = ([xg, mg] + (sg or [])
+                  + [p for blk in blocks for p in blk.parameters()])
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(n)
+                        ).to(dev)
+        out, _ = rf.resnet_stack(blocks, w, xg, mg, sg, **kw)
+        got = torch.autograd.grad(out, leaves, g)
+        out, _ = rf.resnet_stack_composition(blocks, xg, mg, sg,
+                                             skip_scale=kw["skip_scale"])
+        want = torch.autograd.grad(out, leaves, g)
+        rel = max(_rel_err(a, b) for a, b in zip(got, want))
+        phase("resnet_grads", run=name, dtype="float32",
+              batch=RESNET_BATCH // 2, rel_err=rel,
+              tol=KERNEL_TOL["float32"])
+        if not rel <= KERNEL_TOL["float32"]:
+            raise AssertionError(f"{name}: K8 grads differ from the "
+                                 f"composition's by {rel} of scale")
+    return summary
+
+
+def check_uniform(dev):
+    """Phase 9: the uniform-context stack kernel against its plain version
+    and the per-row kernel at the cross stacks' shapes.  Returns the largest
+    bf16 absolute error and the bf16 kernel and plain milliseconds summed
+    over the four shapes."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    summary = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "per_row_ms": 0.0}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = KERNEL_TOL[dname]
+        for name, length, c, layers, m in UNIFORM_STACKS:
+            gen = torch.Generator().manual_seed(length * c + m)
+            mod = Transformer1d(layers, c, 8, 64, 2,
+                                context_features=CONTEXT[1], dtype=dtype)
+            init_parameters(mod, gen)
+            kp = mod.to(dev).kernel_params()
+            x = torch.randn(NULL_HALF_BATCH, length, c, generator=gen).to(
+                dev, dtype)
+            table = torch.randn(1, m, CONTEXT[1], generator=gen).to(
+                dev, dtype)
+            rows = table.expand(NULL_HALF_BATCH, m, CONTEXT[1]).contiguous()
+            kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
+            with torch.no_grad():
+                out = tf.transformer1d_forward(kp, x, table, uniform_ctx=True,
+                                               **kw)
+                torch.cuda.synchronize()
+                ref = tf.transformer1d_reference(kp, x, table,
+                                                 uniform_ctx=True, **kw)
+                per_row = tf.transformer1d_forward(kp, x, rows, **kw)
+                rel = max(_rel_err(out, ref), _rel_err(out, per_row))
+                err = _abs_err(out, ref)
+                t_kernel = cuda_ms(lambda: tf.transformer1d_forward(
+                    kp, x, table, uniform_ctx=True, **kw))
+                t_plain = cuda_ms(lambda: tf.transformer1d_reference(
+                    kp, x, table, uniform_ctx=True, **kw))
+                t_rows = cuda_ms(
+                    lambda: tf.transformer1d_forward(kp, x, rows, **kw))
+            phase("uniform_kernel", stack=name, dtype=dname,
+                  batch=NULL_HALF_BATCH, context=m, max_abs_err=err,
+                  rel_err=rel, tol=tol,
+                  ref_max_abs=ref.float().abs().max().item(), ms=t_kernel,
+                  plain_ms=t_plain, per_row_kernel_ms=t_rows)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {dname}: the uniform-context "
+                                     f"kernel differs by {rel} of scale")
+            if dtype == torch.bfloat16:
+                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                summary["ms"] += t_kernel
+                summary["plain_ms"] += t_plain
+                summary["per_row_ms"] += t_rows
+    return summary
+
+
+def ab(what, run):
+    """Both switches on against both off, turns on/off/off/on, one number
+    from ``run()`` per turn."""
+    turns = []
+    for on in (True, False, False, True):
+        switches(on)
+        turns.append(["on" if on else "off", run()])
+    switches(False)
+    phase("ab", what=what, turns=turns)
+
+
+def timed_request(model, props, gen, num_steps, cond_scale):
+    """Molecules (or property tracks) per second of one request."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        sample
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample(model, props, gen, num_steps=num_steps, cond_scale=cond_scale)
+    torch.cuda.synchronize()
+    return props.shape[0] / (time.perf_counter() - t0)
+
+
+def timed_training(step, state, cond, target, gen):
+    """Samples per second of AB_TRAIN_STEPS train steps."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AB_TRAIN_STEPS):
+        loss = step(state, cond, target, gen)
+    torch.cuda.synchronize()
+    if not torch.isfinite(loss):
+        raise AssertionError(f"non-finite training loss {loss.item()}")
+    return cond.shape[0] * AB_TRAIN_STEPS / (time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -434,12 +799,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import (
-        QMDiffusion, sample)
+        QMDiffusion, QMDiffusionForward, sample)
     from moleculediffusiontransformer_tpu_torch.nn.primitives import \
         init_parameters
     from moleculediffusiontransformer_tpu_torch.ops import cuda_build
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
+    from moleculediffusiontransformer_tpu_torch.train import trainer
 
     # fp32 checks are against true fp32: no TF32 in cuDNN convs or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -455,51 +822,33 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    # 2. build, both sources at once (phase 5 reports the backward's)
-    with ThreadPoolExecutor(2) as pool:
-        builds = dict(zip((tf.SOURCE, tf.BWD_SOURCE),
-                          pool.map(cuda_build.build,
-                                   (tf.SOURCE, tf.BWD_SOURCE))))
+    # 2. build, every source at once (phases 5 and 8 report the others)
+    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(cuda_build.build, sources)))
     path, seconds = builds[tf.SOURCE]
     phase("build", library=os.path.relpath(path, ROOT), seconds=seconds)
 
     # 3. kernel against its plain version
     worst, stack_ms, stack_plain_ms = check_stacks(dev)
 
-    # 4. the serving path
+    # 4. the serving path, both switches at their default (off)
+    if rf.resnet_fusion_enabled() or tf.cfg_null_half_active():
+        raise AssertionError("a switch is on by default")
     model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(1)
     requests = [torch.rand(b, 12, generator=gen, device=dev) * 2 - 1
                 for b in REQUESTS]
-    tf.LAUNCHES = tf.STASH_LAUNCHES = 0
-    results = []
-    for props in requests:
-        before = tf.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sample(model, props, gen, num_steps=NUM_STEPS,
-                     cond_scale=COND_SCALE)
-        torch.cuda.synchronize()
-        results.append((props.shape[0], out, time.perf_counter() - t0,
-                        tf.LAUNCHES - before))
-    launches = tf.LAUNCHES
-    if tf.STASH_LAUNCHES:
-        raise AssertionError(f"sampling launched the stash forward "
-                             f"{tf.STASH_LAUNCHES} times")
-    for b, out, seconds, n in results:
-        phase("request", batch=b, seconds=seconds, mol_per_s=b / seconds,
-              stack_launches=n, shape=list(out.shape),
-              finite=bool(torch.isfinite(out).all()))
-        if tuple(out.shape) != (b, FLAGSHIP["max_length"],
-                                FLAGSHIP["pred_dim"]):
-            raise AssertionError(f"batch {b}: output shape {out.shape}")
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"batch {b}: non-finite output")
-        if n < STACKS_PER_EVAL * EVALS:
-            raise AssertionError(f"batch {b}: {n} stack kernel launches, "
-                                 f"expected >= {STACKS_PER_EVAL * EVALS}")
+    inverse_shape = (FLAGSHIP["max_length"], FLAGSHIP["pred_dim"])
+    served = serve(model, requests, gen, NUM_STEPS, COND_SCALE, "request",
+                   inverse_shape, {"LAUNCHES": STACKS_PER_EVAL * EVALS})
+    launches = served["LAUNCHES"]
+    stray = {k: v for k, v in served.items() if k != "LAUNCHES" and v}
+    if stray:
+        raise AssertionError(f"sampling with the switches off launched "
+                             f"{stray}")
 
     model32 = QMDiffusion(**FLAGSHIP, dtype=torch.float32)
     init_parameters(model32, torch.Generator().manual_seed(0))
@@ -510,10 +859,13 @@ def main() -> int:
     plain = sample(model32.eval(), props, num_steps=NUM_STEPS,
                    cond_scale=COND_SCALE, noise=noise, step_noise=step_noise)
     model32 = model32.to(dev)
-    kernel = sample(model32, props.to(dev), num_steps=NUM_STEPS,
-                    cond_scale=COND_SCALE, noise=noise.to(dev),
-                    step_noise=step_noise.to(dev)).cpu()
-    sample_err = (kernel - plain).abs().max().item()
+
+    def card_sample():
+        return sample(model32, props.to(dev), num_steps=NUM_STEPS,
+                      cond_scale=COND_SCALE, noise=noise.to(dev),
+                      step_noise=step_noise.to(dev)).cpu()
+
+    sample_err = (card_sample() - plain).abs().max().item()
     phase("fp32_sample_vs_plain", batch=8, max_abs_err=sample_err,
           tol=SAMPLE_TOL)
     if not sample_err <= SAMPLE_TOL:
@@ -529,6 +881,108 @@ def main() -> int:
     # 7. the training path
     train_launches = train_path(dev)
     fp32_step_vs_plain(dev)
+
+    # 8. K8 against its plain version (built in phase 2)
+    path, seconds = builds[rf.SOURCE]
+    phase("build_resnet", library=os.path.relpath(path, ROOT),
+          seconds=seconds)
+    resnet = check_resnet(dev)
+
+    # 9. the uniform-context stack kernel against its plain version
+    uniform = check_uniform(dev)
+
+    # 10. the 91M model serving with both switches on
+    switches(True)
+    served_on = serve(model, requests, gen, NUM_STEPS, COND_SCALE,
+                      "request_switches_on", inverse_shape,
+                      {"LAUNCHES": STACKS_PER_EVAL * EVALS,
+                       "RESNET_LAUNCHES": RESNET_RUNS_PER_EVAL * EVALS,
+                       "UNIFORM_LAUNCHES": CROSS_STACKS_PER_EVAL * EVALS})
+    on_err = (card_sample() - plain).abs().max().item()
+    switches(False)
+    phase("fp32_sample_switches_on_vs_plain", batch=8, max_abs_err=on_err,
+          tol=SAMPLE_TOL)
+    if not on_err <= SAMPLE_TOL:
+        raise AssertionError(f"fp32 sample, switches on: card vs CPU "
+                             f"composition {on_err}")
+
+    # 11. the 91M model training with K8 on
+    train_model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
+    init_parameters(train_model, torch.Generator().manual_seed(0))
+    train_model = train_model.to(dev).train()
+    tgen = torch.Generator(device=dev).manual_seed(3)
+    cond, target = inverse_batch(TRAIN_BATCH, tgen, dev)
+    rf.enable_resnet_fusion(True)
+    reset_counts()
+    losses, seconds, peak = train_steps(train_model, cond, target, tgen,
+                                        AB_TRAIN_STEPS)
+    trained = counts()
+    rf.enable_resnet_fusion(False)
+    want = RESNET_RUNS_PER_EVAL * MICRO_BATCHES * (1 + AB_TRAIN_STEPS)
+    phase("train_resnet_on", batch=TRAIN_BATCH, micro_batches=MICRO_BATCHES,
+          steps=1 + AB_TRAIN_STEPS, seconds_per_step=seconds,
+          samples_per_s=TRAIN_BATCH / seconds, losses=losses,
+          max_memory_allocated=peak, launches=trained)
+    if trained["RESNET_LAUNCHES"] < want:
+        raise AssertionError(f"training with K8 on launched it "
+                             f"{trained['RESNET_LAUNCHES']} times, < {want}")
+
+    # 12. the 18M forward model, K8 on
+    fmodel = QMDiffusionForward(**FORWARD, dtype=torch.bfloat16)
+    init_parameters(fmodel, torch.Generator().manual_seed(5))
+    fmodel = fmodel.to(dev).eval()
+    fgen = torch.Generator(device=dev).manual_seed(6)
+    frequests = [forward_batch(b, fgen, dev)[0] for b in REQUESTS]
+    fshape = (FORWARD["max_length"], FORWARD["pred_dim"])
+    fevals = 2 * (FORWARD_STEPS - 1)
+    rf.enable_resnet_fusion(True)
+    # the forward preset has no pre_transformer: its 5 stacks an eval are
+    # the cross stacks
+    serve(fmodel, frequests, fgen, FORWARD_STEPS, 1.0, "forward_request",
+          fshape, {"LAUNCHES": CROSS_STACKS_PER_EVAL * fevals,
+                   "RESNET_LAUNCHES": RESNET_RUNS_PER_EVAL * fevals})
+    tf.enable_sharedkv(True)
+    serve(fmodel, frequests[-1:], fgen, FORWARD_STEPS, COND_SCALE,
+          "forward_request_switches_on", fshape,
+          {"RESNET_LAUNCHES": RESNET_RUNS_PER_EVAL * fevals,
+           "UNIFORM_LAUNCHES": CROSS_STACKS_PER_EVAL * fevals})
+    tf.enable_sharedkv(False)
+    ftrain = QMDiffusionForward(**FORWARD, dtype=torch.bfloat16)
+    init_parameters(ftrain, torch.Generator().manual_seed(5))
+    ftrain = ftrain.to(dev).train()
+    fcond, ftarget = forward_batch(TRAIN_BATCH, fgen, dev)
+    reset_counts()
+    losses, seconds, peak = train_steps(ftrain, fcond, ftarget, fgen,
+                                        TIMED_STEPS)
+    ftrained = counts()
+    rf.enable_resnet_fusion(False)
+    want = RESNET_RUNS_PER_EVAL * MICRO_BATCHES * (1 + TIMED_STEPS)
+    phase("forward_train", batch=TRAIN_BATCH, micro_batches=MICRO_BATCHES,
+          steps=1 + TIMED_STEPS, seconds_per_step=seconds,
+          samples_per_s=TRAIN_BATCH / seconds, losses=losses,
+          max_memory_allocated=peak, launches=ftrained)
+    if ftrained["RESNET_LAUNCHES"] < want:
+        raise AssertionError(f"forward training with K8 on launched it "
+                             f"{ftrained['RESNET_LAUNCHES']} times, < {want}")
+    fp32_step_vs_plain(dev, QMDiffusionForward, FORWARD, forward_batch,
+                       card_switches=True, what="forward_fp32_step_vs_plain")
+
+    # 13. switches on against off, in turns
+    ab("inverse sampling, batch 512, mol/s",
+       lambda: timed_request(model, requests[-1], gen, NUM_STEPS,
+                             COND_SCALE))
+    ab("forward sampling, batch 512, cond scale 1.0, requests/s",
+       lambda: timed_request(fmodel, frequests[-1], fgen, FORWARD_STEPS,
+                             1.0))
+    for what, m, c, t, g in (
+            ("inverse training, 2 x 512, samples/s", train_model, cond,
+             target, tgen),
+            ("forward training, 2 x 512, samples/s", ftrain, fcond, ftarget,
+             fgen)):
+        opt = trainer.make_optimizer(trainer.OptimizerConfig())
+        state = trainer.TrainState.create(m, opt)
+        step = trainer.make_diffusion_train_step(m, opt, MICRO_BATCHES)
+        ab(what, lambda: timed_training(step, state, c, t, g))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
@@ -562,6 +1016,22 @@ def main() -> int:
                         "replaces": f"{jax_ops}:{line}",
                         "launches": train_launches[count],
                         **train_kernels[key]})
+    # this slice's kernels: launches from phase 10, the 91M model serving
+    # with both switches on; bf16 numbers from phases 8 and 9
+    kernels.append({
+        "name": "resnet_stack_fwd", "route": "cuda",
+        "source": csrc + "resnet_fwd.cu",
+        "replaces": "moleculediffusiontransformer_tpu/ops/resnet_fusion.py:83",
+        "launches": served_on["RESNET_LAUNCHES"],
+        "max_abs_err": resnet["max_abs_err"], "ms": resnet["ms"],
+        "plain_ms": resnet["plain_ms"]})
+    kernels.append({
+        "name": "transformer1d_stack_fwd_uniform_ctx", "route": "cuda",
+        "source": csrc + "transformer1d_fwd.cu",
+        "replaces": jax_ops + ":449",
+        "launches": served_on["UNIFORM_LAUNCHES"],
+        "max_abs_err": uniform["max_abs_err"], "ms": uniform["ms"],
+        "plain_ms": uniform["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@
 // `_kernel` (launched by `_fused_forward`), the whole-stack Pallas
 // megakernel of the JAX package, with and without its activation stash
 // (`with_stash`: the input of every residual sub-block, kept for the
-// backward in `transformer1d_bwd.cu`).
+// backward in `transformer1d_bwd.cu`), and with a uniform context, the
+// `attention_shared_kv` variant (`uniform_ctx`): one (1, m, C_ctx) context
+// shared by every row, the CFG null half's FixedEmbedding table.
 //
 // What bounds it on this card.  At the flagship shapes (batch 2x512 under
 // CFG; L 8 at C 256, L 2 at C 512; 8 heads x 64; ctx 12 x 128) almost all
@@ -32,6 +34,9 @@
 //   * attention: one block per (batch, head), q/k/v and the L x m score
 //     matrix in shared memory (L, m <= 64), float32 scores and stable
 //     softmax, float32 P.V.
+// With a uniform context the cross-attention's context LayerNorm and KV
+// projection run once, on m rows instead of B*m, and every (batch, head)
+// block reads that one K/V (batch stride 0).
 // Ragged edges are masked everywhere; nothing assumes L or M is a multiple
 // of a tile.  Rounding follows the Pallas kernel: q and kv are cast to the
 // compute dtype after projection, probabilities before P.V, every
@@ -98,14 +103,17 @@ __global__ void layer_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------- attention
-// q (B*L, heads*d), kv (B*m, 2*heads*d) with k in the first heads*d columns
-// and v in the last -> o (B*L, heads*d).  One block per (batch, head).
+// q (B*L, heads*d), kv (m rows a batch, 2*heads*d) with k in the first
+// heads*d columns and v in the last -> o (B*L, heads*d).  One block per
+// (batch, head); a batch's kv rows start kv_bstride elements after the
+// previous batch's (m*2*heads*d, or 0 when every batch shares one K/V).
 constexpr int ATTN_THREADS = 128;
 
 template <typename T>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                 T* __restrict__ o, int L, int m, int heads, int d, float scale) {
+                 T* __restrict__ o, int L, int m, int heads, int d, long long kv_bstride,
+                 float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const int inner = heads * d, dp = d + 1;  // +1: no bank conflicts across rows
@@ -114,7 +122,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   float* vs = ks + m * dp;    // m x d
   float* ps = vs + m * d;     // L x m
   const T* qb = q + (size_t)b * L * inner + h * d;
-  const T* kb = kv + (size_t)b * m * 2 * inner + h * d;
+  const T* kb = kv + (size_t)b * kv_bstride + h * d;
   const T* vb = kb + inner;
   for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
     const int r = i / d, c = i % d;
@@ -210,7 +218,7 @@ int launch_layer_norm(const T* x, T* y, const float* g, const float* b, int rows
 
 template <typename T>
 int launch_attention(const T* q, const T* kv, T* o, int B, int L, int m, int heads, int d,
-                     cudaStream_t s) {
+                     long long kv_bstride, cudaStream_t s) {
   const size_t smem = attention_smem_bytes(L, m, d);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -218,17 +226,20 @@ int launch_attention(const T* q, const T* kv, T* o, int B, int L, int m, int hea
     if (e != cudaSuccess) return (int)e;
   }
   attention_kernel<T><<<B * heads, ATTN_THREADS, smem, s>>>(q, kv, o, L, m, heads, d,
-                                                           1.0f / sqrtf((float)d));
+                                                           kv_bstride, 1.0f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
 // One pre-LN attention sub-block: y_out = y_in + attention(y_in, kv_src).
-// y_out may be y_in (in place) or the next stash slot.
+// y_out may be y_in (in place) or the next stash slot.  kv_src has m rows a
+// batch, or m rows in all when `shared_kv` (every batch attends them).
 template <typename T>
-int attention_block(const T* y_in, T* y_out, const T* kv_src, int kv_rows, int kv_c, int m,
+int attention_block(const T* y_in, T* y_out, const T* kv_src, int kv_c, int m, bool shared_kv,
                     const void* const* w, T* lnq, T* lnkv, T* qb, T* kvb, T* ob, int B,
                     int L, int C, int heads, int d, cudaStream_t s) {
   const int R = B * L, I = heads * d;
+  const int kv_rows = shared_kv ? m : B * m;
+  const long long kv_bstride = shared_kv ? 0 : (long long)m * 2 * I;
   const float* ns = (const float*)w[0];
   const float* nb = (const float*)w[1];
   const float* cs = (const float*)w[2];
@@ -242,7 +253,7 @@ int attention_block(const T* y_in, T* y_out, const T* kv_src, int kv_rows, int k
   T1D_CHECK(fwd_gemm<T>(lnq, wq, nullptr, nullptr, qb, R, I, C, EPI_NONE, s));
   T1D_CHECK(fwd_gemm<T>(lnkv, wkv, nullptr, nullptr, kvb, kv_rows, 2 * I, kv_c, EPI_NONE,
                         s));
-  T1D_CHECK(launch_attention<T>(qb, kvb, ob, B, L, m, heads, d, s));
+  T1D_CHECK(launch_attention<T>(qb, kvb, ob, B, L, m, heads, d, kv_bstride, s));
   T1D_CHECK(fwd_gemm<T>(ob, wout, bout, y_in, y_out, R, C, I, EPI_BIAS_RES, s));
   return 0;
 }
@@ -253,8 +264,8 @@ int attention_block(const T* y_in, T* y_out, const T* kv_src, int kv_rows, int k
 // Without a stash the stream is updated in place in the workspace.
 template <typename T>
 int stack_forward(const T* x, const T* ctx, T* out, T* stash, const void* const* w, T* ws,
-                  int B, int L, int C, int ctx_len, int ctx_c, int num_layers, int heads,
-                  int head_dim, int mult, cudaStream_t s) {
+                  int B, int L, int C, int ctx_len, int ctx_c, bool uniform_ctx, int num_layers,
+                  int heads, int head_dim, int mult, cudaStream_t s) {
   const Workspace p = plan_workspace(B, L, C, ctx_len, ctx_c, heads, head_dim, mult);
   T* lnq = ws + p.lnq;
   T* lnkv = ws + p.lnkv;
@@ -274,12 +285,12 @@ int stack_forward(const T* x, const T* ctx, T* out, T* stash, const void* const*
                         EPI_BIAS, s));
   int k = 4;
   for (int layer = 0; layer < num_layers; ++layer) {
-    T1D_CHECK(attention_block<T>(y, y + slot, y, R, C, L, w + k, lnq, lnkv, qb, kvb, ob, B,
-                                 L, C, heads, head_dim, s));
+    T1D_CHECK(attention_block<T>(y, y + slot, y, C, L, false, w + k, lnq, lnkv, qb, kvb, ob,
+                                 B, L, C, heads, head_dim, s));
     y += slot;
     k += 8;
     if (cross) {
-      T1D_CHECK(attention_block<T>(y, y + slot, ctx, B * ctx_len, ctx_c, ctx_len, w + k,
+      T1D_CHECK(attention_block<T>(y, y + slot, ctx, ctx_c, ctx_len, uniform_ctx, w + k,
                                    lnq, lnkv, qb, kvb, ob, B, L, C, heads, head_dim, s));
       y += slot;
       k += 8;
@@ -325,29 +336,31 @@ int t1d_num_stash_slots(int num_layers, int cross) {
 }
 
 // Runs the stack on `stream` of `device`.  x, out (B, L, C); ctx
-// (B, ctx_len, ctx_c) or null; stash null or (t1d_num_stash_slots, B, L, C),
+// (B, ctx_len, ctx_c), or (1, ctx_len, ctx_c) shared by every batch when
+// `uniform_ctx` is 1, or null; stash null or (t1d_num_stash_slots, B, L, C),
 // all in the compute dtype; dtype 0 = float32, 1 = bfloat16.  Returns 0, a
 // cudaError_t from the first call that failed, or -1 for arguments the
 // kernels do not take.
 int t1d_forward(const void* x, const void* ctx, void* out, void* stash,
                 const void* const* weights, int n_weights, void* workspace, int B, int L,
-                int C, int ctx_len, int ctx_c, int num_layers, int heads, int head_dim,
-                int mult, int dtype, int device, void* stream) {
+                int C, int ctx_len, int ctx_c, int uniform_ctx, int num_layers, int heads,
+                int head_dim, int mult, int dtype, int device, void* stream) {
   if (n_weights != t1d_num_weights(num_layers, ctx != nullptr) || C % 32 != 0 ||
       L < 1 || L > 64 || head_dim < 1 || head_dim > 128 ||
-      (ctx != nullptr && (ctx_len < 1 || ctx_len > 64)))
+      (ctx != nullptr && (ctx_len < 1 || ctx_len > 64)) || (uniform_ctx && ctx == nullptr))
     return -1;
   T1D_CHECK((int)cudaSetDevice(device));
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
     return stack_forward<float>((const float*)x, (const float*)ctx, (float*)out,
                                 (float*)stash, weights, (float*)workspace, B, L, C,
-                                ctx_len, ctx_c, num_layers, heads, head_dim, mult, s);
+                                ctx_len, ctx_c, uniform_ctx != 0, num_layers, heads, head_dim,
+                                mult, s);
   if (dtype == DTYPE_BF16)
     return stack_forward<__nv_bfloat16>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)ctx, (__nv_bfloat16*)out,
         (__nv_bfloat16*)stash, weights, (__nv_bfloat16*)workspace, B, L, C, ctx_len, ctx_c,
-        num_layers, heads, head_dim, mult, s);
+        uniform_ctx != 0, num_layers, heads, head_dim, mult, s);
   return -1;
 }
 

@@ -1,10 +1,13 @@
-"""The QM9 inverse-design diffusion model (port of
-`models/qm_diffusion.py`).
+"""The QM9 diffusion models (port of `models/qm_diffusion.py`).
 
-``QMDiffusion``: a property vector (b, 12) conditions a diffusion over
-one-hot SMILES tracks (b, L, vocab).  A conditioning head (per-scalar
-Linear(1, d) + GELU, concatenated with a Fourier position code) feeds a CFG
-UNet through the K-diffusion objective (sigma_data 0.1).  ``sample`` is the
+``QMDiffusion`` (inverse design): a property vector (b, 12) conditions a
+diffusion over one-hot SMILES tracks (b, L, vocab).
+``QMDiffusionForward`` (property prediction): tokenized SMILES, token ids
+divided by the vocabulary size (b, 64), condition a diffusion over a
+property track (b, 64, 1), whose first 12 positions are the properties.
+In both, a conditioning head (per-scalar Linear(1, d) + GELU, concatenated
+with a Fourier position code) feeds a CFG UNet through the K-diffusion
+objective (sigma_data 0.1).  ``sample`` is the
 serving path: ADPM2 (rho 1) over a Karras (1e-3, 9.0, rho 3) schedule with
 batched classifier-free guidance — two doubled-batch UNet evaluations per
 step.  Calling the model is the training path: the K-diffusion loss at
@@ -138,15 +141,28 @@ class QMDiffusion(QMDiffusionBase):
                          attentions=attentions, **kwargs)
 
 
+class QMDiffusionForward(QMDiffusionBase):
+    """Forward model: tokenized SMILES -> property track (notebook preset
+    pred_dim 1, channels 64, max_length 64, patch_size 4, attentions (2, 2),
+    context 64 tokens: 18,322,684 parameters)."""
+
+    def __init__(self, *, patch_size: int = 4, pre_transformer: int = 0,
+                 attentions: Sequence[int] = (2, 2), **kwargs):
+        super().__init__(patch_size=patch_size,
+                         pre_transformer=pre_transformer,
+                         attentions=attentions, **kwargs)
+
+
 def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
                 device: Optional[torch.device] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> QMDiffusionBase:
     """Build a QM model from a ``QMDiffusionConfig`` preset (the JAX
     package's framework-neutral ``core/config.py``, e.g.
-    ``inverse_diffusion_qm9(22)``; read by attribute, so the port does not
-    import that package) on ``device``, its parameters drawn from
-    ``generator`` (a CPU generator; torch's global RNG when None)."""
+    ``inverse_diffusion_qm9(22)`` or ``forward_diffusion_qm9()``; read by
+    attribute, so the port does not import that package) on ``device``, its
+    parameters drawn from ``generator`` (a CPU generator; torch's global RNG
+    when None)."""
     model = cls(
         max_length=config.max_length, channels=config.channels,
         pred_dim=config.pred_dim, unet_type=config.unet_type,

@@ -14,6 +14,12 @@ otherwise, or with ``disable_fusion``, it runs the module composition below.
 Under autograd the dispatch is differentiable: the forward keeps its stash
 and the backward runs the stack's backward kernels, giving the stack's own
 float32 parameters, x and the context their grads.
+
+With the shared-KV switch on (``ops.transformer_fusion.enable_sharedkv``), a
+cross-attention stack called on the doubled batch that ``cfg_forward``
+flagged splits it: the conditioned half as above, the null half through
+the uniform-context kernel against the one FixedEmbedding table
+(``ops.transformer_fusion.null_half_table`` says when that holds).
 """
 from __future__ import annotations
 
@@ -175,15 +181,46 @@ class Transformer1d(nn.Module):
         has_cross = (self.context_features is not None
                      and self.context_features > 0)
         ctx = context if has_cross else None
-        if not self.disable_fusion and tf.stack_kernel_takes(
+        if self.disable_fusion or not tf.stack_kernel_takes(
                 x, ctx, channels=self.channels, dtype=self.dtype):
-            # the kernel reads dense (b, L, C) rows; a conv's channels-last
-            # output is a transposed view
-            return tf.transformer1d(
-                self.kernel_params(), dict(self.named_parameters()),
-                x.contiguous(), ctx, num_layers=self.num_layers,
-                heads=self.num_heads, head_dim=self.head_features,
-                multiplier=self.multiplier)
+            return self._compose(x, context)
+        # the kernel reads dense (b, L, C) rows; a conv's channels-last
+        # output is a transposed view
+        x = x.contiguous()
+        table = None if ctx is None else tf.null_half_table(ctx)
+        if table is not None:
+            # batched CFG with the shared-KV switch on: the null half's
+            # context is one table, attended as one K/V
+            b2 = x.shape[0] // 2
+            return torch.cat([self._stack(x[:b2], ctx[:b2]),
+                              self._null_half(x[b2:], table)])
+        return self._stack(x, ctx)
+
+    def _geometry(self) -> Dict[str, int]:
+        return dict(num_layers=self.num_layers, heads=self.num_heads,
+                    head_dim=self.head_features, multiplier=self.multiplier)
+
+    def _stack(self, x: torch.Tensor,
+               ctx: Optional[torch.Tensor]) -> torch.Tensor:
+        return tf.transformer1d(self.kernel_params(),
+                                dict(self.named_parameters()), x, ctx,
+                                **self._geometry())
+
+    def _null_half(self, x: torch.Tensor,
+                   table: torch.Tensor) -> torch.Tensor:
+        """The stack on rows that all attend the one (1, m, C) ``table``:
+        the uniform-context kernel, differentiated (when asked) through the
+        module composition with the table broadcast."""
+        kparams, geometry = self.kernel_params(), self._geometry()
+        return tf.recompute(
+            lambda xx, tt: tf.transformer1d_forward(
+                kparams, xx, tt, uniform_ctx=True, **geometry),
+            lambda xx, tt: self._compose(
+                xx, tt.expand(xx.shape[0], *tt.shape[1:])),
+            [x, table], list(self.parameters()))
+
+    def _compose(self, x: torch.Tensor,
+                 context: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.to_in(x)
         for block in self.blocks:
             x = block(x, context=context)

@@ -6,6 +6,11 @@ doubled-batch forward, ``[conditioned; null]``, blended as
 per-sample.  Submodule names are the reference's, so ``state_dict`` keys
 match the JAX package's export.
 
+Each down and up block runs its ResnetBlock1d's as modules by default, or,
+with ``ops.resnet_fusion.enable_resnet_fusion()``, as one kernel run
+(``_resnet_run``, as the JAX package routes it; the bottleneck's blocks and
+the Patcher/Unpatcher stay modules there too).
+
 Not ported yet: the NCCA and All variants (``XUNet1d`` types "ncca"/"all").
 """
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Any, List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops import resnet_fusion as rf
+from ..ops import transformer_fusion as tf
 from .attention import Transformer1d
 from .blocks import (Patcher, ResnetBlock1d, Unpatcher, downsample1d,
                      upsample1d)
@@ -25,6 +32,31 @@ from .primitives import Dense
 def _attention_kwargs(heads, features, multiplier, use_rel_pos):
     return dict(num_heads=heads, head_features=features,
                 multiplier=multiplier, use_rel_pos=use_rel_pos)
+
+
+def _resnet_run(mod: nn.Module, x: torch.Tensor,
+                mapping: Optional[torch.Tensor], *, collect: bool = False,
+                skips: Optional[List[torch.Tensor]] = None,
+                skip_scale: float = 1.0):
+    """The ``blocks`` run of a down or up block (the JAX ``_resnet_run``):
+    the modules by default, the resnet-run kernel when
+    ``rf.enable_resnet_fusion()`` is on and it takes the run.  An up block
+    pops one skip per block, last pushed first.  Returns (x, every block's
+    output when ``collect``)."""
+    blocks = list(mod.blocks)
+    skip_list = None
+    if skips is not None:
+        skip_list = [skips.pop() for _ in blocks]
+    if rf.resnet_fusion_enabled() and rf.fusable(x, blocks, mod.num_groups):
+        # the kernel reads dense (b, L, C) rows; a conv's channels-last
+        # output is a transposed view
+        return rf.resnet_stack(
+            blocks, mod.resnet_weights.get(blocks, x.dtype), x.contiguous(),
+            mapping if blocks[0].use_mapping else None, skip_list,
+            groups=mod.num_groups, skip_scale=skip_scale, collect=collect)
+    out, outs = rf.resnet_stack_composition(blocks, x, mapping, skip_list,
+                                            skip_scale=skip_scale)
+    return out, (outs if collect else [])
 
 
 class DownsampleBlock1d(nn.Module):
@@ -47,6 +79,8 @@ class DownsampleBlock1d(nn.Module):
         super().__init__()
         self.use_skip = use_skip
         self.context_channels = context_channels
+        self.num_groups = num_groups
+        self.resnet_weights = rf.WeightCache()
         attn = _attention_kwargs(attention_heads, attention_features,
                                  attention_multiplier, attention_use_rel_pos)
         ch = out_channels
@@ -79,10 +113,8 @@ class DownsampleBlock1d(nn.Module):
             x = self.pre_transformer_block(x)
             if self.use_skip:
                 skips.append(x)
-        for block in self.blocks:
-            x = block(x, mapping)
-            if self.use_skip:
-                skips.append(x)
+        x, block_outs = _resnet_run(self, x, mapping, collect=self.use_skip)
+        skips.extend(block_outs)
         if self.transformer is not None:
             x = self.transformer(x, context=embedding)
             if self.use_skip:
@@ -111,6 +143,8 @@ class UpsampleBlock1d(nn.Module):
         super().__init__()
         self.use_skip = use_skip
         self.skip_scale = 2 ** -0.5 if use_skip_scale else 1.0
+        self.num_groups = num_groups
+        self.resnet_weights = rf.WeightCache()
         attn = _attention_kwargs(attention_heads, attention_features,
                                  attention_multiplier, attention_use_rel_pos)
         ch = in_channels
@@ -135,10 +169,8 @@ class UpsampleBlock1d(nn.Module):
                 skips: Optional[List[torch.Tensor]] = None,
                 mapping: Optional[torch.Tensor] = None,
                 embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for block in self.blocks:
-            if skips is not None:
-                x = torch.cat([x, skips.pop() * self.skip_scale], dim=-1)
-            x = block(x, mapping)
+        x, _ = _resnet_run(self, x, mapping, skips=skips,
+                           skip_scale=self.skip_scale)
         if self.pre_transformer_block is not None:
             x = self.pre_transformer_block(x)
         if self.transformer is not None:
@@ -369,9 +401,14 @@ def cfg_forward(unet_apply, x: torch.Tensor, time: torch.Tensor,
             kwargs2[k] = torch.cat([v, v], dim=0)
         else:
             kwargs2[k] = v
-    out2 = unet_apply(torch.cat([x, x], dim=0), torch.cat([time, time], dim=0),
-                      embedding=torch.cat([embedding, fixed_embedding], dim=0),
-                      **kwargs2)
+    embedding2 = torch.cat([embedding, fixed_embedding], dim=0)
+    # the null half's context rows are one FixedEmbedding table: flag the
+    # doubled context, so that with the shared-KV switch on the stacks run
+    # that half against the table (tf.null_half_table)
+    with tf.cfg_uniform_null_half(embedding2, fixed_embedding):
+        out2 = unet_apply(torch.cat([x, x], dim=0),
+                          torch.cat([time, time], dim=0),
+                          embedding=embedding2, **kwargs2)
     out, out_masked = out2[:b], out2[b:]
     return out_masked + (out - out_masked) * embedding_scale
 

@@ -32,11 +32,23 @@ want matrices in the compute dtype and vectors in float32
 (``Transformer1d.kernel_params`` caches them so); any other dtype is cast
 here, per call.  Weight grads come back in torch's layout: (out, in)
 matrices (a 1x1 conv's without its kernel axis) and vectors.
+
+``uniform_ctx`` (the JAX ``attention_shared_kv``): the context is one
+(1, m, C_ctx) table shared by every row, as the CFG null half's
+FixedEmbedding is.  Its LayerNorm and KV projection run once, on m rows, and
+every (batch, head) attends that one K/V.  The null-half dispatch behind it
+is off by default (``enable_sharedkv``, or ``MDT_CFG_SHAREDKV=1``), as in
+the JAX package; ``cfg_forward`` flags its doubled batch with
+``cfg_uniform_null_half``.  Its gradient is autograd of the module
+composition with the table broadcast (``recompute``), as JAX's is.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+import os
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -52,15 +64,74 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since import (or the last reset by the caller), one per
 # wrapper call on a CUDA tensor: the stack forward without and with its
-# stash, and the three backward kernels.
+# stash and with a uniform context, and the three backward kernels.
 LAUNCHES = 0
 STASH_LAUNCHES = 0
+UNIFORM_LAUNCHES = 0
 CONV_OUT_BWD_LAUNCHES = 0
 LAYER_BWD_LAUNCHES = 0
 CONV_IN_GN_BWD_LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _BWD_LIB: Optional[ctypes.CDLL] = None
+
+# The shared-KV CFG null half (the JAX ``enable_sharedkv`` /
+# ``cfg_uniform_null_half``).  None: read MDT_CFG_SHAREDKV (default off).
+_SHAREDKV: Optional[bool] = None
+# (the doubled context cfg_forward built, its null half) while flagged
+_NULL_HALF: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def enable_sharedkv(on: bool = True) -> None:
+    """Opt in to (or out of) the shared-KV null half; off by default."""
+    global _SHAREDKV
+    _SHAREDKV = on
+
+
+def _sharedkv_opt_in() -> bool:
+    if _SHAREDKV is not None:
+        return _SHAREDKV
+    env = os.environ.get("MDT_CFG_SHAREDKV", "")
+    return env.strip().lower() in ("1", "true", "on")
+
+
+@contextlib.contextmanager
+def cfg_uniform_null_half(context: torch.Tensor,
+                          null_half: torch.Tensor) -> Iterator[None]:
+    """While active, flag ``context`` — the doubled [conditioned; null]
+    batch that ``cfg_forward`` built — as having ``null_half`` for its
+    second half.  ``null_half_table`` then hands a stack the one table the
+    null half repeats, if there is one."""
+    global _NULL_HALF
+    prev = _NULL_HALF
+    _NULL_HALF = (context, null_half)
+    try:
+        yield
+    finally:
+        _NULL_HALF = prev
+
+
+def cfg_null_half_active() -> bool:
+    return _NULL_HALF is not None and _sharedkv_opt_in()
+
+
+def null_half_table(context: torch.Tensor) -> Optional[torch.Tensor]:
+    """The (1, m, C) table that every row of ``context``'s null half is, or
+    None.  Decided on the host, with no read of the device: the switch is
+    on, ``context`` is the very tensor ``cfg_forward`` flagged, and its null
+    half is one row repeated by its layout (batch stride 0, as
+    ``FixedEmbedding`` returns it) — so the JAX package's runtime uniformity
+    check holds by construction.  Any other context gets None, and with it
+    the exact per-row path."""
+    if not cfg_null_half_active():
+        return None
+    flagged, null = _NULL_HALF
+    b = context.shape[0]
+    if (context is not flagged or b % 2 or b < 2
+            or tuple(null.shape) != (b // 2, *context.shape[1:])
+            or not (null.shape[0] == 1 or null.stride(0) == 0)):
+        return None
+    return null[:1]
 
 
 def stack_kernel_takes(x: torch.Tensor, context: Optional[torch.Tensor], *,
@@ -151,6 +222,8 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 def _attention(y: torch.Tensor, kv_src: torch.Tensor, w: List[torch.Tensor],
                heads: int, head_dim: int) -> torch.Tensor:
+    """One pre-LN attention sub-block's output; a kv_src of batch 1 is
+    shared by every row of y (its K/V broadcast in the products)."""
     ns, nb, cs, cb, wq, wkv, wout, bout = w
     dt = y.dtype
     inner = heads * head_dim
@@ -166,17 +239,33 @@ def _attention(y: torch.Tensor, kv_src: torch.Tensor, w: List[torch.Tensor],
     return (_mm(o, wout) + bout).to(dt)
 
 
+def _check_context_batch(x: torch.Tensor, context: Optional[torch.Tensor],
+                         uniform_ctx: bool) -> None:
+    if context is None:
+        if uniform_ctx:
+            raise ValueError("uniform_ctx needs a context")
+        return
+    want = 1 if uniform_ctx else x.shape[0]
+    if context.dim() != 3 or context.shape[0] != want:
+        raise ValueError(f"context must be ({want}, m, C_ctx)"
+                         f"{' (uniform_ctx)' if uniform_ctx else ''}, got "
+                         f"{tuple(context.shape)}")
+
+
 def transformer1d_reference(params: Dict[str, torch.Tensor], x: torch.Tensor,
                             context: Optional[torch.Tensor], *,
                             num_layers: int, heads: int, head_dim: int,
-                            multiplier: int, with_stash: bool = False):
+                            multiplier: int, with_stash: bool = False,
+                            uniform_ctx: bool = False):
     """Plain PyTorch version of the stack kernel, with the kernel's
-    rounding.  x (b, L, C); context (b, m, C_ctx) or None.  Returns the
-    output (b, L, C), and with ``with_stash`` also the stash
-    (slots, b, L, C), both in x's dtype: each layer's self-attention,
-    cross-attention (with a context) and feed-forward input, in processing
-    order, then the conv-out input."""
+    rounding.  x (b, L, C); context (b, m, C_ctx), (1, m, C_ctx) shared by
+    every row with ``uniform_ctx`` (its LayerNorm and KV projection then run
+    once), or None.  Returns the output (b, L, C), and with ``with_stash``
+    also the stash (slots, b, L, C), both in x's dtype: each layer's
+    self-attention, cross-attention (with a context) and feed-forward input,
+    in processing order, then the conv-out input."""
     del multiplier   # implied by the feed-forward weights' shapes
+    _check_context_batch(x, context, uniform_ctx)
     cross = context is not None
     dt = x.dtype
     w = iter(_kernel_weights(params, num_layers, cross, dt))
@@ -365,7 +454,7 @@ def _library() -> ctypes.CDLL:
         lib.t1d_num_weights.restype = _I
         lib.t1d_num_stash_slots.argtypes = [_I, _I]
         lib.t1d_num_stash_slots.restype = _I
-        lib.t1d_forward.argtypes = [_P] * 5 + [_I, _P] + [_I] * 11 + [_P]
+        lib.t1d_forward.argtypes = [_P] * 5 + [_I, _P] + [_I] * 12 + [_P]
         lib.t1d_forward.restype = _I
         lib.t1d_error_string.argtypes = [_I]
         lib.t1d_error_string.restype = ctypes.c_char_p
@@ -440,10 +529,9 @@ def _check_cuda_args(x: torch.Tensor, context: Optional[torch.Tensor],
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {head_dim} > {MAX_HEAD_DIM}")
     if context is not None:
-        if (context.dim() != 3 or context.shape[0] != b
-                or not 1 <= context.shape[1] <= MAX_CONTEXT
+        if (not 1 <= context.shape[1] <= MAX_CONTEXT
                 or context.device != x.device):
-            raise ValueError(f"context must be (b={b}, m <= {MAX_CONTEXT}, "
+            raise ValueError(f"context must be (b, m <= {MAX_CONTEXT}, "
                              f"C_ctx) on {x.device}, got "
                              f"{tuple(context.shape)} on {context.device}")
     for wt in weights:
@@ -462,23 +550,29 @@ def _check_cuda_args(x: torch.Tensor, context: Optional[torch.Tensor],
 def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
                           context: Optional[torch.Tensor], *,
                           num_layers: int, heads: int, head_dim: int,
-                          multiplier: int, with_stash: bool = False):
+                          multiplier: int, with_stash: bool = False,
+                          uniform_ctx: bool = False):
     """Run a Transformer1d stack: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor; raises for anything the kernel does not
-    take.  x (b, L, C); context (b, m, C_ctx) or None; returns (b, L, C) in
-    x's dtype, and with ``with_stash`` also the stash (slots, b, L, C) of
-    ``transformer1d_reference``."""
-    global LAUNCHES, STASH_LAUNCHES
+    take.  x (b, L, C); context (b, m, C_ctx), (1, m, C_ctx) with
+    ``uniform_ctx``, or None; returns (b, L, C) in x's dtype, and with
+    ``with_stash`` also the stash (slots, b, L, C) of
+    ``transformer1d_reference``.  ``LAUNCHES`` counts the plain forward's
+    launches, ``UNIFORM_LAUNCHES`` the uniform-context ones and
+    ``STASH_LAUNCHES`` those with a stash."""
+    global LAUNCHES, STASH_LAUNCHES, UNIFORM_LAUNCHES
     if x.device.type == "cpu":
         return transformer1d_reference(params, x, context,
                                        num_layers=num_layers, heads=heads,
                                        head_dim=head_dim,
                                        multiplier=multiplier,
-                                       with_stash=with_stash)
+                                       with_stash=with_stash,
+                                       uniform_ctx=uniform_ctx)
     if x.device.type != "cuda":
         raise ValueError(f"stack kernel takes CPU or CUDA tensors, not "
                          f"{x.device}")
     cross = context is not None
+    _check_context_batch(x, context, uniform_ctx)
     weights = _kernel_weights(params, num_layers, cross, x.dtype)
     _check_cuda_args(x, context, weights, heads, head_dim, multiplier)
     ctx = context.to(x.dtype).contiguous() if cross else None
@@ -501,13 +595,16 @@ def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
     err = lib.t1d_forward(
         x.data_ptr(), ctx.data_ptr() if cross else None, out.data_ptr(),
         stash.data_ptr() if with_stash else None, ptrs, n, work.data_ptr(),
-        b, length, c, ctx_len, ctx_c, num_layers, heads, head_dim, multiplier,
-        _DTYPES[x.dtype], x.device.index, _stream(x))
+        b, length, c, ctx_len, ctx_c, int(uniform_ctx), num_layers, heads,
+        head_dim, multiplier, _DTYPES[x.dtype], x.device.index, _stream(x))
     _raise_on(err, "transformer1d stack kernel", lib, "t1d_error_string")
     if with_stash:
         STASH_LAUNCHES += 1
         return out, stash
-    LAUNCHES += 1
+    if uniform_ctx:
+        UNIFORM_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -782,3 +879,51 @@ def transformer1d(kparams: Dict[str, torch.Tensor],
     return transformer1d_forward(kparams, x, context, num_layers=num_layers,
                                  heads=heads, head_dim=head_dim,
                                  multiplier=multiplier)
+
+
+# --------------------------------------------------------------------------
+# a kernel forward whose gradient is autograd of a composition
+# --------------------------------------------------------------------------
+
+class _Recompute(torch.autograd.Function):
+    """``kernel(*inputs)`` forward; backward: autograd of
+    ``composition(*inputs)`` recomputed from the saved inputs, with respect
+    to the inputs and to ``params`` (the tensors the composition reads).
+    The counterpart of the JAX ``custom_vjp``s whose ``bwd`` differentiates
+    the slow path: ``resnet_stack_fused`` and ``transformer1d_fused`` with
+    ``uniform_ctx``."""
+
+    @staticmethod
+    def forward(ctx, kernel, composition, n_inputs, *args):
+        ctx.composition, ctx.n_inputs = composition, n_inputs
+        ctx.params = args[n_inputs:]
+        ctx.save_for_backward(*args[:n_inputs])
+        return kernel(*args[:n_inputs])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[3:]
+        inputs = [None if t is None else t.detach().requires_grad_(want)
+                  for t, want in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            outs = ctx.composition(*inputs)
+        outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+        args = [*inputs, *ctx.params]
+        leaves = [t for t, want in zip(args, need) if want]
+        got = iter(torch.autograd.grad(outs, leaves, grads,
+                                       allow_unused=True))
+        return (None, None, None,
+                *[next(got) if want else None for want in need])
+
+
+def recompute(kernel: Callable, composition: Callable,
+              inputs: Sequence[Optional[torch.Tensor]],
+              params: Sequence[torch.Tensor]):
+    """``kernel(*inputs)``; under autograd, with the gradients of
+    ``composition(*inputs)`` for the inputs and ``params``.  Both return a
+    tensor or a tuple of tensors of the same shapes."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in [*inputs, *params]):
+        return _Recompute.apply(kernel, composition, len(inputs), *inputs,
+                                *params)
+    return kernel(*inputs)

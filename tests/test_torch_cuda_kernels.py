@@ -1,8 +1,10 @@
 """The Transformer1d stack kernels (``csrc/transformer1d_fwd.cu`` with and
-without its stash, and the backward chain of ``csrc/transformer1d_bwd.cu``)
-against their plain PyTorch versions on an NVIDIA card, at the stack shapes
-of the 91M inverse QM9 model.  Marked ``cuda_hw``: every test skips without
-a CUDA card (decided inside the fixture).  Run on the card with
+without its stash and with a uniform context, and the backward chain of
+``csrc/transformer1d_bwd.cu``) and the resnet-run kernel
+(``csrc/resnet_fwd.cu``) against their plain PyTorch versions on an NVIDIA
+card, at the shapes of the 91M inverse and the 18M forward QM9 models.
+Marked ``cuda_hw``: every test skips without a CUDA card (decided inside
+the fixture).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 
 Tolerances: 1e-4 in float32 with TF32 off (only the order of float32 sums
@@ -13,8 +15,10 @@ import pytest
 import torch
 
 from moleculediffusiontransformer_tpu_torch.nn.attention import Transformer1d
+from moleculediffusiontransformer_tpu_torch.nn.blocks import ResnetBlock1d
 from moleculediffusiontransformer_tpu_torch.nn.primitives import \
     init_parameters
+from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
 from moleculediffusiontransformer_tpu_torch.ops import transformer_fusion as tf
 
 pytestmark = pytest.mark.cuda_hw
@@ -209,3 +213,171 @@ def test_dispatch_gives_gradients_on_the_card(cuda):
     for name, g in got.items():
         assert g is not None, f"{name} got no gradient"
         _within(g, want[name], torch.float32, name)
+
+
+# ---------------------------------------------- K8, the resnet-run kernel ---
+
+# (L, C, blocks, layout, C_m): the resnet runs of the 91M inverse preset and
+# the 18M forward preset, and a single block (the bottleneck's shape)
+RUNS = [(8, 256, 3, "down", 512), (2, 512, 3, "down", 512),
+        (2, 512, 4, "up", 512), (8, 256, 4, "up", 512),
+        (4, 128, 3, "down", 256), (1, 256, 3, "down", 256),
+        (1, 256, 4, "up", 256), (4, 128, 4, "up", 256),
+        (2, 512, 1, "single", 512)]
+RESNET_BATCH = 256
+
+
+def _resnet_case(dev, length, c, n, layout, cm, dtype, batch=RESNET_BATCH,
+                 seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    cin = 2 * c if layout == "up" else c
+    blocks = [ResnetBlock1d(cin, c, num_groups=8, context_mapping_features=cm)
+              for _ in range(n)]
+    for blk in blocks:
+        init_parameters(blk, gen)
+        with torch.no_grad():
+            for p in blk.parameters():
+                if p.dim() == 1:     # non-trivial norm scales and biases
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    blocks = [blk.to(dev) for blk in blocks]
+    x = torch.randn(batch, length, c, generator=gen).to(dev, dtype)
+    mp = torch.randn(batch, cm, generator=gen).to(dev, dtype)
+    skips = ([torch.randn(batch, length, c, generator=gen).to(dev, dtype)
+              for _ in range(n)] if layout == "up" else None)
+    kw = dict(skip_scale=2 ** -0.5 if layout == "up" else 1.0,
+              collect=layout == "down")
+    return blocks, rf.kernel_weights(blocks, dtype), x, mp, skips, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length,c,n,layout,cm", RUNS)
+def test_resnet_kernel_matches_plain_version(cuda, length, c, n, layout, cm,
+                                             dtype):
+    """All three layouts; two calls agree bit for bit."""
+    _, w, x, mp, skips, kw = _resnet_case(cuda, length, c, n, layout, cm,
+                                          dtype)
+    with torch.no_grad():
+        before = rf.RESNET_LAUNCHES
+        out, outs = rf.resnet_stack_forward(w, x, mp, skips, **kw)
+        torch.cuda.synchronize()
+        assert rf.RESNET_LAUNCHES == before + 1
+        ref, ref_outs = rf.resnet_stack_reference(w, x, mp, skips, **kw)
+        again, _ = rf.resnet_stack_forward(w, x, mp, skips, **kw)
+    assert out.dtype == dtype and out.shape == (RESNET_BATCH, length, c)
+    _within(out, ref, dtype, "out")
+    assert len(outs) == len(ref_outs) == (n if kw["collect"] else 0)
+    for i, (a, b) in enumerate(zip(outs, ref_outs)):
+        _within(a, b, dtype, f"block {i}")
+    assert torch.equal(out, again)
+
+
+def test_resnet_kernel_refuses_what_it_does_not_take(cuda):
+    _, w, x, mp, skips, kw = _resnet_case(cuda, 2, 512, 2, "up", 512,
+                                          torch.float32, batch=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        rf.resnet_stack_forward(w, x.transpose(0, 1), mp, skips, **kw)
+    with pytest.raises(TypeError):
+        rf.resnet_stack_forward(w, x.half(), mp, skips, **kw)
+    with pytest.raises(ValueError, match="block 0"):
+        rf.resnet_stack_forward(w, x, mp, None, **kw)   # skips missing
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        rf.resnet_stack_forward(w, x.cpu(), mp, skips, **kw)
+
+
+def test_resnet_grads_on_the_card(cuda):
+    """The autograd function (kernel forward, autograd of the composition
+    backward) against autograd of the module composition, on the card."""
+    blocks, w, x, mp, skips, kw = _resnet_case(cuda, 8, 256, 4, "up", 512,
+                                               torch.float32, batch=32)
+    r = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(
+        cuda)
+
+    def grads(fused):
+        for blk in blocks:
+            blk.zero_grad(set_to_none=True)
+        xx = x.clone().requires_grad_()
+        if fused:
+            out, _ = rf.resnet_stack(blocks, w, xx, mp, skips, **kw)
+        else:
+            out, _ = rf.resnet_stack_composition(
+                blocks, xx, mp, skips, skip_scale=kw["skip_scale"])
+        (out * r).sum().backward()
+        return [xx.grad] + [p.grad for blk in blocks
+                            for p in blk.parameters()]
+
+    before = rf.RESNET_LAUNCHES
+    got = grads(True)
+    assert rf.RESNET_LAUNCHES == before + 1
+    for a, b in zip(got, grads(False)):
+        _within(a, b, torch.float32, "grad")
+
+
+# ------------------------------- K1 uniform_ctx, the shared-KV null half ---
+
+# (L, C, layers, m): the cross stacks of the inverse preset (context 12) and
+# of the forward preset (context 64)
+UNIFORM = [(8, 256, 4, 12), (2, 512, 4, 12), (4, 128, 2, 64), (1, 256, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length,c,layers,m", UNIFORM)
+def test_uniform_kernel_matches_plain_version(cuda, length, c, layers, m,
+                                              dtype):
+    gen = torch.Generator().manual_seed(length * c)
+    mod = Transformer1d(layers, c, 8, 64, 2, context_features=128,
+                        dtype=dtype)
+    init_parameters(mod, gen)
+    mod = mod.to(cuda)
+    x = torch.randn(128, length, c, generator=gen).to(cuda, dtype)
+    table = torch.randn(1, m, 128, generator=gen).to(cuda, dtype)
+    kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
+    kp = mod.kernel_params()
+    with torch.no_grad():
+        before = (tf.LAUNCHES, tf.UNIFORM_LAUNCHES)
+        out = tf.transformer1d_forward(kp, x, table, uniform_ctx=True, **kw)
+        torch.cuda.synchronize()
+        assert (tf.LAUNCHES, tf.UNIFORM_LAUNCHES) == (before[0],
+                                                      before[1] + 1)
+        ref = tf.transformer1d_reference(kp, x, table, uniform_ctx=True,
+                                         **kw)
+        per_row = tf.transformer1d_forward(
+            kp, x, table.expand(128, m, 128).contiguous(), **kw)
+    _within(out, ref, dtype, "out")
+    _within(out, per_row, dtype, "against the per-row kernel")
+    with pytest.raises(ValueError, match="uniform_ctx"):
+        tf.transformer1d_forward(kp, x, table.expand(2, m, 128),
+                                 uniform_ctx=True, **kw)
+
+
+def test_unet_dispatches_to_the_new_kernels(cuda):
+    """A small CFG UNet on the card with both switches on: each resnet run
+    (whose input is a conv's channels-last view) goes through K8, each
+    cross stack's null half through the uniform-context kernel, and the
+    output equals the switch-off composition's."""
+    from moleculediffusiontransformer_tpu_torch.nn.unet import XUNet1d
+    unet = XUNet1d("cfg", in_channels=4, channels=64, multipliers=(1, 2, 4),
+                   factors=(2, 2), num_blocks=(2, 2), attentions=(1, 1),
+                   attention_heads=2, attention_features=32,
+                   attention_multiplier=2, context_embedding_features=128,
+                   context_embedding_max_length=12)
+    init_parameters(unet, torch.Generator().manual_seed(8))
+    unet = unet.to(cuda).eval()
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 32, 4, generator=gen).to(cuda)
+    t = torch.rand(4, generator=gen).to(cuda)
+    emb = torch.randn(4, 12, 128, generator=gen).to(cuda)
+    with torch.no_grad():
+        off = unet(x, t, embedding=emb, embedding_scale=2.0)
+        before = (rf.RESNET_LAUNCHES, tf.UNIFORM_LAUNCHES)
+        rf.enable_resnet_fusion(True)
+        tf.enable_sharedkv(True)
+        try:
+            on = unet(x, t, embedding=emb, embedding_scale=2.0)
+        finally:
+            rf.enable_resnet_fusion(False)
+            tf._SHAREDKV = None
+    torch.cuda.synchronize()
+    # 2 down and 2 up runs; 2 down, the bottleneck's and 2 up cross stacks
+    assert (rf.RESNET_LAUNCHES, tf.UNIFORM_LAUNCHES) == (before[0] + 4,
+                                                         before[1] + 5)
+    _within(on, off, torch.float32, "UNet")

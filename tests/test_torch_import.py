@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from moleculediffusiontransformer_tpu.core.config import inverse_diffusion_qm9
+from moleculediffusiontransformer_tpu.core.config import (
+    forward_diffusion_qm9, inverse_diffusion_qm9)
 from moleculediffusiontransformer_tpu.models import qm_diffusion as jqm
 from moleculediffusiontransformer_tpu.nn.torch_import import (
     _flatten, flax_path_to_torch_key, params_to_state_dict)
@@ -39,6 +40,7 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.nn.jax_import",
     "moleculediffusiontransformer_tpu_torch.ops.cuda_build",
     "moleculediffusiontransformer_tpu_torch.ops.transformer_fusion",
+    "moleculediffusiontransformer_tpu_torch.ops.resnet_fusion",
     "moleculediffusiontransformer_tpu_torch.diffusion.schedules",
     "moleculediffusiontransformer_tpu_torch.diffusion.objectives",
     "moleculediffusiontransformer_tpu_torch.diffusion.samplers",
@@ -92,18 +94,34 @@ def test_flagship_parameter_count():
     assert sum(p.numel() for p in model.parameters()) == 90_965_554
 
 
-def test_chip_smoke_builds_the_flagship():
-    """``chip_smoke.py`` spells the 91M preset out (it may not import the
-    JAX package's config); it must be the same architecture."""
+def _smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    a = _meta_model(build=tqm.QMDiffusion, **smoke.FLAGSHIP)
+    return smoke
+
+
+def _same_architecture(a, b) -> bool:
+    return ({k: v.shape for k, v in a.state_dict().items()}
+            == {k: v.shape for k, v in b.state_dict().items()})
+
+
+def test_chip_smoke_builds_the_flagship():
+    """``chip_smoke.py`` spells the 91M preset out (it may not import the
+    JAX package's config); it must be the same architecture."""
+    a = _meta_model(build=tqm.QMDiffusion, **_smoke().FLAGSHIP)
     b = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusion,
                     config=inverse_diffusion_qm9(22))
-    assert ({k: v.shape for k, v in a.state_dict().items()}
-            == {k: v.shape for k, v in b.state_dict().items()})
+    assert _same_architecture(a, b)
+
+
+def test_chip_smoke_builds_the_forward_preset():
+    """The same for the 18M forward preset."""
+    a = _meta_model(build=tqm.QMDiffusionForward, **_smoke().FORWARD)
+    b = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusionForward,
+                    config=forward_diffusion_qm9())
+    assert _same_architecture(a, b)
 
 
 def _run(code: str, env=None) -> subprocess.CompletedProcess:
@@ -131,8 +149,9 @@ def test_port_imports_without_cuda_toolchain(tmp_path):
             "transformer_fusion as tf, moleculediffusiontransformer_tpu_torch."
             "models.qm_diffusion\n"
             "from moleculediffusiontransformer_tpu_torch.ops import "
-            "cuda_build\n"
-            "assert tf._LIB is None and not cuda_build._LOADED\n"
+            "cuda_build, resnet_fusion as rf\n"
+            "assert tf._LIB is None and rf._LIB is None\n"
+            "assert not cuda_build._LOADED\n"
             "assert 'triton' not in sys.modules\n"
             "print(cuda_build.library_path(tf.SOURCE).name)\n")
     proc = _run(code, env=env)
