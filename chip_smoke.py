@@ -55,13 +55,46 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    steps of batch 1024 as 2 x 512, and one float32 batch-8 step with K8 on
    the card against the module composition on the CPU;
 13. for each model, both switches on against both off in turns
-   on/off/off/on: a request of 512 and 2 training steps of 2 x 512.
+   on/off/off/on: a request of 512 and 2 training steps of 2 x 512;
+14. build of the streaming-attention kernels (``csrc/flash_attention.cu``,
+   K5-K7, built with phase 2's);
+15. K5, K6 and K7 against their plain versions at bh 16 and 64, n = m =
+   4096, d 64, and at n 2048, m 4096, in float32 and bfloat16, dq, dk and
+   dv bitwise equal across two calls, with CUDA-event timings of the
+   kernels, the plain versions and, in bfloat16,
+   ``scaled_dot_product_attention`` with its backward (timed here as a
+   yardstick, called nowhere in the package);
+16. the crossover: K5 alone and K5 + K6 + K7 under autograd against the
+   one-shot ``sdpa`` and its autograd, n = m in 512 ... 8192, bh 16, d 64,
+   bfloat16;
+17. the long-sequence model serving: the ``Model1d`` of the JAX package's
+   ``tools/bench_audio_long.py`` (9.1M parameters, full width and depth,
+   seeded random weights, bfloat16), ``sample_model1d`` at its defaults
+   (linear schedule, v-sampler, clamp, 50 steps = 49 evals) on waveforms of
+   2**15 samples (attention at 1,024 tokens: the one-shot path, as in JAX)
+   and 2**17 samples (attention at 4,096 tokens: K5), batch 2 and 8; each
+   output finite, in [-1, 1], and K5 launched exactly 49 x the attention
+   layers that route, counted from the model;
+18. the long-sequence model training: one warm-up and 5 timed bfloat16
+   steps (Adam 2e-4, clip 0.5) at 2**17 samples, batch 2 and 8, and at
+   2**15 samples, batch 2; K5, K6 and K7 each launched exactly (the layers
+   that route) x 6 times; then ``MDT_FLASH`` on/off/off/on for a request and
+   for 2 training steps at 2**17 samples, batch 8, with each turn's peak
+   memory;
+19. float32 parity of the long model: a batch-1 training step and a 4-step
+   sample at 2**16 samples (attention at 2,048 tokens) through K5-K7 on
+   the card against the same through the plain versions on the CPU.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
-are a JSON record of the kernels and ``{"ok": true, "device": ...}``.
+are a JSON record of the kernels -- each with its launches on its main path,
+its bfloat16 time beside its plain version's, the library call's where there
+is one, and the least time the card could take (the larger of its operations
+over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and ``{"ok": true,
+"device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -143,6 +176,70 @@ TRAIN_BATCH, MICRO_BATCHES, TIMED_STEPS = 1024, 2, 5
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_GRAD_FLOOR = 1e-4, 1e-3, 1e-3
 
 
+# the long-sequence Model1d of tools/bench_audio_long.py: v-diffusion, a
+# uniform sigma distribution (the class's defaults), 9,122,206 parameters
+LONG = dict(in_channels=2, channels=64, patch_size=2, multipliers=(1, 2, 4),
+            factors=(4, 4), num_blocks=(2, 2), attentions=(0, 1, 1),
+            attention_heads=8, attention_features=64, attention_multiplier=2)
+# waveform samples: attention runs at samples / 32 tokens, so 2**15 stays
+# on the one-shot path (1,024 tokens) and 2**17 streams (4,096 tokens)
+LONG_SAMPLES, FLASH_SAMPLES, PARITY_SAMPLES = 2 ** 15, 2 ** 17, 2 ** 16
+LONG_BATCHES = (2, 8)
+LONG_STEPS = 50
+# (bh, n, m) at d 64: the long model's attention at batch 2 and 8, and a
+# rectangular case
+FLASH_SHAPES = [(16, 4096, 4096), (64, 4096, 4096), (16, 2048, 4096)]
+CROSSOVER_LENGTHS = (512, 1024, 2048, 4096, 8192)
+# the card's published dense peaks (NVIDIA's H100 SXM data sheet): bf16
+# tensor-core operations a second, device-memory bytes a second
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least milliseconds the card could take: each operation at the
+    bf16 peak, each input byte read and output byte written once."""
+    return {"ops_ms": flops / PEAK_FLOPS * 1e3,
+            "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+def add_bound(summary: dict, b: dict) -> None:
+    """Sum a shape's bound into ``summary`` (the larger of the two times
+    binds each shape) and keep both sums to say which binds overall."""
+    summary["bound_ms"] = summary.get("bound_ms", 0.0) + max(b.values())
+    for k, v in b.items():
+        summary[k] = summary.get(k, 0.0) + v
+
+
+def close_bound(summary: dict) -> dict:
+    ops, nbytes = summary.pop("ops_ms"), summary.pop("bytes_ms")
+    summary["bound_by"] = "operations" if ops >= nbytes else "bytes"
+    return summary
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def stack_layer_flops(b, length, c, cross, m=0, cctx=0, kv_rows=None,
+                      mid=512, mult=2) -> float:
+    """One TransformerBlock's forward products at R = b * length rows."""
+    r = b * length
+    per = (2 * r * c * mid + 2 * r * c * 2 * mid + 4 * r * length * mid
+           + 2 * r * mid * c + 4 * r * c * mult * c)
+    if cross:
+        kv_rows = b * m if kv_rows is None else kv_rows
+        per += (2 * r * c * mid + 2 * kv_rows * cctx * 2 * mid
+                + 4 * r * m * mid + 2 * r * mid * c)
+    return per
+
+
+def stack_flops(b, length, c, layers, cross, m=0, cctx=0,
+                kv_rows=None) -> float:
+    """A Transformer1d stack's forward: the two 1x1 convs and its layers."""
+    return 4 * b * length * c * c + layers * stack_layer_flops(
+        b, length, c, cross, m, cctx, kv_rows)
+
+
 def phase(step: str, **fields) -> None:
     print(json.dumps({"phase": step, **fields}), flush=True)
 
@@ -167,7 +264,8 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def check_stacks(dev):
     """Phase 3: the kernel against its plain version at the flagship stack
     shapes.  Returns the largest error per dtype, and the kernel's and the
-    plain version's bf16 milliseconds summed over the four shapes."""
+    plain version's bf16 milliseconds summed over the four shapes, with the
+    bound of those four calls."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -177,6 +275,7 @@ def check_stacks(dev):
         transformer_fusion as tf
     worst = {"float32": 0.0, "bfloat16": 0.0}
     ms = plain_ms = 0.0
+    limit = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         for name, length, c, layers, cross in STACKS:
@@ -212,7 +311,12 @@ def check_stacks(dev):
             if dtype == torch.bfloat16:
                 ms += t_kernel
                 plain_ms += t_plain
-    return worst, ms, plain_ms
+                add_bound(limit, bound(
+                    stack_flops(STACK_BATCH, length, c, layers, cross,
+                                *CONTEXT),
+                    nbytes(x, out, ctx, *tf._kernel_weights(
+                        params, layers, cross, dtype))))
+    return worst, ms, plain_ms, close_bound(limit)
 
 
 def _rel_err(got, want, floor: float = 1e-30) -> float:
@@ -229,8 +333,10 @@ def _abs_err(got, want) -> float:
 def check_backward(dev):
     """Phase 6: the stash forward and K3, K2, K4 against their plain
     versions at the flagship stack shapes, batch 512.  Returns, per kernel,
-    the largest bf16 absolute error and the bf16 kernel and plain
-    milliseconds summed over the four shapes."""
+    the largest bf16 absolute error, the bf16 kernel and plain milliseconds
+    summed over the four shapes, and the bound of those calls.  A layer's
+    backward is counted as three times its forward products: recomputing
+    them from the stash, and a data and a weight gradient for each."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -372,7 +478,25 @@ def check_backward(dev):
                         summary[k]["max_abs_err"], abs_errs[k])
                     summary[k]["ms"] += ms[k][0]
                     summary[k]["plain_ms"] += ms[k][1]
-    return summary
+                conv = 4 * batch * length * c * c
+                grad32 = 4 * (c * c + 3 * c)     # a float32 dW and vectors
+                lw_bytes = sum(nbytes(*lw) + 4 * sum(t.numel() for t in lw)
+                               for lw, _ in layer_args)
+                limits = {
+                    "stash": bound(
+                        stack_flops(batch, length, c, layers, cross,
+                                    *CONTEXT),
+                        nbytes(x, out, ctx, stash, *w)),
+                    "conv_out": bound(conv, nbytes(g, g, g, w[-2]) + grad32),
+                    "layer": bound(
+                        3 * layers * stack_layer_flops(batch, length, c,
+                                                       cross, *CONTEXT),
+                        layers * ((2 + per_stash) * nbytes(g)
+                                  + 2 * nbytes(ctx)) + lw_bytes),
+                    "conv_in_gn": bound(conv, nbytes(g, x, g, w[2]) + grad32)}
+                for k in kernels:
+                    add_bound(summary[k], limits[k])
+    return {k: close_bound(v) for k, v in summary.items()}
 
 
 def train_path(dev):
@@ -466,14 +590,18 @@ def fp32_step_vs_plain(dev, cls=None, preset=None, make_batch=None,
 _COUNTERS = {"transformer_fusion": (
     "LAUNCHES", "STASH_LAUNCHES", "UNIFORM_LAUNCHES", "CONV_OUT_BWD_LAUNCHES",
     "LAYER_BWD_LAUNCHES", "CONV_IN_GN_BWD_LAUNCHES"),
-    "resnet_fusion": ("RESNET_LAUNCHES",)}
+    "resnet_fusion": ("RESNET_LAUNCHES",),
+    "flash_attention": ("FLASH_FWD_LAUNCHES", "FLASH_DQ_LAUNCHES",
+                        "FLASH_DKV_LAUNCHES")}
 
 
 def _ops():
+    from moleculediffusiontransformer_tpu_torch.ops import flash_attention
     from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion
     from moleculediffusiontransformer_tpu_torch.ops import transformer_fusion
     return {"transformer_fusion": transformer_fusion,
-            "resnet_fusion": resnet_fusion}
+            "resnet_fusion": resnet_fusion,
+            "flash_attention": flash_attention}
 
 
 def counts() -> dict:
@@ -613,8 +741,8 @@ def _resnet_case(dev, length, c, n, layout, cm, dtype, batch, seed):
 def check_resnet(dev):
     """Phase 8: K8 against its plain version at the eight resnet runs, then
     its gradients against the composition's.  Returns the largest bf16
-    absolute error and the bf16 kernel, plain and composition milliseconds
-    summed over the runs."""
+    absolute error, the bf16 kernel, plain and composition milliseconds
+    summed over the runs, and the bound of those calls."""
     import torch
     from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
     summary = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -657,6 +785,15 @@ def check_resnet(dev):
                 summary["ms"] += t_kernel
                 summary["plain_ms"] += t_plain
                 summary["composition_ms"] += t_comp
+                rows, flops = RESNET_BATCH * length, 0
+                for ws in w:
+                    _, c1, fm, _, c2, proj = rf._split(ws, True)
+                    flops += 2 * rows * (c1[0].numel() + c2[0].numel()
+                                         + (proj[0].numel() if proj else 0))
+                    flops += 2 * RESNET_BATCH * fm[0].numel()
+                add_bound(summary, bound(flops, nbytes(
+                    x, mp, *(skips or []), *(outs or [out]),
+                    *[t for ws in w for t in ws])))
     try:        # a tensor the kernel does not take raises, on the card too
         rf.resnet_stack_forward(w, x.half(), mp, skips, **kw)
     except TypeError:
@@ -688,14 +825,14 @@ def check_resnet(dev):
         if not rel <= KERNEL_TOL["float32"]:
             raise AssertionError(f"{name}: K8 grads differ from the "
                                  f"composition's by {rel} of scale")
-    return summary
+    return close_bound(summary)
 
 
 def check_uniform(dev):
     """Phase 9: the uniform-context stack kernel against its plain version
     and the per-row kernel at the cross stacks' shapes.  Returns the largest
-    bf16 absolute error and the bf16 kernel and plain milliseconds summed
-    over the four shapes."""
+    bf16 absolute error, the bf16 kernel and plain milliseconds summed
+    over the four shapes, and the bound of those calls."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -748,7 +885,12 @@ def check_uniform(dev):
                 summary["ms"] += t_kernel
                 summary["plain_ms"] += t_plain
                 summary["per_row_ms"] += t_rows
-    return summary
+                add_bound(summary, bound(
+                    stack_flops(NULL_HALF_BATCH, length, c, layers, True, m,
+                                CONTEXT[1], kv_rows=m),
+                    nbytes(x, out, table, *tf._kernel_weights(
+                        kp, layers, True, dtype))))
+    return close_bound(summary)
 
 
 def ab(what, run):
@@ -787,6 +929,360 @@ def timed_training(step, state, cond, target, gen):
     return cond.shape[0] * AB_TRAIN_STEPS / (time.perf_counter() - t0)
 
 
+@contextlib.contextmanager
+def flash_switch(on: bool):
+    """``MDT_FLASH`` set to on or off for the block, then put back."""
+    old = os.environ.get("MDT_FLASH")
+    os.environ["MDT_FLASH"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MDT_FLASH"]
+        else:
+            os.environ["MDT_FLASH"] = old
+
+
+def _grad_ms(fn, leaves, do, reps):
+    """Milliseconds of a forward under autograd plus its backward."""
+    import torch
+    return cuda_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, do),
+                   reps=reps)
+
+
+def check_flash(dev):
+    """Phase 15: K5, K6 and K7 against their plain versions.  Returns, per
+    kernel, the numbers of the kernels line: bf16 at bh 16, n = m = 4096,
+    d 64, the long model's attention at batch 2."""
+    import torch
+    import torch.nn.functional as F
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    d = 64
+    scale = d ** -0.5
+    summary = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = KERNEL_TOL[dname]
+        for bh, n, m in FLASH_SHAPES:
+            gen = torch.Generator().manual_seed(bh + n + m)
+            q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype)
+                           for shape in ((bh, n, d), (bh, m, d), (bh, m, d),
+                                         (bh, n, d)))
+            reps = 5 if bh > 16 else 10
+            with torch.no_grad():
+                o, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+                torch.cuda.synchronize()
+                ref_o, ref_lse = fa.flash_attention_reference(q, k, v, scale)
+                got = fa.flash_backward(q, k, v, ref_o, ref_lse, do, scale)
+                again = fa.flash_backward(q, k, v, ref_o, ref_lse, do, scale)
+                want = fa.flash_attention_backward_reference(
+                    q, k, v, ref_o, ref_lse, do, scale)
+                pairs = {"fwd": [(o, ref_o), (lse, ref_lse)],
+                         "dq": [(got[0], want[0])],
+                         "dkv": [(got[1], want[1]), (got[2], want[2])]}
+                rel = {key: max(_rel_err(a, b) for a, b in ps)
+                       for key, ps in pairs.items()}
+                err = {key: max(_abs_err(a, b) for a, b in ps)
+                       for key, ps in pairs.items()}
+                deterministic = all(torch.equal(a, b)
+                                    for a, b in zip(got, again))
+                del got, again, want
+                # K6 and K7 are launched together by the wrapper: time the
+                # forward, then the pair, then each library call
+                ms = {"fwd": cuda_ms(lambda: fa.flash_forward(
+                    q, k, v, scale), reps=reps)}
+                lib = fa._library()
+                di = (ref_o.float() * do.float()).sum(dim=-1)
+                dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+                ins = [t.data_ptr() for t in (q, k, v, do, ref_lse, di)]
+                tail = fa._tail(q, k, scale)
+
+                def launch(fn, *outs):
+                    code = fn(*ins, *[t.data_ptr() for t in outs], *tail)
+                    if code:
+                        raise AssertionError(f"launch failed: {code}")
+
+                ms["dq"] = cuda_ms(lambda: launch(lib.fa_backward_dq, dq),
+                                   reps=reps)
+                ms["dkv"] = cuda_ms(
+                    lambda: launch(lib.fa_backward_dkv, dk, dv), reps=reps)
+                plain = {"fwd": cuda_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, scale), reps=reps)}
+                plain["dq"] = plain["dkv"] = cuda_ms(
+                    lambda: fa.flash_attention_backward_reference(
+                        q, k, v, ref_o, ref_lse, do, scale), reps=reps)
+            library = {"fwd": None, "bwd": None}
+            if dtype == torch.bfloat16:
+                q4, k4, v4 = (t[None] for t in (q, k, v))
+                with torch.no_grad():
+                    library["fwd"] = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, scale=scale), reps=reps)
+                leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+                both = _grad_ms(
+                    lambda a, b, c: F.scaled_dot_product_attention(
+                        a, b, c, scale=scale), leaves, do[None], reps)
+                library["bwd"] = both - library["fwd"]
+            phase("flash_kernels", bh=bh, n=n, m=m, d=d, dtype=dname,
+                  rel_err=rel, max_abs_err=err, tol=tol,
+                  deterministic=deterministic, ms=ms, plain_ms=plain,
+                  library_ms=library)
+            bad = {key: e for key, e in rel.items() if not e <= tol}
+            if bad:
+                raise AssertionError(f"flash bh {bh} n {n} m {m} {dname}: "
+                                     f"kernels differ from their plain "
+                                     f"versions: {bad}")
+            if not deterministic:
+                raise AssertionError(f"flash bh {bh} n {n} m {m} {dname}: "
+                                     f"two backward calls differ")
+            if dtype == torch.bfloat16 and (bh, n, m) == FLASH_SHAPES[0]:
+                work = bh * n * m * d
+                rows = nbytes(ref_lse, di)
+                limits = {
+                    "fwd": bound(4 * work, nbytes(q, k, v, o)),
+                    "dq": bound(6 * work, nbytes(q, k, v, do, dq) + rows),
+                    "dkv": bound(8 * work,
+                                 nbytes(q, k, v, do, dk, dv) + rows)}
+                for key in ("fwd", "dq", "dkv"):
+                    summary[key] = close_bound(dict(
+                        max_abs_err=err[key], ms=ms[key],
+                        plain_ms=plain[key], bound_ms=max(
+                            limits[key].values()), **limits[key],
+                        library_ms=library["fwd" if key == "fwd" else "bwd"]))
+    return summary
+
+
+def check_crossover(dev):
+    """Phase 16: streaming against one-shot attention over the length."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import sdpa
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    b, h, d = 2, 8, 64
+    scale = d ** -0.5
+    rows = []
+    for n in CROSSOVER_LENGTHS:
+        gen = torch.Generator().manual_seed(n)
+        q, k, v, do = (torch.randn(b, h, n, d, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        flat = [t.reshape(b * h, n, d) for t in (q, k, v)]
+        reps = 5 if n > 4096 else 10
+        with torch.no_grad(), flash_switch(False):
+            one_shot = cuda_ms(lambda: sdpa(q, k, v, scale, torch.bfloat16),
+                               reps=reps)
+        with torch.no_grad():
+            flash = cuda_ms(lambda: fa.flash_forward(*flat, scale), reps=reps)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with flash_switch(False):
+            one_shot_grad = _grad_ms(
+                lambda a, b_, c: sdpa(a, b_, c, scale, torch.bfloat16),
+                leaves, do, reps)
+        leaves = [t.clone().requires_grad_() for t in flat]
+        flash_grad = _grad_ms(
+            lambda a, b_, c: fa.flash_attention(a, b_, c, scale=scale),
+            leaves, do.reshape(b * h, n, d), reps)
+        rows.append(dict(n=n, flash_fwd_ms=flash, one_shot_fwd_ms=one_shot,
+                         flash_fwd_bwd_ms=flash_grad,
+                         one_shot_fwd_bwd_ms=one_shot_grad))
+    phase("flash_crossover", bh=b * h, d=d, dtype="bfloat16", rows=rows,
+          threshold=fa.LONG_SEQ_THRESHOLD)
+    return rows
+
+
+def long_model(dev, dtype, seed=7):
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    import torch
+    return audio.build_model1d(device=dev,
+                               generator=torch.Generator().manual_seed(seed),
+                               dtype=dtype, **LONG)
+
+
+def routed_layers(model, samples: int):
+    """(attention layers whose self-attention streams, all attention
+    layers, their token counts) for a waveform of ``samples``, read from
+    the model: one eval with a hook on every Transformer1d stack."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0].shape[1])))
+        for m in model.modules() if isinstance(m, Transformer1d)]
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        model.denoise(torch.zeros(1, samples, LONG["in_channels"],
+                                  device=dev), torch.ones(1, device=dev))
+    for hook in hooks:
+        hook.remove()
+    routed = sum(mod.num_layers for mod, tokens in seen
+                 if tokens >= fa.LONG_SEQ_THRESHOLD
+                 and fa.flash_takes(tokens, tokens, mod.head_features,
+                                    mod.dtype))
+    return routed, sum(mod.num_layers for mod, _ in seen), [
+        tokens for _, tokens in seen]
+
+
+def long_request(model, samples, batch, gen, steps=LONG_STEPS):
+    """One ``sample_model1d`` request: (output, seconds, peak bytes)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    noise = torch.randn(batch, samples, LONG["in_channels"], generator=gen,
+                        device=gen.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = audio.sample_model1d(model, noise, num_steps=steps)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def long_serve(model, samples, gen):
+    """Phase 17 for one waveform length: a request at each batch size.
+    Returns the launches of all its requests together."""
+    import torch
+    routed, layers, tokens = routed_layers(model, samples)
+    evals = LONG_STEPS - 1
+    long_request(model, samples, 1, gen, steps=3)            # warm-up
+    total = dict.fromkeys(counts(), 0)
+    for batch in LONG_BATCHES:
+        reset_counts()
+        out, seconds, peak = long_request(model, samples, batch, gen)
+        launched = counts()
+        total = {k: total[k] + launched[k] for k in total}
+        want = {k: 0 for k in launched}
+        want["FLASH_FWD_LAUNCHES"] = evals * routed
+        lo, hi = out.min().item(), out.max().item()
+        phase("long_request", samples=samples, batch=batch,
+              num_steps=LONG_STEPS, evals=evals, attention_tokens=tokens,
+              attention_layers=layers, attention_layers_streamed=routed,
+              launches={k: v for k, v in launched.items() if v},
+              expected_flash_fwd_launches=want["FLASH_FWD_LAUNCHES"],
+              seconds=seconds, samples_per_s=batch / seconds,
+              max_memory_allocated=peak, shape=list(out.shape),
+              finite=bool(torch.isfinite(out).all()), min=lo, max=hi)
+        if tuple(out.shape) != (batch, samples, LONG["in_channels"]):
+            raise AssertionError(f"long request: output shape {out.shape}")
+        if not (torch.isfinite(out).all() and -1.0 <= lo and hi <= 1.0):
+            raise AssertionError(f"long request {samples} x {batch}: output "
+                                 f"not finite in [-1, 1]: {lo}, {hi}")
+        if launched != want:
+            raise AssertionError(f"long request {samples} x {batch}: "
+                                 f"launches {launched}, expected {want}")
+    return total
+
+
+def long_train_steps(model, x, gen, steps):
+    """One warm-up and ``steps`` timed steps of the long model: (losses,
+    seconds a step, peak bytes)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_model1d_train_step(model, opt)
+    losses = [step(state, x, gen).item()]                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed = [step(state, x, gen) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / max(steps, 1)
+    losses += [t.item() for t in timed]
+    if not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return losses, seconds, torch.cuda.max_memory_allocated()
+
+
+def long_train(dev, samples, batch, steps=TIMED_STEPS):
+    """Phase 18 for one (length, batch).  Returns the launches."""
+    import torch
+    model = long_model(dev, torch.bfloat16).train()
+    routed, layers, tokens = routed_layers(model, samples)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand(batch, samples, LONG["in_channels"], generator=gen,
+                   device=dev) * 2 - 1
+    reset_counts()
+    losses, seconds, peak = long_train_steps(model, x, gen, steps)
+    launched = counts()
+    want = {k: 0 for k in launched}
+    for k in _COUNTERS["flash_attention"]:
+        want[k] = routed * (1 + steps)
+    phase("long_train", samples=samples, batch=batch, steps=1 + steps,
+          attention_tokens=tokens, attention_layers=layers,
+          attention_layers_streamed=routed, seconds_per_step=seconds,
+          samples_per_s=batch / seconds, losses=losses,
+          max_memory_allocated=peak,
+          launches={k: v for k, v in launched.items() if v},
+          expected_launches_each=routed * (1 + steps))
+    if launched != want:
+        raise AssertionError(f"long training {samples} x {batch}: launches "
+                             f"{launched}, expected {want}")
+    return launched
+
+
+def ab_flash(what, run):
+    """``MDT_FLASH`` on against off, turns on/off/off/on; ``run()`` gives a
+    number and the peak bytes of its turn."""
+    turns = []
+    for on in (True, False, False, True):
+        with flash_switch(on):
+            value, peak = run()
+        turns.append(["on" if on else "off", value, peak])
+    phase("ab_flash", what=what, turns=turns)
+
+
+def long_fp32_vs_plain(dev):
+    """Phase 19: a float32 batch-1 training step and a 4-step sample of the
+    long model at PARITY_SAMPLES through K5-K7 on the card against the
+    plain versions on the CPU."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    cpu = torch.device("cpu")
+    model32 = long_model(cpu, torch.float32)
+    gen = torch.Generator().manual_seed(12)
+    shape = (1, PARITY_SAMPLES, LONG["in_channels"])
+    x = torch.rand(shape, generator=gen) * 2 - 1
+    sigmas = torch.rand(1, generator=gen)
+    noise = torch.randn(shape, generator=gen)
+    start = torch.randn(shape, generator=gen)
+    results = []
+    for device in (dev, cpu):
+        m = copy.deepcopy(model32).to(device)
+        o = trainer.make_optimizer(trainer.OptimizerConfig())
+        reset_counts()
+        loss = trainer.make_model1d_train_step(m, o)(
+            trainer.TrainState.create(m, o), x.to(device),
+            sigmas=sigmas.to(device), noise=noise.to(device)).item()
+        grads = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        # the step moved m's parameters: sample from the untouched copy
+        m = copy.deepcopy(model32).to(device)
+        sampled = audio.sample_model1d(m, start, num_steps=4).cpu()
+        results.append((loss, grads, sampled, counts()))
+    (card_loss, card_grads, card_out, launched), (
+        cpu_loss, cpu_grads, cpu_out, cpu_launched) = results
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = max(_rel_err(card_grads[n], cpu_grads[n], STEP_GRAD_FLOOR)
+                   for n in cpu_grads)
+    sample_err = _abs_err(card_out, cpu_out)
+    flash = {k: launched[k] for k in _COUNTERS["flash_attention"]}
+    phase("long_fp32_vs_plain", samples=PARITY_SAMPLES, batch=1,
+          loss=card_loss, plain_loss=cpu_loss, loss_rel_err=loss_err,
+          grad_rel_err=grad_err, sample_max_abs_err=sample_err,
+          launches=flash, tol={"loss": STEP_LOSS_TOL, "grad": STEP_GRAD_TOL,
+                               "sample": SAMPLE_TOL})
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL
+            and sample_err <= SAMPLE_TOL):
+        raise AssertionError(f"long model fp32, card vs CPU: loss "
+                             f"{loss_err}, grads {grad_err}, sample "
+                             f"{sample_err}")
+    if not all(flash.values()) or any(cpu_launched.values()):
+        raise AssertionError(f"long model fp32: the card launched {flash}, "
+                             f"the CPU run {cpu_launched}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -803,6 +1299,8 @@ def main() -> int:
     from moleculediffusiontransformer_tpu_torch.nn.primitives import \
         init_parameters
     from moleculediffusiontransformer_tpu_torch.ops import cuda_build
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
     from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
@@ -822,15 +1320,15 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    # 2. build, every source at once (phases 5 and 8 report the others)
-    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE)
+    # 2. build, every source at once (phases 5, 8 and 14 report the others)
+    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE, fa.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(cuda_build.build, sources)))
     path, seconds = builds[tf.SOURCE]
     phase("build", library=os.path.relpath(path, ROOT), seconds=seconds)
 
     # 3. kernel against its plain version
-    worst, stack_ms, stack_plain_ms = check_stacks(dev)
+    worst, stack_ms, stack_plain_ms, stack_bound = check_stacks(dev)
 
     # 4. the serving path, both switches at their default (off)
     if rf.resnet_fusion_enabled() or tf.cfg_null_half_active():
@@ -984,6 +1482,52 @@ def main() -> int:
         step = trainer.make_diffusion_train_step(m, opt, MICRO_BATCHES)
         ab(what, lambda: timed_training(step, state, c, t, g))
 
+    # 14. build of the streaming-attention kernels (started in phase 2)
+    path, seconds = builds[fa.SOURCE]
+    phase("build_flash", library=os.path.relpath(path, ROOT),
+          seconds=seconds)
+
+    # 15. K5, K6, K7 against their plain versions; 16. the crossover
+    flash = check_flash(dev)
+    check_crossover(dev)
+
+    # 17. the long-sequence model serving, MDT_FLASH at its default (on)
+    if not fa.flash_enabled():
+        raise AssertionError("MDT_FLASH is off by default")
+    lmodel = long_model(dev, torch.bfloat16).eval()
+    lgen = torch.Generator(device=dev).manual_seed(8)
+    short_served = long_serve(lmodel, LONG_SAMPLES, lgen)
+    long_served = long_serve(lmodel, FLASH_SAMPLES, lgen)
+    if short_served["FLASH_FWD_LAUNCHES"]:
+        raise AssertionError("attention at 1,024 tokens streamed")
+
+    # 18. the long-sequence model training
+    long_train(dev, LONG_SAMPLES, LONG_BATCHES[0], steps=AB_TRAIN_STEPS)
+    long_trained = long_train(dev, FLASH_SAMPLES, LONG_BATCHES[0])
+    long_train(dev, FLASH_SAMPLES, LONG_BATCHES[1])
+    big = LONG_BATCHES[1]
+
+    def flash_request():
+        _, seconds, peak = long_request(lmodel, FLASH_SAMPLES, big, lgen)
+        return big / seconds, peak
+
+    ab_flash(f"long sampling, 2**17 samples, batch {big}, samples/s, "
+             f"peak bytes", flash_request)
+    ltrain = long_model(dev, torch.bfloat16).train()
+    lx = torch.rand(big, FLASH_SAMPLES, LONG["in_channels"], generator=lgen,
+                    device=dev) * 2 - 1
+
+    def flash_training():
+        _, seconds, peak = long_train_steps(ltrain, lx, lgen, AB_TRAIN_STEPS)
+        return big / seconds, peak
+
+    ab_flash(f"long training, 2**17 samples, batch {big}, samples/s, "
+             f"peak bytes", flash_training)
+    del ltrain, lx
+
+    # 19. float32 parity of the long model, card against CPU
+    long_fp32_vs_plain(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -1000,6 +1544,8 @@ def main() -> int:
         "max_abs_err": worst["bfloat16"],
         "ms": stack_ms,
         "plain_ms": stack_plain_ms,
+        **stack_bound,
+        "library_ms": None,
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6
     for key, name, source, line, count in (
@@ -1015,7 +1561,7 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": f"{jax_ops}:{line}",
                         "launches": train_launches[count],
-                        **train_kernels[key]})
+                        **train_kernels[key], "library_ms": None})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({
@@ -1024,14 +1570,36 @@ def main() -> int:
         "replaces": "moleculediffusiontransformer_tpu/ops/resnet_fusion.py:83",
         "launches": served_on["RESNET_LAUNCHES"],
         "max_abs_err": resnet["max_abs_err"], "ms": resnet["ms"],
-        "plain_ms": resnet["plain_ms"]})
+        "plain_ms": resnet["plain_ms"], "bound_ms": resnet["bound_ms"],
+        "bound_by": resnet["bound_by"], "library_ms": None})
     kernels.append({
         "name": "transformer1d_stack_fwd_uniform_ctx", "route": "cuda",
         "source": csrc + "transformer1d_fwd.cu",
         "replaces": jax_ops + ":449",
         "launches": served_on["UNIFORM_LAUNCHES"],
         "max_abs_err": uniform["max_abs_err"], "ms": uniform["ms"],
-        "plain_ms": uniform["plain_ms"]})
+        "plain_ms": uniform["plain_ms"], "bound_ms": uniform["bound_ms"],
+        "bound_by": uniform["bound_by"], "library_ms": None})
+    # the streaming-attention kernels: bf16 at bh 16, n = m = 4096, d 64
+    # from phase 15 (plain_ms and library_ms of the dq and the dk/dv kernel
+    # are those of the whole backward, which computes all three grads);
+    # K5's launches from the 2**17-sample requests of phase 17, K6's and
+    # K7's from the batch-2 training steps of phase 18
+    jax_flash = "moleculediffusiontransformer_tpu/ops/flash_attention.py"
+    for key, name, line, launched in (
+            ("fwd", "flash_attention_fwd", 89,
+             long_served["FLASH_FWD_LAUNCHES"]),
+            ("dq", "flash_attention_bwd_dq", 185,
+             long_trained["FLASH_DQ_LAUNCHES"]),
+            ("dkv", "flash_attention_bwd_dkv", 220,
+             long_trained["FLASH_DKV_LAUNCHES"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + "flash_attention.cu",
+                        "replaces": f"{jax_flash}:{line}",
+                        "launches": launched, **flash[key]})
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel was never launched on its main "
+                             f"path: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The K-diffusion (Karras elucidated) objective: denoiser and training loss
-(port of `diffusion/objectives.py::KDiffusion`, the production objective of
-every QM9 model).
+"""The diffusion objectives, denoiser and training loss: K-diffusion (Karras
+elucidated; the production objective of every QM9 model) and v-diffusion
+(the ``Model1d`` family's) (port of `diffusion/objectives.py`; the vk
+objective is not ported yet).
 
 The network enters as a closure ``net(x, t) -> x_pred``; tensors are
 channels-last (b, L, C) and sigmas (b,), broadcast as (b, 1, 1).  Draws come
@@ -8,8 +9,9 @@ from a ``torch.Generator`` or are handed in (``loss_from_draws``), since
 torch cannot reproduce the JAX package's threefry keys."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -27,9 +29,65 @@ def clip(x: torch.Tensor, dynamic_threshold: float = 0.0) -> torch.Tensor:
 
 
 @dataclass(frozen=True)
-class KDiffusion:
+class Objective:
+    alias: str = ""
+
+    def denoise(self, net: NetFn, x_noisy: torch.Tensor,
+                sigmas: torch.Tensor, **cond) -> torch.Tensor:
+        raise NotImplementedError
+
+    def loss(self, net: NetFn, x: torch.Tensor, sigmas: torch.Tensor,
+             noise: torch.Tensor, **cond) -> torch.Tensor:
+        raise NotImplementedError
+
+    def loss_from_draws(self, net: NetFn, x: torch.Tensor,
+                        sigma_distribution,
+                        generator: Optional[torch.Generator] = None, *,
+                        sigmas: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        **cond) -> torch.Tensor:
+        """The loss with sigmas (b,) drawn from ``sigma_distribution`` and
+        standard normal noise like ``x``, each taken from ``generator``
+        (on x's device) unless handed in (the JAX ``loss_from_key``)."""
+        if sigmas is None:
+            sigmas = sigma_distribution(x.shape[0], generator, x.device)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator,
+                                device=x.device, dtype=x.dtype)
+        return self.loss(net, x, sigmas, noise, **cond)
+
+
+@dataclass(frozen=True)
+class VDiffusion(Objective):
+    """v-objective over the half-circle parametrization: the network
+    predicts ``noise * alpha - x * beta`` from ``x * alpha + noise * beta``
+    at ``alpha, beta = cos, sin(sigma * pi / 2)``."""
+    alias: str = "v"
+
+    @staticmethod
+    def get_alpha_beta(sigmas: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        angle = sigmas * math.pi / 2
+        return torch.cos(angle), torch.sin(angle)
+
+    def denoise(self, net: NetFn, x_noisy: torch.Tensor,
+                sigmas: torch.Tensor, **cond) -> torch.Tensor:
+        return net(x_noisy, sigmas, **cond)
+
+    def loss(self, net: NetFn, x: torch.Tensor, sigmas: torch.Tensor,
+             noise: torch.Tensor, **cond) -> torch.Tensor:
+        alpha, beta = self.get_alpha_beta(sigmas.reshape(-1, 1, 1))
+        x_noisy = x * alpha + noise * beta
+        x_target = noise * alpha - x * beta
+        x_denoised = self.denoise(net, x_noisy, sigmas, **cond)
+        return ((x_denoised - x_target) ** 2).mean()
+
+
+@dataclass(frozen=True)
+class KDiffusion(Objective):
     """Karras elucidated diffusion (arXiv:2206.00364).  The denoised
     estimate is always clipped to [-1, 1] (or dynamically thresholded)."""
+    alias: str = "k"
     sigma_data: float = 0.1
     dynamic_threshold: float = 0.0
 
@@ -61,18 +119,15 @@ class KDiffusion:
         losses = ((x_denoised - x) ** 2).mean(dim=tuple(range(1, x.dim())))
         return (losses * self.loss_weight(sigmas)).mean()
 
-    def loss_from_draws(self, net: NetFn, x: torch.Tensor,
-                        sigma_distribution,
-                        generator: Optional[torch.Generator] = None, *,
-                        sigmas: Optional[torch.Tensor] = None,
-                        noise: Optional[torch.Tensor] = None,
-                        **cond) -> torch.Tensor:
-        """The loss with sigmas (b,) drawn from ``sigma_distribution`` and
-        standard normal noise like ``x``, each taken from ``generator``
-        (on x's device) unless handed in (the JAX ``loss_from_key``)."""
-        if sigmas is None:
-            sigmas = sigma_distribution(x.shape[0], generator, x.device)
-        if noise is None:
-            noise = torch.randn(x.shape, generator=generator,
-                                device=x.device, dtype=x.dtype)
-        return self.loss(net, x, sigmas, noise, **cond)
+
+def make_objective(alias: str, *, sigma_data: float = 0.1,
+                   dynamic_threshold: float = 0.0) -> Objective:
+    """The objective of a ``diffusion_type``: "v" or "k"."""
+    if alias == "v":
+        return VDiffusion()
+    if alias == "k":
+        return KDiffusion(sigma_data=sigma_data,
+                          dynamic_threshold=dynamic_threshold)
+    if alias == "vk":
+        raise NotImplementedError("the vk objective is not ported yet")
+    raise ValueError(f"type='{alias}' must be one of ('v', 'k', 'vk')")

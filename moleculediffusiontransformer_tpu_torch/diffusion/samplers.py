@@ -1,8 +1,9 @@
-"""The ADPM2 diffusion sampler (port of `diffusion/samplers.py`).
+"""The ADPM2 and v diffusion samplers (port of `diffusion/samplers.py`).
 
 ``denoise`` is a closure ``denoise(x, sigmas_batch) -> x0_hat`` with sigmas
 shaped (batch,); conditioning and CFG live inside it (see ``models/``).
-ADPM2 with ``rho=1`` is the production sampler of every QM model.
+ADPM2 with ``rho=1`` is the production sampler of every QM model, the
+deterministic v-sampler that of the ``Model1d`` family.
 
 The step sigmas are computed host-side in numpy float32, as the JAX package
 computes them on the device in float32.  The ancestral noise of step ``i``
@@ -12,6 +13,7 @@ draws, which torch cannot reproduce — and is otherwise drawn from
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -82,10 +84,33 @@ def sample_adpm2(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
     return x
 
 
-_SAMPLERS = {"adpm2": sample_adpm2}
+def sample_v(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
+             num_steps: int) -> torch.Tensor:
+    """DDIM-like v-sampler, deterministic: ``num_steps - 1`` steps from
+    ``sigmas[0] * noise``.  As the reference does, it returns the last
+    step's ``x_pred``, not the re-noised x."""
+    sigmas = np.asarray(sigmas, dtype=np.float32)
+
+    def alpha_beta(sigma):
+        angle = np.float32(sigma) * np.float32(math.pi) / np.float32(2)
+        return float(np.cos(angle)), float(np.sin(angle))
+
+    x = noise * float(sigmas[0])
+    x_pred = x
+    for i in range(num_steps - 1):
+        alpha, beta = alpha_beta(sigmas[i])
+        x_denoised = _batched(denoise, x, sigmas[i])
+        x_pred = x * alpha - x_denoised * beta
+        x_eps = x * beta + x_denoised * alpha
+        alpha_n, beta_n = alpha_beta(sigmas[i + 1])
+        x = x_pred * alpha_n + x_eps * beta_n
+    return x_pred
+
+
+_SAMPLERS = {"adpm2": sample_adpm2, "v": sample_v}
 
 # sampler -> objectives it is valid for
-SAMPLER_COMPAT = {"adpm2": ("k", "vk")}
+SAMPLER_COMPAT = {"adpm2": ("k", "vk"), "v": ("v",)}
 
 
 def sample(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
@@ -93,7 +118,7 @@ def sample(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
            objective_alias: Optional[str] = None,
            **sampler_kwargs) -> torch.Tensor:
     """Run the chosen sampler over the schedule, optionally clamping the
-    result to [-1, 1].  Only "adpm2" is ported so far."""
+    result to [-1, 1].  "adpm2" and "v" are ported so far."""
     if sampler not in _SAMPLERS:
         raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
     if objective_alias is not None:

@@ -7,6 +7,11 @@ from __future__ import annotations
 import numpy as np
 
 
+def linear_schedule(num_steps: int) -> np.ndarray:
+    """linspace(1, 0, n + 1)[:-1]: the v-sampler's schedule."""
+    return np.linspace(1.0, 0.0, num_steps + 1, dtype=np.float32)[:-1]
+
+
 def karras_schedule(num_steps: int, sigma_min: float = 1e-3,
                     sigma_max: float = 9.0, rho: float = 3.0) -> np.ndarray:
     """Karras et al. 2022 eq. 5 with a trailing sigma = 0 pad: returns
@@ -17,3 +22,12 @@ def karras_schedule(num_steps: int, sigma_min: float = 1e-3,
               * (sigma_min ** rho_inv - sigma_max ** rho_inv)) ** rho
     return np.concatenate([sigmas.astype(np.float32),
                            np.zeros(1, dtype=np.float32)])
+
+
+def make_schedule(name: str, num_steps: int, *, sigma_min: float = 1e-3,
+                  sigma_max: float = 9.0, rho: float = 3.0) -> np.ndarray:
+    if name == "linear":
+        return linear_schedule(num_steps)
+    if name == "karras":
+        return karras_schedule(num_steps, sigma_min, sigma_max, rho)
+    raise ValueError(f"Unknown schedule: {name}")

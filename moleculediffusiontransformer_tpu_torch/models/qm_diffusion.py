@@ -160,7 +160,9 @@ def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
     """Build a QM model from a ``QMDiffusionConfig`` preset (the JAX
     package's framework-neutral ``core/config.py``, e.g.
     ``inverse_diffusion_qm9(22)`` or ``forward_diffusion_qm9()``; read by
-    attribute, so the port does not import that package) on ``device``, its
+    attribute, so the port does not import that package) on ``device`` --
+    the card ("cuda") unless the caller names another, so without a card
+    the default raises and a CPU run asks for ``device="cpu"`` -- its
     parameters drawn from ``generator`` (a CPU generator; torch's global RNG
     when None)."""
     model = cls(
@@ -179,7 +181,7 @@ def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
         dynamic_threshold=config.diffusion.dynamic_threshold, dtype=dtype)
     if generator is not None:
         init_parameters(model, generator)
-    return model.to(device) if device is not None else model
+    return model.to("cuda" if device is None else device)
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
 """Training: Adam behind a global-norm clip, and the diffusion train step with
 gradient accumulation (port of `train/trainer.py`: ``make_optimizer``,
-``make_diffusion_train_step``).
+``make_diffusion_train_step``; ``make_model1d_train_step`` is the same step
+for a model whose loss takes only the data).
 
 The optimizer is written out rather than taken from ``torch.optim`` so that
 it computes what the JAX package's ``optax.chain(clip_by_global_norm(c),
@@ -150,6 +151,46 @@ class TrainState:
         return cls(opt_state=optimizer.init(list(model.parameters())))
 
 
+def _accumulated_step(params: List[torch.Tensor], optimizer: ClipAdam,
+                      state: TrainState, A: int, batch: int,
+                      device: torch.device,
+                      loss_of: Callable[[slice], torch.Tensor]
+                      ) -> torch.Tensor:
+    """One optimizer step over ``A`` micro-batches: ``loss_of(rows)`` is the
+    loss of one micro-batch; the float32 grads are summed by autograd,
+    divided by A, clipped and applied once, and stay on ``.grad``.  Returns
+    the mean loss."""
+    if batch % A:
+        raise ValueError(f"batch {batch} does not split into {A} "
+                         f"micro-batches")
+    mb = batch // A
+    for p in params:
+        p.grad = None
+    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(A):
+        loss = loss_of(slice(i * mb, (i + 1) * mb))
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+    for p in params:
+        # a parameter the loss does not reach (the CFG null table at
+        # embedding scale 1) has a zero gradient, as under jax.grad
+        p.grad = (torch.zeros_like(p) if p.grad is None else p.grad / A)
+    optimizer.update(params, [p.grad for p in params], state.opt_state)
+    state.step += 1
+    return loss_sum / A
+
+
+def _accumulation_steps(accumulation_steps: int) -> int:
+    if accumulation_steps < 1:
+        raise ValueError(f"accumulation_steps must be >= 1, got "
+                         f"{accumulation_steps}")
+    return accumulation_steps
+
+
+def _part(t: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
+    return None if t is None else t[rows]
+
+
 def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
                               accumulation_steps: int = 1) -> Callable:
     """``step(state, conditioning, target, generator=None, *, sigmas=None,
@@ -163,9 +204,7 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
     the micro-batches and divided by A, then clipped and applied once; they
     stay on the parameters' ``.grad`` after the step.  Returns the mean loss
     of the micro-batches (a float32 tensor on the model's device)."""
-    A = accumulation_steps
-    if A < 1:
-        raise ValueError(f"accumulation_steps must be >= 1, got {A}")
+    A = _accumulation_steps(accumulation_steps)
     params = list(model.parameters())
 
     def train_step(state: TrainState, conditioning: torch.Tensor,
@@ -173,27 +212,41 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
                    generator: Optional[torch.Generator] = None, *,
                    sigmas: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b = conditioning.shape[0]
-        if b % A:
-            raise ValueError(f"batch {b} does not split into {A} "
-                             f"micro-batches")
-        mb = b // A
-        for p in params:
-            p.grad = None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=target.device)
-        for i in range(A):
-            part = slice(i * mb, (i + 1) * mb)
-            loss = model(conditioning[part], target[part], generator,
-                         sigmas=None if sigmas is None else sigmas[part],
-                         noise=None if noise is None else noise[part])
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-        for p in params:
-            # a parameter the loss does not reach (the CFG null table at
-            # embedding scale 1) has a zero gradient, as under jax.grad
-            p.grad = (torch.zeros_like(p) if p.grad is None else p.grad / A)
-        optimizer.update(params, [p.grad for p in params], state.opt_state)
-        state.step += 1
-        return loss_sum / A
+        return _accumulated_step(
+            params, optimizer, state, A, conditioning.shape[0], target.device,
+            lambda rows: model(conditioning[rows], target[rows], generator,
+                               sigmas=_part(sigmas, rows),
+                               noise=_part(noise, rows)))
+
+    return train_step
+
+
+def make_model1d_train_step(model: nn.Module, optimizer: ClipAdam,
+                            accumulation_steps: int = 1) -> Callable:
+    """``step(state, x, generator=None, *, sigmas=None, noise=None,
+    **net_kwargs) -> loss`` for the ``Model1d`` family, whose loss takes
+    only the data x (b, L, C): ``model(x, generator, sigmas=, noise=,
+    **net_kwargs)``.  Micro-batches, draws, grads and the update are those
+    of ``make_diffusion_train_step``; a tensor among ``net_kwargs`` whose
+    first dimension is the batch (``embedding``) is split with x."""
+    A = _accumulation_steps(accumulation_steps)
+    params = list(model.parameters())
+
+    def train_step(state: TrainState, x: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, *,
+                   sigmas: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   **net_kwargs) -> torch.Tensor:
+        b = x.shape[0]
+
+        def loss_of(rows: slice) -> torch.Tensor:
+            kw = {k: (v[rows] if isinstance(v, torch.Tensor) and v.dim()
+                      and v.shape[0] == b else v)
+                  for k, v in net_kwargs.items()}
+            return model(x[rows], generator, sigmas=_part(sigmas, rows),
+                         noise=_part(noise, rows), **kw)
+
+        return _accumulated_step(params, optimizer, state, A, b, x.device,
+                                 loss_of)
 
     return train_step

@@ -381,3 +381,133 @@ def test_unet_dispatches_to_the_new_kernels(cuda):
     assert (rf.RESNET_LAUNCHES, tf.UNIFORM_LAUNCHES) == (before[0] + 4,
                                                          before[1] + 5)
     _within(on, off, torch.float32, "UNet")
+
+
+# ---------------------------------------------------------------- K5, K6, K7
+
+def _flash_case(dev, bh, n, m, d, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(bh, n, d), (bh, m, d), (bh, m, d), (bh, n, d)]
+    return [torch.randn(s, generator=gen).to(dev, dtype) for s in shapes]
+
+
+# (bh, n, m, d): the long model's attention (8 heads of 64 at 4096 tokens),
+# a rectangular case, and the other head sizes the kernels are built for
+FLASH_CASES = [(16, 4096, 4096, 64), (4, 2048, 4096, 64), (3, 256, 384, 16),
+               (2, 384, 128, 32), (2, 256, 256, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n,m,d", FLASH_CASES)
+def test_flash_forward_matches_plain_version(cuda, bh, n, m, d, dtype):
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    q, k, v, _ = _flash_case(cuda, bh, n, m, d, dtype)
+    scale = d ** -0.5
+    before = fa.FLASH_FWD_LAUNCHES
+    out, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+    bare, none = fa.flash_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fa.FLASH_FWD_LAUNCHES == before + 2 and none is None
+    assert torch.equal(out, bare)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, scale)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _within(out, ref, dtype, "o")
+    _within(lse, ref_lse, torch.float32, "lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n,m,d", FLASH_CASES)
+def test_flash_backward_matches_plain_version(cuda, bh, n, m, d, dtype):
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    q, k, v, do = _flash_case(cuda, bh, n, m, d, dtype, seed=1)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_reference(q, k, v, scale)
+    before = (fa.FLASH_DQ_LAUNCHES, fa.FLASH_DKV_LAUNCHES)
+    got = fa.flash_backward(q, k, v, o, lse, do, scale)
+    again = fa.flash_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_DQ_LAUNCHES, fa.FLASH_DKV_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a), name
+        _within(g, w, dtype, name)
+
+
+def test_flash_autograd_and_refusals(cuda):
+    """``flash_attention`` under autograd on the card against autograd of
+    the one-shot product, on split-head views; and what the wrappers
+    refuse."""
+    from moleculediffusiontransformer_tpu_torch.nn.attention import sdpa
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    gen = torch.Generator().manual_seed(2)
+    b, n, h, d = 2, 2048, 4, 64
+    bufs = [torch.randn(b, n, h, d, generator=gen).to(cuda) for _ in range(4)]
+    views = [t.transpose(1, 2).requires_grad_() for t in bufs[:3]]
+    do = bufs[3].transpose(1, 2)
+    counts = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+              fa.FLASH_DKV_LAUNCHES)
+    out = sdpa(*views, d ** -0.5, torch.float32)         # routes: n >= 2048
+    got = torch.autograd.grad(out, views, do)
+    assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+            fa.FLASH_DKV_LAUNCHES) == tuple(c + 1 for c in counts)
+    sim = torch.matmul(views[0], views[1].transpose(-1, -2)) * d ** -0.5
+    ref = torch.matmul(torch.softmax(sim, dim=-1), views[2])
+    want = torch.autograd.grad(ref, views, do)
+    _within(out, ref, torch.float32, "out")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _within(g, w, torch.float32, name)
+
+    q, k, v, _ = _flash_case(cuda, 2, 256, 256, 64, torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_forward(q[:, :200], k, v, 0.125)        # n % 128
+    with pytest.raises(ValueError):
+        fa.flash_forward(q.half(), k.half(), v.half(), 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_forward(q.transpose(0, 1), k, v, 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_forward(q, k.cpu(), v, 0.125)
+
+
+def test_long_model1d_launches_the_flash_kernels(cuda, monkeypatch):
+    """A narrow ``Model1d`` whose one attention layer runs at 2048 tokens:
+    a training step launches K5 with lse, K6 and K7 once each, a denoise
+    K5 once; with ``MDT_FLASH=0`` the same loss comes from the one-shot
+    path."""
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    model = audio.build_model1d(
+        generator=torch.Generator().manual_seed(3), in_channels=2,
+        channels=32, patch_size=2, multipliers=(1, 2), factors=(2,),
+        num_blocks=(1,), attentions=(0, 1), attention_heads=2,
+        attention_features=32, attention_multiplier=2)
+    assert next(model.parameters()).device.type == "cuda"
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 8192, 2, generator=gen).to(cuda)
+    sigmas = torch.rand(2, generator=gen).to(cuda)
+    noise = torch.randn(2, 8192, 2, generator=gen).to(cuda)
+    counts = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+              fa.FLASH_DKV_LAUNCHES)
+    loss = model(x, sigmas=sigmas, noise=noise)
+    loss.backward()
+    with torch.no_grad():
+        model.denoise(x, sigmas)
+    assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+            fa.FLASH_DKV_LAUNCHES) == (counts[0] + 2, counts[1] + 1,
+                                       counts[2] + 1)
+    grads = [p.grad.clone() for p in model.parameters()]
+    monkeypatch.setenv("MDT_FLASH", "0")
+    model.zero_grad()
+    plain = model(x, sigmas=sigmas, noise=noise)
+    plain.backward()
+    assert fa.FLASH_FWD_LAUNCHES == counts[0] + 2
+    assert abs(loss.item() - plain.item()) <= 1e-4 * abs(plain.item())
+    for g, p in zip(grads, model.parameters()):
+        # a grad that is zero but for float32 noise (a conv bias right
+        # before a GroupNorm) is held to 1e-6 absolute
+        scale = max(p.grad.abs().max().item(), 1e-3)
+        assert (g - p.grad).abs().max().item() <= 1e-3 * scale

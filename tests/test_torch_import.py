@@ -41,10 +41,14 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.ops.cuda_build",
     "moleculediffusiontransformer_tpu_torch.ops.transformer_fusion",
     "moleculediffusiontransformer_tpu_torch.ops.resnet_fusion",
+    "moleculediffusiontransformer_tpu_torch.ops.flash_attention",
     "moleculediffusiontransformer_tpu_torch.diffusion.schedules",
     "moleculediffusiontransformer_tpu_torch.diffusion.objectives",
     "moleculediffusiontransformer_tpu_torch.diffusion.samplers",
+    "moleculediffusiontransformer_tpu_torch.diffusion.distributions",
     "moleculediffusiontransformer_tpu_torch.models.qm_diffusion",
+    "moleculediffusiontransformer_tpu_torch.models.audio",
+    "moleculediffusiontransformer_tpu_torch.train.trainer",
 ]
 
 
@@ -90,8 +94,30 @@ def _meta_model(**kw):
 
 def test_flagship_parameter_count():
     model = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusion,
-                        config=inverse_diffusion_qm9(22))
+                        config=inverse_diffusion_qm9(22), device="meta")
     assert sum(p.numel() for p in model.parameters()) == 90_965_554
+
+
+def test_entry_points_default_to_the_card():
+    """``from_config`` and the ``Model1d`` factories put the model on the
+    card unless the caller names a device: with no device argument they ask
+    for "cuda" (which raises on a host without one), never the CPU."""
+    from moleculediffusiontransformer_tpu_torch.models import audio
+
+    tiny = dict(in_channels=2, channels=16, patch_size=2, multipliers=(1, 2),
+                factors=(2,), num_blocks=(1,), attentions=(0, 1),
+                attention_heads=2, attention_features=8,
+                attention_multiplier=2, resnet_groups=4)
+    builds = [lambda **kw: tqm.from_config(
+                  tqm.QMDiffusionForward, forward_diffusion_qm9(), **kw),
+              lambda **kw: audio.AudioDiffusionModel(**tiny, **kw)]
+    for build in builds:
+        if torch.cuda.is_available():
+            assert next(build().parameters()).device.type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                build()
+        assert next(build(device="cpu").parameters()).device.type == "cpu"
 
 
 def _smoke():
@@ -112,7 +138,7 @@ def test_chip_smoke_builds_the_flagship():
     JAX package's config); it must be the same architecture."""
     a = _meta_model(build=tqm.QMDiffusion, **_smoke().FLAGSHIP)
     b = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusion,
-                    config=inverse_diffusion_qm9(22))
+                    config=inverse_diffusion_qm9(22), device="meta")
     assert _same_architecture(a, b)
 
 
@@ -120,7 +146,7 @@ def test_chip_smoke_builds_the_forward_preset():
     """The same for the 18M forward preset."""
     a = _meta_model(build=tqm.QMDiffusionForward, **_smoke().FORWARD)
     b = _meta_model(build=tqm.from_config, cls=tqm.QMDiffusionForward,
-                    config=forward_diffusion_qm9())
+                    config=forward_diffusion_qm9(), device="meta")
     assert _same_architecture(a, b)
 
 
@@ -147,10 +173,11 @@ def test_port_imports_without_cuda_toolchain(tmp_path):
     env.pop("CUDA_HOME", None)
     code = ("import sys, moleculediffusiontransformer_tpu_torch.ops."
             "transformer_fusion as tf, moleculediffusiontransformer_tpu_torch."
-            "models.qm_diffusion\n"
+            "models.qm_diffusion, moleculediffusiontransformer_tpu_torch."
+            "models.audio\n"
             "from moleculediffusiontransformer_tpu_torch.ops import "
-            "cuda_build, resnet_fusion as rf\n"
-            "assert tf._LIB is None and rf._LIB is None\n"
+            "cuda_build, resnet_fusion as rf, flash_attention as fa\n"
+            "assert tf._LIB is None and rf._LIB is None and fa._LIB is None\n"
             "assert not cuda_build._LOADED\n"
             "assert 'triton' not in sys.modules\n"
             "print(cuda_build.library_path(tf.SOURCE).name)\n")

@@ -49,7 +49,7 @@ def models():
 def test_preset_has_18m_parameters():
     with torch.device("meta"):
         model = tqm.from_config(tqm.QMDiffusionForward,
-                                forward_diffusion_qm9())
+                                forward_diffusion_qm9(), device="meta")
     assert sum(p.numel() for p in model.parameters()) == 18_322_684
     assert (model.unet.to_in.patch_size, model.max_length,
             model.pred_dim) == (4, 64, 1)
