@@ -83,7 +83,34 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    memory;
 19. float32 parity of the long model: a batch-1 training step and a 4-step
    sample at 2**16 samples (attention at 2,048 tokens) through K5-K7 on
-   the card against the same through the plain versions on the CPU.
+   the card against the same through the plain versions on the CPU;
+20. build of the resident-KV attention kernels (``csrc/attention.cu``, K9
+   and K10, built with phase 2's);
+21. K9 (``ops.attention``) and, where n, m <= 64, K10
+   (``ops.packed_attention``) against their plain version in float32 and
+   bfloat16, each bitwise equal across two calls, with CUDA-event timings of
+   the kernel, the plain version and ``scaled_dot_product_attention`` (a
+   yardstick, called nowhere in the package), each as the card's time with
+   the calls enqueued back to back, and each shape's bound, at the
+   shapes of the JAX package's own tests of these kernels, the attention of
+   the 91M and 18M presets at 512 requests under CFG, the AR transformer's
+   decode step at batch 1024 under CFG (n 1, m 65 and m 13, d 16, beside
+   the multi-query module math that computes it in the model) and one shape
+   past K10's range; then the public entry points at the AR decode shapes
+   with the counts set to 0 before and read after -- no model calls these
+   two kernels in either package, so this call is their main path;
+22. the inverse AR transformer serving: ``MoleculeTransformerSequence`` at
+   its notebook preset (2.4M parameters, full width and depth, seeded random
+   weights, bfloat16) answers ``generate_sequence`` requests of batch 1, 16
+   and 1024 (63 tokens from a start token of 1, cond scale 3.0, filter
+   threshold 0.9): ids (b, 64), the start column kept, every id in [0, 24);
+   a traced 16-token request at batch 1 and 1024 for the device's busy share; then a
+   float32 batch-8 request on the card against the CPU on the same
+   uniforms: the blended logits of every step within 1e-4, and the ids equal
+   wherever the two largest perturbed logits are more than 1e-3 apart;
+23. the inverse AR transformer training: one warm-up and 5 timed bfloat16
+   steps at batch 512 x 64 tokens (Adam 2e-4, clip 0.5), every loss finite;
+   then one float32 batch-8 step on the card against the CPU.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path,
@@ -190,6 +217,32 @@ LONG_STEPS = 50
 # rectangular case
 FLASH_SHAPES = [(16, 4096, 4096), (64, 4096, 4096), (16, 2048, 4096)]
 CROSSOVER_LENGTHS = (512, 1024, 2048, 4096, 8192)
+# the inverse AR transformer's notebook preset
+# (core/config.py::inverse_transformer_qm9; 2,407,712 parameters) and the
+# request of bench.py's AR metric: 63 tokens from a (b, 1) start of ones
+AR_PRESET = dict(dim=128, depth=12, heads=8, dim_head=16, logits_dim=24,
+                 text_embed_dim=16, max_text_len=12)
+AR_REQUESTS = (1, 16, 1024)
+AR_TOKENS, AR_COND_SCALE, AR_FILTER_THRES = 63, 3.0, 0.9
+AR_TRACED_TOKENS = 16
+AR_TRAIN_BATCH, AR_TRAIN_TOKENS = 512, 64
+# its decode step at batch 1024 under CFG, (bh, n, m, d): self-attention
+# over the null KV and a full 64-token cache (K9: m > 64), cross-attention
+# over the null KV and 12 properties (K10)
+AR_DECODE_SHAPES = {"attention": (16384, 1, 65, 16),
+                    "packed_attention": (16384, 1, 13, 16)}
+# (bh, n, m, d) of phase 21: tests/test_ops.py's two; the 91M preset's self
+# and cross attention at L 8 and L 2 and the 18M preset's cross attention at
+# L 4 and L 1, 512 requests under CFG with 8 heads; the AR decode shapes;
+# one shape past K10's range
+ATTENTION_SHAPES = [(8, 16, 24, 64), (128, 16, 12, 64), (8192, 8, 8, 64),
+                    (8192, 8, 12, 64), (8192, 2, 2, 64), (8192, 2, 12, 64),
+                    (8192, 4, 64, 64), (8192, 1, 64, 64),
+                    *AR_DECODE_SHAPES.values(), (64, 256, 256, 64)]
+# A float32 AR request, card against CPU: every step's blended logits
+# within AR_LOGIT_TOL; a token may differ only where the two largest
+# Gumbel-perturbed logits are within AR_GAP of each other
+AR_LOGIT_TOL, AR_GAP = 1e-4, 1e-3
 # the card's published dense peaks (NVIDIA's H100 SXM data sheet): bf16
 # tensor-core operations a second, device-memory bytes a second
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -258,6 +311,35 @@ def cuda_ms(fn, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+_BLOCKER = None
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median milliseconds a call of ``fn()`` keeps the card busy, for calls
+    shorter than the host takes to make them: ``reps`` calls are enqueued
+    behind two large matrix products, which keep the card busy while the
+    host enqueues, so the events see the calls run back to back and not the
+    host's time between launches (which ``cuda_ms`` would see)."""
+    import torch
+    global _BLOCKER
+    if _BLOCKER is None:
+        _BLOCKER = torch.zeros(4096, 4096, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.matmul(_BLOCKER, torch.matmul(_BLOCKER, _BLOCKER))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -592,7 +674,16 @@ _COUNTERS = {"transformer_fusion": (
     "LAYER_BWD_LAUNCHES", "CONV_IN_GN_BWD_LAUNCHES"),
     "resnet_fusion": ("RESNET_LAUNCHES",),
     "flash_attention": ("FLASH_FWD_LAUNCHES", "FLASH_DQ_LAUNCHES",
-                        "FLASH_DKV_LAUNCHES")}
+                        "FLASH_DKV_LAUNCHES"),
+    "attention": ("ATTENTION_LAUNCHES", "PACKED_ATTENTION_LAUNCHES")}
+
+
+def attention_ops():
+    """The module behind ``ops.attention`` (the name itself is the function,
+    as in the JAX package)."""
+    import importlib
+    return importlib.import_module(
+        "moleculediffusiontransformer_tpu_torch.ops.attention")
 
 
 def _ops():
@@ -601,7 +692,8 @@ def _ops():
     from moleculediffusiontransformer_tpu_torch.ops import transformer_fusion
     return {"transformer_fusion": transformer_fusion,
             "resnet_fusion": resnet_fusion,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "attention": attention_ops()}
 
 
 def counts() -> dict:
@@ -1283,6 +1375,339 @@ def long_fp32_vs_plain(dev):
                              f"the CPU run {cpu_launched}")
 
 
+def _qkv(dev, bh, n, m, d, dtype):
+    import torch
+    gen = torch.Generator().manual_seed(bh + n + m + d)
+    return [torch.randn(shape, generator=gen).to(dev, dtype)
+            for shape in ((bh, n, d), (bh, m, d), (bh, m, d))]
+
+
+def mqa_core_ms(dev, bh, m, d, heads, dtype):
+    """Milliseconds of the multi-query attention math as ``MQAttention``
+    runs it in a decode step (one KV track shared by the heads, a mask, the
+    scores in float32) at the problem size of a (bh, 1, m, d) call."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.transformer_blocks import \
+        NEG_INF
+    b = bh // heads
+    gen = torch.Generator().manual_seed(m)
+    q = torch.randn(b, heads, 1, d, generator=gen).to(dev, dtype)
+    kv = torch.randn(b, m, d, generator=gen).to(dev, dtype)
+    mask = torch.ones(m, dtype=torch.bool, device=dev)
+
+    def core():
+        sim = torch.matmul(q.float(), kv.float().transpose(1, 2)[:, None])
+        sim = torch.where(mask, sim, NEG_INF)
+        attn = torch.softmax(sim, dim=-1).to(dtype)
+        return torch.matmul(attn, kv[:, None])
+
+    with torch.no_grad():
+        return device_ms(core)
+
+
+def check_attention(dev):
+    """Phase 21: K9 and K10 against their plain version.  Returns each
+    kernel's bf16 numbers at its AR decode shape."""
+    import torch
+    import torch.nn.functional as F
+    at = attention_ops()
+    rows = {"attention": {}, "packed_attention": {}}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = KERNEL_TOL[dname]
+        for shape in ATTENTION_SHAPES:
+            bh, n, m, d = shape
+            q, k, v = _qkv(dev, bh, n, m, d, dtype)
+            scale = d ** -0.5
+            fns = {"attention": at.attention}
+            if max(n, m) <= at.PACK_MAX:
+                fns["packed_attention"] = at.packed_attention
+            with torch.no_grad():
+                ref = at.attention_reference(q, k, v, scale)
+                # these calls are shorter than the host takes to make
+                # them: device_ms times them back to back on the card
+                plain_ms = device_ms(
+                    lambda: at.attention_reference(q, k, v, scale))
+                # one problem a batch element, one head
+                q4, k4, v4 = (t[:, None] for t in (q, k, v))
+                library_ms = device_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                           scale=scale))
+                module_ms = (mqa_core_ms(dev, bh, m, d, AR_PRESET["heads"],
+                                         dtype)
+                             if shape in AR_DECODE_SHAPES.values() else None)
+                limit = bound(4 * bh * n * m * d, nbytes(q, k, v, ref))
+                for name, fn in fns.items():
+                    out, again = fn(q, k, v), fn(q, k, v)
+                    torch.cuda.synchronize()
+                    rel, err = _rel_err(out, ref), _abs_err(out, ref)
+                    same = torch.equal(out, again)
+                    ms = device_ms(lambda: fn(q, k, v))
+                    # one call between two events: the host's time a call
+                    call_ms = cuda_ms(lambda: fn(q, k, v))
+                    row = close_bound(dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=max(limit.values()), **limit,
+                        library_ms=library_ms))
+                    phase("attention_kernel", kernel=name, bh=bh, n=n, m=m,
+                          d=d, dtype=dname, rel_err=rel, tol=tol,
+                          deterministic=same, mqa_module_ms=module_ms,
+                          host_call_ms=call_ms, **row)
+                    if not rel <= tol:
+                        raise AssertionError(
+                            f"{name} {shape} {dname}: kernel differs from "
+                            f"the plain version by {rel} of its scale")
+                    if not same:
+                        raise AssertionError(f"{name} {shape} {dname}: two "
+                                             f"calls differ")
+                    if dtype == torch.bfloat16:
+                        rows[name][shape] = row
+    for name, by_shape in rows.items():
+        phase("attention_summary", kernel=name, dtype="bfloat16",
+              shapes=len(by_shape),
+              **{key: sum(r[key] for r in by_shape.values())
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return {name: rows[name][shape]
+            for name, shape in AR_DECODE_SHAPES.items()}
+
+
+def drive_attention_entry_points(dev):
+    """The main path of K9 and K10: no model calls them in either package,
+    so it is a call of the public ``ops.attention`` and
+    ``ops.packed_attention`` at the AR decode shapes, the counts set to 0
+    before and read after.  ``packed_attention`` launches K10 at m 13 and
+    goes to K9 at m 65."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch import ops
+    at = attention_ops()
+    inputs = [_qkv(dev, *shape, torch.bfloat16)
+              for shape in AR_DECODE_SHAPES.values()]
+    reset_counts()
+    with torch.no_grad():
+        outs = [(fn(q, k, v), (q, k, v)) for q, k, v in inputs
+                for fn in (ops.attention, ops.packed_attention)]
+    torch.cuda.synchronize()
+    launched = counts()
+    worst = max(_rel_err(out, at.attention_reference(
+        *qkv, qkv[0].shape[-1] ** -0.5)) for out, qkv in outs)
+    want = {k: 0 for k in launched}
+    want.update(ATTENTION_LAUNCHES=3, PACKED_ATTENTION_LAUNCHES=1)
+    phase("attention_entry_points", shapes=list(AR_DECODE_SHAPES.values()),
+          dtype="bfloat16", rel_err=worst, tol=KERNEL_TOL["bfloat16"],
+          launches={k: v for k, v in launched.items() if v})
+    if launched != want or not worst <= KERNEL_TOL["bfloat16"]:
+        raise AssertionError(f"attention entry points: launches {launched}, "
+                             f"expected {want}; error {worst}")
+    return launched
+
+
+def ar_model(dev, dtype, seed=13):
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        MoleculeTransformerSequence
+    return MoleculeTransformerSequence(
+        device=dev, dtype=dtype,
+        generator=torch.Generator().manual_seed(seed), **AR_PRESET)
+
+
+def ar_request(model, batch, gen, tokens=AR_TOKENS):
+    """One ``generate_sequence`` request: (ids, seconds)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        generate_sequence
+    dev = gen.device
+    props = torch.rand(batch, 12, generator=gen, device=dev) * 2 - 1
+    start = torch.ones(batch, 1, dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = generate_sequence(model, props, start, gen,
+                            tokens_to_generate=tokens,
+                            cond_scale=AR_COND_SCALE,
+                            filter_thres=AR_FILTER_THRES)
+    torch.cuda.synchronize()
+    return ids, time.perf_counter() - t0
+
+
+def device_busy(fn):
+    """(device ms, kernel launches, traced wall ms) of ``fn()`` under
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launches += evt.count
+        if evt.device_type == DeviceType.CUDA:
+            device_us += float(getattr(evt, "self_device_time_total",
+                                       getattr(evt, "self_cuda_time_total",
+                                               0.0)))
+    return device_us / 1e3, launches, wall_ms
+
+
+def ar_serve(dev):
+    """Phase 22, bfloat16: the requests and the traced ones."""
+    import torch
+    model = ar_model(dev, torch.bfloat16).eval()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ar_request(model, 1, gen, tokens=4)                       # warm-up
+    reset_counts()
+    for batch in AR_REQUESTS:
+        ids, seconds = ar_request(model, batch, gen)
+        lo, hi = ids.min().item(), ids.max().item()
+        phase("ar_request", batch=batch, tokens=AR_TOKENS,
+              cond_scale=AR_COND_SCALE, filter_thres=AR_FILTER_THRES,
+              seconds=seconds, tokens_per_s=batch * AR_TOKENS / seconds,
+              shape=list(ids.shape), min=lo, max=hi,
+              distinct_ids=int(ids[:, 1:].unique().numel()))
+        if tuple(ids.shape) != (batch, 1 + AR_TOKENS):
+            raise AssertionError(f"AR request {batch}: ids {ids.shape}")
+        if not (bool((ids[:, 0] == 1).all()) and 0 <= lo
+                and hi < AR_PRESET["logits_dim"]):
+            raise AssertionError(f"AR request {batch}: start column or id "
+                                 f"range wrong: {lo}, {hi}")
+    stray = {k: v for k, v in counts().items() if v}
+    if stray:
+        raise AssertionError(f"the AR model launched {stray}: no kernel "
+                             f"lies on its path")
+    # a shorter request keeps the trace small; every decode step is alike
+    for batch in (AR_REQUESTS[0], AR_REQUESTS[-1]):
+        device_ms, launches, wall_ms = device_busy(
+            lambda: ar_request(model, batch, gen, tokens=AR_TRACED_TOKENS))
+        phase("ar_request_traced", batch=batch, tokens=AR_TRACED_TOKENS,
+              device_ms=device_ms, kernel_launches=launches,
+              traced_wall_ms=wall_ms, device_busy_share=device_ms / wall_ms)
+
+
+def ar_fp32_request_vs_cpu(dev):
+    """Phase 22, float32: a batch-8 request on the card against the CPU on
+    the same uniforms."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        generate_sequence
+    from moleculediffusiontransformer_tpu_torch.nn.transformer_blocks import (
+        gumbel_noise, top_k_filter)
+    cpu = torch.device("cpu")
+    model32 = ar_model(cpu, torch.float32)
+    gen = torch.Generator().manual_seed(15)
+    batch = 8
+    props = torch.rand(batch, 12, generator=gen) * 2 - 1
+    start = torch.ones(batch, 1, dtype=torch.long)
+    uniforms = torch.rand(AR_TOKENS, batch, AR_PRESET["logits_dim"],
+                          generator=gen)
+    results = []
+    for device in (dev, cpu):
+        m = copy.deepcopy(model32).to(device).eval()
+        ids, logits = generate_sequence(
+            m, props.to(device), start.to(device),
+            uniforms=uniforms.to(device), tokens_to_generate=AR_TOKENS,
+            cond_scale=AR_COND_SCALE, filter_thres=AR_FILTER_THRES,
+            return_logits=True)
+        results.append((ids.cpu(), logits.cpu()))
+    (card_ids, card_logits), (cpu_ids, cpu_logits) = results
+    # a row is compared until its first differing token, which is allowed
+    # only at a near-tie of the perturbed logits
+    alive = torch.ones(batch, dtype=torch.bool)
+    worst, unexplained = 0.0, 0
+    for pos in range(AR_TOKENS):
+        if alive.any():
+            err = (card_logits[pos] - cpu_logits[pos]).abs().amax(dim=-1)
+            worst = max(worst, err[alive].max().item())
+        perturbed = (top_k_filter(cpu_logits[pos], AR_FILTER_THRES)
+                     + gumbel_noise(uniforms[pos]))
+        top2 = perturbed.topk(2, dim=-1).values
+        differ = card_ids[:, pos + 1] != cpu_ids[:, pos + 1]
+        unexplained += int((alive & differ
+                            & (top2[:, 0] - top2[:, 1] > AR_GAP)).sum())
+        alive &= ~differ
+    phase("ar_fp32_request_vs_cpu", batch=batch, tokens=AR_TOKENS,
+          logits_max_abs_err=worst, tol=AR_LOGIT_TOL, near_tie_gap=AR_GAP,
+          rows_equal_to_the_end=int(alive.sum()),
+          tokens_differing_without_a_near_tie=unexplained)
+    if not worst <= AR_LOGIT_TOL or unexplained:
+        raise AssertionError(f"AR fp32 request, card vs CPU: logits {worst}, "
+                             f"{unexplained} tokens differ without a near "
+                             f"tie")
+
+
+def ar_batch(batch, gen, dev):
+    """Property targets (b, 12) and token ids (b, 64)."""
+    import torch
+    props = torch.rand(batch, 12, generator=gen, device=dev) * 2 - 1
+    ids = torch.randint(0, AR_PRESET["logits_dim"], (batch, AR_TRAIN_TOKENS),
+                        generator=gen, device=dev)
+    return props, ids
+
+
+def ar_train(dev, steps=TIMED_STEPS):
+    """Phase 23, bfloat16: one warm-up and ``steps`` timed steps."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    model = ar_model(dev, torch.bfloat16).train()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    props, ids = ar_batch(AR_TRAIN_BATCH, gen, dev)
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_transformer_train_step(model, opt)
+    reset_counts()
+    losses = [step(state, props, ids, gen).item()]            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed = [step(state, props, ids, gen) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / steps
+    losses += [t.item() for t in timed]
+    phase("ar_train", batch=AR_TRAIN_BATCH, tokens=AR_TRAIN_TOKENS,
+          steps=1 + steps, seconds_per_step=seconds,
+          samples_per_s=AR_TRAIN_BATCH / seconds,
+          tokens_per_s=AR_TRAIN_BATCH * AR_TRAIN_TOKENS / seconds,
+          losses=losses, max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"non-finite AR training loss: {losses}")
+    stray = {k: v for k, v in counts().items() if v}
+    if stray:
+        raise AssertionError(f"AR training launched {stray}: no kernel lies "
+                             f"on its path")
+
+
+def ar_fp32_step_vs_cpu(dev):
+    """Phase 23, float32: one batch-8 step on the card against the CPU,
+    with the same conditioning-dropout mask."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    cpu = torch.device("cpu")
+    model32 = ar_model(cpu, torch.float32)
+    gen = torch.Generator().manual_seed(17)
+    props, ids = ar_batch(8, gen, cpu)
+    keep = torch.tensor([True, False, True, True, False, True, True, True])
+    results = []
+    for device in (dev, cpu):
+        m = copy.deepcopy(model32).to(device).train()
+        o = trainer.make_optimizer(trainer.OptimizerConfig())
+        loss = trainer.make_transformer_train_step(m, o)(
+            trainer.TrainState.create(m, o), props.to(device),
+            ids.to(device), keep=keep.to(device)).item()
+        results.append((loss, {n: p.grad.cpu()
+                               for n, p in m.named_parameters()}))
+    (card_loss, card_grads), (cpu_loss, cpu_grads) = results
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = max(_rel_err(card_grads[n], cpu_grads[n], STEP_GRAD_FLOOR)
+                   for n in cpu_grads)
+    phase("ar_fp32_step_vs_cpu", batch=8, loss=card_loss, plain_loss=cpu_loss,
+          loss_rel_err=loss_err, grad_rel_err=grad_err,
+          tol={"loss": STEP_LOSS_TOL, "grad": STEP_GRAD_TOL})
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL):
+        raise AssertionError(f"AR fp32 step, card vs CPU: loss {loss_err}, "
+                             f"grads {grad_err}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1320,8 +1745,10 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    # 2. build, every source at once (phases 5, 8 and 14 report the others)
-    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE, fa.SOURCE)
+    # 2. build, every source at once (phases 5, 8, 14 and 20 report the
+    # others)
+    at = attention_ops()
+    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE, fa.SOURCE, at.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(cuda_build.build, sources)))
     path, seconds = builds[tf.SOURCE]
@@ -1528,6 +1955,23 @@ def main() -> int:
     # 19. float32 parity of the long model, card against CPU
     long_fp32_vs_plain(dev)
 
+    # 20. build of the resident-KV attention kernels (started in phase 2)
+    path, seconds = builds[at.SOURCE]
+    phase("build_attention", library=os.path.relpath(path, ROOT),
+          seconds=seconds)
+
+    # 21. K9 and K10 against their plain version, then their main path
+    attention = check_attention(dev)
+    attention_launched = drive_attention_entry_points(dev)
+
+    # 22. the inverse AR transformer serving
+    ar_serve(dev)
+    ar_fp32_request_vs_cpu(dev)
+
+    # 23. the inverse AR transformer training
+    ar_train(dev)
+    ar_fp32_step_vs_cpu(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -1597,6 +2041,20 @@ def main() -> int:
                         "source": csrc + "flash_attention.cu",
                         "replaces": f"{jax_flash}:{line}",
                         "launches": launched, **flash[key]})
+    # the resident-KV attention kernels: bf16 at the AR transformer's decode
+    # shapes from phase 21 (K9 at m 65, K10 at m 13).  No model path launches
+    # them in either package: their launches are those of the call of the
+    # public entry points at these shapes that ends phase 21
+    jax_attention = "moleculediffusiontransformer_tpu/ops/attention.py"
+    for key, name, line, count in (
+            ("attention", "attention_fwd", 37, "ATTENTION_LAUNCHES"),
+            ("packed_attention", "packed_attention_fwd", 96,
+             "PACKED_ATTENTION_LAUNCHES")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + "attention.cu",
+                        "replaces": f"{jax_attention}:{line}",
+                        "launches": attention_launched[count],
+                        **attention[key]})
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its main "
                              f"path: {kernels}")

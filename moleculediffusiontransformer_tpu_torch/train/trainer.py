@@ -1,7 +1,8 @@
 """Training: Adam behind a global-norm clip, and the diffusion train step with
 gradient accumulation (port of `train/trainer.py`: ``make_optimizer``,
-``make_diffusion_train_step``; ``make_model1d_train_step`` is the same step
-for a model whose loss takes only the data).
+``make_diffusion_train_step``, ``make_transformer_train_step``;
+``make_model1d_train_step`` is the diffusion step for a model whose loss
+takes only the data).
 
 The optimizer is written out rather than taken from ``torch.optim`` so that
 it computes what the JAX package's ``optax.chain(clip_by_global_norm(c),
@@ -248,5 +249,27 @@ def make_model1d_train_step(model: nn.Module, optimizer: ClipAdam,
 
         return _accumulated_step(params, optimizer, state, A, b, x.device,
                                  loss_of)
+
+    return train_step
+
+
+def make_transformer_train_step(model: nn.Module,
+                                optimizer: ClipAdam) -> Callable:
+    """``step(state, props, ids, generator=None, *, keep=None) -> loss`` for
+    the AR transformer decoders: the next-token cross entropy of
+    ``model(props, ids, return_loss=True)`` with the model's conditioning
+    dropout, one clip and one Adam update, no accumulation.  The dropout's
+    keep mask (b,) is drawn from ``generator`` or handed in.  The float32
+    grads stay on the parameters' ``.grad``; returns the loss (a float32
+    tensor on the model's device)."""
+    params = list(model.parameters())
+
+    def train_step(state: TrainState, props: torch.Tensor, ids: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, *,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _accumulated_step(
+            params, optimizer, state, 1, props.shape[0], ids.device,
+            lambda rows: model(props, ids, return_loss=True,
+                               generator=generator, keep=keep))
 
     return train_step

@@ -2,7 +2,10 @@
 without its stash and with a uniform context, and the backward chain of
 ``csrc/transformer1d_bwd.cu``) and the resnet-run kernel
 (``csrc/resnet_fwd.cu``) against their plain PyTorch versions on an NVIDIA
-card, at the shapes of the 91M inverse and the 18M forward QM9 models.
+card, at the shapes of the 91M inverse and the 18M forward QM9 models; the
+streaming-attention kernels (``csrc/flash_attention.cu``) at the long
+model's shapes; and the resident-KV attention kernels (``csrc/attention.cu``)
+at the micro-shapes of those models and of the AR transformer's decode step.
 Marked ``cuda_hw``: every test skips without a CUDA card (decided inside
 the fixture).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
@@ -511,3 +514,72 @@ def test_long_model1d_launches_the_flash_kernels(cuda, monkeypatch):
         # before a GroupNorm) is held to 1e-6 absolute
         scale = max(p.grad.abs().max().item(), 1e-3)
         assert (g - p.grad).abs().max().item() <= 1e-3 * scale
+
+
+# ------------------------------------------------------------------ K9, K10
+
+# (bh, n, m, d): the shapes of the JAX package's own tests of these kernels;
+# the 91M preset's attention under CFG at 512 requests and the 18M preset's
+# (d 64); the AR transformer's decode step at batch 1024 under CFG, self
+# (m 65) and cross (m 13) attention; other head sizes, lengths that are no
+# multiple of the warp width, and one shape past the packed kernel's range
+ATTENTION_CASES = [(8, 16, 24, 64), (128, 16, 12, 64), (8192, 8, 8, 64),
+                   (8192, 8, 12, 64), (8192, 2, 2, 64), (8192, 2, 12, 64),
+                   (64, 4, 64, 64), (64, 1, 64, 64), (16384, 1, 65, 16),
+                   (16384, 1, 13, 16), (5, 7, 33, 8), (3, 64, 64, 128),
+                   (2, 17, 5, 32), (64, 256, 256, 64), (2, 100, 256, 128)]
+
+
+def _attention_module():
+    import importlib
+    return importlib.import_module(
+        "moleculediffusiontransformer_tpu_torch.ops.attention")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n,m,d", ATTENTION_CASES)
+def test_attention_kernels_match_plain_version(cuda, bh, n, m, d, dtype):
+    """K9 at every shape and K10 where n, m <= 64 (past that
+    ``packed_attention`` goes to K9), each bitwise equal across two calls."""
+    at = _attention_module()
+    q, k, v, _ = _flash_case(cuda, bh, n, m, d, dtype, seed=bh + n + m)
+    want = at.attention_reference(q, k, v, d ** -0.5)
+    before = (at.ATTENTION_LAUNCHES, at.PACKED_ATTENTION_LAUNCHES)
+    got = at.attention(q, k, v)
+    again = at.attention(q, k, v)
+    packed = at.packed_attention(q, k, v)
+    packed_again = at.packed_attention(q, k, v)
+    torch.cuda.synchronize()
+    small = max(n, m) <= at.PACK_MAX
+    assert (at.ATTENTION_LAUNCHES, at.PACKED_ATTENTION_LAUNCHES) == (
+        before[0] + (2 if small else 4), before[1] + (2 if small else 0))
+    for name, a, b in (("K9", got, again), ("K10", packed, packed_again)):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert torch.equal(a, b), name
+        _within(a, want, dtype, name)
+    scaled = at.attention(q, k, v, scale=0.3)
+    _within(scaled, at.attention_reference(q, k, v, 0.3), dtype, "scale")
+
+
+def test_attention_refusals(cuda):
+    at = _attention_module()
+    q, k, v, _ = _flash_case(cuda, 4, 8, 12, 64, torch.float32)
+    for fn in (at.attention, at.packed_attention):
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            fn(q.clone().requires_grad_(), k, v)
+        with torch.no_grad():
+            fn(q.clone().requires_grad_(), k, v)        # fine without grad
+        with pytest.raises(ValueError):
+            fn(q.transpose(0, 1), k, v)                  # a view
+        with pytest.raises(ValueError):
+            fn(q.half(), k.half(), v.half())
+        with pytest.raises(ValueError):
+            fn(q, k.cpu(), v.cpu())
+        with pytest.raises(ValueError):
+            fn(q[..., :24].contiguous(), k[..., :24].contiguous(),
+               v[..., :24].contiguous())                 # d 24
+    big_q = torch.zeros(1, 16, 128, device=cuda)
+    big_k = torch.zeros(1, 1024, 128, device=cuda)
+    for fn in (at.attention, at.packed_attention):
+        with pytest.raises(ValueError, match="flash_attention"):
+            fn(big_q, big_k, big_k.clone())

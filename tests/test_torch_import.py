@@ -37,17 +37,20 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.nn.blocks",
     "moleculediffusiontransformer_tpu_torch.nn.attention",
     "moleculediffusiontransformer_tpu_torch.nn.unet",
+    "moleculediffusiontransformer_tpu_torch.nn.transformer_blocks",
     "moleculediffusiontransformer_tpu_torch.nn.jax_import",
     "moleculediffusiontransformer_tpu_torch.ops.cuda_build",
     "moleculediffusiontransformer_tpu_torch.ops.transformer_fusion",
     "moleculediffusiontransformer_tpu_torch.ops.resnet_fusion",
     "moleculediffusiontransformer_tpu_torch.ops.flash_attention",
+    "moleculediffusiontransformer_tpu_torch.ops.attention",
     "moleculediffusiontransformer_tpu_torch.diffusion.schedules",
     "moleculediffusiontransformer_tpu_torch.diffusion.objectives",
     "moleculediffusiontransformer_tpu_torch.diffusion.samplers",
     "moleculediffusiontransformer_tpu_torch.diffusion.distributions",
     "moleculediffusiontransformer_tpu_torch.models.qm_diffusion",
     "moleculediffusiontransformer_tpu_torch.models.audio",
+    "moleculediffusiontransformer_tpu_torch.models.transformers",
     "moleculediffusiontransformer_tpu_torch.train.trainer",
 ]
 
@@ -99,10 +102,12 @@ def test_flagship_parameter_count():
 
 
 def test_entry_points_default_to_the_card():
-    """``from_config`` and the ``Model1d`` factories put the model on the
-    card unless the caller names a device: with no device argument they ask
-    for "cuda" (which raises on a host without one), never the CPU."""
-    from moleculediffusiontransformer_tpu_torch.models import audio
+    """``from_config``, the ``Model1d`` factories and the AR transformer put
+    the model on the card unless the caller names a device: with no device
+    argument they ask for "cuda" (which raises on a host without one), never
+    the CPU."""
+    from moleculediffusiontransformer_tpu_torch.models import (audio,
+                                                               transformers)
 
     tiny = dict(in_channels=2, channels=16, patch_size=2, multipliers=(1, 2),
                 factors=(2,), num_blocks=(1,), attentions=(0, 1),
@@ -110,7 +115,10 @@ def test_entry_points_default_to_the_card():
                 attention_multiplier=2, resnet_groups=4)
     builds = [lambda **kw: tqm.from_config(
                   tqm.QMDiffusionForward, forward_diffusion_qm9(), **kw),
-              lambda **kw: audio.AudioDiffusionModel(**tiny, **kw)]
+              lambda **kw: audio.AudioDiffusionModel(**tiny, **kw),
+              lambda **kw: transformers.MoleculeTransformerSequence(
+                  dim=16, depth=1, heads=2, dim_head=8, logits_dim=24,
+                  text_embed_dim=16, max_text_len=12, **kw)]
     for build in builds:
         if torch.cuda.is_available():
             assert next(build().parameters()).device.type == "cuda"
@@ -150,6 +158,27 @@ def test_chip_smoke_builds_the_forward_preset():
     assert _same_architecture(a, b)
 
 
+def test_chip_smoke_builds_the_ar_preset():
+    """The same for the inverse AR transformer's preset."""
+    from moleculediffusiontransformer_tpu.core.config import \
+        inverse_transformer_qm9
+    from moleculediffusiontransformer_tpu_torch.models import transformers
+    cfg = inverse_transformer_qm9()
+    a = _meta_model(build=transformers.MoleculeTransformerSequence,
+                    device="meta", **_smoke().AR_PRESET)
+    b = _meta_model(build=transformers.MoleculeTransformerSequence,
+                    device="meta", dim=cfg.dim, depth=cfg.depth,
+                    heads=cfg.heads, dim_head=cfg.dim_head,
+                    logits_dim=cfg.logits_dim,
+                    text_embed_dim=cfg.text_embed_dim,
+                    max_text_len=cfg.max_text_len, ff_mult=cfg.ff_mult,
+                    cond_drop_prob=cfg.cond_drop_prob)
+    assert _same_architecture(a, b)
+    assert (a.cond_drop_prob, a.max_text_len) == (b.cond_drop_prob,
+                                                  b.max_text_len)
+    assert sum(p.numel() for p in a.parameters()) == 2_407_712
+
+
 def _run(code: str, env=None) -> subprocess.CompletedProcess:
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -174,10 +203,14 @@ def test_port_imports_without_cuda_toolchain(tmp_path):
     code = ("import sys, moleculediffusiontransformer_tpu_torch.ops."
             "transformer_fusion as tf, moleculediffusiontransformer_tpu_torch."
             "models.qm_diffusion, moleculediffusiontransformer_tpu_torch."
-            "models.audio\n"
+            "models.audio, moleculediffusiontransformer_tpu_torch.models."
+            "transformers\n"
             "from moleculediffusiontransformer_tpu_torch.ops import "
             "cuda_build, resnet_fusion as rf, flash_attention as fa\n"
+            "from moleculediffusiontransformer_tpu_torch.ops.attention import "
+            "_LIB as attention_lib\n"
             "assert tf._LIB is None and rf._LIB is None and fa._LIB is None\n"
+            "assert attention_lib is None\n"
             "assert not cuda_build._LOADED\n"
             "assert 'triton' not in sys.modules\n"
             "print(cuda_build.library_path(tf.SOURCE).name)\n")
