@@ -57,11 +57,14 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
 13. for each model, both switches on against both off in turns
    on/off/off/on: a request of 512 and 2 training steps of 2 x 512;
 14. build of the streaming-attention kernels (``csrc/flash_attention.cu``,
-   K5-K7, built with phase 2's);
+   K5, and ``csrc/flash_attention_bwd.cu``, K6 and K7, built with phase
+   2's);
 15. K5, K6 and K7 against their plain versions at bh 16 and 64, n = m =
-   4096, d 64, and at n 2048, m 4096, in float32 and bfloat16, dq, dk and
-   dv bitwise equal across two calls, with CUDA-event timings of the
-   kernels, the plain versions and, in bfloat16,
+   4096, d 64, at n 2048, m 4096 and at n 4096, m 2048, in float32 and
+   bfloat16, and in bfloat16 also at d 128 and at the smallest shape the
+   wrapper takes (n = m = 128); dq, dk and dv bitwise equal across two
+   calls, with CUDA-event timings of the kernels (and the TFLOP/s of dq and
+   dk/dv), the plain versions and, in bfloat16,
    ``scaled_dot_product_attention`` with its backward (timed here as a
    yardstick, called nowhere in the package);
 16. the crossover: K5 alone and K5 + K6 + K7 under autograd against the
@@ -213,9 +216,12 @@ LONG = dict(in_channels=2, channels=64, patch_size=2, multipliers=(1, 2, 4),
 LONG_SAMPLES, FLASH_SAMPLES, PARITY_SAMPLES = 2 ** 15, 2 ** 17, 2 ** 16
 LONG_BATCHES = (2, 8)
 LONG_STEPS = 50
-# (bh, n, m) at d 64: the long model's attention at batch 2 and 8, and a
-# rectangular case
-FLASH_SHAPES = [(16, 4096, 4096), (64, 4096, 4096), (16, 2048, 4096)]
+# (bh, n, m, d): the long model's attention at batch 2 and 8 and the two
+# rectangular cases, in both types; then, in bfloat16 only, the widest head
+# and the smallest shape the wrapper takes
+FLASH_SHAPES = [(16, 4096, 4096, 64), (64, 4096, 4096, 64),
+                (16, 2048, 4096, 64), (16, 4096, 2048, 64)]
+FLASH_BF16_SHAPES = [(16, 4096, 4096, 128), (16, 128, 128, 64)]
 CROSSOVER_LENGTHS = (512, 1024, 2048, 4096, 8192)
 # the inverse AR transformer's notebook preset
 # (core/config.py::inverse_transformer_qm9; 2,407,712 parameters) and the
@@ -1050,14 +1056,15 @@ def check_flash(dev):
     import torch.nn.functional as F
     from moleculediffusiontransformer_tpu_torch.ops import \
         flash_attention as fa
-    d = 64
-    scale = d ** -0.5
     summary = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         tol = KERNEL_TOL[dname]
-        for bh, n, m in FLASH_SHAPES:
-            gen = torch.Generator().manual_seed(bh + n + m)
+        shapes = FLASH_SHAPES + (FLASH_BF16_SHAPES
+                                 if dtype == torch.bfloat16 else [])
+        for bh, n, m, d in shapes:
+            scale = d ** -0.5
+            gen = torch.Generator().manual_seed(bh + n + m + d)
             q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype)
                            for shape in ((bh, n, d), (bh, m, d), (bh, m, d),
                                          (bh, n, d)))
@@ -1084,7 +1091,7 @@ def check_flash(dev):
                 # forward, then the pair, then each library call
                 ms = {"fwd": cuda_ms(lambda: fa.flash_forward(
                     q, k, v, scale), reps=reps)}
-                lib = fa._library()
+                lib = fa._bwd_library()
                 di = (ref_o.float() * do.float()).sum(dim=-1)
                 dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
                 ins = [t.data_ptr() for t in (q, k, v, do, ref_lse, di)]
@@ -1116,20 +1123,22 @@ def check_flash(dev):
                     lambda a, b, c: F.scaled_dot_product_attention(
                         a, b, c, scale=scale), leaves, do[None], reps)
                 library["bwd"] = both - library["fwd"]
+            work = bh * n * m * d
+            tflops = {"dq": 6 * work / ms["dq"] / 1e9,
+                      "dkv": 8 * work / ms["dkv"] / 1e9}
             phase("flash_kernels", bh=bh, n=n, m=m, d=d, dtype=dname,
                   rel_err=rel, max_abs_err=err, tol=tol,
-                  deterministic=deterministic, ms=ms, plain_ms=plain,
-                  library_ms=library)
+                  deterministic=deterministic, ms=ms, tflops=tflops,
+                  plain_ms=plain, library_ms=library)
             bad = {key: e for key, e in rel.items() if not e <= tol}
             if bad:
-                raise AssertionError(f"flash bh {bh} n {n} m {m} {dname}: "
-                                     f"kernels differ from their plain "
-                                     f"versions: {bad}")
+                raise AssertionError(f"flash bh {bh} n {n} m {m} d {d} "
+                                     f"{dname}: kernels differ from their "
+                                     f"plain versions: {bad}")
             if not deterministic:
-                raise AssertionError(f"flash bh {bh} n {n} m {m} {dname}: "
-                                     f"two backward calls differ")
-            if dtype == torch.bfloat16 and (bh, n, m) == FLASH_SHAPES[0]:
-                work = bh * n * m * d
+                raise AssertionError(f"flash bh {bh} n {n} m {m} d {d} "
+                                     f"{dname}: two backward calls differ")
+            if dtype == torch.bfloat16 and (bh, n, m, d) == FLASH_SHAPES[0]:
                 rows = nbytes(ref_lse, di)
                 limits = {
                     "fwd": bound(4 * work, nbytes(q, k, v, o)),
@@ -1748,7 +1757,8 @@ def main() -> int:
     # 2. build, every source at once (phases 5, 8, 14 and 20 report the
     # others)
     at = attention_ops()
-    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE, fa.SOURCE, at.SOURCE)
+    sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE, fa.SOURCE, fa.BWD_SOURCE,
+               at.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(cuda_build.build, sources)))
     path, seconds = builds[tf.SOURCE]
@@ -1910,9 +1920,10 @@ def main() -> int:
         ab(what, lambda: timed_training(step, state, c, t, g))
 
     # 14. build of the streaming-attention kernels (started in phase 2)
-    path, seconds = builds[fa.SOURCE]
-    phase("build_flash", library=os.path.relpath(path, ROOT),
-          seconds=seconds)
+    for source in (fa.SOURCE, fa.BWD_SOURCE):
+        path, seconds = builds[source]
+        phase("build_flash", library=os.path.relpath(path, ROOT),
+              seconds=seconds)
 
     # 15. K5, K6, K7 against their plain versions; 16. the crossover
     flash = check_flash(dev)
@@ -2030,15 +2041,15 @@ def main() -> int:
     # K5's launches from the 2**17-sample requests of phase 17, K6's and
     # K7's from the batch-2 training steps of phase 18
     jax_flash = "moleculediffusiontransformer_tpu/ops/flash_attention.py"
-    for key, name, line, launched in (
-            ("fwd", "flash_attention_fwd", 89,
+    for key, name, source, line, launched in (
+            ("fwd", "flash_attention_fwd", fa.SOURCE, 89,
              long_served["FLASH_FWD_LAUNCHES"]),
-            ("dq", "flash_attention_bwd_dq", 185,
+            ("dq", "flash_attention_bwd_dq", fa.BWD_SOURCE, 185,
              long_trained["FLASH_DQ_LAUNCHES"]),
-            ("dkv", "flash_attention_bwd_dkv", 220,
+            ("dkv", "flash_attention_bwd_dkv", fa.BWD_SOURCE, 220,
              long_trained["FLASH_DKV_LAUNCHES"])):
         kernels.append({"name": name, "route": "cuda",
-                        "source": csrc + "flash_attention.cu",
+                        "source": csrc + source,
                         "replaces": f"{jax_flash}:{line}",
                         "launches": launched, **flash[key]})
     # the resident-KV attention kernels: bf16 at the AR transformer's decode

@@ -194,9 +194,14 @@ class Transformer1d(nn.Module):
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         has_cross = (self.context_features is not None
                      and self.context_features > 0)
+        # refused before the dispatch: the stack kernel would run without
+        # the cross-attention where the composition asserts
+        assert not (has_cross and context is None), \
+            "You must provide a context when using context_features"
         ctx = context if has_cross else None
         if self.disable_fusion or not tf.stack_kernel_takes(
-                x, ctx, channels=self.channels, dtype=self.dtype):
+                x, ctx, channels=self.channels, dtype=self.dtype,
+                head_dim=self.head_features):
             return self._compose(x, context)
         # the kernel reads dense (b, L, C) rows; a conv's channels-last
         # output is a transposed view

@@ -4,10 +4,11 @@ K6, K7).
 
 ``flash_attention(q, k, v)`` computes ``softmax(q k^T * scale) v`` for
 q (bh, n, d) and k, v (bh, m, d) without ever holding the (n, m) scores in
-device memory.  On CUDA tensors it launches ``csrc/flash_attention.cu`` (built
-on first use by ``ops.cuda_build``) or raises; on CPU tensors it runs the
-plain versions below, the same arithmetic in PyTorch.  There is no fallback
-from one to the other.
+device memory.  On CUDA tensors it launches ``csrc/flash_attention.cu`` (the
+forward) and ``csrc/flash_attention_bwd.cu`` (the backward), each built on
+first use by ``ops.cuda_build``, or raises; on CPU tensors it runs the plain
+versions below, the same arithmetic in PyTorch.  There is no fallback from
+one to the other.
 
 Which TPU kernel each replaces, what bounds it, what the design does:
 
@@ -15,21 +16,33 @@ Which TPU kernel each replaces, what bounds it, what the design does:
   (`flash_attention.py:89`): the online-softmax sweep.  The TPU grid's
   innermost KV dimension, which carried the accumulator, the running max and
   the normaliser in VMEM scratch, is a loop inside one block per
-  (bh, 64 query rows).
+  (bh, 64 query rows).  Its products run on the CUDA cores from float32
+  tiles in shared memory.
 * ``flash_backward`` -> ``fa_backward_dq`` replaces ``_dq_kernel`` (`:185`),
-  one block per (bh, 64 query rows) sweeping KV tiles, and
+  one block per (bh, tile of query rows) sweeping KV tiles, and
   ``fa_backward_dkv`` replaces ``_dkv_kernel`` (`:220`), one block per
-  (bh, 64 KV rows) sweeping query tiles.  Each output tile is written once by
-  the block that owns it: no atomics, so dq, dk, dv are bitwise equal across
-  calls.  ``di = rowsum(o * do)`` stays a torch expression in the wrapper, as
-  `_bwd_pallas:273` computes it outside its kernels.
+  (bh, tile of KV rows) sweeping query tiles.  Each output tile is written
+  once by the block that owns it: no atomics, so dq, dk, dv are bitwise equal
+  across calls.  ``di = rowsum(o * do)`` stays a torch expression in the
+  wrapper, as `_bwd_pallas:273` computes it outside its kernels.  For
+  bfloat16 inputs the five products of a tile run on the tensor cores on
+  bf16 operands with float32 accumulation (``wgmma`` at d 64, ``mma.sync``
+  at d 16, 32 and 128), the swept tiles arrive by ``cp.async`` into a ring
+  of swizzled shared memory, and p and ds stay in registers between the
+  products; float32 inputs keep CUDA-core kernels (TF32 would leave the 1e-4
+  band).  The C entry points choose by dtype and head size.
 * All three are bound by operations (4, 6 and 8 ``bh n m d`` flops against
-  O(bh (n + m) d) bytes); the products run on the CUDA cores from float32
-  tiles in shared memory.  ``lse`` and ``di`` are (bh, n) float32: the TPU's
+  O(bh (n + m) d) bytes).  ``lse`` and ``di`` are (bh, n) float32: the TPU's
   128-lane broadcast of them is its tiling, not part of the function.
 
-Rounding points are the Pallas kernels': q, k, v widened to float32, float32
-scores and probabilities into the p.v product, each output rounded once.
+Rounding points.  Forward: q, k, v widened to float32, float32 scores and
+probabilities into the p.v product, the output rounded once.  Backward,
+bfloat16: s = q k^T and dp = do v^T are bf16 products summed in float32; p
+and ds are computed in float32 and rounded to bf16 once, as operands of
+dv = p^T do and of dq = ds k, dk = ds^T q, which again sum in float32; each
+output is rounded once.  (The Pallas kernels do the same for bf16 inputs:
+their dots run at default precision, one bf16 pass of the matrix unit.)
+Backward, float32: float32 throughout.
 
 ``nn.attention.sdpa`` routes here when ``flash_takes`` says so, as the JAX
 ``packed_sdpa`` does: ``flash_enabled()`` (``MDT_FLASH``, default on),
@@ -46,7 +59,8 @@ import torch
 from . import cuda_build
 from .transformer_fusion import _DTYPES, _on_cpu, _raise_on, _stream
 
-SOURCE = "flash_attention.cu"
+SOURCE = "flash_attention.cu"           # K5
+BWD_SOURCE = "flash_attention_bwd.cu"   # K6, K7
 # The length from which the JAX package streams attention (its TPU's measured
 # crossover).  Kept so that both packages route alike.
 LONG_SEQ_THRESHOLD = 2048
@@ -60,6 +74,7 @@ FLASH_DQ_LAUNCHES = 0
 FLASH_DKV_LAUNCHES = 0
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 
 
 def flash_enabled() -> bool:
@@ -100,13 +115,18 @@ def flash_attention_backward_reference(
         lse: torch.Tensor, do: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels: (dq, dk, dv) in the inputs'
-    dtypes, from the saved output and logsumexp."""
+    dtypes, from the saved output and logsumexp.  It repeats the kernels'
+    arithmetic: for bfloat16 inputs p and ds are rounded to bfloat16 before
+    the second products (then summed in float32, as a tensor core sums
+    them); float32 inputs stay float32 throughout."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     di = (o.float() * dof).sum(dim=-1, keepdim=True)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.unsqueeze(-1))
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = (dp - di) * p * scale
+    if q.dtype == torch.bfloat16:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -121,20 +141,34 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 
 
+_TAIL = [_L, _I, _I, _I, _F, _I, _I, _P]   # bh n m d scale dtype device stream
+
+
 def _library() -> ctypes.CDLL:
+    """The forward's library (K5)."""
     global _LIB
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
-        tail = [_L, _I, _I, _I, _F, _I, _I, _P]   # bh n m d scale dtype dev s
-        lib.fa_forward.argtypes = [_P] * 5 + tail
-        lib.fa_backward_dq.argtypes = [_P] * 7 + tail
-        lib.fa_backward_dkv.argtypes = [_P] * 8 + tail
-        for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
-            fn.restype = _I
+        lib.fa_forward.argtypes = [_P] * 5 + _TAIL
+        lib.fa_forward.restype = _I
         lib.fa_error_string.argtypes = [_I]
         lib.fa_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_library() -> ctypes.CDLL:
+    """The backward's library (K6, K7)."""
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = cuda_build.load(BWD_SOURCE)
+        lib.fa_backward_dq.argtypes = [_P] * 7 + _TAIL
+        lib.fa_backward_dkv.argtypes = [_P] * 8 + _TAIL
+        lib.fa_backward_dq.restype = lib.fa_backward_dkv.restype = _I
+        lib.fa_bwd_error_string.argtypes = [_I]
+        lib.fa_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,7 +247,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q, k, v, o, lse, do):
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
     _check(q, k, v, o=o, do=do, lse=lse)
-    lib = _library()
+    lib = _bwd_library()
     # di = rowsum(o * do), float32: a torch expression, as the JAX package
     # computes it outside its kernels
     di = (o.float() * do.float()).sum(dim=-1)
@@ -222,10 +256,11 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lse.data_ptr(), di.data_ptr())
     tail = _tail(q, k, scale)
     err = lib.fa_backward_dq(*ins, dq.data_ptr(), *tail)
-    _raise_on(err, "flash attention dq kernel", lib, "fa_error_string")
+    _raise_on(err, "flash attention dq kernel", lib, "fa_bwd_error_string")
     FLASH_DQ_LAUNCHES += 1
     err = lib.fa_backward_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail)
-    _raise_on(err, "flash attention dk/dv kernel", lib, "fa_error_string")
+    _raise_on(err, "flash attention dk/dv kernel", lib,
+              "fa_bwd_error_string")
     FLASH_DKV_LAUNCHES += 1
     return dq, dk, dv
 

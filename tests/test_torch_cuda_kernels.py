@@ -3,9 +3,10 @@ without its stash and with a uniform context, and the backward chain of
 ``csrc/transformer1d_bwd.cu``) and the resnet-run kernel
 (``csrc/resnet_fwd.cu``) against their plain PyTorch versions on an NVIDIA
 card, at the shapes of the 91M inverse and the 18M forward QM9 models; the
-streaming-attention kernels (``csrc/flash_attention.cu``) at the long
-model's shapes; and the resident-KV attention kernels (``csrc/attention.cu``)
-at the micro-shapes of those models and of the AR transformer's decode step.
+streaming-attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) at the long model's shapes; and the
+resident-KV attention kernels (``csrc/attention.cu``) at the micro-shapes of
+those models and of the AR transformer's decode step.
 Marked ``cuda_hw``: every test skips without a CUDA card (decided inside
 the fixture).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
@@ -81,6 +82,36 @@ def test_module_dispatches_to_kernel(cuda):
         composed = mod(x, ctx)
         assert tf.LAUNCHES == before + 1
     assert (out - composed).abs().max().item() <= TOL[torch.float32]
+
+
+def test_head_256_takes_the_composition_on_the_card(cuda):
+    """A head size past ``MAX_HEAD_DIM`` is the composition's: the module
+    runs on the card and launches no stack kernel (the wrapper itself
+    refuses that geometry)."""
+    gen = torch.Generator().manual_seed(3)
+    mod = Transformer1d(1, 64, 2, 256, 2, context_features=32)
+    init_parameters(mod, gen)
+    mod = mod.to(cuda)
+    x = torch.randn(4, 8, 64, generator=gen).to(cuda)
+    ctx = torch.randn(4, 12, 32, generator=gen).to(cuda)
+    names = ("LAUNCHES", "STASH_LAUNCHES", "UNIFORM_LAUNCHES")
+    before = [getattr(tf, name) for name in names]
+    x.requires_grad_()
+    out = mod(x, ctx)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert [getattr(tf, name) for name in names] == before
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert torch.isfinite(x.grad).all()
+    mod.disable_fusion = True
+    with torch.no_grad():
+        # the same composition either way: only cuBLAS's choice of algorithm
+        # could differ between the two calls
+        assert (mod(x, ctx) - out).abs().max().item() <= 1e-6
+    with pytest.raises(ValueError, match="head_dim"):
+        tf.transformer1d_forward(mod.kernel_params(), x.detach(), ctx,
+                                 num_layers=1, heads=2, head_dim=256,
+                                 multiplier=2)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -419,8 +450,16 @@ def test_flash_forward_matches_plain_version(cuda, bh, n, m, d, dtype):
     _within(lse, ref_lse, torch.float32, "lse")
 
 
+# the backward's further cases: the widest head at the long model's length,
+# more query than KV rows, and the smallest shape the wrapper takes at every
+# head size
+FLASH_BWD_CASES = FLASH_CASES + [
+    (8, 4096, 4096, 128), (16, 4096, 2048, 64), (2, 128, 128, 16),
+    (2, 128, 128, 32), (2, 128, 128, 64), (2, 128, 128, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,n,m,d", FLASH_CASES)
+@pytest.mark.parametrize("bh,n,m,d", FLASH_BWD_CASES)
 def test_flash_backward_matches_plain_version(cuda, bh, n, m, d, dtype):
     from moleculediffusiontransformer_tpu_torch.ops import \
         flash_attention as fa

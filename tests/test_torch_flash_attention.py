@@ -12,7 +12,9 @@ Tolerances: float32 forward atol/rtol 2e-6 (the band of
 ``tests/test_flash_attention.py``: online rescaling equals the one-shot
 softmax up to the order of float32 sums); gradients atol 5e-5 / rtol 1e-4
 (JAX's own band for the streaming backward); bfloat16 within 2e-2 on
-unit-scale inputs (one rounding of the output).
+unit-scale inputs (one rounding of the output) and, for the backward, within
+2e-2 of each gradient's largest magnitude (p and ds rounded to bfloat16 as
+operands of the second products, then one rounding of each output).
 """
 import importlib
 
@@ -129,7 +131,39 @@ def test_plain_backward_matches_pallas_interpret(bh, n, m, d, block_q,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("bh,n,m,d,block_q,block_kv", CASES[:4])
+def test_plain_backward_bf16_matches_pallas_interpret(bh, n, m, d, block_q,
+                                                      block_kv):
+    """bfloat16 inputs through both backward paths.  The Pallas kernels run
+    their dots on bf16 operands at default precision; the plain version
+    rounds p and ds to bf16 where the CUDA kernels feed them to the tensor
+    cores.  The two differ by the order of float32 sums before each
+    rounding: within 2e-2 of each gradient's largest magnitude."""
+    q, k, v, do = _qkv(11, bh, n, m, d, extra=1)
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    jo, jlse = jfa._fwd_pallas(jq, jk, jv, scale, block_q, block_kv,
+                               with_lse=True, interpret=True)
+    want = jfa._bwd_pallas(jq, jk, jv, jo, jlse, jdo, scale, block_q,
+                           block_kv, interpret=True)
+    lo = _t(q, k, v, do, dtype=torch.bfloat16)
+    o, lse = tfa.flash_attention_reference(*lo[:3], scale)
+    got = tfa.flash_attention_backward_reference(*lo[:3], o, lse, lo[3],
+                                                 scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w, np.float32)
+        assert np.abs(g.float().numpy() - w).max() <= 2e-2 * np.abs(w).max(), \
+            name
+
+
 def test_plain_backward_bf16_rounds_once():
+    """The plain backward's rounding points in bfloat16 are the tensor-core
+    kernels': float32 scores from bf16 operands, p and ds rounded to bf16
+    once as operands of the second products, float32 sums, each output
+    rounded once.  Written out here step by step, the result is equal bit
+    for bit; it stays within 2e-2 of the float32 backward of the same
+    values, and the rounding of p and ds is visible against it."""
     q, k, v, do = _qkv(5, 2, 256, 256, 16, extra=1)
     scale = 16 ** -0.5
     lo = _t(q, k, v, do, dtype=torch.bfloat16)
@@ -142,6 +176,19 @@ def test_plain_backward_bf16_rounds_once():
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert (g.float() - w).abs().max() <= 2e-2 * w.abs().max()
+
+    qf, kf, vf, dof = hi
+    di = (o.float() * dof).sum(dim=-1, keepdim=True)
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse.unsqueeze(-1))
+    ds = (dof @ vf.transpose(-1, -2) - di) * p * scale
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    assert not torch.equal(p16, p) and not torch.equal(ds16, ds)
+    by_hand = (ds16 @ kf, ds16.transpose(-1, -2) @ qf,
+               p16.transpose(-1, -2) @ dof)
+    for g, w in zip(got, by_hand):
+        assert torch.equal(g, w.bfloat16())
+    # the rounding of the operands shows before the outputs are rounded
+    assert not torch.equal(by_hand[0], want[0])
 
 
 @pytest.mark.parametrize("n,m", [(256, 256), (128, 384)])

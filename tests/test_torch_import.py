@@ -210,6 +210,7 @@ def test_port_imports_without_cuda_toolchain(tmp_path):
             "from moleculediffusiontransformer_tpu_torch.ops.attention import "
             "_LIB as attention_lib\n"
             "assert tf._LIB is None and rf._LIB is None and fa._LIB is None\n"
+            "assert fa._BWD_LIB is None\n"
             "assert attention_lib is None\n"
             "assert not cuda_build._LOADED\n"
             "assert 'triton' not in sys.modules\n"

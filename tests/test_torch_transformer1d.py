@@ -129,7 +129,10 @@ def test_stack_module_dispatch(length, cross):
 def test_stack_kernel_gate():
     x = torch.zeros(2, 8, 64)
     ctx = torch.zeros(2, 12, 32)
-    take = tf.stack_kernel_takes
+
+    def take(x, context, **kw):
+        return tf.stack_kernel_takes(x, context, head_dim=HEAD_DIM, **kw)
+
     assert take(x, ctx, channels=64, dtype=torch.float32)
     assert take(x, None, channels=64, dtype=torch.float32)
     assert not take(x, None, channels=64, dtype=torch.bfloat16)
@@ -141,6 +144,44 @@ def test_stack_kernel_gate():
                     dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         ta.Transformer1d(1, 64, HEADS, HEAD_DIM, 2, use_rel_pos=True)
+
+
+def test_stack_kernel_gate_head_size():
+    """A head size past ``MAX_HEAD_DIM`` is not the kernel's: the gate says
+    so, and the module takes its composition instead of reaching a wrapper
+    that would refuse the geometry on the card."""
+    x = torch.zeros(2, 8, 64)
+    for head_dim, takes in ((tf.MAX_HEAD_DIM, True), (256, False)):
+        assert tf.stack_kernel_takes(x, None, channels=64,
+                                     dtype=torch.float32,
+                                     head_dim=head_dim) is takes
+
+
+def test_stack_head_256_takes_the_composition(monkeypatch):
+    gen = torch.Generator().manual_seed(21)
+    port = ta.Transformer1d(1, 32, 2, 256, 2)
+    x = torch.randn(2, 8, 32, generator=gen)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("head 256 reached the stack kernel's wrapper")
+
+    monkeypatch.setattr(tf, "transformer1d", refuse)
+    with torch.no_grad():
+        got = port(x)
+        port.disable_fusion = True
+        want = port(x)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("disable_fusion", [False, True])
+def test_cross_stack_without_context_raises(disable_fusion):
+    """A stack built with ``context_features`` refuses a call without a
+    context on both routes, as the JAX module and its ``fusable`` gate do;
+    the kernel route used to run with the cross-attention skipped."""
+    port = ta.Transformer1d(1, 32, 2, 16, 2, context_features=8,
+                            disable_fusion=disable_fusion)
+    with pytest.raises(AssertionError, match="You must provide a context"):
+        port(torch.zeros(2, 8, 32), context=None)
 
 
 def test_stack_wrapper_refuses_other_devices():
