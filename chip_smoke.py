@@ -61,29 +61,34 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    2's);
 15. K5, K6 and K7 against their plain versions at bh 16 and 64, n = m =
    4096, d 64, at n 2048, m 4096 and at n 4096, m 2048, in float32 and
-   bfloat16, and in bfloat16 also at d 128 and at the smallest shape the
-   wrapper takes (n = m = 128); dq, dk and dv bitwise equal across two
-   calls, with CUDA-event timings of the kernels (and the TFLOP/s of dq and
-   dk/dv), the plain versions and, in bfloat16,
-   ``scaled_dot_product_attention`` with its backward (timed here as a
-   yardstick, called nowhere in the package);
+   bfloat16, and in bfloat16 also at d 16, 32 and 128 and at the smallest
+   shape the wrapper takes (n = m = 128); o, lse, dq, dk and dv bitwise
+   equal across two calls, with the card's time of each kernel (calls
+   enqueued back to back), its TFLOP/s, its bound and the time of its
+   exponentials at the special-function units' rate, the plain versions'
+   times and, in bfloat16, ``scaled_dot_product_attention`` with its
+   backward (timed here as a yardstick, called nowhere in the package);
+   then the three kernels on the long model's split heads at 2**17 samples,
+   batch 8 (views of its projections), against their plain versions and,
+   bit for bit, against contiguous copies;
 16. the crossover: K5 alone and K5 + K6 + K7 under autograd against the
-   one-shot ``sdpa`` and its autograd, n = m in 512 ... 8192, bh 16, d 64,
-   bfloat16;
+   one-shot ``sdpa`` and its autograd on split-head views, n = m in 512 ...
+   8192, bh 16, d 64, bfloat16, each with CUDA events around one call and
+   with calls enqueued back to back;
 17. the long-sequence model serving: the ``Model1d`` of the JAX package's
    ``tools/bench_audio_long.py`` (9.1M parameters, full width and depth,
    seeded random weights, bfloat16), ``sample_model1d`` at its defaults
    (linear schedule, v-sampler, clamp, 50 steps = 49 evals) on waveforms of
-   2**15 samples (attention at 1,024 tokens: the one-shot path, as in JAX)
-   and 2**17 samples (attention at 4,096 tokens: K5), batch 2 and 8; each
-   output finite, in [-1, 1], and K5 launched exactly 49 x the attention
-   layers that route, counted from the model;
+   2**15 samples (attention at 1,024 tokens: K5 when ``LONG_SEQ_THRESHOLD``
+   is 1,024 or less) and 2**17 samples (attention at 4,096 tokens: K5),
+   batch 2 and 8; each output finite, in [-1, 1], and K5 launched exactly
+   49 x the attention layers that route, counted from the model;
 18. the long-sequence model training: one warm-up and 5 timed bfloat16
-   steps (Adam 2e-4, clip 0.5) at 2**17 samples, batch 2 and 8, and at
-   2**15 samples, batch 2; K5, K6 and K7 each launched exactly (the layers
-   that route) x 6 times; then ``MDT_FLASH`` on/off/off/on for a request and
-   for 2 training steps at 2**17 samples, batch 8, with each turn's peak
-   memory;
+   steps (Adam 2e-4, clip 0.5) at 2**17 samples, batch 2 and 8, and 2 at
+   2**15 samples, batch 2 and 8; K5, K6 and K7 each launched exactly (the
+   layers that route) x the steps; then ``MDT_FLASH`` on/off/off/on for a
+   request and for 2 training steps at 2**17 and 2**15 samples, batch 8,
+   with each turn's peak memory;
 19. float32 parity of the long model: a batch-1 training step and a 4-step
    sample at 2**16 samples (attention at 2,048 tokens) through K5-K7 on
    the card against the same through the plain versions on the CPU;
@@ -217,11 +222,17 @@ LONG_SAMPLES, FLASH_SAMPLES, PARITY_SAMPLES = 2 ** 15, 2 ** 17, 2 ** 16
 LONG_BATCHES = (2, 8)
 LONG_STEPS = 50
 # (bh, n, m, d): the long model's attention at batch 2 and 8 and the two
-# rectangular cases, in both types; then, in bfloat16 only, the widest head
-# and the smallest shape the wrapper takes
+# rectangular cases, in both types; then, in bfloat16 only, the other head
+# sizes and the smallest shape the wrapper takes
 FLASH_SHAPES = [(16, 4096, 4096, 64), (64, 4096, 4096, 64),
                 (16, 2048, 4096, 64), (16, 4096, 2048, 64)]
-FLASH_BF16_SHAPES = [(16, 4096, 4096, 128), (16, 128, 128, 64)]
+FLASH_BF16_SHAPES = [(16, 4096, 4096, 16), (16, 4096, 4096, 32),
+                     (16, 4096, 4096, 128), (16, 128, 128, 64)]
+# (b, h, n, d) of the split-head case: the long model's attention at 2**17
+# samples, batch 8, as views of its (b, n, h d) projections
+FLASH_SPLIT_HEADS = (8, 8, 4096, 64)
+# the SMs' special-function units: exponentials an SM a clock (MUFU.EX2)
+EXP_PER_CLOCK = 16
 CROSSOVER_LENGTHS = (512, 1024, 2048, 4096, 8192)
 # the inverse AR transformer's notebook preset
 # (core/config.py::inverse_transformer_qm9; 2,407,712 parameters) and the
@@ -252,6 +263,19 @@ AR_LOGIT_TOL, AR_GAP = 1e-4, 1e-3
 # the card's published dense peaks (NVIDIA's H100 SXM data sheet): bf16
 # tensor-core operations a second, device-memory bytes a second
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
+
+def exp_bound_ms(count: float) -> float:
+    """The least milliseconds ``count`` exponentials take on the SMs'
+    special-function units at the card's largest SM clock (a bound the
+    operations bound leaves out)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return count / (sms * EXP_PER_CLOCK * mhz * 1e6) * 1e3
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1041,17 +1065,15 @@ def flash_switch(on: bool):
             os.environ["MDT_FLASH"] = old
 
 
-def _grad_ms(fn, leaves, do, reps):
-    """Milliseconds of a forward under autograd plus its backward."""
-    import torch
-    return cuda_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, do),
-                   reps=reps)
-
-
 def check_flash(dev):
     """Phase 15: K5, K6 and K7 against their plain versions.  Returns, per
     kernel, the numbers of the kernels line: bf16 at bh 16, n = m = 4096,
-    d 64, the long model's attention at batch 2."""
+    d 64, the long model's attention at batch 2.  The kernels and the
+    library calls are timed two ways: ``ms``, CUDA events around one call
+    (``cuda_ms``, host time to make the call included, as every earlier
+    record of them), and ``card_ms``, 20 calls enqueued back to back behind
+    a busy card (``device_ms``): the card's time alone, which is what a call
+    costs inside a model that keeps the card busy."""
     import torch
     import torch.nn.functional as F
     from moleculediffusiontransformer_tpu_torch.ops import \
@@ -1071,6 +1093,8 @@ def check_flash(dev):
             reps = 5 if bh > 16 else 10
             with torch.no_grad():
                 o, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+                o_again, lse_again = fa.flash_forward(q, k, v, scale,
+                                                      with_lse=True)
                 torch.cuda.synchronize()
                 ref_o, ref_lse = fa.flash_attention_reference(q, k, v, scale)
                 got = fa.flash_backward(q, k, v, ref_o, ref_lse, do, scale)
@@ -1084,52 +1108,67 @@ def check_flash(dev):
                        for key, ps in pairs.items()}
                 err = {key: max(_abs_err(a, b) for a, b in ps)
                        for key, ps in pairs.items()}
-                deterministic = all(torch.equal(a, b)
-                                    for a, b in zip(got, again))
-                del got, again, want
+                deterministic = (torch.equal(o, o_again)
+                                 and torch.equal(lse, lse_again)
+                                 and all(torch.equal(a, b)
+                                         for a, b in zip(got, again)))
+                del got, again, want, o_again, lse_again
                 # K6 and K7 are launched together by the wrapper: time the
-                # forward, then the pair, then each library call
-                ms = {"fwd": cuda_ms(lambda: fa.flash_forward(
-                    q, k, v, scale), reps=reps)}
+                # forward, then each backward kernel alone
+                fwd = {"fwd": lambda: fa.flash_forward(q, k, v, scale)}
                 lib = fa._bwd_library()
                 di = (ref_o.float() * do.float()).sum(dim=-1)
                 dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
                 ins = [t.data_ptr() for t in (q, k, v, do, ref_lse, di)]
-                tail = fa._tail(q, k, scale)
+                tail = fa._args((q, k, v, do, dq, dk, dv), q, k, scale)
 
                 def launch(fn, *outs):
                     code = fn(*ins, *[t.data_ptr() for t in outs], *tail)
                     if code:
                         raise AssertionError(f"launch failed: {code}")
 
-                ms["dq"] = cuda_ms(lambda: launch(lib.fa_backward_dq, dq),
-                                   reps=reps)
-                ms["dkv"] = cuda_ms(
-                    lambda: launch(lib.fa_backward_dkv, dk, dv), reps=reps)
+                calls = {**fwd,
+                         "dq": lambda: launch(lib.fa_backward_dq, dq),
+                         "dkv": lambda: launch(lib.fa_backward_dkv, dk, dv)}
+                ms = {key: cuda_ms(fn, reps=reps)
+                      for key, fn in calls.items()}
+                card = {key: device_ms(fn) for key, fn in calls.items()}
                 plain = {"fwd": cuda_ms(lambda: fa.flash_attention_reference(
                     q, k, v, scale), reps=reps)}
                 plain["dq"] = plain["dkv"] = cuda_ms(
                     lambda: fa.flash_attention_backward_reference(
                         q, k, v, ref_o, ref_lse, do, scale), reps=reps)
             library = {"fwd": None, "bwd": None}
+            library_card = dict(library)
             if dtype == torch.bfloat16:
                 q4, k4, v4 = (t[None] for t in (q, k, v))
-                with torch.no_grad():
-                    library["fwd"] = cuda_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q4, k4, v4, scale=scale), reps=reps)
                 leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
-                both = _grad_ms(
-                    lambda a, b, c: F.scaled_dot_product_attention(
-                        a, b, c, scale=scale), leaves, do[None], reps)
-                library["bwd"] = both - library["fwd"]
+
+                def lib_fwd():
+                    with torch.no_grad():
+                        F.scaled_dot_product_attention(q4, k4, v4,
+                                                       scale=scale)
+
+                def lib_both():
+                    torch.autograd.grad(F.scaled_dot_product_attention(
+                        *leaves, scale=scale), leaves, do[None])
+
+                for into, timer in ((library, lambda fn: cuda_ms(
+                        fn, reps=reps)), (library_card, device_ms)):
+                    into["fwd"] = timer(lib_fwd)
+                    into["bwd"] = timer(lib_both) - into["fwd"]
             work = bh * n * m * d
-            tflops = {"dq": 6 * work / ms["dq"] / 1e9,
-                      "dkv": 8 * work / ms["dkv"] / 1e9}
+            flops = {"fwd": 4 * work, "dq": 6 * work, "dkv": 8 * work}
+            tflops = {key: f / ms[key] / 1e9 for key, f in flops.items()}
+            card_tflops = {key: f / card[key] / 1e9
+                           for key, f in flops.items()}
+            exp_ms = exp_bound_ms(bh * n * m)
             phase("flash_kernels", bh=bh, n=n, m=m, d=d, dtype=dname,
                   rel_err=rel, max_abs_err=err, tol=tol,
                   deterministic=deterministic, ms=ms, tflops=tflops,
-                  plain_ms=plain, library_ms=library)
+                  card_ms=card, card_tflops=card_tflops, plain_ms=plain,
+                  library_ms=library, library_card_ms=library_card,
+                  exp_bound_ms=exp_ms)
             bad = {key: e for key, e in rel.items() if not e <= tol}
             if bad:
                 raise AssertionError(f"flash bh {bh} n {n} m {m} d {d} "
@@ -1137,7 +1176,7 @@ def check_flash(dev):
                                      f"plain versions: {bad}")
             if not deterministic:
                 raise AssertionError(f"flash bh {bh} n {n} m {m} d {d} "
-                                     f"{dname}: two backward calls differ")
+                                     f"{dname}: two calls differ")
             if dtype == torch.bfloat16 and (bh, n, m, d) == FLASH_SHAPES[0]:
                 rows = nbytes(ref_lse, di)
                 limits = {
@@ -1146,16 +1185,85 @@ def check_flash(dev):
                     "dkv": bound(8 * work,
                                  nbytes(q, k, v, do, dk, dv) + rows)}
                 for key in ("fwd", "dq", "dkv"):
+                    lib_key = "fwd" if key == "fwd" else "bwd"
                     summary[key] = close_bound(dict(
                         max_abs_err=err[key], ms=ms[key],
                         plain_ms=plain[key], bound_ms=max(
                             limits[key].values()), **limits[key],
-                        library_ms=library["fwd" if key == "fwd" else "bwd"]))
+                        library_ms=library[lib_key]))
+                    summary[key].update(
+                        tflops=tflops[key], card_ms=card[key],
+                        card_tflops=card_tflops[key],
+                        library_card_ms=library_card[lib_key],
+                        exp_bound_ms=exp_ms)
+    check_split_heads(dev)
     return summary
 
 
+def check_split_heads(dev):
+    """Phase 15, last case: the three kernels on the long model's split
+    heads -- q and do transposed views of (b, n, h d) projections, k and v
+    ``.chunk`` views of one (b, n, 2 h d) projection, as ``AttentionBase``
+    hands them over -- against their plain versions on the same views and,
+    bit for bit, against the same values made contiguous; with the card's
+    times (``device_ms``) of K5 on the views, on contiguous copies, and of
+    the copies the wrapper made before the kernels took strides."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    b, h, n, d = FLASH_SPLIT_HEADS
+    scale, tol = d ** -0.5, KERNEL_TOL["bfloat16"]
+    gen = torch.Generator().manual_seed(b + h + n + d)
+
+    def split(t):
+        return t.reshape(b, n, h, d).transpose(1, 2)
+
+    proj_q, proj_do = (torch.randn(b, n, h * d, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    proj_kv = torch.randn(b, n, 2 * h * d, generator=gen).to(
+        dev, torch.bfloat16)
+    q, do = split(proj_q), split(proj_do)
+    k, v = (split(t) for t in proj_kv.chunk(2, dim=-1))
+    flat = [t.contiguous() for t in (q, k, v)]
+    with torch.no_grad():
+        o, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+        got = fa.flash_backward(q, k, v, o, lse, do, scale)
+        o_flat, lse_flat = fa.flash_forward(*flat, scale, with_lse=True)
+        got_flat = fa.flash_backward(*flat, o_flat, lse_flat,
+                                     do.contiguous(), scale)
+        torch.cuda.synchronize()
+        same = (torch.equal(o, o_flat) and torch.equal(lse, lse_flat) and all(
+            torch.equal(a, w) for a, w in zip(got, got_flat)))
+        merge_free = o.transpose(1, 2).is_contiguous() and all(
+            g.transpose(1, 2).is_contiguous() for g in got)
+        del o_flat, lse_flat, got_flat
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v, scale)
+        rel = {"o": _rel_err(o, ref_o), "lse": _rel_err(lse, ref_lse)}
+        want = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                     scale)
+        rel.update({name: _rel_err(g, w) for name, g, w in
+                    zip(("dq", "dk", "dv"), got, want)})
+        del want, ref_o
+        ms = {"strided": device_ms(lambda: fa.flash_forward(q, k, v, scale)),
+              "contiguous": device_ms(lambda: fa.flash_forward(*flat,
+                                                               scale)),
+              "copies": device_ms(lambda: [t.contiguous()
+                                           for t in (q, k, v)])}
+    phase("flash_split_heads", b=b, h=h, n=n, d=d, dtype="bfloat16",
+          rel_err=rel, tol=tol, equal_to_contiguous=same,
+          outputs_merge_free=merge_free, fwd_card_ms=ms)
+    if not (same and merge_free and all(e <= tol for e in rel.values())):
+        raise AssertionError(f"flash kernels on split heads: {rel}, equal "
+                             f"to contiguous {same}, outputs merge free "
+                             f"{merge_free}")
+
+
 def check_crossover(dev):
-    """Phase 16: streaming against one-shot attention over the length."""
+    """Phase 16: streaming against one-shot attention over the length, on
+    split-head views as the model hands them over: each route's time a call
+    with CUDA events around one call (host and device) and with calls
+    enqueued back to back (the card's time, as inside a model that keeps
+    the card busy)."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import sdpa
     from moleculediffusiontransformer_tpu_torch.ops import \
@@ -1165,27 +1273,24 @@ def check_crossover(dev):
     rows = []
     for n in CROSSOVER_LENGTHS:
         gen = torch.Generator().manual_seed(n)
-        q, k, v, do = (torch.randn(b, h, n, d, generator=gen).to(
-            dev, torch.bfloat16) for _ in range(4))
-        flat = [t.reshape(b * h, n, d) for t in (q, k, v)]
+        q, k, v, do = (torch.randn(b, n, h, d, generator=gen).to(
+            dev, torch.bfloat16).transpose(1, 2) for _ in range(4))
         reps = 5 if n > 4096 else 10
-        with torch.no_grad(), flash_switch(False):
-            one_shot = cuda_ms(lambda: sdpa(q, k, v, scale, torch.bfloat16),
-                               reps=reps)
-        with torch.no_grad():
-            flash = cuda_ms(lambda: fa.flash_forward(*flat, scale), reps=reps)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        with flash_switch(False):
-            one_shot_grad = _grad_ms(
-                lambda a, b_, c: sdpa(a, b_, c, scale, torch.bfloat16),
-                leaves, do, reps)
-        leaves = [t.clone().requires_grad_() for t in flat]
-        flash_grad = _grad_ms(
-            lambda a, b_, c: fa.flash_attention(a, b_, c, scale=scale),
-            leaves, do.reshape(b * h, n, d), reps)
-        rows.append(dict(n=n, flash_fwd_ms=flash, one_shot_fwd_ms=one_shot,
-                         flash_fwd_bwd_ms=flash_grad,
-                         one_shot_fwd_bwd_ms=one_shot_grad))
+        row = {"n": n}
+        routes = (("one_shot", lambda *t: sdpa(*t, scale, torch.bfloat16)),
+                  ("flash", lambda *t: fa.flash_attention(*t, scale=scale)))
+        for name, timer in (("", lambda fn: cuda_ms(fn, reps=reps)),
+                            ("device_", device_ms)):
+            for route, fn in routes:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                # the switch off: sdpa takes the one-shot product
+                with flash_switch(False):
+                    with torch.no_grad():
+                        row[f"{route}_fwd_{name}ms"] = timer(
+                            lambda: fn(q, k, v))
+                    row[f"{route}_fwd_bwd_{name}ms"] = timer(
+                        lambda: torch.autograd.grad(fn(*leaves), leaves, do))
+        rows.append(row)
     phase("flash_crossover", bh=b * h, d=d, dtype="bfloat16", rows=rows,
           threshold=fa.LONG_SEQ_THRESHOLD)
     return rows
@@ -1936,31 +2041,38 @@ def main() -> int:
     lgen = torch.Generator(device=dev).manual_seed(8)
     short_served = long_serve(lmodel, LONG_SAMPLES, lgen)
     long_served = long_serve(lmodel, FLASH_SAMPLES, lgen)
-    if short_served["FLASH_FWD_LAUNCHES"]:
-        raise AssertionError("attention at 1,024 tokens streamed")
+    # attention runs at samples / 32 tokens: at 2**15 samples it streams
+    # exactly when the threshold is 1,024 or less
+    if bool(short_served["FLASH_FWD_LAUNCHES"]) != (
+            fa.LONG_SEQ_THRESHOLD <= LONG_SAMPLES // 32):
+        raise AssertionError(f"attention at {LONG_SAMPLES // 32} tokens, "
+                             f"threshold {fa.LONG_SEQ_THRESHOLD}: "
+                             f"{short_served}")
 
     # 18. the long-sequence model training
     long_train(dev, LONG_SAMPLES, LONG_BATCHES[0], steps=AB_TRAIN_STEPS)
+    long_train(dev, LONG_SAMPLES, LONG_BATCHES[1], steps=AB_TRAIN_STEPS)
     long_trained = long_train(dev, FLASH_SAMPLES, LONG_BATCHES[0])
     long_train(dev, FLASH_SAMPLES, LONG_BATCHES[1])
     big = LONG_BATCHES[1]
-
-    def flash_request():
-        _, seconds, peak = long_request(lmodel, FLASH_SAMPLES, big, lgen)
-        return big / seconds, peak
-
-    ab_flash(f"long sampling, 2**17 samples, batch {big}, samples/s, "
-             f"peak bytes", flash_request)
     ltrain = long_model(dev, torch.bfloat16).train()
-    lx = torch.rand(big, FLASH_SAMPLES, LONG["in_channels"], generator=lgen,
-                    device=dev) * 2 - 1
+    for samples in (FLASH_SAMPLES, LONG_SAMPLES):
+        def flash_request():
+            _, seconds, peak = long_request(lmodel, samples, big, lgen)
+            return big / seconds, peak
 
-    def flash_training():
-        _, seconds, peak = long_train_steps(ltrain, lx, lgen, AB_TRAIN_STEPS)
-        return big / seconds, peak
+        ab_flash(f"long sampling, {samples} samples, batch {big}, "
+                 f"samples/s, peak bytes", flash_request)
+        lx = torch.rand(big, samples, LONG["in_channels"], generator=lgen,
+                        device=dev) * 2 - 1
 
-    ab_flash(f"long training, 2**17 samples, batch {big}, samples/s, "
-             f"peak bytes", flash_training)
+        def flash_training():
+            _, seconds, peak = long_train_steps(ltrain, lx, lgen,
+                                                AB_TRAIN_STEPS)
+            return big / seconds, peak
+
+        ab_flash(f"long training, {samples} samples, batch {big}, "
+                 f"samples/s, peak bytes", flash_training)
     del ltrain, lx
 
     # 19. float32 parity of the long model, card against CPU

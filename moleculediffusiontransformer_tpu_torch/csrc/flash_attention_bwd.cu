@@ -7,10 +7,12 @@
 //                    with s = q k^T * scale, p = exp(s - lse),
 //                    ds = (do v^T - di) * p * scale
 //
-// q, do, dq are (bh, n, d); k, v, dk, dv (bh, m, d); lse and di (bh, n)
-// float32; all contiguous; d is 16, 32, 64 or 128.  di = rowsum(o * do) is
-// not computed here: the caller hands it in, as `_bwd_pallas` computes it
-// outside its kernels.
+// q, do, dq are (b, h, n, d); k, v, dk, dv (b, h, m, d), each with its own
+// batch, head and row strides (`BwdLayout`: split heads are read and written
+// in place in their (b, rows, h, d) buffers); lse and di (b h, n) float32,
+// contiguous; d is 16, 32, 64 or 128.  di = rowsum(o * do) is not computed
+// here: the caller hands it in, as `_bwd_pallas` computes it outside its
+// kernels.
 //
 // One owner a tile: the dq kernel takes one block per (bh, tile of query
 // rows) and sweeps the KV tiles, the dk/dv kernel one block per (bh, tile of
@@ -47,15 +49,21 @@
 //   three-stage ring, matrix descriptors over the 128-byte swizzle); d 16,
 //   32 and 128 run on `mma.sync.m16n8k16` with `ldmatrix` (8 warps of 16
 //   rows, a two-stage ring; swept tiles of 64 rows, 32 at d 128, where the
-//   accumulators of 128 columns leave no room for more).
+//   accumulators of 128 columns leave no room for more).  The pieces both
+//   directions use are in flash_attention_tc.cuh.
 // * float32 -> the CUDA cores, from float32 tiles in shared memory
 //   (flash_attention_tiles.cuh).  TF32 tensor-core products would leave the
 //   1e-4 band in which the float32 path is held against the CPU.
-#include "flash_attention_tiles.cuh"
-
-#include <stdint.h>
+#include "flash_attention_tc.cuh"
 
 namespace {
+
+// The strided layouts of the backward's tensors (flash_attention_tiles.cuh,
+// `Rows`) and the heads a batch entry holds.
+struct BwdLayout {
+  Rows q, k, v, dout, dq, dk, dv;
+  int heads;
+};
 
 // ================================================================ float32
 
@@ -68,7 +76,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ di, float* __restrict__ dq, int n, int m, float scale) {
+          const float* __restrict__ di, float* __restrict__ dq, BwdLayout L, int n, int m,
+          float scale) {
   constexpr int CO = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // (64, D)
@@ -83,8 +92,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
   const int row0 = (blockIdx.x % q_tiles) * TILE;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_rows<float, D>(Qs, q + (bh * n + row0) * D);
-  load_rows<float, D>(dOs, dout + (bh * n + row0) * D);
+  const float* kbase = k + L.k.at(bh, L.heads);
+  const float* vbase = v + L.v.at(bh, L.heads);
+  load_rows<D>(Qs, q + L.q.at(bh, L.heads, row0), L.q.row);
+  load_rows<D>(dOs, dout + L.dout.at(bh, L.heads, row0), L.dout.row);
   float row_lse[4], row_di[4], acc[4][CO];
   load_vec<4>(lse + bh * n + row0 + ty * 4, row_lse);
   load_vec<4>(di + bh * n + row0 + ty * 4, row_di);
@@ -95,9 +106,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
 
   for (int col0 = 0; col0 < m; col0 += TILE) {
     __syncthreads();
-    load_rows_transposed<float, D>(Kt, k + (bh * m + col0) * D);
-    load_rows_transposed<float, D>(Vt, v + (bh * m + col0) * D);
-    load_rows<float, D>(Ks, k + (bh * m + col0) * D);
+    load_rows_transposed<D>(Kt, kbase + (long long)col0 * L.k.row, L.k.row);
+    load_rows_transposed<D>(Vt, vbase + (long long)col0 * L.v.row, L.v.row);
+    load_rows<D>(Ks, kbase + (long long)col0 * L.k.row, L.k.row);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -112,7 +123,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
     __syncthreads();
     mma_an<CO>(acc, dSs, TILE, Ks, D, TILE, ty, tx);
   }
-  store_tile<float, CO>(dq + (bh * n + row0) * D, D, acc, ty, tx);
+  store_tile<CO>(dq + L.dq.at(bh, L.heads, row0), L.dq.row, acc, ty, tx);
 }
 
 // ------------------------------------------------------------------ dk, dv
@@ -124,8 +135,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int n,
-           int m, float scale) {
+           const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv,
+           BwdLayout L, int n, int m, float scale) {
   constexpr int CO = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;                 // (D, 64) at stride LDT
@@ -140,8 +151,10 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   const int col0 = (blockIdx.x % kv_tiles) * TILE;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_rows_transposed<float, D>(Kt, k + (bh * m + col0) * D);
-  load_rows_transposed<float, D>(Vt, v + (bh * m + col0) * D);
+  const float* qbase = q + L.q.at(bh, L.heads);
+  const float* dobase = dout + L.dout.at(bh, L.heads);
+  load_rows_transposed<D>(Kt, k + L.k.at(bh, L.heads, col0), L.k.row);
+  load_rows_transposed<D>(Vt, v + L.v.at(bh, L.heads, col0), L.v.row);
   float dk_acc[4][CO], dv_acc[4][CO];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -150,8 +163,8 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 
   for (int row0 = 0; row0 < n; row0 += TILE) {
     __syncthreads();
-    load_rows<float, D>(Qs, q + (bh * n + row0) * D);
-    load_rows<float, D>(dOs, dout + (bh * n + row0) * D);
+    load_rows<D>(Qs, qbase + (long long)row0 * L.q.row, L.q.row);
+    load_rows<D>(dOs, dobase + (long long)row0 * L.dout.row, L.dout.row);
     float row_lse[4], row_di[4];
     load_vec<4>(lse + bh * n + row0 + ty * 4, row_lse);
     load_vec<4>(di + bh * n + row0 + ty * 4, row_di);
@@ -174,240 +187,39 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     mma_at<CO>(dv_acc, Ps, TILE, dOs, D, TILE, ty, tx);
     mma_at<CO>(dk_acc, dSs, TILE, Qs, D, TILE, ty, tx);
   }
-  store_tile<float, CO>(dk + (bh * m + col0) * D, D, dk_acc, ty, tx);
-  store_tile<float, CO>(dv + (bh * m + col0) * D, D, dv_acc, ty, tx);
+  store_tile<CO>(dk + L.dk.at(bh, L.heads, col0), L.dk.row, dk_acc, ty, tx);
+  store_tile<CO>(dv + L.dv.at(bh, L.heads, col0), L.dv.row, dv_acc, ty, tx);
 }
 
 template <int D>
 int backward_dq(const float* q, const float* k, const float* v, const float* dout,
-                const float* lse, const float* di, float* dq, long long bh, int n, int m,
-                float scale, cudaStream_t s) {
+                const float* lse, const float* di, float* dq, const BwdLayout& L, long long bh,
+                int n, int m, float scale, cudaStream_t s) {
   constexpr int bytes = dq_smem_floats<D>() * (int)sizeof(float);
   if (int err = opt_in(dq_kernel<D>, bytes)) return err;
-  dq_kernel<D><<<(unsigned)(bh * (n / TILE)), THREADS, bytes, s>>>(q, k, v, dout, lse, di, dq, n,
-                                                                    m, scale);
+  dq_kernel<D><<<(unsigned)(bh * (n / TILE)), THREADS, bytes, s>>>(q, k, v, dout, lse, di, dq, L,
+                                                                    n, m, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int backward_dkv(const float* q, const float* k, const float* v, const float* dout,
-                 const float* lse, const float* di, float* dk, float* dv, long long bh, int n,
-                 int m, float scale, cudaStream_t s) {
+                 const float* lse, const float* di, float* dk, float* dv, const BwdLayout& L,
+                 long long bh, int n, int m, float scale, cudaStream_t s) {
   constexpr int bytes = dkv_smem_floats<D>() * (int)sizeof(float);
   if (int err = opt_in(dkv_kernel<D>, bytes)) return err;
   dkv_kernel<D><<<(unsigned)(bh * (m / TILE)), THREADS, bytes, s>>>(q, k, v, dout, lse, di, dk,
-                                                                     dv, n, m, scale);
+                                                                     dv, L, n, m, scale);
   return (int)cudaGetLastError();
 }
 
 // =============================================================== bfloat16
 //
-// First the pieces both bf16 designs share and the `mma.sync` kernels (every
-// head size but 64), then `wg`, the `wgmma` kernels of d 64.
+// The `mma.sync` kernels (every head size but 64), then `wg`, the `wgmma`
+// kernels of d 64; the pieces they share with the forward are in
+// flash_attention_tc.cuh.
 
 namespace tc {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int WARPS = 8;
-constexpr int NTHREADS = WARPS * 32;
-constexpr int OWN = WARPS * 16;     // rows of the tile a block owns, 16 a warp
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Rows of a swept tile: the two score tiles of a warp are 16 x SWEEP float32
-// in registers beside its accumulators.
-template <int D>
-constexpr int SWEEP = D <= 64 ? 64 : 32;
-
-// The owned tile's A fragments stay in registers for the whole sweep where
-// they fit (d/16 x 4 registers an operand); at d 128 they are read from
-// shared memory at every use.
-template <int D>
-constexpr bool A_IN_REGS = D <= 64;
-
-// Element offset of the 16-byte chunk `chunk` of row `row` in a (rows, D)
-// bf16 tile.  The chunk index is XORed with row bits so that the eight row
-// addresses of an 8 x 8 `ldmatrix` (eight consecutive rows, one logical
-// chunk) fall on eight different 16-byte bank groups, whatever D: rows of
-// 128 bytes and more differ in row & 7; rows of 64 bytes share a 128-byte
-// line in pairs, rows of 32 bytes in fours.
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  if constexpr (D >= 64) return row * D + ((chunk ^ (row & 7)) << 3);
-  else if constexpr (D == 32) return row * D + ((chunk ^ ((row >> 1) & 3)) << 3);
-  else return row * D + ((chunk ^ ((row >> 2) & 1)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ROWS contiguous rows of D bf16 at `src` -> the swizzled tile `dst`, 16
-// bytes a thread, asynchronously.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NTHREADS) {
-    const int r = idx / CH, c = idx % CH;
-    cp_async16(dst + swz<D>(r, c), src + (long long)r * D + c * 8);
-  }
-}
-
-// COUNT contiguous floats (a multiple of 4) -> dst, by threads first..
-template <int COUNT>
-__device__ __forceinline__ void load_floats_async(float* dst, const float* src, int first) {
-  const int idx = (int)threadIdx.x - first;
-  if (idx >= 0 && idx < COUNT / 4) cp_async16(dst + idx * 4, src + idx * 4);
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, float32) += a (16 x 16, bf16) b (16 x 8, bf16).  Thread
-// (g = lane / 4, t = lane % 4) holds c[g][2t, 2t+1], c[g+8][2t, 2t+1];
-// a[g | g+8][2t.. | 2t+8..]; b[2t.. | 2t+8..][g].
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two float32 -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The A fragment of rows row0..row0+15, columns 16 kk..16 kk+15 of a tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int row0, int kk,
-                                       int lane) {
-  ldsm4(a, tile + swz<D>(row0 + (lane & 15), 2 * kk + (lane >> 4)));
-}
-
-// A warp's 16 rows of an owned (OWN, D) tile as A fragments, one a k16 step.
-template <int D>
-struct OwnedRows {
-  static constexpr bool IN_REGS = A_IN_REGS<D>;
-  uint32_t frag[IN_REGS ? D / 16 : 1][4];
-  const bf16* tile;
-  int row0;
-
-  __device__ __forceinline__ void init(const bf16* t, int r0, int lane) {
-    tile = t;
-    row0 = r0;
-    if constexpr (IN_REGS) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a<D>(frag[kk], t, r0, kk, lane);
-    }
-  }
-  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk, int lane) const {
-    if constexpr (IN_REGS) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = frag[kk][i];
-    } else {
-      load_a<D>(a, tile, row0, kk, lane);
-    }
-  }
-};
-
-// acc (16 x 8 NT) = A (16 x D) B^T, B a swizzled (8 NT, D) tile: one
-// `ldmatrix.x4` brings the B fragments of two n8 tiles for one k16 step.
-template <int D, int NT>
-__device__ __forceinline__ void product_abt(float (&acc)[NT][4], const OwnedRows<D>& a,
-                                            const bf16* B, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int brow = (lane & 7) + ((lane >> 4) << 3), bchunk = (lane >> 3) & 1;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    a.get(af, kk, lane);
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t b[4];
-      ldsm4(b, B + swz<D>(jp * 16 + brow, 2 * kk + bchunk));
-      mma16816(acc[2 * jp], af, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], af, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x 8 NT, as NT/2 A fragments) B, B a swizzled
-// (8 NT, D) tile read through `ldmatrix.trans`: two n8 tiles of one k16 step
-// an instruction.
-template <int D, int NT>
-__device__ __forceinline__ void product_ab(float (&acc)[D / 8][4], const uint32_t (&p)[NT / 2][4],
-                                           const bf16* B, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < NT / 2; ++ks) {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm4_trans(b, B + swz<D>(ks * 16 + (lane & 15), 2 * dp + (lane >> 4)));
-      mma16816(acc[2 * dp], p[ks], b[0], b[1]);
-      mma16816(acc[2 * dp + 1], p[ks], b[2], b[3]);
-    }
-  }
-}
-
-// A score tile's accumulators (16 x 8 NT float32) -> the A fragments of the
-// same tile in bf16: n8 tiles 2 ks and 2 ks + 1 are k16 step ks.
-template <int NT>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[NT / 2][4], const float (&c)[NT][4]) {
-#pragma unroll
-  for (int ks = 0; ks < NT / 2; ++ks) {
-    a[ks][0] = pack2(c[2 * ks][0], c[2 * ks][1]);
-    a[ks][1] = pack2(c[2 * ks][2], c[2 * ks][3]);
-    a[ks][2] = pack2(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-    a[ks][3] = pack2(c[2 * ks + 1][2], c[2 * ks + 1][3]);
-  }
-}
-
-// A warp's 16 x D accumulators -> rows row_lo = g and g + 8 of `dst` (row
-// stride D), rounded to bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(dst + (long long)g * D + 8 * j + 2 * t) =
-        pack2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(dst + (long long)(g + 8) * D + 8 * j + 2 * t) =
-        pack2(acc[j][2], acc[j][3]);
-  }
-}
 
 // --------------------------------------------------------------------- dq
 
@@ -420,7 +232,8 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ di, bf16* __restrict__ dq, int n, int m, float scale) {
+          const float* __restrict__ di, bf16* __restrict__ dq, BwdLayout L, int n, int m,
+          float scale) {
   constexpr int BN = SWEEP<D>, NT = BN / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // (OWN, D)
@@ -433,14 +246,14 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   const int row0 = (blockIdx.x % q_tiles) * OWN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2;
-  const bf16* kbase = k + bh * m * D;
-  const bf16* vbase = v + bh * m * D;
+  const bf16* kbase = k + L.k.at(bh, L.heads);
+  const bf16* vbase = v + L.v.at(bh, L.heads);
 
-  load_tile_async<D, OWN>(Qs, q + (bh * n + row0) * D);
-  load_tile_async<D, OWN>(dOs, dout + (bh * n + row0) * D);
+  load_tile_async<D, OWN>(Qs, q + L.q.at(bh, L.heads, row0), L.q.row);
+  load_tile_async<D, OWN>(dOs, dout + L.dout.at(bh, L.heads, row0), L.dout.row);
   cp_async_commit();
-  load_tile_async<D, BN>(Ks, kbase);
-  load_tile_async<D, BN>(Vs, vbase);
+  load_tile_async<D, BN>(Ks, kbase, L.k.row);
+  load_tile_async<D, BN>(Vs, vbase, L.v.row);
   cp_async_commit();
 
   // this thread's two rows: g and g + 8 of the warp's 16
@@ -469,8 +282,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     __syncthreads();
     const int stage = j & 1;
     if (j + 1 < tiles) {
-      load_tile_async<D, BN>(Ks + (stage ^ 1) * BN * D, kbase + (long long)(j + 1) * BN * D);
-      load_tile_async<D, BN>(Vs + (stage ^ 1) * BN * D, vbase + (long long)(j + 1) * BN * D);
+      const int next = (j + 1) * BN;
+      load_tile_async<D, BN>(Ks + (stage ^ 1) * BN * D, kbase + (long long)next * L.k.row, L.k.row);
+      load_tile_async<D, BN>(Vs + (stage ^ 1) * BN * D, vbase + (long long)next * L.v.row, L.v.row);
       cp_async_commit();
     }
     const bf16* Kt = Ks + stage * BN * D;
@@ -490,7 +304,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     to_a_frags<NT>(dsa, s);
     product_ab<D, NT>(acc, dsa, Kt, lane);
   }
-  store_rows<D>(dq + (bh * n + row0 + warp * 16) * D, acc, lane);
+  store_rows<D>(dq + L.dq.at(bh, L.heads, row0 + warp * 16), acc, lane, L.dq.row);
 }
 
 // ------------------------------------------------------------------ dk, dv
@@ -505,8 +319,8 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const bf16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int n,
-           int m, float scale) {
+           const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv,
+           BwdLayout L, int n, int m, float scale) {
   constexpr int BM = SWEEP<D>, NT = BM / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // (OWN, D)
@@ -521,16 +335,16 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const int col0 = (blockIdx.x % kv_tiles) * OWN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const bf16* qbase = q + bh * n * D;
-  const bf16* dobase = dout + bh * n * D;
+  const bf16* qbase = q + L.q.at(bh, L.heads);
+  const bf16* dobase = dout + L.dout.at(bh, L.heads);
   const float* lsebase = lse + bh * n;
   const float* dibase = di + bh * n;
 
-  load_tile_async<D, OWN>(Ks, k + (bh * m + col0) * D);
-  load_tile_async<D, OWN>(Vs, v + (bh * m + col0) * D);
+  load_tile_async<D, OWN>(Ks, k + L.k.at(bh, L.heads, col0), L.k.row);
+  load_tile_async<D, OWN>(Vs, v + L.v.at(bh, L.heads, col0), L.v.row);
   cp_async_commit();
-  load_tile_async<D, BM>(Qs, qbase);
-  load_tile_async<D, BM>(dOs, dobase);
+  load_tile_async<D, BM>(Qs, qbase, L.q.row);
+  load_tile_async<D, BM>(dOs, dobase, L.dout.row);
   load_floats_async<BM>(lses, lsebase, 0);
   load_floats_async<BM>(dis, dibase, BM / 4);
   cp_async_commit();
@@ -554,9 +368,10 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     __syncthreads();
     const int stage = j & 1;
     if (j + 1 < tiles) {
-      const long long next = (long long)(j + 1) * BM;
-      load_tile_async<D, BM>(Qs + (stage ^ 1) * BM * D, qbase + next * D);
-      load_tile_async<D, BM>(dOs + (stage ^ 1) * BM * D, dobase + next * D);
+      const int next = (j + 1) * BM;
+      load_tile_async<D, BM>(Qs + (stage ^ 1) * BM * D, qbase + (long long)next * L.q.row, L.q.row);
+      load_tile_async<D, BM>(dOs + (stage ^ 1) * BM * D, dobase + (long long)next * L.dout.row,
+                             L.dout.row);
       load_floats_async<BM>(lses + (stage ^ 1) * BM, lsebase + next, 0);
       load_floats_async<BM>(dis + (stage ^ 1) * BM, dibase + next, BM / 4);
       cp_async_commit();
@@ -596,8 +411,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     to_a_frags<NT>(frags, dp);
     product_ab<D, NT>(dk_acc, frags, Qt, lane);
   }
-  store_rows<D>(dk + (bh * m + col0 + warp * 16) * D, dk_acc, lane);
-  store_rows<D>(dv + (bh * m + col0 + warp * 16) * D, dv_acc, lane);
+  const int own0 = col0 + warp * 16;
+  store_rows<D>(dk + L.dk.at(bh, L.heads, own0), dk_acc, lane, L.dk.row);
+  store_rows<D>(dv + L.dv.at(bh, L.heads, own0), dv_acc, lane, L.dv.row);
 }
 
 // ----------------------------------------------------- d 64: warpgroup MMA
@@ -626,87 +442,8 @@ constexpr int ROWS = 64;                  // rows a warpgroup owns; rows of a sw
 constexpr int NTHREADS = 2 * 128;         // two warpgroups
 constexpr int STAGES = 3;
 constexpr int TILE_ELEMS = ROWS * D;      // 8 KB: eight 1024-byte swizzle atoms
-constexpr int ALIGN = 1024;
 
 static_assert(OWN == 2 * ROWS, "a block owns two warpgroups' rows");
-
-// The shared-memory matrix descriptor of a (64, 64) bf16 tile with the
-// 128-byte swizzle: start address, leading offset (unused by a swizzled
-// 64-wide tile: 1), stride between 8-row groups (1024 bytes), all in units
-// of 16 bytes; swizzle mode 1 in bits 62-63.
-__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
-  const uint64_t addr = smem_addr(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
-}
-// k16 step `kk` of the tile's columns (K-major use): 32 bytes along a row.
-__device__ __forceinline__ uint64_t desc_cols(uint64_t desc, int kk) { return desc + 2 * kk; }
-// k16 step `ks` of the tile's rows (MN-major use): 16 rows of 128 bytes.
-__device__ __forceinline__ uint64_t desc_rows(uint64_t desc, int ks) { return desc + 128 * ks; }
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Writes by `cp.async` (the generic proxy) made visible to `wgmma`'s reads
-// (the async proxy); executed by every thread before the block's barrier.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (the warpgroup's 64 x 64, this thread's 8 n8 tiles x 4 as in `mma16816`)
-// = or += a (this warp's 16 x 16 fragment) b (16 x 64 through `desc`).
-// TRANS_B 0: b is read K-major (b[k][n] = tile[n][k]); 1: MN-major
-// (b[k][n] = tile[k][n]).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
-                                      int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
-        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
-}
-
-// The same with a (64 x 16) read from shared memory through `adesc`,
-// K-major.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t adesc, uint64_t desc,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
-        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(adesc), "l"(desc), "r"(accumulate), "n"(TRANS_B));
-}
 
 // acc = A tile^T: the owned rows' fragments against the swept tile's rows.
 __device__ __forceinline__ void product_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
@@ -732,16 +469,14 @@ __device__ __forceinline__ void product_ab(float (&acc)[8][4], const uint32_t (&
     wgmma<1>(acc, p[ks], desc_rows(desc, ks), ks > 0 ? 1 : accumulate);
 }
 
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((ALIGN - (smem_addr(raw) & (ALIGN - 1))) & (ALIGN - 1));
-}
 
 constexpr int DQ_SMEM_BYTES = (2 * OWN * D + 2 * STAGES * TILE_ELEMS) * (int)sizeof(bf16) + ALIGN;
 
 __global__ void __launch_bounds__(NTHREADS)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ di, bf16* __restrict__ dq, int n, int m, float scale) {
+          const float* __restrict__ di, bf16* __restrict__ dq, BwdLayout L, int n, int m,
+          float scale) {
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(aligned_smem(smem_raw));   // (OWN, 64)
   bf16* dOs = Qs + OWN * D;                                     // (OWN, 64)
@@ -753,19 +488,19 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   const int row0 = (blockIdx.x % q_tiles) * OWN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2;
-  const bf16* kbase = k + bh * m * D;
-  const bf16* vbase = v + bh * m * D;
+  const bf16* kbase = k + L.k.at(bh, L.heads);
+  const bf16* vbase = v + L.v.at(bh, L.heads);
   const int tiles = m / ROWS;
 
-  load_tile_async<D, OWN>(Qs, q + (bh * n + row0) * D);
-  load_tile_async<D, OWN>(dOs, dout + (bh * n + row0) * D);
+  load_tile_async<D, OWN>(Qs, q + L.q.at(bh, L.heads, row0), L.q.row);
+  load_tile_async<D, OWN>(dOs, dout + L.dout.at(bh, L.heads, row0), L.dout.row);
   cp_async_commit();
-  load_tile_async<D, ROWS>(Ks, kbase);
-  load_tile_async<D, ROWS>(Vs, vbase);
+  load_tile_async<D, ROWS>(Ks, kbase, L.k.row);
+  load_tile_async<D, ROWS>(Vs, vbase, L.v.row);
   cp_async_commit();
   if (tiles > 1) {
-    load_tile_async<D, ROWS>(Ks + TILE_ELEMS, kbase + TILE_ELEMS);
-    load_tile_async<D, ROWS>(Vs + TILE_ELEMS, vbase + TILE_ELEMS);
+    load_tile_async<D, ROWS>(Ks + TILE_ELEMS, kbase + (long long)ROWS * L.k.row, L.k.row);
+    load_tile_async<D, ROWS>(Vs + TILE_ELEMS, vbase + (long long)ROWS * L.v.row, L.v.row);
   }
   cp_async_commit();
 
@@ -812,8 +547,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     __syncthreads();
     if (j + 2 < tiles) {
       const int into = (j + 2) % STAGES;
-      load_tile_async<D, ROWS>(Ks + into * TILE_ELEMS, kbase + (long long)(j + 2) * TILE_ELEMS);
-      load_tile_async<D, ROWS>(Vs + into * TILE_ELEMS, vbase + (long long)(j + 2) * TILE_ELEMS);
+      const int next = (j + 2) * ROWS;
+      load_tile_async<D, ROWS>(Ks + into * TILE_ELEMS, kbase + (long long)next * L.k.row, L.k.row);
+      load_tile_async<D, ROWS>(Vs + into * TILE_ELEMS, vbase + (long long)next * L.v.row, L.v.row);
     }
     cp_async_commit();
   };
@@ -851,7 +587,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   product_ab(acc, ds_odd, tile_desc(Ks + ((tiles - 1) % STAGES) * TILE_ELEMS), 1);
   wg_commit();
   wg_wait<0>();
-  store_rows<D>(dq + (bh * n + row0 + warp * 16) * D, acc, lane);
+  store_rows<D>(dq + L.dq.at(bh, L.heads, row0 + warp * 16), acc, lane, L.dq.row);
 }
 
 constexpr int DKV_SMEM_BYTES = (2 * OWN * D + 2 * STAGES * TILE_ELEMS) * (int)sizeof(bf16) +
@@ -860,8 +596,8 @@ constexpr int DKV_SMEM_BYTES = (2 * OWN * D + 2 * STAGES * TILE_ELEMS) * (int)si
 __global__ void __launch_bounds__(NTHREADS)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const bf16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int n,
-           int m, float scale) {
+           const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv,
+           BwdLayout L, int n, int m, float scale) {
   extern __shared__ unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(aligned_smem(smem_raw));   // (OWN, 64)
   bf16* Vs = Ks + OWN * D;                                      // (OWN, 64)
@@ -875,21 +611,23 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const int col0 = (blockIdx.x % kv_tiles) * OWN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const bf16* qbase = q + bh * n * D;
-  const bf16* dobase = dout + bh * n * D;
+  const bf16* qbase = q + L.q.at(bh, L.heads);
+  const bf16* dobase = dout + L.dout.at(bh, L.heads);
   const float* lsebase = lse + bh * n;
   const float* dibase = di + bh * n;
   const int tiles = n / ROWS;
 
   auto load_swept = [&](int tile, int into) {
-    load_tile_async<D, ROWS>(Qs + into * TILE_ELEMS, qbase + (long long)tile * TILE_ELEMS);
-    load_tile_async<D, ROWS>(dOs + into * TILE_ELEMS, dobase + (long long)tile * TILE_ELEMS);
+    const int first = tile * ROWS;
+    load_tile_async<D, ROWS>(Qs + into * TILE_ELEMS, qbase + (long long)first * L.q.row, L.q.row);
+    load_tile_async<D, ROWS>(dOs + into * TILE_ELEMS, dobase + (long long)first * L.dout.row,
+                             L.dout.row);
     load_floats_async<ROWS>(lses + into * ROWS, lsebase + tile * ROWS, 0);
     load_floats_async<ROWS>(dis + into * ROWS, dibase + tile * ROWS, ROWS / 4);
   };
 
-  load_tile_async<D, OWN>(Ks, k + (bh * m + col0) * D);
-  load_tile_async<D, OWN>(Vs, v + (bh * m + col0) * D);
+  load_tile_async<D, OWN>(Ks, k + L.k.at(bh, L.heads, col0), L.k.row);
+  load_tile_async<D, OWN>(Vs, v + L.v.at(bh, L.heads, col0), L.v.row);
   cp_async_commit();
   load_swept(0, 0);
   cp_async_commit();
@@ -981,108 +719,119 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   product_ab(dk_acc, ds_odd, tile_desc(Qs + last * TILE_ELEMS), 1);
   wg_commit();
   wg_wait<0>();
-  store_rows<D>(dk + (bh * m + col0 + warp * 16) * D, dk_acc, lane);
-  store_rows<D>(dv + (bh * m + col0 + warp * 16) * D, dv_acc, lane);
+  const int own0 = col0 + warp * 16;
+  store_rows<D>(dk + L.dk.at(bh, L.heads, own0), dk_acc, lane, L.dk.row);
+  store_rows<D>(dv + L.dv.at(bh, L.heads, own0), dv_acc, lane, L.dv.row);
 }
 
 }  // namespace wg
 
 template <int D>
 int backward_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
-                const float* di, bf16* dq, long long bh, int n, int m, float scale,
-                cudaStream_t s) {
+                const float* di, bf16* dq, const BwdLayout& L, long long bh, int n, int m,
+                float scale, cudaStream_t s) {
   const unsigned blocks = (unsigned)(bh * (n / OWN));
   if constexpr (D == wg::D) {
     if (int err = opt_in(wg::dq_kernel, wg::DQ_SMEM_BYTES)) return err;
-    wg::dq_kernel<<<blocks, wg::NTHREADS, wg::DQ_SMEM_BYTES, s>>>(q, k, v, dout, lse, di, dq, n,
-                                                                  m, scale);
+    wg::dq_kernel<<<blocks, wg::NTHREADS, wg::DQ_SMEM_BYTES, s>>>(q, k, v, dout, lse, di, dq, L,
+                                                                  n, m, scale);
   } else {
     constexpr int bytes = dq_smem_bytes<D>();
     if (int err = opt_in(dq_kernel<D>, bytes)) return err;
-    dq_kernel<D><<<blocks, NTHREADS, bytes, s>>>(q, k, v, dout, lse, di, dq, n, m, scale);
+    dq_kernel<D><<<blocks, NTHREADS, bytes, s>>>(q, k, v, dout, lse, di, dq, L, n, m, scale);
   }
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int backward_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
-                 const float* di, bf16* dk, bf16* dv, long long bh, int n, int m, float scale,
-                 cudaStream_t s) {
+                 const float* di, bf16* dk, bf16* dv, const BwdLayout& L, long long bh, int n,
+                 int m, float scale, cudaStream_t s) {
   const unsigned blocks = (unsigned)(bh * (m / OWN));
   if constexpr (D == wg::D) {
     if (int err = opt_in(wg::dkv_kernel, wg::DKV_SMEM_BYTES)) return err;
     wg::dkv_kernel<<<blocks, wg::NTHREADS, wg::DKV_SMEM_BYTES, s>>>(q, k, v, dout, lse, di, dk,
-                                                                    dv, n, m, scale);
+                                                                    dv, L, n, m, scale);
   } else {
     constexpr int bytes = dkv_smem_bytes<D>();
     if (int err = opt_in(dkv_kernel<D>, bytes)) return err;
-    dkv_kernel<D><<<blocks, NTHREADS, bytes, s>>>(q, k, v, dout, lse, di, dk, dv, n, m, scale);
+    dkv_kernel<D><<<blocks, NTHREADS, bytes, s>>>(q, k, v, dout, lse, di, dk, dv, L, n, m,
+                                                  scale);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-// Calls fn<D>(args...) for the runtime head size; ERR_ARGS where there is no
-// kernel for it.
-#define FA_HEAD_DISPATCH(fn, d, ...)             \
-  switch (d) {                                   \
-    case 16: return fn<16>(__VA_ARGS__);         \
-    case 32: return fn<32>(__VA_ARGS__);         \
-    case 64: return fn<64>(__VA_ARGS__);         \
-    case 128: return fn<128>(__VA_ARGS__);       \
-    default: return ERR_ARGS;                    \
-  }
+// The arguments both entry points check: the layout from the host array of
+// (batch, head, row) strides of q, k, v, do, dq, dk, dv, in elements; the
+// shape (n, m multiples of 64 in float32, of 128 in bfloat16: the tensor-core
+// kernels own 128 rows a block and sweep an even count of 64-row tiles); and
+// the alignment of every pointer and stride to 16 bytes.
+BwdLayout layout_of(const long long* strides, int heads) {
+  BwdLayout L;
+  Rows* rows[] = {&L.q, &L.k, &L.v, &L.dout, &L.dq, &L.dk, &L.dv};
+  for (int i = 0; i < 7; ++i) *rows[i] = rows_of(strides, i);
+  L.heads = heads;
+  return L;
+}
+
+int check_args(const void* const* ptrs, int count, const long long* strides, long long b,
+               int h, int n, int m, int dtype) {
+  for (int i = 0; i < count; ++i)
+    if (misaligned(ptrs[i])) return ERR_ARGS;
+  const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  const int tile = dtype == 0 ? TILE : tc::OWN;
+  if (!elem || !strides || bad_strides(strides, 21, elem) ||
+      bad_shape(b * h, h, n, m, tile, tile))
+    return ERR_ARGS;
+  return 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-// dq from q, k, v, do, lse and di = rowsum(o * do).  dtype 0, float32: the
-// CUDA-core kernel (n, m multiples of 64); dtype 1, bfloat16: the
-// tensor-core kernel, at every head size (n, m multiples of 128).
+// dq from q, k, v, do, lse and di = rowsum(o * do), for b x h (batch,
+// head) pairs.  dtype 0, float32: the CUDA-core kernel; dtype 1, bfloat16:
+// the tensor-core kernel, at every head size.
 int fa_backward_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                   const void* di, void* dq, long long bh, int n, int m, int d, float scale,
-                   int dtype, int device, void* stream) {
-  if (!q || !k || !v || !dout || !lse || !di || !dq) return ERR_ARGS;
+                   const void* di, void* dq, const long long* strides, long long b, int h, int n,
+                   int m, int d, float scale, int dtype, int device, void* stream) {
+  const void* ptrs[] = {q, k, v, dout, lse, di, dq};
+  if (int err = check_args(ptrs, 7, strides, b, h, n, m, dtype)) return err;
   if (int err = (int)cudaSetDevice(device)) return err;
   cudaStream_t s = (cudaStream_t)stream;
+  const BwdLayout L = layout_of(strides, h);
   const float* l = (const float*)lse;
   const float* r = (const float*)di;
-  if (dtype == 0) {
-    if (bad_shape(bh, n, m, TILE)) return ERR_ARGS;
+  if (dtype == 0)
     FA_HEAD_DISPATCH(backward_dq, d, (const float*)q, (const float*)k, (const float*)v,
-                     (const float*)dout, l, r, (float*)dq, bh, n, m, scale, s);
-  }
-  if (dtype == 1) {
-    if (bad_shape(bh, n, m, tc::OWN)) return ERR_ARGS;
-    FA_HEAD_DISPATCH(tc::backward_dq, d, (const tc::bf16*)q, (const tc::bf16*)k,
-                     (const tc::bf16*)v, (const tc::bf16*)dout, l, r, (tc::bf16*)dq, bh, n, m,
-                     scale, s);
-  }
+                     (const float*)dout, l, r, (float*)dq, L, b * h, n, m, scale, s);
+  FA_HEAD_DISPATCH(tc::backward_dq, d, (const tc::bf16*)q, (const tc::bf16*)k,
+                   (const tc::bf16*)v, (const tc::bf16*)dout, l, r, (tc::bf16*)dq, L, b * h, n,
+                   m, scale, s);
   return ERR_ARGS;
 }
 
 // dk and dv from the same inputs, by the same rule.
 int fa_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* di, void* dk, void* dv, long long bh, int n,
-                    int m, int d, float scale, int dtype, int device, void* stream) {
-  if (!q || !k || !v || !dout || !lse || !di || !dk || !dv) return ERR_ARGS;
+                    const void* lse, const void* di, void* dk, void* dv,
+                    const long long* strides, long long b, int h, int n, int m, int d,
+                    float scale, int dtype, int device, void* stream) {
+  const void* ptrs[] = {q, k, v, dout, lse, di, dk, dv};
+  if (int err = check_args(ptrs, 8, strides, b, h, n, m, dtype)) return err;
   if (int err = (int)cudaSetDevice(device)) return err;
   cudaStream_t s = (cudaStream_t)stream;
+  const BwdLayout L = layout_of(strides, h);
   const float* l = (const float*)lse;
   const float* r = (const float*)di;
-  if (dtype == 0) {
-    if (bad_shape(bh, n, m, TILE)) return ERR_ARGS;
+  if (dtype == 0)
     FA_HEAD_DISPATCH(backward_dkv, d, (const float*)q, (const float*)k, (const float*)v,
-                     (const float*)dout, l, r, (float*)dk, (float*)dv, bh, n, m, scale, s);
-  }
-  if (dtype == 1) {
-    if (bad_shape(bh, n, m, tc::OWN)) return ERR_ARGS;
-    FA_HEAD_DISPATCH(tc::backward_dkv, d, (const tc::bf16*)q, (const tc::bf16*)k,
-                     (const tc::bf16*)v, (const tc::bf16*)dout, l, r, (tc::bf16*)dk,
-                     (tc::bf16*)dv, bh, n, m, scale, s);
-  }
+                     (const float*)dout, l, r, (float*)dk, (float*)dv, L, b * h, n, m, scale, s);
+  FA_HEAD_DISPATCH(tc::backward_dkv, d, (const tc::bf16*)q, (const tc::bf16*)k,
+                   (const tc::bf16*)v, (const tc::bf16*)dout, l, r, (tc::bf16*)dk,
+                   (tc::bf16*)dv, L, b * h, n, m, scale, s);
   return ERR_ARGS;
 }
 

@@ -3,12 +3,14 @@
 // backward).  256 threads hold a 64 x 64 (or 64 x d) float32 tile as 4 x 4
 // (4 x d/16) a thread and read both operands of a product from float32 tiles
 // in shared memory as float4, the row operand broadcast within a half-warp.
+// Also what every streaming-attention kernel shares about its arguments: the
+// strided layout of q, k, v and their outputs (`Rows`) and the shape check.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -17,52 +19,53 @@ constexpr int TILE = 64;       // query rows and KV rows of a tile
 constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx) owns rows ty*4..+3
 constexpr int LDT = TILE + 4;  // row stride of a transposed (d, 64) tile
 
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&v)[4]);
+// Where the rows of one (batch, head) of a (b, h, rows, d) tensor start and
+// how far apart they are, in elements; d is unit-stride.  Split heads are
+// views of one (b, rows, h, d) buffer, a contiguous (bh, rows, d) tensor is
+// the case h = 1.  The wrappers pass strides that are multiples of 16 bytes
+// and base pointers on 16-byte boundaries: every load is 16 bytes wide.  The
+// row stride is 32 bits (`bad_strides`), so that the kernels' row addresses
+// are one wide multiply-add of two 32-bit registers.
+struct Rows {
+  long long batch, head;
+  int row;
 
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float (&v)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  // the element offset of row r of (batch, head) pair bh
+  __device__ __forceinline__ long long at(long long bh, int heads, int r = 0) const {
+    return (bh / heads) * batch + (bh % heads) * head + (long long)r * row;
+  }
+};
+
+// The layout of tensor i of a host array of (batch, head, row) strides.
+inline Rows rows_of(const long long* strides, int i) {
+  return Rows{strides[3 * i], strides[3 * i + 1], (int)strides[3 * i + 2]};
 }
 
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// 64 rows of D elements at `src` (row stride D) -> dst[row][D], float32.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src) {
+// 64 rows of D floats at `src` (row stride ld) -> dst[row][D].
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int ld) {
   constexpr int Q = D / 4;
   for (int idx = threadIdx.x; idx < TILE * Q; idx += THREADS) {
     const int r = idx / Q, kq = idx % Q;
-    float v[4];
-    load4<T>(src + (long long)r * D + kq * 4, v);
-    *reinterpret_cast<float4*>(dst + r * D + kq * 4) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + r * D + kq * 4) =
+        *reinterpret_cast<const float4*>(src + (long long)r * ld + kq * 4);
   }
 }
 
-// The same rows transposed: dst[k][row], row stride LDT.  Four lanes read 32
-// (bf16) or 64 (fp32) contiguous bytes of one row, eight rows a warp; the
-// stores of a warp then fall on 16 banks.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows_transposed(float* dst, const T* src) {
+// The same rows transposed: dst[k][row], row stride LDT.  Four lanes read 64
+// contiguous bytes of one row, eight rows a warp; the stores of a warp then
+// fall on 16 banks.
+template <int D>
+__device__ __forceinline__ void load_rows_transposed(float* dst, const float* src, int ld) {
   constexpr int QH = D / 16;
   for (int idx = threadIdx.x; idx < TILE * (D / 4); idx += THREADS) {
     const int kq_l = idx & 3, r_l = (idx >> 2) & 7, rest = idx >> 5;
     const int kq = (rest % QH) * 4 + kq_l, r = (rest / QH) * 8 + r_l;
-    float v[4];
-    load4<T>(src + (long long)r * D + kq * 4, v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(kq * 4 + e) * LDT + r] = v[e];
+    const float4 f = *reinterpret_cast<const float4*>(src + (long long)r * ld + kq * 4);
+    dst[(kq * 4) * LDT + r] = f.x;
+    dst[(kq * 4 + 1) * LDT + r] = f.y;
+    dst[(kq * 4 + 2) * LDT + r] = f.z;
+    dst[(kq * 4 + 3) * LDT + r] = f.w;
   }
 }
 
@@ -132,9 +135,9 @@ __device__ __forceinline__ void mma_at(float (&acc)[4][CO], const float* At, int
 }
 
 // Thread (ty, tx)'s 4 x CO values -> rows ty*4+i of a (64, 16 * CO) tile of
-// `dst` (row stride ld), rounded to T.
-template <typename T, int CO>
-__device__ __forceinline__ void store_tile(T* dst, int ld, const float (&acc)[4][CO], int ty,
+// `dst` (row stride ld).
+template <int CO>
+__device__ __forceinline__ void store_tile(float* dst, int ld, const float (&acc)[4][CO], int ty,
                                            int tx) {
   using C = Cols<CO>;
 #pragma unroll
@@ -143,7 +146,7 @@ __device__ __forceinline__ void store_tile(T* dst, int ld, const float (&acc)[4]
     for (int g = 0; g < C::NG; ++g)
 #pragma unroll
       for (int e = 0; e < C::VEC; ++e)
-        store1(dst + (long long)(ty * 4 + i) * ld + C::at(tx, g) + e, acc[i][g * C::VEC + e]);
+        dst[(long long)(ty * 4 + i) * ld + C::at(tx, g) + e] = acc[i][g * C::VEC + e];
 }
 
 __device__ __forceinline__ float row_max16(float v) {
@@ -180,10 +183,37 @@ __device__ __forceinline__ void store_scores(float* Ps, const float (&p)[4][4], 
         make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
 }
 
-inline bool bad_shape(long long bh, int n, int m, int tile) {
-  return bh < 1 || n < tile || m < tile || n % tile || m % tile ||
-         bh * (n / tile) > 0x7fffffffLL || bh * (m / tile) > 0x7fffffffLL;
+// n query rows in blocks of n_tile, m KV rows in blocks of m_tile; the
+// grid (bh times the blocks of one side) must fit its x dimension.
+inline bool bad_shape(long long bh, int heads, int n, int m, int n_tile, int m_tile) {
+  return bh < 1 || heads < 1 || bh % heads || n < n_tile || m < m_tile || n % n_tile ||
+         m % m_tile || bh * (n / n_tile) > 0x7fffffffLL || bh * (m / m_tile) > 0x7fffffffLL;
 }
+
+// Every load and store of the kernels is 16 bytes wide (or a part of 16
+// aligned bytes): base pointers on 16-byte boundaries, strides multiples of
+// 16 bytes.
+inline bool misaligned(const void* p) { return p == nullptr || (uintptr_t)p % 16; }
+
+// `count` (batch, head, row) strides: none negative, each a multiple of 16
+// bytes, each row stride below 2^31 elements (`Rows`).
+inline bool bad_strides(const long long* strides, int count, int elem_bytes) {
+  for (int i = 0; i < count; ++i)
+    if (strides[i] < 0 || strides[i] * elem_bytes % 16 || (i % 3 == 2 && strides[i] > 0x7fffffffLL))
+      return true;
+  return false;
+}
+
+// Calls fn<D>(args...) for the runtime head size; ERR_ARGS where there is no
+// kernel for it.
+#define FA_HEAD_DISPATCH(fn, d, ...)             \
+  switch (d) {                                   \
+    case 16: return fn<16>(__VA_ARGS__);         \
+    case 32: return fn<32>(__VA_ARGS__);         \
+    case 64: return fn<64>(__VA_ARGS__);         \
+    case 128: return fn<128>(__VA_ARGS__);       \
+    default: return ERR_ARGS;                    \
+  }
 
 template <typename Kernel>
 inline int opt_in(Kernel kernel, int bytes) {

@@ -47,17 +47,15 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     ``ops.flash_attention`` (the JAX ``packed_sdpa``'s route: the switch on,
     both lengths at least ``LONG_SEQ_THRESHOLD`` and multiples of 128, a
     head size and type the kernels take); the gate reads shapes and the
-    switch only.  Anything else is the one-shot product: float32 scores and
-    softmax, the probabilities cast to ``dtype`` before the product with
-    v."""
-    b, h, n, d = q.shape
+    switch only.  The kernels take the split-head views as they are and
+    return a view of (b, n, h, d) memory.  Anything else is the one-shot
+    product: float32 scores and softmax, the probabilities cast to ``dtype``
+    before the product with v."""
+    n, d = q.shape[2:]
     m = k.shape[2]
     if (fa.flash_enabled() and min(n, m) >= fa.LONG_SEQ_THRESHOLD
             and fa.flash_takes(n, m, d, q.dtype)):
-        out = fa.flash_attention(q.reshape(b * h, n, d),
-                                 k.reshape(b * h, m, d),
-                                 v.reshape(b * h, m, d), scale=scale)
-        return out.reshape(b, h, n, d)
+        return fa.flash_attention(q, k, v, scale=scale)
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     attn = torch.softmax(sim, dim=-1)
     return torch.matmul(attn.to(dtype), v.to(dtype))

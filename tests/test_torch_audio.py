@@ -258,7 +258,8 @@ def test_model1d_through_the_flash_route(monkeypatch):
     loss = tmodel(torch.tensor(x), sigmas=torch.tensor(sigmas),
                   noise=torch.tensor(noise))
     loss.backward()
-    assert calls == [(2, 512, 16)]          # one attention layer, 2 heads
+    # one attention layer: batch 1, 2 heads, handed over as split heads
+    assert calls == [(1, 2, 512, 16)]
     assert abs(loss.item() - want_loss) <= 1e-4
     _assert_grads(tmodel, want, dict(rtol=1e-4, atol=5e-5))
 

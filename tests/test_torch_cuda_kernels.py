@@ -434,6 +434,9 @@ FLASH_CASES = [(16, 4096, 4096, 64), (4, 2048, 4096, 64), (3, 256, 384, 16),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,n,m,d", FLASH_CASES)
 def test_flash_forward_matches_plain_version(cuda, bh, n, m, d, dtype):
+    """K5 at every head size it is built for (bf16: ``mma.sync`` at 16 and
+    32, ``wgmma`` at 64 and 128) against its plain version; three calls,
+    with and without lse, give the same bits."""
     from moleculediffusiontransformer_tpu_torch.ops import \
         flash_attention as fa
     q, k, v, _ = _flash_case(cuda, bh, n, m, d, dtype)
@@ -441,13 +444,47 @@ def test_flash_forward_matches_plain_version(cuda, bh, n, m, d, dtype):
     before = fa.FLASH_FWD_LAUNCHES
     out, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
     bare, none = fa.flash_forward(q, k, v, scale)
+    again, lse_again = fa.flash_forward(q, k, v, scale, with_lse=True)
     torch.cuda.synchronize()
-    assert fa.FLASH_FWD_LAUNCHES == before + 2 and none is None
-    assert torch.equal(out, bare)
+    assert fa.FLASH_FWD_LAUNCHES == before + 3 and none is None
+    assert torch.equal(out, bare) and torch.equal(out, again)
+    assert torch.equal(lse, lse_again)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, scale)
     assert out.dtype == dtype and lse.dtype == torch.float32
     _within(out, ref, dtype, "o")
     _within(lse, ref_lse, torch.float32, "lse")
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("d", [16, 64])
+def test_flash_forward_takes_any_scale(cuda, d, scale):
+    """bf16 K5 (``mma.sync`` at d 16, ``wgmma`` at d 64) at a negative and a
+    zero scale, which its running max over the raw scores must survive,
+    against its plain version."""
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    q, k, v, _ = _flash_case(cuda, 2, 256, 384, d, torch.bfloat16, seed=3)
+    out, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, scale)
+    _within(out, ref, torch.bfloat16, "o")
+    _within(lse, ref_lse, torch.float32, "lse")
+
+
+@pytest.mark.parametrize("m,d", [(192, 64), (64, 128), (192, 32)])
+def test_flash_forward_entry_takes_odd_kv_tiles(cuda, m, d):
+    """The bf16 forward's entry point sweeps 64-row KV tiles, so it takes an
+    odd count of them, which the wrapper's 128 rule never hands it."""
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    q, k, v, _ = _flash_case(cuda, 2, 128, m, d, torch.bfloat16, seed=4)
+    o = torch.empty_like(q)
+    err = fa._library().fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   o.data_ptr(), None,
+                                   *fa._args((q, k, v, o), q, k, d ** -0.5))
+    torch.cuda.synchronize()
+    assert err == 0
+    _within(o, fa.flash_attention_reference(q, k, v, d ** -0.5)[0],
+            torch.bfloat16, "o")
 
 
 # the backward's further cases: the widest head at the long model's length,
@@ -492,7 +529,7 @@ def test_flash_autograd_and_refusals(cuda):
     do = bufs[3].transpose(1, 2)
     counts = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
               fa.FLASH_DKV_LAUNCHES)
-    out = sdpa(*views, d ** -0.5, torch.float32)         # routes: n >= 2048
+    out = sdpa(*views, d ** -0.5, torch.float32)     # routes: n >= threshold
     got = torch.autograd.grad(out, views, do)
     assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
             fa.FLASH_DKV_LAUNCHES) == tuple(c + 1 for c in counts)
@@ -508,10 +545,77 @@ def test_flash_autograd_and_refusals(cuda):
         fa.flash_forward(q[:, :200], k, v, 0.125)        # n % 128
     with pytest.raises(ValueError):
         fa.flash_forward(q.half(), k.half(), v.half(), 0.125)
-    with pytest.raises(ValueError):
-        fa.flash_forward(q.transpose(0, 1), k, v, 0.125)
+    with pytest.raises(ValueError, match="cannot address"):
+        fa.flash_forward(torch.zeros(2, 1, 256, 128, device=cuda)[..., ::2],
+                         k[:, None], v[:, None], 0.125)  # last stride 2
     with pytest.raises(ValueError):
         fa.flash_forward(q, k.cpu(), v, 0.125)
+
+
+# (b, h, n, m, d) of the split-head cases: the long model's attention at
+# batch 1 and a cross-attention case at every head size
+SPLIT_HEAD_CASES = [(1, 8, 4096, 4096, 64), (2, 3, 256, 384, 16),
+                    (2, 3, 384, 256, 32), (2, 3, 256, 384, 64),
+                    (2, 3, 256, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,m,d", SPLIT_HEAD_CASES)
+def test_flash_kernels_on_split_head_views(cuda, b, h, n, m, d, dtype):
+    """K5, K6 and K7 read q and do as transposed views of (b, n, h, d)
+    buffers and k, v as ``.chunk`` views of one (b, m, 2 h d) projection,
+    and write o, dq, dk, dv in (b, rows, h, d) memory: bit for bit what the
+    same values give contiguous, with one launch of each kernel a call."""
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    gen = torch.Generator().manual_seed(b + h + n + m + d)
+
+    def split(t):
+        return t.reshape(b, t.shape[1], h, d).transpose(1, 2)
+
+    q = split(torch.randn(b, n, h * d, generator=gen).to(cuda, dtype))
+    k, v = (split(t) for t in torch.randn(
+        b, m, 2 * h * d, generator=gen).to(cuda, dtype).chunk(2, dim=-1))
+    do = split(torch.randn(b, n, h * d, generator=gen).to(cuda, dtype))
+    flat = [t.contiguous() for t in (q, k, v)]
+    scale = d ** -0.5
+    counts = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+              fa.FLASH_DKV_LAUNCHES)
+    o, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+    got = fa.flash_backward(q, k, v, o, lse, do, scale)
+    assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+            fa.FLASH_DKV_LAUNCHES) == tuple(c + 1 for c in counts)
+    o_flat, lse_flat = fa.flash_forward(*flat, scale, with_lse=True)
+    want = fa.flash_backward(*flat, o_flat, lse_flat, do.contiguous(), scale)
+    torch.cuda.synchronize()
+    assert o.shape == (b, h, n, d) and o.transpose(1, 2).is_contiguous()
+    assert torch.equal(o, o_flat) and torch.equal(lse, lse_flat)
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == t.shape and g.transpose(1, 2).is_contiguous(), name
+        assert torch.equal(g, w), name
+
+
+def test_flash_kernels_refuse_a_bad_stride(cuda):
+    """Views the kernels cannot address raise before any launch: a row
+    stride that is not a multiple of 16 bytes, a last dimension that is not
+    unit-stride."""
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    good = torch.zeros(2, 256, 2, 64, device=cuda,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    rows = torch.zeros(2, 256, 1, 68, device=cuda, dtype=torch.bfloat16)[
+        ..., :64].transpose(1, 2)                        # 136-byte rows
+    cols = torch.zeros(2, 2, 256, 128, device=cuda,
+                       dtype=torch.bfloat16)[..., ::2]   # last stride 2
+    before = fa.FLASH_FWD_LAUNCHES
+    for bad in (rows, cols):
+        with pytest.raises(ValueError, match="cannot address"):
+            fa.flash_forward(bad, good[:, :bad.shape[1]], good[:, :bad.shape[
+                1]], 0.125)
+    with pytest.raises(ValueError, match="cannot address"):
+        fa.flash_backward(good, good, good, good, torch.zeros(
+            4, 256, device=cuda), cols, 0.125)
+    assert fa.FLASH_FWD_LAUNCHES == before
 
 
 def test_long_model1d_launches_the_flash_kernels(cuda, monkeypatch):

@@ -215,7 +215,8 @@ def test_autograd_function_matches_one_shot_sdpa(n, m):
 
 
 def test_flash_takes_and_switch(monkeypatch):
-    assert tfa.LONG_SEQ_THRESHOLD == jfa.LONG_SEQ_THRESHOLD == 2048
+    # the card's crossover routes from 512; the JAX package keeps its TPU's
+    assert tfa.LONG_SEQ_THRESHOLD == 512 and jfa.LONG_SEQ_THRESHOLD == 2048
     assert tfa.flash_takes(4096, 4096, 64, torch.bfloat16)
     assert tfa.flash_takes(2048, 4096, 128, torch.float32)
     assert not tfa.flash_takes(4096, 4100, 64, torch.float32)   # m % 128
@@ -309,20 +310,21 @@ def test_attention_module_routes_like_jax(monkeypatch):
 
 
 def test_default_threshold_does_not_route_1024(monkeypatch):
-    """n = 1024 stays on the one-shot product at the default threshold, as
-    in the JAX package; n = 2048 routes."""
+    """At the default threshold (512, the card's crossover) n = 256 stays on
+    the one-shot product and n = 512 routes, and so does n = 1024, which
+    the JAX package (its TPU's 2,048) does not stream."""
     monkeypatch.delenv("MDT_FLASH", raising=False)
     spy = _Spy(monkeypatch)
     rng = np.random.default_rng(9)
-    for n, calls in ((1024, 0), (2048, 1)):
+    for n, calls in ((256, 0), (512, 1), (1024, 1)):
         q, k, v = (torch.tensor(rng.standard_normal((1, 1, n, 16)).astype(
             np.float32)) for _ in range(3))
         spy.calls = 0
         out = tattn.sdpa(q, k, v, 0.25, torch.float32)
         assert spy.calls == calls and out.shape == (1, 1, n, 16)
     # rectangular: the shorter side decides
-    q = torch.zeros(1, 1, 2048, 16)
-    k = torch.zeros(1, 1, 1024, 16)
+    q = torch.zeros(1, 1, 512, 16)
+    k = torch.zeros(1, 1, 256, 16)
     spy.calls = 0
     tattn.sdpa(q, k, k, 0.25, torch.float32)
     assert spy.calls == 0
@@ -342,3 +344,196 @@ def test_sdpa_takes_split_head_views(monkeypatch):
     monkeypatch.setenv("MDT_FLASH", "0")
     want = tattn.sdpa(q, k, v, d ** -0.5, torch.float32)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD_TOL)
+
+
+def test_plain_forward_bf16_rounds_once():
+    """The plain forward's rounding points in bfloat16 are the tensor-core
+    kernel's: float32 scores from bf16 operands, the float32 normaliser, p
+    rounded to bf16 once as the operand of p v, a float32 sum, the output
+    rounded once.  Written out here step by step, the result is equal bit
+    for bit; the rounding of p is visible against the float32 product, and
+    the result stays within 2e-2 of the Pallas kernel in interpret mode
+    (the kernel rounds p against its running max, the plain version against
+    the row's final max: the bf16 band, not bit for bit)."""
+    q, k, v = _qkv(12, 2, 256, 256, 32)
+    scale = 32 ** -0.5
+    lo = _t(q, k, v, dtype=torch.bfloat16)
+    got, lse = tfa.flash_attention_reference(*lo, scale)
+
+    qf, kf, vf = (t.float() for t in lo)
+    s = qf @ kf.transpose(-1, -2) * scale
+    mx = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - mx)
+    l = p.sum(dim=-1, keepdim=True)
+    p16 = p.bfloat16().float()
+    assert not torch.equal(p16, p)
+    by_hand = (p16 @ vf) / l
+    assert torch.equal(got, by_hand.bfloat16())
+    assert torch.equal(lse, (mx + torch.log(l)).squeeze(-1))
+    assert not torch.equal(by_hand, (p @ vf) / l)
+
+    want = jfa.flash_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                 for a in (q, k, v)),
+                               block_q=128, block_kv=128, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2)
+
+
+def _split_head_inputs(seed, b, h, n, m, d, kv_from_one_projection):
+    """q, k, v as (b, h, rows, d) views the way ``AttentionBase`` makes
+    them: transposed views of (b, rows, h, d) buffers, k and v either two
+    such buffers or ``.chunk`` views of one (b, m, 2 h d) projection; and
+    do as a view like q."""
+    rng = np.random.default_rng(seed)
+
+    def rows(r, w):
+        return torch.tensor(rng.standard_normal((b, r, w)).astype(np.float32))
+
+    def split(t):
+        return t.reshape(b, t.shape[1], h, d).transpose(1, 2)
+
+    q, do = split(rows(n, h * d)), split(rows(n, h * d))
+    if kv_from_one_projection:
+        k, v = (split(t) for t in rows(m, 2 * h * d).chunk(2, dim=-1))
+    else:
+        k, v = split(rows(m, h * d)), split(rows(m, h * d))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("kv_from_one_projection", [False, True])
+@pytest.mark.parametrize("n,m", [(256, 256), (128, 384)])
+def test_flash_attention_on_split_head_views(n, m, kv_from_one_projection):
+    """``flash_attention`` on the views equals the call on the same values
+    made contiguous: the output at 2e-6, every gradient at atol 5e-5 /
+    rtol 1e-4; the output and dq come back in (b, n, h, d) memory, dk and
+    dv in (b, m, h, d), so that merging the heads is free."""
+    b, h, d = 2, 3, 16
+    q, k, v, do = _split_head_inputs(13, b, h, n, m, d,
+                                     kv_from_one_projection)
+    for t in (q, k, v, do):
+        assert not t.is_contiguous() and tfa.stride_problem(t) is None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves)
+    assert out.shape == (b, h, n, d) and out.transpose(1, 2).is_contiguous()
+    got = torch.autograd.grad(out, leaves, do)
+    flat = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+    ref = tfa.flash_attention(*flat)
+    want = torch.autograd.grad(ref, flat, do.contiguous())
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               **FWD_TOL)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.transpose(1, 2).is_contiguous()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **GRAD_TOL)
+    with torch.no_grad():
+        bare = tfa.flash_attention(q, k, v)
+    assert bare.transpose(1, 2).is_contiguous()
+    np.testing.assert_allclose(bare.numpy(), ref.detach().numpy(), **FWD_TOL)
+
+
+def test_sdpa_hands_split_heads_through_uncopied(monkeypatch):
+    """``AttentionBase`` at (2, 256, 48) with 3 heads of 16 and the
+    threshold patched to 256: ``flash_forward`` receives the module's
+    (b, h, n, d) views of its projections (q from ``to_q``, k and v the
+    ``.chunk`` halves of ``to_kv``) as they are, and the merged output's
+    transpose is free; the result equals the one-shot route."""
+    monkeypatch.setattr(tfa, "LONG_SEQ_THRESHOLD", 256)
+    monkeypatch.setenv("MDT_FLASH", "1")
+    seen = []
+    inner = tfa.flash_forward
+
+    def spy(q, k, v, *args, **kw):
+        seen.append((q, k, v))
+        out = inner(q, k, v, *args, **kw)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(tfa, "flash_forward", spy)
+    mod = tattn.Attention(48, 16, 3)
+    x = torch.tensor(np.random.default_rng(14).standard_normal(
+        (2, 256, 48)).astype(np.float32))
+    with torch.no_grad():
+        got = mod(x)
+        proj_q = mod.to_q(mod.norm(x))
+        proj_kv = mod.to_kv(mod.norm_context(x))
+    (q, k, v), o = seen
+    b, n, h, d = 2, 256, 3, 16
+    for t, base, offset in ((q, proj_q, 0), (k, proj_kv, 0),
+                            (v, proj_kv, h * d)):
+        assert t.shape == (b, h, n, d) and not t.is_contiguous()
+        assert t.stride() == (base.stride(0), d, base.stride(1), 1)
+        np.testing.assert_array_equal(
+            t.transpose(1, 2).reshape(b, n, h * d).numpy(),
+            base[..., offset:offset + h * d].numpy())
+    assert o.transpose(1, 2).is_contiguous()
+    monkeypatch.setenv("MDT_FLASH", "0")
+    with torch.no_grad():
+        want = mod(x)
+    assert len(seen) == 2
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-6,
+                               rtol=5e-6)
+
+
+@pytest.mark.parametrize("case", ["last_stride", "row_stride_bf16",
+                                  "row_stride_fp32", "head_stride",
+                                  "base_address", "3d_base_address",
+                                  "3d_view", "5d"])
+def test_stride_rule_refuses(case):
+    """What the kernels cannot address: a last dimension that is not
+    unit-stride, a row, head or batch stride or a base address (of a view or
+    of a contiguous (bh, n, d) tensor) that is not a multiple of 16 bytes, a
+    non-contiguous (bh, n, d) tensor.  ``_check``
+    raises with the rule's reason."""
+    buf = torch.zeros(2, 256, 3, 80)
+    bad = {
+        "last_stride": buf[..., ::2][..., :16].transpose(1, 2),
+        # (b, n, h, 68) bf16: rows of 136 bytes
+        "row_stride_bf16": torch.zeros(2, 256, 1, 68, dtype=torch.bfloat16)[
+            ..., :64].transpose(1, 2),
+        # (b, n, 1, 66) float32: rows of 264 bytes
+        "row_stride_fp32": torch.zeros(2, 256, 1, 66)[..., :64].transpose(
+            1, 2),
+        # heads 66 float32 apart (264 bytes), rows 132 (528 bytes)
+        "head_stride": torch.zeros(2, 256, 2, 66)[..., :64].transpose(1, 2),
+        "base_address": torch.zeros(2 * 256 * 64 + 1)[1:].reshape(
+            2, 1, 256, 64),
+        "3d_base_address": torch.zeros(2 * 256 * 64 + 1)[1:].reshape(
+            2, 256, 64),
+        "3d_view": torch.zeros(256, 2, 64).transpose(0, 1),
+        "5d": torch.zeros(1, 2, 1, 256, 64),
+    }[case]
+    assert tfa.stride_problem(bad) is not None
+    if bad.dim() in (3, 4):
+        good = torch.zeros(bad.shape, dtype=bad.dtype)
+        assert tfa.stride_problem(good) is None
+        with pytest.raises(ValueError, match="cannot address"):
+            tfa._check(bad, good, good)
+    # a split-head view of a (b, n, h, d) buffer passes in both dtypes
+    for dtype in (torch.float32, torch.bfloat16):
+        view = torch.zeros(2, 256, 3, 64, dtype=dtype).transpose(1, 2)
+        assert tfa.stride_problem(view) is None
+        tfa._check(view, view, view, o=view, do=view,
+                   lse=torch.zeros(6, 256))
+
+
+def test_check_remembers_layouts_not_addresses(monkeypatch):
+    """A layout that passed ``_check`` once passes again from memory, and
+    ``_args`` gives the same arguments from memory as made afresh; but a base
+    address off the 16-byte rule is refused on a remembered layout too."""
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)   # no card here
+    q = torch.zeros(2, 256, 3, 64).transpose(1, 2)
+    k = torch.zeros(2, 384, 6, 64)
+    kv = (k[:, :, :3].transpose(1, 2), k[:, :, 3:].transpose(1, 2))
+    key = tfa._check(q, *kv)
+    assert key in tfa._CHECKED and tfa._check(q, *kv) == key
+    o = tfa._split_heads_like(q)
+    fresh = tfa._args((q, *kv, o), q, kv[0], 0.125)
+    for _ in range(2):
+        got = tfa._args((q, *kv, o), q, kv[0], 0.125, key)
+        assert list(got[0]) == list(fresh[0]) and got[1:] == fresh[1:]
+    assert key in tfa._ARGS
+    # the same shape and strides four bytes into a larger buffer
+    shifted = torch.zeros(2 * 256 * 3 * 64 + 1)[1:].reshape(
+        2, 256, 3, 64).transpose(1, 2)
+    assert tfa._layout([shifted]) == tfa._layout([q])
+    with pytest.raises(ValueError, match="base address"):
+        tfa._check(shifted, *kv)

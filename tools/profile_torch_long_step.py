@@ -10,12 +10,13 @@ It builds the long-sequence model (``chip_smoke.LONG``) in bfloat16 with
 seeded random weights and traces, with ``torch.profiler``, one train step
 and one denoise eval in three settings: 2**17 samples with the streaming
 attention kernels (attention at 4,096 tokens), the same with ``MDT_FLASH=0``
-(the one-shot product), and 2**15 samples (attention at 1,024 tokens, always
-one-shot).  For each it reports the untraced time, the device time, the
-number of kernel launches, and the device time split into the streaming
-kernels (forward, dq, dk/dv), the rest of attention (matrix products and
-softmax of the one-shot path), convolutions, and everything else, with the
-longest kernels by name.
+(the one-shot product), and 2**15 samples (attention at 1,024 tokens,
+streamed when ``LONG_SEQ_THRESHOLD`` is 1,024 or less).  For each it reports the untraced time, the device time, the
+number of kernel launches, and the device time and kernel count split into
+the streaming kernels (forward, dq, dk/dv), copies and casts (PyTorch's copy
+kernels: layout copies and dtype conversions), the rest of attention (matrix
+products and softmax of the one-shot path), convolutions, and everything
+else, with the longest kernels by name.
 
 Prints one JSON object (also written to ``--out`` when given), beside the
 card's name and power limit.  Imports no JAX.
@@ -33,7 +34,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOP = 12       # kernel names listed
 # kernel-name fragments -> group, first match wins
 GROUPS = (("fwd_kernel", "flash_fwd"), ("dq_kernel", "flash_dq"),
-          ("dkv_kernel", "flash_dkv"), ("softmax", "attention_softmax"),
+          ("dkv_kernel", "flash_dkv"), ("copy", "copies_and_casts"),
+          ("softmax", "attention_softmax"),
           ("conv", "convs"), ("cudnn", "convs"), ("wgrad", "convs"),
           ("dgrad", "convs"), ("nchwToNhwc", "convs"),
           ("nhwcToNchw", "convs"), ("gemm", "matrix_products"),
@@ -66,7 +68,7 @@ def trace(fn):
                 return float(getattr(evt, attr))
         return 0.0
 
-    kernels, launches, groups = [], 0, {}
+    kernels, launches, groups, calls = [], 0, {}, {}
     for evt in prof.key_averages():
         if evt.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
             launches += evt.count
@@ -76,10 +78,12 @@ def trace(fn):
                             "device_ms": ms})
             g = group_of(evt.key)
             groups[g] = groups.get(g, 0.0) + ms
+            calls[g] = calls.get(g, 0) + evt.count
     kernels.sort(key=lambda k: -k["device_ms"])
     return {"traced_wall_ms": wall_ms,
             "device_ms": sum(k["device_ms"] for k in kernels),
             "kernel_launches": launches, "device_ms_by_group": groups,
+            "kernels_by_group": calls,
             "top": kernels[:TOP]}
 
 
