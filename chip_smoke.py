@@ -10,13 +10,19 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    nvcc per source, all started together (this phase reports the forward's);
 3. kernel against its plain PyTorch version at the four Transformer1d stack
    shapes of the 91M inverse QM9 model, batch 128 (a CFG-doubled 64), in
-   float32 (TF32 off) and bfloat16, with CUDA-event timings of both;
+   float32 (TF32 off) and bfloat16, with CUDA-event timings of both around
+   one call (``ms``) and, for the kernel, the card's time with the calls
+   enqueued back to back (``card_ms``);
 4. the serving path: the 91M model in bfloat16 with seeded random weights
    answers three ``sample(num_steps=64, cond_scale=2.0)`` requests (batch 1,
    16, 512), each of which must launch the stack kernel at least 9 x 126
-   times and never its stash variant; then one float32 batch-8 sample
-   through the kernel on the card is held against the same sample through
-   the plain version on the CPU;
+   times and never its stash variant, and every product of every stack
+   launch must go to the tensor-core GEMM (``gemm_tc.cuh``, counted by the
+   stack libraries); one denoise evaluation at batch 512 under CFG is timed
+   under ``torch.profiler`` (device ms, launches, GEMM launches) beside the
+   host clock; then one float32 batch-8 sample through the kernel on the
+   card is held against the same sample through the plain version on the
+   CPU;
 5. build of the backward kernels (``csrc/transformer1d_bwd.cu``, built with
    phase 2's);
 6. the training kernels against their plain versions at the four stack
@@ -24,14 +30,17 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    stash forward slot by slot, the conv-out (K3), every layer's (K2) and the
    GroupNorm + conv-in (K4) backward output by output, the whole stack's
    grads through the autograd function against autograd of the plain
-   forward, CUDA-event timings of each kernel and of the chain against the
-   plain versions, and a bitwise determinism check of the chain;
+   forward, CUDA-event timings of each kernel (and in bf16 the card's time)
+   and of the chain against the plain versions, and a bitwise determinism
+   check of the chain;
 7. the training path: the 91M model in bfloat16 trains one warm-up and 5
    timed steps of batch 1024 as 2 x 512 (Adam 2e-4, clip 0.5); every loss
-   is finite and each training kernel launched at least (its stacks or
-   layers) x 2 x 6 times; then one float32 step at batch 8 through the
-   kernels on the card is held against the same step through the plain
-   versions on the CPU;
+   is finite, each training kernel launched at least (its stacks or
+   layers) x 2 x 6 times, and every product of the stash forward and of K2
+   went to the tensor-core GEMM; one more step under ``torch.profiler``
+   (device ms, launches, GEMM launches) beside the host clock; then one
+   float32 step at batch 8 through the kernels on the card is held against
+   the same step through the plain versions on the CPU;
 8. the resnet-run kernel (K8, ``csrc/resnet_fwd.cu``, built with phase 2's)
    against its plain version at the eight resnet runs of the 91M inverse
    and the 18M forward presets, batch 1,024 (512 requests under CFG), in
@@ -41,7 +50,7 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    against autograd of the composition at batch 512;
 9. K1's uniform-context variant (the shared-KV CFG null half) against its
    plain version at the four cross-stack shapes of the two presets, batch
-   512, float32 and bfloat16, with timings;
+   512, float32 and bfloat16, with timings (``ms``, ``card_ms``);
 10. the 91M model serving with both switches on (``enable_resnet_fusion``,
    ``enable_sharedkv``): three 64-step CFG requests (batch 1, 16, 512),
    each launching K8 at least 4 x 126 times and the uniform-context kernel
@@ -122,10 +131,11 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path,
-its bfloat16 time beside its plain version's, the library call's where there
-is one, and the least time the card could take (the larger of its operations
-over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and ``{"ok": true,
-"device": ...}``.
+its bfloat16 time beside its plain version's (the stack kernels K1-K4 and
+the streaming-attention kernels also with ``card_ms``), the library call's
+where there is one, and the least time the card could take (the larger of
+its operations over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -375,9 +385,10 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 def check_stacks(dev):
     """Phase 3: the kernel against its plain version at the flagship stack
-    shapes.  Returns the largest error per dtype, and the kernel's and the
-    plain version's bf16 milliseconds summed over the four shapes, with the
-    bound of those four calls."""
+    shapes.  Returns the largest error per dtype, and the kernel's (CUDA
+    events around one call, and the card's time of calls back to back) and
+    the plain version's bf16 milliseconds summed over the four shapes, with
+    the bound of those four calls."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -386,7 +397,7 @@ def check_stacks(dev):
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = 0.0
+    ms = plain_ms = card_ms = 0.0
     limit = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
@@ -410,25 +421,28 @@ def check_stacks(dev):
                 err = (out.float() - ref.float()).abs().max().item()
                 t_kernel = cuda_ms(
                     lambda: tf.transformer1d_forward(params, x, ctx, **kw))
+                t_card = device_ms(
+                    lambda: tf.transformer1d_forward(params, x, ctx, **kw))
                 t_plain = cuda_ms(
                     lambda: tf.transformer1d_reference(params, x, ctx, **kw))
             phase("kernel", stack=name, dtype=dname, batch=STACK_BATCH,
                   max_abs_err=err, tol=KERNEL_TOL[dname],
                   ref_max_abs=ref.float().abs().max().item(),
-                  ms=t_kernel, plain_ms=t_plain)
+                  ms=t_kernel, card_ms=t_card, plain_ms=t_plain)
             if not err <= KERNEL_TOL[dname]:
                 raise AssertionError(f"{name} {dname}: kernel differs from "
                                      f"the plain version by {err}")
             worst[dname] = max(worst[dname], err)
             if dtype == torch.bfloat16:
                 ms += t_kernel
+                card_ms += t_card
                 plain_ms += t_plain
                 add_bound(limit, bound(
                     stack_flops(STACK_BATCH, length, c, layers, cross,
                                 *CONTEXT),
                     nbytes(x, out, ctx, *tf._kernel_weights(
                         params, layers, cross, dtype))))
-    return worst, ms, plain_ms, close_bound(limit)
+    return worst, ms, card_ms, plain_ms, close_bound(limit)
 
 
 def _rel_err(got, want, floor: float = 1e-30) -> float:
@@ -445,7 +459,8 @@ def _abs_err(got, want) -> float:
 def check_backward(dev):
     """Phase 6: the stash forward and K3, K2, K4 against their plain
     versions at the flagship stack shapes, batch 512.  Returns, per kernel,
-    the largest bf16 absolute error, the bf16 kernel and plain milliseconds
+    the largest bf16 absolute error, the bf16 kernel (CUDA events around one
+    call, and the card's time of calls back to back) and plain milliseconds
     summed over the four shapes, and the bound of those calls.  A layer's
     backward is counted as three times its forward products: recomputing
     them from the stash, and a data and a weight gradient for each."""
@@ -457,8 +472,8 @@ def check_backward(dev):
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
     kernels = ("stash", "conv_out", "layer", "conv_in_gn")
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in kernels}
+    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
+                   "plain_ms": 0.0} for k in kernels}
     batch = TRAIN_BATCH // MICRO_BATCHES
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
@@ -539,6 +554,9 @@ def check_backward(dev):
                 }
                 ms = {k: (cuda_ms(a, reps=10), cuda_ms(b, reps=10))
                       for k, (a, b) in times.items()}
+                card = ({k: device_ms(a, reps=10, rounds=3)
+                         for k, (a, _) in times.items()}
+                        if dtype == torch.bfloat16 else None)
                 chain = tf.transformer1d_backward(kp, x, ctx, stash, g,
                                                   multiplier=2, **kw)
                 again = tf.transformer1d_backward(kp, x, ctx, stash, g,
@@ -572,7 +590,7 @@ def check_backward(dev):
             phase("train_kernels", stack=name, dtype=dname, batch=batch,
                   rel_err=errs, max_abs_err=abs_errs,
                   stack_grad_rel_err=stack_err, tol=tol,
-                  ms={k: v[0] for k, v in ms.items()},
+                  ms={k: v[0] for k, v in ms.items()}, card_ms=card,
                   plain_ms={k: v[1] for k, v in ms.items()},
                   chain_ms=chain_ms, plain_chain_ms=plain_chain_ms,
                   deterministic=deterministic)
@@ -589,6 +607,7 @@ def check_backward(dev):
                     summary[k]["max_abs_err"] = max(
                         summary[k]["max_abs_err"], abs_errs[k])
                     summary[k]["ms"] += ms[k][0]
+                    summary[k]["card_ms"] += card[k]
                     summary[k]["plain_ms"] += ms[k][1]
                 conv = 4 * batch * length * c * c
                 grad32 = 4 * (c * c + 3 * c)     # a float32 dW and vectors
@@ -612,8 +631,10 @@ def check_backward(dev):
 
 
 def train_path(dev):
-    """Phase 7: the 91M model trains in bf16 at batch 1024 (2 x 512).
-    Returns the launches of each training kernel during these steps."""
+    """Phase 7: the 91M model trains in bf16 at batch 1024 (2 x 512), every
+    product of its stacks' forward and K2 on the tensor cores; then one step
+    under the profiler.  Returns the launches of each training kernel
+    during the timed steps."""
     import torch
     from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
         QMDiffusion
@@ -621,6 +642,9 @@ def train_path(dev):
         Transformer1d
     from moleculediffusiontransformer_tpu_torch.nn.primitives import \
         init_parameters
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    from moleculediffusiontransformer_tpu_torch.train import trainer
 
     model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
     init_parameters(model, torch.Generator().manual_seed(0))
@@ -631,24 +655,45 @@ def train_path(dev):
     cond, target = inverse_batch(TRAIN_BATCH, gen, dev)
 
     reset_counts()
+    products = tf.gemm_tc_launches()
     losses, seconds, peak = train_steps(model, cond, target, gen,
                                         TIMED_STEPS)
+    products = tf.gemm_tc_launches() - products
     counts_ = counts()
     steps = 1 + TIMED_STEPS
     want = {"STASH_LAUNCHES": len(stacks), "CONV_OUT_BWD_LAUNCHES":
             len(stacks), "LAYER_BWD_LAUNCHES": layers,
             "CONV_IN_GN_BWD_LAUNCHES": len(stacks)}
     want = {k: v * MICRO_BATCHES * steps for k, v in want.items()}
+    want_products = stack_products(model, backward=True) * (
+        MICRO_BATCHES * steps)
     phase("train", batch=TRAIN_BATCH, micro_batches=MICRO_BATCHES,
           steps=steps, seconds_per_step=seconds,
           samples_per_s=TRAIN_BATCH / seconds, losses=losses,
           max_memory_allocated=peak, stacks=len(stacks), layers=layers,
-          launches=counts_, min_launches=want)
+          launches=counts_, min_launches=want, gemm_tc_launches=products,
+          want_gemm_tc_launches=want_products)
     short = {k: counts_[k] for k, v in want.items() if counts_[k] < v}
     if short or counts_["LAUNCHES"]:
         raise AssertionError(f"training launched the kernels {counts_}, "
                              f"expected at least {want} and no stash-less "
                              f"forward")
+    if products != want_products:
+        raise AssertionError(f"training sent {products} products to the "
+                             f"tensor cores, expected {want_products}")
+    # one step under the profiler: the card's time against the host clock
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_diffusion_train_step(model, opt, MICRO_BATCHES)
+    step(state, cond, target, gen)
+    torch.cuda.synchronize()
+    products = tf.gemm_tc_launches()
+    device_ms_, launches, wall_ms = device_busy(
+        lambda: step(state, cond, target, gen))
+    phase("train_profile", batch=TRAIN_BATCH, micro_batches=MICRO_BATCHES,
+          device_ms=device_ms_, host_ms_untraced=seconds * 1e3,
+          traced_wall_ms=wall_ms, launches=launches,
+          gemm_tc_launches=tf.gemm_tc_launches() - products)
     return counts_
 
 
@@ -962,8 +1007,8 @@ def check_uniform(dev):
         init_parameters
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
-    summary = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "per_row_ms": 0.0}
+    summary = {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
+               "plain_ms": 0.0, "per_row_ms": 0.0}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         tol = KERNEL_TOL[dname]
@@ -990,6 +1035,8 @@ def check_uniform(dev):
                 err = _abs_err(out, ref)
                 t_kernel = cuda_ms(lambda: tf.transformer1d_forward(
                     kp, x, table, uniform_ctx=True, **kw))
+                t_card = device_ms(lambda: tf.transformer1d_forward(
+                    kp, x, table, uniform_ctx=True, **kw))
                 t_plain = cuda_ms(lambda: tf.transformer1d_reference(
                     kp, x, table, uniform_ctx=True, **kw))
                 t_rows = cuda_ms(
@@ -998,13 +1045,14 @@ def check_uniform(dev):
                   batch=NULL_HALF_BATCH, context=m, max_abs_err=err,
                   rel_err=rel, tol=tol,
                   ref_max_abs=ref.float().abs().max().item(), ms=t_kernel,
-                  plain_ms=t_plain, per_row_kernel_ms=t_rows)
+                  card_ms=t_card, plain_ms=t_plain, per_row_kernel_ms=t_rows)
             if not rel <= tol:
                 raise AssertionError(f"{name} {dname}: the uniform-context "
                                      f"kernel differs by {rel} of scale")
             if dtype == torch.bfloat16:
                 summary["max_abs_err"] = max(summary["max_abs_err"], err)
                 summary["ms"] += t_kernel
+                summary["card_ms"] += t_card
                 summary["plain_ms"] += t_plain
                 summary["per_row_ms"] += t_rows
                 add_bound(summary, bound(
@@ -1665,6 +1713,59 @@ def device_busy(fn):
     return device_us / 1e3, launches, wall_ms
 
 
+def stack_products(model, backward: bool = False) -> int:
+    """Products one forward of the model's Transformer1d stacks sends to the
+    tensor-core GEMM in bf16 (gemm_tc.cuh); with ``backward``, those of the
+    stash forward and of K2 (``transformer_fusion.stack_products``)."""
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    total = 0
+    for m in model.modules():
+        if isinstance(m, Transformer1d):
+            cross = bool(m.context_features)
+            total += tf.stack_products(m.num_layers, cross)
+            if backward:
+                total += tf.stack_products(m.num_layers, cross, backward=True)
+    return total
+
+
+def eval_profile(model, batch, gen, evals: int = 3) -> dict:
+    """One denoise evaluation of a QM model at ``batch`` requests under CFG
+    (the ADPM2 sampler's call, 2 x batch rows): device ms from a short
+    ``torch.profiler`` window over ``evals`` calls, kernel launches, the
+    host clock of untraced calls, and tensor-core GEMM launches, each a
+    call."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    dev = next(model.parameters()).device
+    props = torch.rand(batch, 12, generator=gen, device=dev) * 2 - 1
+    x = torch.randn(batch, model.max_length, model.pred_dim, generator=gen,
+                    device=dev)
+    sigmas = torch.full((batch,), 1.0, device=dev)
+
+    def run():
+        for _ in range(evals):
+            model.denoise(x, sigmas, emb, COND_SCALE)
+
+    with torch.no_grad():
+        emb = model.embed_conditioning(props)
+        run()
+        torch.cuda.synchronize()
+        products = tf.gemm_tc_launches()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / evals
+        products = tf.gemm_tc_launches() - products
+        device_ms_, launches, wall_ms = device_busy(run)
+    return {"device_ms": device_ms_ / evals, "host_ms": host_ms,
+            "traced_wall_ms": wall_ms / evals, "launches": launches / evals,
+            "gemm_tc_launches": products / evals}
+
+
 def ar_serve(dev):
     """Phase 22, bfloat16: the requests and the traced ones."""
     import torch
@@ -1870,7 +1971,8 @@ def main() -> int:
     phase("build", library=os.path.relpath(path, ROOT), seconds=seconds)
 
     # 3. kernel against its plain version
-    worst, stack_ms, stack_plain_ms, stack_bound = check_stacks(dev)
+    worst, stack_ms, stack_card_ms, stack_plain_ms, stack_bound = \
+        check_stacks(dev)
 
     # 4. the serving path, both switches at their default (off)
     if rf.resnet_fusion_enabled() or tf.cfg_null_half_active():
@@ -1882,13 +1984,25 @@ def main() -> int:
     requests = [torch.rand(b, 12, generator=gen, device=dev) * 2 - 1
                 for b in REQUESTS]
     inverse_shape = (FLAGSHIP["max_length"], FLAGSHIP["pred_dim"])
+    products = tf.gemm_tc_launches()
     served = serve(model, requests, gen, NUM_STEPS, COND_SCALE, "request",
                    inverse_shape, {"LAUNCHES": STACKS_PER_EVAL * EVALS})
+    products = tf.gemm_tc_launches() - products
     launches = served["LAUNCHES"]
     stray = {k: v for k, v in served.items() if k != "LAUNCHES" and v}
     if stray:
         raise AssertionError(f"sampling with the switches off launched "
                              f"{stray}")
+    # every product of every stack launch on the tensor cores
+    want_products = stack_products(model) * launches // STACKS_PER_EVAL
+    profile = eval_profile(model, REQUESTS[-1], gen)
+    phase("request_products", gemm_tc_launches=products,
+          want_gemm_tc_launches=want_products)
+    phase("eval_profile", batch=REQUESTS[-1], cond_scale=COND_SCALE,
+          **profile)
+    if products != want_products:
+        raise AssertionError(f"sampling sent {products} products to the "
+                             f"tensor cores, expected {want_products}")
 
     model32 = QMDiffusion(**FLAGSHIP, dtype=torch.float32)
     init_parameters(model32, torch.Generator().manual_seed(0))
@@ -2110,6 +2224,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": worst["bfloat16"],
         "ms": stack_ms,
+        "card_ms": stack_card_ms,
         "plain_ms": stack_plain_ms,
         **stack_bound,
         "library_ms": None,
@@ -2145,6 +2260,7 @@ def main() -> int:
         "replaces": jax_ops + ":449",
         "launches": served_on["UNIFORM_LAUNCHES"],
         "max_abs_err": uniform["max_abs_err"], "ms": uniform["ms"],
+        "card_ms": uniform["card_ms"],
         "plain_ms": uniform["plain_ms"], "bound_ms": uniform["bound_ms"],
         "bound_by": uniform["bound_by"], "library_ms": None})
     # the streaming-attention kernels: bf16 at bh 16, n = m = 4096, d 64

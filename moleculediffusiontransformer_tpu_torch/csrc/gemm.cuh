@@ -12,7 +12,10 @@
 //                      block and the sum has a fixed order)
 // Accumulation is float32 on the CUDA cores (64x64 tile, 4x4 outputs a
 // thread); no atomics anywhere, so a second call on the same inputs gives
-// bitwise the same result.
+// bitwise the same result.  This kernel takes every float32 product and
+// the products of K3, K4 and K8; bf16 products of K1 and K2 go to the
+// tensor cores through gemm_tc.cuh's `launch_gemm_tc`, which takes the
+// same `GemmArgs`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,8 +95,22 @@ struct GemmArgs {
   T* out_t;            // optional second output, the same value rounded to T
 };
 
+// The epilogue of output element idx = m * N + n, from its float32 sum.
 // `res` may alias `out`: each element's residual is read by the thread that
 // writes it.
+template <typename T, typename O>
+__device__ __forceinline__ float epilogue_value(const GemmArgs<T, O>& g, size_t idx, int n,
+                                                float v) {
+  switch (g.epi) {
+    case EPI_BIAS: return v + g.bias[n];
+    case EPI_BIAS_RES: return round_to<O>(v + g.bias[n]) + to_f(g.res[idx]);
+    case EPI_BIAS_GELU: return gelu_erf(v + g.bias[n]);
+    case EPI_RES: return v + to_f(g.res[idx]);
+    case EPI_MUL: return v * g.mul[idx];
+    default: return v;
+  }
+}
+
 template <typename T, typename O>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs<T, O> g) {
   __shared__ float As[BK][BM + 4];
@@ -146,15 +163,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs<T, O> g) {
       const int gn = n0 + tx + 16 * j;
       if (gn >= g.N) continue;
       const size_t idx = (size_t)gm * g.N + gn;
-      float v = acc[i][j];
-      switch (g.epi) {
-        case EPI_BIAS: v += g.bias[gn]; break;
-        case EPI_BIAS_RES: v = round_to<O>(v + g.bias[gn]) + to_f(g.res[idx]); break;
-        case EPI_BIAS_GELU: v = gelu_erf(v + g.bias[gn]); break;
-        case EPI_RES: v += to_f(g.res[idx]); break;
-        case EPI_MUL: v *= g.mul[idx]; break;
-        default: break;
-      }
+      const float v = epilogue_value(g, idx, gn, acc[i][j]);
       g.out[idx] = from_f<O>(v);
       if (g.out_t != nullptr) g.out_t[idx] = from_f<T>(v);
     }

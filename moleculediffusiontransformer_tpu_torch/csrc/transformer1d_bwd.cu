@@ -11,24 +11,31 @@
 //
 // What bounds it on this card.  As in the forward, matrix products with
 // M = batch*L rows (4096 at the flagship's L 8 and micro-batch 512) and N, K
-// in 256..1024: the backward does about twice the forward's multiplies plus
-// the recomputed q/kv and feed-forward hidden, on the CUDA cores.  The weight
-// grads are the awkward part: their output is only C x C..2I x C, so a
-// 64x64-tile grid has 16..128 blocks for 132 SMs, each reducing over all
-// 4096 rows.
+// in 256..1024: the backward does about three times the forward's
+// multiplies (the recomputed q/kv and feed-forward hidden, then an input
+// and a weight grad of each), some 0.3 ms of a layer's work at the bf16
+// tensor-core peak over the flagship's twelve layers, every operand
+// resident in L2.  The weight grads are the awkward part: their output is
+// only C x C..2I x C, so one block an output tile gives 4..64 tiles of
+// 128 x 128 for 132 SMs, each reducing over all 4096 rows; on the CUDA
+// cores, tile by tile, they made K2 slower than its plain version.
 //
 // What the design does about it.  The TPU kernels zero the weight-grad banks
 // at grid step 0 and then `+=` across the batch grid, which is right only
-// because a TPU grid runs in order.  Here every weight grad is one GEMM,
-// dW = G^T A (`gemm_tn` in gemm.cuh), whose reduction runs over all rows
-// inside the block that owns the output tile; bias, LayerNorm and GroupNorm
-// parameter grads are column sums by one block per 32 columns, each column
-// summed in a fixed order.  There is no float atomicAdd, so two calls on the
-// same inputs give bitwise the same grads.  (Splitting the rows over more
-// blocks, with a second pass over the partials, would fill the card: later
-// work, with tensor cores.)  Attention is one block per (batch, head): q, k,
-// v, dO and the L x m probability and dP matrices sit in shared memory
-// (L, m <= 64, d <= 128: at most 165 KB, asked for with
+// because a TPU grid runs in order.  Here K2's products run through
+// gemm_tc.cuh's `launch_gemm_tc`: in bf16 on the tensor cores (`wgmma` from
+// swizzled shared memory), in float32 on the CUDA cores (gemm.cuh).  Every
+// weight grad is dW = G^T A with G^T read in place (`wgmma`'s transpose of
+// A), and in bf16 its rows are split into S chunks, S chosen from the shape
+// so that (tile, chunk) blocks fill the card about once: each block writes
+// a float32 partial into the workspace and a second pass sums the S
+// partials in chunk order.  Bias, LayerNorm and GroupNorm parameter grads
+// are column sums by one block per 32 columns, each column summed in a fixed
+// order.  There is no float atomicAdd, so two calls on the same inputs give
+// bitwise the same grads.  K3 and K4 keep gemm.cuh's CUDA-core kernel for
+// now (their redesign is later work).  Attention is one block per (batch,
+// head): q, k, v, dO and the L x m probability and dP matrices sit in
+// shared memory (L, m <= 64, d <= 128: at most 165 KB, asked for with
 // cudaFuncSetAttribute), P is recomputed from q and k.
 //
 // Rounding follows the Pallas kernels: g and dO in the compute dtype before
@@ -39,7 +46,7 @@
 // layer and rounded at the layer's output, dcontext rounded per layer and
 // summed across layers in the compute dtype, the recomputed GroupNorm output
 // rounded before dW_in; every weight grad float32.
-#include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -374,7 +381,7 @@ inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 // buffers of the compute dtype (element size `es`).
 struct BwdWorkspace {
   size_t dy32, h32, dh32, dq_in32, dkv_in32, q_mean, q_rstd, kv_mean, kv_rstd, gn_mean,
-      gn_rstd, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
+      gn_rstd, partial, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
 };
 
 BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
@@ -401,6 +408,17 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
   w.kv_rstd = take(4 * kv_rows);
   w.gn_mean = take(4 * B * 32);
   w.gn_rstd = take(4 * B * 32);
+  // the largest of a layer's weight grads split over rows (bf16 only: the
+  // float32 products stay on the CUDA cores, unsplit)
+  long long part = 0;
+  if (es == 2) {
+    const long long shapes[][3] = {{C, H, R}, {H, C, R},          {C, I, R},
+                                   {I, C, R}, {2 * I, C, R}, {2 * I, ctx_c, B * ctx_len}};
+    for (const auto& sh : shapes)
+      if (sh[0] > 0 && sh[1] > 0 && sh[2] > 0)
+        part = std::max(part, gtc::split_elems((int)sh[0], (int)sh[1], (int)sh[2]));
+  }
+  w.partial = take(4 * part);
   w.dy_dt = take(es * R * C);
   w.gd = take(es * R * H);
   w.dh_dt = take(es * R * H);
@@ -419,7 +437,7 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
 template <typename T>
 struct Buffers {
   float *dy32, *h32, *dh32, *dq_in32, *dkv_in32, *q_mean, *q_rstd, *kv_mean, *kv_rstd,
-      *gn_mean, *gn_rstd;
+      *gn_mean, *gn_rstd, *partial;
   T *dy_dt, *gd, *dh_dt, *q_in, *kv_in, *q, *kv, *dout, *o, *dq, *dkv;
 };
 
@@ -437,6 +455,7 @@ Buffers<T> carve(char* base, const BwdWorkspace& w) {
   b.kv_rstd = (float*)(base + w.kv_rstd);
   b.gn_mean = (float*)(base + w.gn_mean);
   b.gn_rstd = (float*)(base + w.gn_rstd);
+  b.partial = (float*)(base + w.partial);
   b.dy_dt = (T*)(base + w.dy_dt);
   b.gd = (T*)(base + w.gd);
   b.dh_dt = (T*)(base + w.dh_dt);
@@ -507,20 +526,21 @@ int attention_bwd(float* dy32, const T* a, const T* kv_src, int kv_rows, int kv_
   T1D_CHECK(launch_ln_stats<T>(a, bf.q_in, bf.q_mean, bf.q_rstd, ns, nb, R, C, s));
   T1D_CHECK(launch_ln_stats<T>(kv_src, bf.kv_in, bf.kv_mean, bf.kv_rstd, cs, cb, kv_rows,
                                kv_c, s));
-  T1D_CHECK(launch_gemm(gemm_nt<T, T>(bf.q_in, wq, bf.q, R, I, C), s));
-  T1D_CHECK(launch_gemm(gemm_nt<T, T>(bf.kv_in, wkv, bf.kv, kv_rows, 2 * I, kv_c), s));
+  T1D_CHECK(launch_gemm_tc(gemm_nt<T, T>(bf.q_in, wq, bf.q, R, I, C), s));
+  T1D_CHECK(launch_gemm_tc(gemm_nt<T, T>(bf.kv_in, wkv, bf.kv, kv_rows, 2 * I, kv_c), s));
   // out-projection backward
   T1D_CHECK(launch_cast<float, T>(dy32, bf.dy_dt, (long long)R * C, s));
-  T1D_CHECK(launch_gemm(gemm_nn<T, T>(bf.dy_dt, wout, bf.dout, R, I, C), s));
+  T1D_CHECK(launch_gemm_tc(gemm_nn<T, T>(bf.dy_dt, wout, bf.dout, R, I, C), s));
   T1D_CHECK(launch_colsum<float>(dy32, R, C, g[7], s));
   T1D_CHECK(launch_attention_bwd<T>(bf.q, bf.kv, bf.dout, bf.o, bf.dq, bf.dkv, B, L, m,
                                     heads, d, s));
-  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dy_dt, bf.o, g[6], R, C, I), s));
-  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dq, bf.q_in, g[4], R, I, C), s));
-  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dkv, bf.kv_in, g[5], kv_rows, 2 * I, kv_c), s));
-  T1D_CHECK(launch_gemm(gemm_nn<T, float>(bf.dq, wq, bf.dq_in32, R, C, I), s));
-  T1D_CHECK(launch_gemm(gemm_nn<T, float>(bf.dkv, wkv, bf.dkv_in32, kv_rows, kv_c, 2 * I),
-                        s));
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dy_dt, bf.o, g[6], R, C, I), s, bf.partial));
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dq, bf.q_in, g[4], R, I, C), s, bf.partial));
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dkv, bf.kv_in, g[5], kv_rows, 2 * I, kv_c), s,
+                           bf.partial));
+  T1D_CHECK(launch_gemm_tc(gemm_nn<T, float>(bf.dq, wq, bf.dq_in32, R, C, I), s));
+  T1D_CHECK(launch_gemm_tc(gemm_nn<T, float>(bf.dkv, wkv, bf.dkv_in32, kv_rows, kv_c, 2 * I),
+                           s));
   // LayerNorm parameter grads, then input grads
   T1D_CHECK(launch_colsum<float, T>(bf.dq_in32, R, C, g[1], g[0], a, bf.q_mean, bf.q_rstd, 1,
                                     1, C, s));
@@ -557,26 +577,26 @@ int layer_bwd(const T* dy, const T* a, const T* c, const T* f, const T* ctx,
   GemmArgs<T, float> h = gemm_nt<T, float>(f, w0, bf.h32, R, H, C);
   h.epi = EPI_BIAS;
   h.bias = b0;
-  T1D_CHECK(launch_gemm(h, s));
+  T1D_CHECK(launch_gemm_tc(h, s));
   {
     const long long n = (long long)R * H;
     const long long blocks = (n + 255) / 256 < GRID_CAP ? (n + 255) / 256 : GRID_CAP;
     gelu_grad_kernel<T><<<(int)blocks, 256, 0, s>>>(bf.h32, bf.gd, n);
     T1D_CHECK((int)cudaGetLastError());
   }
-  T1D_CHECK(launch_gemm(gemm_tn<T>(dy, bf.gd, g[ff0 + 2], R, C, H), s));
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(dy, bf.gd, g[ff0 + 2], R, C, H), s, bf.partial));
   T1D_CHECK(launch_colsum<T>(dy, R, C, g[ff0 + 3], s));
   GemmArgs<T, float> dh = gemm_nn<T, float>(dy, w2, bf.dh32, R, H, C);
   dh.epi = EPI_MUL;
   dh.mul = bf.h32;
   dh.out_t = bf.dh_dt;
-  T1D_CHECK(launch_gemm(dh, s));
-  T1D_CHECK(launch_gemm(gemm_tn<T>(bf.dh_dt, f, g[ff0], R, H, C), s));
+  T1D_CHECK(launch_gemm_tc(dh, s));
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dh_dt, f, g[ff0], R, H, C), s, bf.partial));
   T1D_CHECK(launch_colsum<float>(bf.dh32, R, H, g[ff0 + 1], s));
   GemmArgs<T, float> res = gemm_nn<T, float>(bf.dh_dt, w0, bf.dy32, R, C, H);
   res.epi = EPI_RES;
   res.res = bf.dy32;
-  T1D_CHECK(launch_gemm(res, s));
+  T1D_CHECK(launch_gemm_tc(res, s));
 
   if (cross)
     T1D_CHECK(attention_bwd<T>(bf.dy32, c, ctx, B * ctx_len, ctx_c, ctx_len, w + 8, dw + 8,
@@ -613,6 +633,31 @@ int conv_in_gn_bwd(const T* x, const T* dy0, const T* w, const float* gs, const 
   gn_bwd_kernel<T><<<B * groups, 128, 0, s>>>(bf.dq_in32, x, bf.gn_mean, bf.gn_rstd, gs, dx,
                                               L, C, groups);
   return (int)cudaGetLastError();
+}
+
+// One call of `launch_gemm_tc` on its own (the entry `t1d_gemm_tc`).
+template <typename T, typename O>
+int gemm_tc_alone(const void* A, long long sam, long long sak, const void* B, long long sbk,
+                  long long sbn, void* out, int M, int N, int K, int epi, const void* bias,
+                  const void* res, const void* mul, void* out_t, int split, void* partial,
+                  int* route, int* splits, cudaStream_t s) {
+  GemmArgs<T, O> g = {};
+  g.A = (const T*)A;
+  g.sam = sam;
+  g.sak = sak;
+  g.B = (const T*)B;
+  g.sbk = sbk;
+  g.sbn = sbn;
+  g.out = (O*)out;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.epi = epi;
+  g.bias = (const float*)bias;
+  g.res = (const O*)res;
+  g.mul = (const float*)mul;
+  g.out_t = (T*)out_t;
+  return launch_gemm_tc(g, s, split ? (float*)partial : nullptr, route, splits);
 }
 
 bool shapes_ok(int L, int C, int ctx_len, bool cross, int head_dim) {
@@ -715,7 +760,63 @@ int t1d_bwd_conv_in_gn(const void* x, const void* dy0, const void* w, const void
   return -1;
 }
 
+// One product through `launch_gemm_tc` alone (K1's and K2's GEMM; no model
+// path calls this entry): out (M, N) = epilogue(A B) with A[m, k] =
+// A[m sam + k sak], B[k, n] = B[k sbk + n sbn] in `dtype`; out float32 when
+// `out_float`, else in `dtype` (float32 inputs give a float32 out); bias
+// (N,) and mul (M, N) float32, res (M, N) of out's type, out_t (M, N) in
+// `dtype`, each null unless the epilogue `epi` (gemm.cuh) reads it.
+// `split` 1: a plain float32 sum is split over the rows of k as K2 splits
+// its weight grads, into `partial` (t1d_gemm_partial_elems(M, N, K)
+// floats); 0: no split.  `route` (0 CUDA cores, 1 tensor cores 64 x 64, 2
+// tensor cores 128 x 128) and `splits` get what the call ran, when not
+// null.
+int t1d_gemm_tc(const void* A, long long sam, long long sak, const void* B, long long sbk,
+                long long sbn, void* out, int out_float, int M, int N, int K, int epi,
+                const void* bias, const void* res, const void* mul, void* out_t, int split,
+                void* partial, int* route, int* splits, int dtype, int device,
+                void* stream) {
+  if (M < 1 || N < 1 || K < 1 || epi < EPI_NONE || epi > EPI_MUL) return -1;
+  T1D_CHECK((int)cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return gemm_tc_alone<float, float>(A, sam, sak, B, sbk, sbn, out, M, N, K, epi, bias, res,
+                                       mul, out_t, split, partial, route, splits, s);
+  if (dtype == DTYPE_BF16 && out_float)
+    return gemm_tc_alone<__nv_bfloat16, float>(A, sam, sak, B, sbk, sbn, out, M, N, K, epi,
+                                               bias, res, mul, out_t, split, partial, route,
+                                               splits, s);
+  if (dtype == DTYPE_BF16)
+    return gemm_tc_alone<__nv_bfloat16, __nv_bfloat16>(A, sam, sak, B, sbk, sbn, out, M, N, K,
+                                                       epi, bias, res, mul, out_t, split,
+                                                       partial, route, splits, s);
+  return -1;
+}
+
+// Float32 elements of `partial` a split `t1d_gemm_tc` call of this shape
+// takes (0 when it would not split).
+long long t1d_gemm_partial_elems(int M, int N, int K) {
+  if (M < 1 || N < 1 || K < 1) return 0;
+  return gtc::split_elems(M, N, K);
+}
+
+// Products this library has sent to the tensor cores (gemm_tc.cuh) since
+// it was loaded or last reset.
+long long t1d_bwd_gemm_tc_launches(int reset) {
+  const long long n = gtc::g_tc_launches;
+  if (reset) gtc::g_tc_launches = 0;
+  return n;
+}
+
+#ifdef GTC_TRACE
+// The stamps of the last traced `gemm_tc` launch (gemm_tc.cuh) -> host[64].
+int t1d_gemm_trace(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, gtc::g_trace, sizeof(gtc::g_trace));
+}
+#endif
+
 const char* t1d_bwd_error_string(int err) {
+  if (err == gtc::ERR_TENSOR_MAP) return "cuTensorMapEncodeTiled refused a TMA tensor map";
   return err < 0 ? "invalid arguments" : cudaGetErrorString((cudaError_t)err);
 }
 

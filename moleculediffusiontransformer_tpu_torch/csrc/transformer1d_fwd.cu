@@ -14,10 +14,15 @@
 // What bounds it on this card.  At the flagship shapes (batch 2x512 under
 // CFG; L 8 at C 256, L 2 at C 512; 8 heads x 64; ctx 12 x 128) almost all
 // of the work is matrix products with M = batch*L rows and N, K in
-// 256..1024, so the stack is bound by the multiply rate, not by memory: the
-// largest activation of a stack (8192 x 512 bf16, 8 MB) and a layer's
-// weights (at most 5 MB bf16) both fit the 50 MB L2.  At small batch it is
-// bound by launch latency instead (about 14 launches per layer).
+// 256..1024: about 420 GFLOP an eval of the 91M model's nine stacks, 0.42
+// ms at the bf16 tensor-core peak, with every operand resident in the 50 MB
+// L2 (the largest activation of a stack, 8192 x 512 bf16, is 8 MB; a
+// layer's weights at most 5 MB).  On the CUDA cores those products ran at
+// ~16 TFLOP/s and took three quarters of an eval's device time; on the
+// tensor cores they take a few microseconds a launch, and what is left is
+// the chain's ~14 launches a layer (norms, attention, products), each a
+// few microseconds of device time at any batch, and the host's time to
+// issue them.
 //
 // What the design does about it.  The TPU kernel keeps every layer's
 // weights resident in VMEM (~22 MB at C=512), which cannot fit in 227 KB of
@@ -27,13 +32,17 @@
 // stream by one host entry point (`t1d_forward`):
 //   * GroupNorm: one block per (batch, group), float32 two-pass statistics;
 //   * LayerNorm: one warp per row, float32 two-pass statistics;
-//   * the tiled GEMM of `gemm.cuh` (shared with the backward), C = A W^T
-//     with W in torch's (out, in) layout, float32 accumulation on the CUDA
-//     cores (64x64 tile, 4x4 outputs a thread) and a fused epilogue: + bias,
-//     exact GELU (erff), + residual;
+//   * every product, C = A W^T with W in torch's (out, in) layout, through
+//     gemm_tc.cuh's `launch_gemm_tc` with a fused epilogue (+ bias, exact
+//     GELU (erff), + residual): in bf16 on the tensor cores (`wgmma` from
+//     swizzled shared memory, a TMA-fed ring, 128 x 128 or 64 x 64
+//     blocks chosen from the shape so that a request of a few rows does not
+//     launch 128-row blocks), in float32 on the CUDA cores (gemm.cuh's
+//     64x64 tile), so that float32 keeps its 1e-4 parity with the CPU;
 //   * attention: one block per (batch, head), q/k/v and the L x m score
 //     matrix in shared memory (L, m <= 64), float32 scores and stable
-//     softmax, float32 P.V.
+//     softmax, float32 P.V, on the CUDA cores (a small share of the work at
+//     L 8 and m 12).
 // With a uniform context the cross-attention's context LayerNorm and KV
 // projection run once, on m rows instead of B*m, and every (batch, head)
 // block reads that one K/V (batch stride 0).
@@ -42,10 +51,10 @@
 // compute dtype after projection, probabilities before P.V, every
 // projection's (acc + bias) before the residual add, and the residual
 // stream stays in the compute dtype; the feed-forward hidden activation is
-// float32 until after the GELU.  This first version uses no tensor cores
-// and keeps activations in global memory between kernels: making it fast
-// (wgmma tiles, fusing the per-layer chain) is later work.
-#include "gemm.cuh"
+// float32 until after the GELU.  Activations stay in global memory (in L2)
+// between kernels: fewer launches a layer (LayerNorm in the products'
+// prologue, the attention core on the tensor cores) is later work.
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -204,7 +213,7 @@ int fwd_gemm(const T* A, const T* W, const float* bias, const T* res, T* out, in
   g.epi = epi;
   g.bias = bias;
   g.res = res;
-  return launch_gemm(g, s);
+  return launch_gemm_tc(g, s);
 }
 
 template <typename T>
@@ -364,7 +373,16 @@ int t1d_forward(const void* x, const void* ctx, void* out, void* stash,
   return -1;
 }
 
+// Products this library has sent to the tensor cores (gemm_tc.cuh) since
+// it was loaded or last reset.
+long long t1d_fwd_gemm_tc_launches(int reset) {
+  const long long n = gtc::g_tc_launches;
+  if (reset) gtc::g_tc_launches = 0;
+  return n;
+}
+
 const char* t1d_error_string(int err) {
+  if (err == gtc::ERR_TENSOR_MAP) return "cuTensorMapEncodeTiled refused a TMA tensor map";
   return err < 0 ? "invalid arguments" : cudaGetErrorString((cudaError_t)err);
 }
 

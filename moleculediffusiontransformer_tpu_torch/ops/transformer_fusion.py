@@ -33,6 +33,15 @@ want matrices in the compute dtype and vectors in float32
 here, per call.  Weight grads come back in torch's layout: (out, in)
 matrices (a 1x1 conv's without its kernel axis) and vectors.
 
+Every product of K1 and K2 goes through one GEMM, ``csrc/gemm_tc.cuh``: in
+bf16 on the tensor cores (``wgmma``), K2's weight grads split over rows with
+a second pass that sums the chunks in order; in float32 on the CUDA cores,
+so that float32 keeps its 1e-4 parity with the CPU.  ``gemm_tc`` launches
+that GEMM alone (no model path calls it; the card tests and
+``tools/check_torch_gemm.py`` do), ``gemm_tc_reference`` is its plain
+version, and ``gemm_tc_launches`` counts the products the stack libraries
+sent to the tensor cores.
+
 ``uniform_ctx`` (the JAX ``attention_shared_kv``): the context is one
 (1, m, C_ctx) table shared by every row, as the CFG null half's
 FixedEmbedding is.  Its LayerNorm and KV projection run once, on m rows, and
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import os
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
@@ -148,7 +158,8 @@ def stack_kernel_takes(x: torch.Tensor, context: Optional[torch.Tensor], *,
             and (context is None or 1 <= context.shape[1] <= MAX_CONTEXT))
 
 
-def _abi_names(num_layers: int, cross: bool) -> List[str]:
+@functools.lru_cache(maxsize=None)
+def _abi_names(num_layers: int, cross: bool) -> Tuple[str, ...]:
     """Parameter names in the kernel's order (the JAX ``_abi_paths``)."""
     names = ["to_in.0.weight", "to_in.0.bias", "to_in.1.weight",
              "to_in.1.bias"]
@@ -168,20 +179,25 @@ def _abi_names(num_layers: int, cross: bool) -> List[str]:
                   f"blocks.{i}.feed_forward.0.bias",
                   f"blocks.{i}.feed_forward.2.weight",
                   f"blocks.{i}.feed_forward.2.bias"]
-    return names + ["to_out.1.weight", "to_out.1.bias"]
+    return tuple(names + ["to_out.1.weight", "to_out.1.bias"])
 
 
 def _kernel_weights(params: Dict[str, torch.Tensor], num_layers: int,
                     cross: bool, dtype: torch.dtype) -> List[torch.Tensor]:
     """The kernel's weight list: 1x1 conv weights (out, in, 1) as (out, in)
-    matrices, matrices in ``dtype``, vectors in float32, all contiguous."""
+    matrices, matrices in ``dtype``, vectors in float32, all contiguous.  A
+    tensor that already is so (``Transformer1d.kernel_params`` caches them
+    so) is taken as it is, without a call into torch: this list is built at
+    every stack call, on the host's critical path."""
     out = []
     for name in _abi_names(num_layers, cross):
         w = params[name]
         if w.dim() == 1:
-            out.append(w.float().contiguous())
-        else:
-            out.append(w.reshape(w.shape[0], -1).to(dtype).contiguous())
+            if w.dtype != torch.float32 or not w.is_contiguous():
+                w = w.float().contiguous()
+        elif w.dim() != 2 or w.dtype != dtype or not w.is_contiguous():
+            w = w.reshape(w.shape[0], -1).to(dtype).contiguous()
+        out.append(w)
     return out
 
 
@@ -440,6 +456,66 @@ def bwd_conv_in_gn_reference(dy0: torch.Tensor, x: torch.Tensor,
     return dx.to(dt), d_w, d_b, d_gs, d_gb
 
 
+_EPILOGUES = {"none": 0, "bias": 1, "bias_res": 2, "bias_gelu": 3, "res": 4,
+              "mul": 5}
+
+
+def _gemm_shapes(x: torch.Tensor, y: torch.Tensor, layout: str):
+    """(M, N, K) of a product and the strides of its operands, A[m, k] at
+    (sam, sak) and B[k, n] at (sbk, sbn): ``nt`` out = x y^T with x (M, K),
+    y (N, K); ``nn`` out = x y with y (K, N); ``tn`` out = x^T y with x (K,
+    M), y (K, N), the weight grad of ``nt`` summed over K rows."""
+    if x.dim() != 2 or y.dim() != 2 or layout not in ("nt", "nn", "tn"):
+        raise ValueError(f"gemm_tc takes two matrices and a layout nt, nn or "
+                         f"tn, got {tuple(x.shape)}, {tuple(y.shape)}, "
+                         f"{layout!r}")
+    if layout == "nt":
+        (m, k), (n, k2) = x.shape, y.shape
+        strides = (x.stride(0), x.stride(1), y.stride(1), y.stride(0))
+    elif layout == "nn":
+        (m, k), (k2, n) = x.shape, y.shape
+        strides = (x.stride(0), x.stride(1), y.stride(0), y.stride(1))
+    else:
+        (k, m), (k2, n) = x.shape, y.shape
+        strides = (x.stride(1), x.stride(0), y.stride(0), y.stride(1))
+    if k != k2:
+        raise ValueError(f"gemm_tc {layout}: inner sizes {k} and {k2} differ")
+    return m, n, k, strides
+
+
+def gemm_tc_reference(x: torch.Tensor, y: torch.Tensor, layout: str, *,
+                      epi: str = "none", bias: Optional[torch.Tensor] = None,
+                      res: Optional[torch.Tensor] = None,
+                      mul: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None,
+                      want_out_t: bool = False):
+    """Plain version of the stack kernels' GEMM (``gemm_tc``): the product
+    of ``layout`` in float32, then the epilogue in float32 -- ``bias``
+    (+ bias[n]), ``bias_res`` ((acc + bias) rounded to the output type, +
+    res), ``bias_gelu`` (exact GELU of acc + bias), ``res`` (+ res), ``mul``
+    (* mul) -- and the output in ``out_dtype`` (x's by default); with
+    ``want_out_t`` also the same value in x's dtype.  Returns (out, out_t or
+    None)."""
+    _gemm_shapes(x, y, layout)
+    odt = out_dtype or x.dtype
+    a, b = x.float(), y.float()
+    v = a @ b.t() if layout == "nt" else (a @ b if layout == "nn"
+                                          else a.t() @ b)
+    if epi == "bias":
+        v = v + bias.float()
+    elif epi == "bias_res":
+        v = (v + bias.float()).to(odt).float() + res.float()
+    elif epi == "bias_gelu":
+        v = torch.nn.functional.gelu(v + bias.float())
+    elif epi == "res":
+        v = v + res.float()
+    elif epi == "mul":
+        v = v * mul.float()
+    elif epi != "none":
+        raise ValueError(f"unknown epilogue {epi!r}")
+    return v.to(odt), (v.to(x.dtype) if want_out_t else None)
+
+
 # --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
@@ -461,6 +537,8 @@ def _library() -> ctypes.CDLL:
         lib.t1d_forward.restype = _I
         lib.t1d_error_string.argtypes = [_I]
         lib.t1d_error_string.restype = ctypes.c_char_p
+        lib.t1d_fwd_gemm_tc_launches.argtypes = [_I]
+        lib.t1d_fwd_gemm_tc_launches.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
@@ -468,20 +546,34 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     global _BWD_LIB
     if _BWD_LIB is None:
-        lib = cuda_build.load(BWD_SOURCE)
-        lib.t1d_bwd_workspace_bytes.argtypes = [_I] * 9
-        lib.t1d_bwd_workspace_bytes.restype = ctypes.c_longlong
-        lib.t1d_bwd_conv_out.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.t1d_bwd_conv_out.restype = _I
-        lib.t1d_bwd_layer.argtypes = ([_P] * 6 + [_I] + [_P] * 2 + [_I]
-                                      + [_P] * 2 + [_I] * 10 + [_P])
-        lib.t1d_bwd_layer.restype = _I
-        lib.t1d_bwd_conv_in_gn.argtypes = [_P] * 11 + [_I] * 5 + [_P]
-        lib.t1d_bwd_conv_in_gn.restype = _I
-        lib.t1d_bwd_error_string.argtypes = [_I]
-        lib.t1d_bwd_error_string.restype = ctypes.c_char_p
-        _BWD_LIB = lib
+        _BWD_LIB = bind_bwd_library(cuda_build.load(BWD_SOURCE))
     return _BWD_LIB
+
+
+def bind_bwd_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of the entries of a library built from ``BWD_SOURCE``
+    (also a copy built with other flags, as ``tools/check_torch_gemm.py
+    --trace`` builds one)."""
+    lib.t1d_bwd_workspace_bytes.argtypes = [_I] * 9
+    lib.t1d_bwd_workspace_bytes.restype = ctypes.c_longlong
+    lib.t1d_bwd_conv_out.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.t1d_bwd_conv_out.restype = _I
+    lib.t1d_bwd_layer.argtypes = ([_P] * 6 + [_I] + [_P] * 2 + [_I]
+                                  + [_P] * 2 + [_I] * 10 + [_P])
+    lib.t1d_bwd_layer.restype = _I
+    lib.t1d_bwd_conv_in_gn.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.t1d_bwd_conv_in_gn.restype = _I
+    lib.t1d_bwd_error_string.argtypes = [_I]
+    lib.t1d_bwd_error_string.restype = ctypes.c_char_p
+    _L, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    lib.t1d_gemm_tc.argtypes = ([_P, _L, _L, _P, _L, _L, _P] + [_I] * 5
+                                + [_P] * 4 + [_I, _P, _IP, _IP, _I, _I, _P])
+    lib.t1d_gemm_tc.restype = _I
+    lib.t1d_gemm_partial_elems.argtypes = [_I] * 3
+    lib.t1d_gemm_partial_elems.restype = _L
+    lib.t1d_bwd_gemm_tc_launches.argtypes = [_I]
+    lib.t1d_bwd_gemm_tc_launches.restype = _L
+    return lib
 
 
 def _raise_on(err: int, what: str, lib: ctypes.CDLL, strerror: str) -> None:
@@ -767,6 +859,89 @@ def bwd_conv_in_gn(dy0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
               "t1d_bwd_error_string")
     CONV_IN_GN_BWD_LAUNCHES += 1
     return dx, dw, db, dgs, dgb
+
+
+def gemm_tc(x: torch.Tensor, y: torch.Tensor, layout: str, *,
+            epi: str = "none", bias: Optional[torch.Tensor] = None,
+            res: Optional[torch.Tensor] = None,
+            mul: Optional[torch.Tensor] = None,
+            out_dtype: Optional[torch.dtype] = None, want_out_t: bool = False,
+            split: bool = False, info: Optional[dict] = None):
+    """The stack kernels' GEMM (``csrc/gemm_tc.cuh``) alone: the CUDA entry
+    ``t1d_gemm_tc`` for CUDA tensors, ``gemm_tc_reference`` (which documents
+    the arguments) for CPU tensors.  x and y may be strided views; bf16 calls
+    whose strides and sizes the tensor-core loads take run there, the others
+    (and all float32 calls) on the CUDA cores.  ``split`` (``tn``, a plain
+    float32 sum): split the rows as K2 splits its weight grads.  ``info``,
+    if given, gets the ``route`` the call took (0 CUDA cores, 1 tensor cores
+    64 x 64, 2 tensor cores 128 x 128) and the ``splits`` it ran.
+    ``gemm_tc_launches`` counts the calls that took the tensor cores."""
+    kw = dict(epi=epi, bias=bias, res=res, mul=mul, out_dtype=out_dtype,
+              want_out_t=want_out_t)
+    if _on_cpu(x, y, bias, res, mul):
+        return gemm_tc_reference(x, y, layout, **kw)
+    _check_dtype(x)
+    m, n, k, (sam, sak, sbk, sbn) = _gemm_shapes(x, y, layout)
+    dt, dev = x.dtype, x.device
+    odt = out_dtype or dt
+    if y.dtype != dt or odt not in (dt, torch.float32) or epi not in _EPILOGUES:
+        raise ValueError(f"gemm_tc takes y in x's dtype, out in x's dtype or "
+                         f"float32 and an epilogue of {sorted(_EPILOGUES)}, "
+                         f"got {y.dtype}, {odt}, {epi!r}")
+    if (bias is None) != (epi not in ("bias", "bias_res", "bias_gelu")) or (
+            res is None) != (epi not in ("bias_res", "res")) or (
+            mul is None) != (epi != "mul"):
+        raise ValueError(f"epilogue {epi!r} got bias={bias is not None}, "
+                         f"res={res is not None}, mul={mul is not None}")
+    if bias is not None:
+        _check_rows("bias", bias, (n,), torch.float32, dev)
+    if res is not None:
+        _check_rows("res", res, (m, n), odt, dev)
+    if mul is not None:
+        _check_rows("mul", mul, (m, n), torch.float32, dev)
+    out = torch.empty((m, n), dtype=odt, device=dev)
+    out_t = (torch.empty((m, n), dtype=dt, device=dev) if want_out_t
+             else None)
+    lib = _bwd_library()
+    part = torch.empty(max(lib.t1d_gemm_partial_elems(m, n, k) if split
+                           else 0, 1), dtype=torch.float32, device=dev)
+    route, used = ctypes.c_int(-1), ctypes.c_int(0)
+    err = lib.t1d_gemm_tc(
+        x.data_ptr(), sam, sak, y.data_ptr(), sbk, sbn, out.data_ptr(),
+        int(odt == torch.float32), m, n, k, _EPILOGUES[epi],
+        *[None if t is None else t.data_ptr() for t in (bias, res, mul, out_t)],
+        int(split), part.data_ptr(), ctypes.byref(route), ctypes.byref(used),
+        _DTYPES[dt], dev.index, _stream(x))
+    _raise_on(err, "stack GEMM", lib, "t1d_bwd_error_string")
+    if info is not None:
+        info.update(route=route.value, splits=used.value)
+    return out, out_t
+
+
+def stack_products(num_layers: int, cross: bool,
+                   backward: bool = False) -> int:
+    """Products one call of a stack kernel sends through the GEMM: the
+    forward's (K1, with or without its stash or a uniform context) q, kv and
+    out of each attention, the feed-forward pair and the two 1x1 convs; or,
+    with ``backward``, K2's over all ``num_layers`` layers: five for the
+    feed-forward (recomputed hidden, dW2, dh, dW0, dy) and eight an
+    attention (q, kv, dout, dW_out, dW_q, dW_kv, dq_in, dkv_in).  K3's and
+    K4's products stay on the CUDA cores."""
+    attns = 2 if cross else 1
+    if backward:
+        return num_layers * (5 + 8 * attns)
+    return 2 + num_layers * (3 * attns + 2)
+
+
+def gemm_tc_launches(reset: bool = False) -> int:
+    """Products the stack libraries (K1's and K2's, whichever are loaded)
+    have sent to the tensor cores since they were loaded or last reset."""
+    total = 0
+    if _LIB is not None:
+        total += _LIB.t1d_fwd_gemm_tc_launches(int(reset))
+    if _BWD_LIB is not None:
+        total += _BWD_LIB.t1d_bwd_gemm_tc_launches(int(reset))
+    return total
 
 
 # --------------------------------------------------------------------------

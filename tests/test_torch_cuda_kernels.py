@@ -1,6 +1,7 @@
 """The Transformer1d stack kernels (``csrc/transformer1d_fwd.cu`` with and
 without its stash and with a uniform context, and the backward chain of
-``csrc/transformer1d_bwd.cu``) and the resnet-run kernel
+``csrc/transformer1d_bwd.cu``), their GEMM alone (``csrc/gemm_tc.cuh``,
+through the ``t1d_gemm_tc`` entry) and the resnet-run kernel
 (``csrc/resnet_fwd.cu``) against their plain PyTorch versions on an NVIDIA
 card, at the shapes of the 91M inverse and the 18M forward QM9 models; the
 streaming-attention kernels (``csrc/flash_attention.cu``,
@@ -31,6 +32,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (L, C, layers, cross) of the flagship's stacks
 STACKS = [(8, 256, 2, False), (8, 256, 4, True), (2, 512, 2, False),
           (2, 512, 4, True)]
+# (L, C, layers, cross, batch, context length) of the stack kernels' cases:
+# the flagship's stacks at the test's own batch (None), then at batch 1 and
+# 3 (products of 1 to 24 rows), and the 18M forward preset's stacks
+# (context 64)
+STACK_CASES = [(*st, None, 12) for st in STACKS] + [
+    (8, 256, 4, True, 1, 12), (8, 256, 4, True, 3, 12),
+    (2, 512, 2, False, 1, 12), (2, 512, 4, True, 3, 12),
+    (4, 128, 2, True, None, 64), (1, 256, 2, True, None, 64),
+    (4, 128, 2, True, 1, 64), (1, 256, 2, True, 3, 64)]
 
 
 @pytest.fixture
@@ -46,27 +56,35 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = cudnn
 
 
-def _stack(dev, length, c, layers, cross, dtype, batch=128, seed=0):
+def _stack(dev, length, c, layers, cross, dtype, batch=128, seed=0,
+           ctx_len=12):
     gen = torch.Generator().manual_seed(seed)
     mod = Transformer1d(layers, c, 8, 64, 2,
                         context_features=128 if cross else None, dtype=dtype)
     init_parameters(mod, gen)
     x = torch.randn(batch, length, c, generator=gen).to(dev, dtype)
-    ctx = (torch.randn(batch, 12, 128, generator=gen).to(dev, dtype)
+    ctx = (torch.randn(batch, ctx_len, 128, generator=gen).to(dev, dtype)
            if cross else None)
     return mod.to(dev), x, ctx
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,cross", STACKS)
-def test_kernel_matches_plain_version(cuda, length, c, layers, cross, dtype):
-    mod, x, ctx = _stack(cuda, length, c, layers, cross, dtype)
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", STACK_CASES)
+def test_kernel_matches_plain_version(cuda, length, c, layers, cross, batch,
+                                      ctx_len, dtype):
+    """Every bf16 product of the stack goes to the tensor cores, every
+    float32 one to the CUDA cores."""
+    mod, x, ctx = _stack(cuda, length, c, layers, cross, dtype,
+                         batch=batch or 128, ctx_len=ctx_len)
     kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
     with torch.no_grad():
         before = tf.LAUNCHES
+        products = tf.gemm_tc_launches()
         out = tf.transformer1d_forward(mod.kernel_params(), x, ctx, **kw)
         torch.cuda.synchronize()
         assert tf.LAUNCHES == before + 1
+        assert tf.gemm_tc_launches() - products == (
+            tf.stack_products(layers, cross) if dtype == torch.bfloat16 else 0)
         ref = tf.transformer1d_reference(mod.kernel_params(), x, ctx, **kw)
     assert out.dtype == dtype and out.shape == x.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
@@ -136,9 +154,11 @@ def _within(got, want, dtype, what):
     assert err <= TOL[dtype] * scale, f"{what}: {err} > {TOL[dtype]} x {scale}"
 
 
-def _chain_case(dev, length, c, layers, cross, dtype, batch=TRAIN_BATCH):
+def _chain_case(dev, length, c, layers, cross, dtype, batch=TRAIN_BATCH,
+                ctx_len=12):
     """A stack, its inputs, the plain forward's stash and an output grad."""
-    mod, x, ctx = _stack(dev, length, c, layers, cross, dtype, batch=batch)
+    mod, x, ctx = _stack(dev, length, c, layers, cross, dtype,
+                         batch=batch or TRAIN_BATCH, ctx_len=ctx_len)
     kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
     kp = mod.kernel_params()
     with torch.no_grad():
@@ -150,11 +170,11 @@ def _chain_case(dev, length, c, layers, cross, dtype, batch=TRAIN_BATCH):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,cross", STACKS)
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", STACK_CASES)
 def test_stash_forward_matches_plain_version(cuda, length, c, layers, cross,
-                                             dtype):
-    _, kp, x, ctx, out, stash, _, kw = _chain_case(cuda, length, c, layers,
-                                                   cross, dtype)
+                                             batch, ctx_len, dtype):
+    _, kp, x, ctx, out, stash, _, kw = _chain_case(
+        cuda, length, c, layers, cross, dtype, batch, ctx_len)
     before = (tf.LAUNCHES, tf.STASH_LAUNCHES)
     with torch.no_grad():
         got, got_stash = tf.transformer1d_forward(kp, x, ctx, with_stash=True,
@@ -170,13 +190,13 @@ def test_stash_forward_matches_plain_version(cuda, length, c, layers, cross,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,cross", STACKS)
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", STACK_CASES)
 def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
-                                               cross, dtype):
+                                               cross, batch, ctx_len, dtype):
     """K3, every layer's K2 and K4, each on the plain stash, output by
-    output."""
-    _, kp, x, ctx, _, stash, g, kw = _chain_case(cuda, length, c, layers,
-                                                 cross, dtype)
+    output; K2's bf16 products all on the tensor cores."""
+    _, kp, x, ctx, _, stash, g, kw = _chain_case(
+        cuda, length, c, layers, cross, dtype, batch, ctx_len)
     w = tf._kernel_weights(kp, layers, cross, dtype)
     with torch.no_grad():
         got = tf.bwd_conv_out(g, stash[-1], w[-2])
@@ -190,7 +210,11 @@ def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
             args = (g, stash[i * per_stash],
                     stash[i * per_stash + 1] if cross else None,
                     stash[i * per_stash + per_stash - 1], ctx_dt, lw)
+            products = tf.gemm_tc_launches()
             got = tf.bwd_layer(*args, heads=8, head_dim=64)
+            assert tf.gemm_tc_launches() - products == (
+                tf.stack_products(1, cross, backward=True)
+                if dtype == torch.bfloat16 else 0)
             want = tf.bwd_layer_reference(*args, heads=8, head_dim=64)
             _within(got[0], want[0], dtype, f"K2 layer {i} dy")
             if cross:
@@ -206,11 +230,16 @@ def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_chain_is_bitwise_deterministic(cuda, dtype):
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", [
+    (8, 256, 4, True, None, 12), (8, 256, 4, True, 3, 12),
+    (4, 128, 2, True, 1, 64), (1, 256, 2, True, None, 64)])
+def test_backward_chain_is_bitwise_deterministic(cuda, length, c, layers,
+                                                 cross, batch, ctx_len,
+                                                 dtype):
     """No float atomics: two backward calls on the same inputs agree bit for
-    bit."""
-    _, kp, x, ctx, _, stash, g, kw = _chain_case(cuda, 8, 256, 4, True,
-                                                 dtype)
+    bit (the bf16 weight grads split over rows too)."""
+    _, kp, x, ctx, _, stash, g, kw = _chain_case(
+        cuda, length, c, layers, cross, dtype, batch, ctx_len)
     runs = [tf.transformer1d_backward(kp, x, ctx, stash, g, **kw)
             for _ in range(2)]
     torch.cuda.synchronize()
@@ -247,6 +276,148 @@ def test_dispatch_gives_gradients_on_the_card(cuda):
     for name, g in got.items():
         assert g is not None, f"{name} got no gradient"
         _within(g, want[name], torch.float32, name)
+
+
+# ---------------------------------- the stack GEMM alone (gemm_tc.cuh) ---
+
+# rows of a product (M of nt and nn, the summed K of tn): a request of 1
+# under CFG at L 1 (2), one context (12), a ragged tile (65), batch 128 and
+# 1,024 at L 8
+GEMM_ROWS = [2, 12, 65, 1024, 8192]
+# (N, K) of nt and nn, (M, N) of the weight grad of tn; K 200 is a multiple
+# of 8 but not of a 64-wide k-step
+GEMM_NK = [(64, 1024), (128, 256), (256, 64), (1024, 128), (256, 200)]
+# bf16 inputs, float32 sums in another order: the output's bf16 rounding is
+# the larger term
+GEMM_TOL = 1e-2
+
+
+def _gemm_case(dev, layout, rows, n, k, dtype=torch.bfloat16, seed=0):
+    """Operands of nt (x (rows, k), y (n, k)), nn (x (rows, k), y (k, n))
+    and tn (x (rows, n), y (rows, k): the (n, k) weight grad)."""
+    gen = torch.Generator().manual_seed(seed + rows + 7 * n + 13 * k)
+    shapes = {"nt": ((rows, k), (n, k)), "nn": ((rows, k), (k, n)),
+              "tn": ((rows, n), (rows, k))}[layout]
+    return [torch.randn(sh, generator=gen).to(dev, dtype) for sh in shapes]
+
+
+def _gemm_within(got, want, what):
+    scale = max(want.float().abs().max().item(), 1e-30)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GEMM_TOL * scale, f"{what}: {err} > {GEMM_TOL} x {scale}"
+
+
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+def test_gemm_tc_matches_matmul(cuda, layout, rows, n, k):
+    """Each layout on the tensor cores against torch.matmul of the same bf16
+    operands in float32; the weight grad (tn) with its rows split as K2
+    splits them."""
+    x, y = _gemm_case(cuda, layout, rows, n, k)
+    odt = torch.float32 if layout == "tn" else torch.bfloat16
+    info = {}
+    before = tf.gemm_tc_launches()
+    out, _ = tf.gemm_tc(x, y, layout, out_dtype=odt,
+                        split=layout == "tn", info=info)
+    torch.cuda.synchronize()
+    assert tf.gemm_tc_launches() == before + 1 and info["route"] in (1, 2)
+    a, b = x.float(), y.float()
+    want = {"nt": lambda: torch.matmul(a, b.t()),
+            "nn": lambda: torch.matmul(a, b),
+            "tn": lambda: torch.matmul(a.t(), b)}[layout]()
+    assert out.dtype == odt and out.shape == want.shape
+    _gemm_within(out, want, f"{layout} rows {rows} n {n} k {k}")
+
+
+# (layout, epilogue, output type): each epilogue where K1 and K2 use it
+GEMM_EPILOGUES = [("nt", "none", torch.bfloat16), ("nt", "bias", torch.bfloat16),
+                  ("nt", "bias", torch.float32),
+                  ("nt", "bias_res", torch.bfloat16),
+                  ("nt", "bias_gelu", torch.bfloat16),
+                  ("nn", "none", torch.bfloat16), ("nn", "res", torch.float32),
+                  ("nn", "mul", torch.float32), ("tn", "none", torch.float32)]
+
+
+@pytest.mark.parametrize("rows", [2, 65, 1024])
+@pytest.mark.parametrize("layout,epi,odt", GEMM_EPILOGUES)
+def test_gemm_tc_epilogues(cuda, layout, epi, odt, rows):
+    """Every epilogue against the product in float32 plus the epilogue in
+    plain PyTorch (``gemm_tc_reference``), with the second output (out_t)
+    where K2 asks for it (dh, EPI_MUL)."""
+    n, k = 256, 128
+    x, y = _gemm_case(cuda, layout, rows, n, k)
+    shape = (n, k) if layout == "tn" else (rows, n)
+    gen = torch.Generator().manual_seed(rows)
+    extra = {}
+    if epi in ("bias", "bias_res", "bias_gelu"):
+        extra["bias"] = torch.randn(shape[1], generator=gen).to(cuda)
+    if epi in ("bias_res", "res"):
+        extra["res"] = torch.randn(shape, generator=gen).to(cuda, odt)
+    if epi == "mul":
+        extra["mul"] = torch.randn(shape, generator=gen).to(cuda)
+    kw = dict(epi=epi, out_dtype=odt, want_out_t=epi == "mul", **extra)
+    info = {}
+    out, out_t = tf.gemm_tc(x, y, layout, info=info, **kw)
+    want, want_t = tf.gemm_tc_reference(x, y, layout, **kw)
+    torch.cuda.synchronize()
+    assert info["route"] in (1, 2)
+    _gemm_within(out, want, f"{layout} {epi}")
+    if want_t is not None:
+        assert out_t.dtype == x.dtype
+        _gemm_within(out_t, want_t, f"{layout} {epi} out_t")
+
+
+# (rows, n, k, whether the 64-row k-steps fall into chunks of one length):
+# K2's dW_out of the L 8 C 256 stacks at batch 512 (8 chunks of 8 k-steps)
+# and their dW_kv at batch 1,024 (9 chunks of 15 k-steps, the last of 8)
+SPLIT_CASES = [(4096, 256, 512, True), (8192, 1024, 256, False)]
+
+
+@pytest.mark.parametrize("rows,n,k,even", SPLIT_CASES)
+def test_gemm_tc_split_rows_is_bitwise_repeatable(cuda, rows, n, k, even):
+    """A weight grad split over its rows into chunks as K2 splits it: two
+    calls agree bit for bit, and with the unsplit sum."""
+    x, y = _gemm_case(cuda, "tn", rows, n, k)
+    runs, info = [], {}
+    for _ in range(2):
+        runs.append(tf.gemm_tc(x, y, "tn", out_dtype=torch.float32,
+                               split=True, info=info)[0])
+    whole, _ = tf.gemm_tc(x, y, "tn", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert info["splits"] > 1
+    assert ((rows // 64) % info["splits"] == 0) == even
+    assert torch.equal(runs[0], runs[1])
+    _gemm_within(runs[0], whole, "split against unsplit")
+    _gemm_within(runs[0], torch.matmul(x.float().t(), y.float()), "split")
+
+
+def test_gemm_tc_route(cuda):
+    """The route is the dtype's and the shape's: bf16 with 16-byte rows takes
+    the tensor cores (64 x 64 blocks for a few rows, 128 x 128 when that
+    grid fills the card), float32 and a K that is not a multiple of 8 take
+    the CUDA cores, which the tensor-core count does not see."""
+    def run(x, y, layout="nt", **kw):
+        info = {}
+        before = tf.gemm_tc_launches()
+        out, _ = tf.gemm_tc(x, y, layout, info=info, **kw)
+        torch.cuda.synchronize()
+        return out, info["route"], tf.gemm_tc_launches() - before
+
+    x, y = _gemm_case(cuda, "nt", 2, 256, 128)
+    assert run(x, y)[1:] == (1, 1)
+    x, y = _gemm_case(cuda, "nt", 8192, 1024, 128)
+    assert run(x, y)[1:] == (2, 1)
+    x, y = _gemm_case(cuda, "tn", 4096, 256, 256)
+    assert run(x, y, "tn", out_dtype=torch.float32, split=True)[1:] == (2, 1)
+    x, y = _gemm_case(cuda, "nt", 65, 256, 128, dtype=torch.float32)
+    out, route, launched = run(x, y)
+    assert (route, launched) == (0, 0)
+    _within(out, torch.matmul(x, y.t()), torch.float32, "float32")
+    x, y = _gemm_case(cuda, "nt", 65, 256, 60)
+    out, route, launched = run(x, y)
+    assert (route, launched) == (0, 0)
+    _gemm_within(out, torch.matmul(x.float(), y.float().t()), "K 60")
 
 
 # ---------------------------------------------- K8, the resnet-run kernel ---
@@ -348,34 +519,40 @@ def test_resnet_grads_on_the_card(cuda):
 
 # ------------------------------- K1 uniform_ctx, the shared-KV null half ---
 
-# (L, C, layers, m): the cross stacks of the inverse preset (context 12) and
-# of the forward preset (context 64)
-UNIFORM = [(8, 256, 4, 12), (2, 512, 4, 12), (4, 128, 2, 64), (1, 256, 2, 64)]
+# (L, C, layers, m, batch): the cross stacks of the inverse preset (context
+# 12) and of the forward preset (context 64) at batch 128, and null halves
+# of 1 and 3 requests
+UNIFORM = [(8, 256, 4, 12, 128), (2, 512, 4, 12, 128), (4, 128, 2, 64, 128),
+           (1, 256, 2, 64, 128), (8, 256, 4, 12, 1), (2, 512, 4, 12, 3),
+           (4, 128, 2, 64, 3), (1, 256, 2, 64, 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,m", UNIFORM)
+@pytest.mark.parametrize("length,c,layers,m,batch", UNIFORM)
 def test_uniform_kernel_matches_plain_version(cuda, length, c, layers, m,
-                                              dtype):
+                                              batch, dtype):
     gen = torch.Generator().manual_seed(length * c)
     mod = Transformer1d(layers, c, 8, 64, 2, context_features=128,
                         dtype=dtype)
     init_parameters(mod, gen)
     mod = mod.to(cuda)
-    x = torch.randn(128, length, c, generator=gen).to(cuda, dtype)
+    x = torch.randn(batch, length, c, generator=gen).to(cuda, dtype)
     table = torch.randn(1, m, 128, generator=gen).to(cuda, dtype)
     kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
     kp = mod.kernel_params()
     with torch.no_grad():
         before = (tf.LAUNCHES, tf.UNIFORM_LAUNCHES)
+        products = tf.gemm_tc_launches()
         out = tf.transformer1d_forward(kp, x, table, uniform_ctx=True, **kw)
         torch.cuda.synchronize()
         assert (tf.LAUNCHES, tf.UNIFORM_LAUNCHES) == (before[0],
                                                       before[1] + 1)
+        assert tf.gemm_tc_launches() - products == (
+            tf.stack_products(layers, True) if dtype == torch.bfloat16 else 0)
         ref = tf.transformer1d_reference(kp, x, table, uniform_ctx=True,
                                          **kw)
         per_row = tf.transformer1d_forward(
-            kp, x, table.expand(128, m, 128).contiguous(), **kw)
+            kp, x, table.expand(batch, m, 128).contiguous(), **kw)
     _within(out, ref, dtype, "out")
     _within(out, per_row, dtype, "against the per-row kernel")
     with pytest.raises(ValueError, match="uniform_ctx"):

@@ -63,9 +63,11 @@ def smi(query):
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def compiler_report(cuda_build, source):
-    """ptxas' resource lines for every kernel of ``source`` and the
-    tensor-core and warpgroup-wait counts of the built library's SASS."""
+def compiler_report(cuda_build, source, match=None):
+    """ptxas' resource lines for every kernel of ``source`` (whose name holds
+    ``match``, when given) and the tensor-core and warpgroup-wait counts of
+    the built library's SASS.  Returns {kernel: {"spills": [...],
+    "notes": [...], **SASS counts}} of those kernels."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas",
                "-v", "-I", str(cuda_build.CSRC_DIR), "-o",
@@ -73,22 +75,30 @@ def compiler_report(cuda_build, source):
         proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stderr)
-    name = None
+    name, report = None, {}
     for line in proc.stderr.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
-            name = subprocess.run(["c++filt", found.group(1)],
-                                  capture_output=True, text=True
-                                  ).stdout.strip() or found.group(1)
-        elif "registers" in line and name:
-            print(json.dumps({"source": source, "kernel": name,
+            name = found.group(1)
+            pretty = subprocess.run(["c++filt", name], capture_output=True,
+                                    text=True).stdout.strip() or name
+            if match is not None and match not in name:
+                name = None
+            else:
+                report[name] = {"spills": [], "notes": []}
+        elif name is None:
+            continue
+        elif "registers" in line:
+            print(json.dumps({"source": source, "kernel": pretty,
                               "ptxas": line.split(":", 1)[-1].strip()}),
                   flush=True)
-        elif "spill" in line and name and "0 bytes spill stores" not in line:
-            print(json.dumps({"kernel": name, "spills": line.strip()}),
+        elif "spill" in line and "0 bytes spill stores" not in line:
+            report[name]["spills"].append(line.strip())
+            print(json.dumps({"kernel": pretty, "spills": line.strip()}),
                   flush=True)
         elif "warning" in line.lower() or "wgmma" in line:
-            print(json.dumps({"kernel": name, "compiler": line.strip()}),
+            report[name]["notes"].append(line.strip())
+            print(json.dumps({"kernel": pretty, "compiler": line.strip()}),
                   flush=True)
     path, _ = cuda_build.build(source)
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
@@ -100,6 +110,9 @@ def compiler_report(cuda_build, source):
         found = re.search(r"Function : (\w+)", line)
         if found:
             function = found.group(1)
+            if match is not None and match not in function:
+                function = None
+                continue
             counts[function] = {**dict.fromkeys(SASS_OPS, 0),
                                 "example": None}
         elif function:
@@ -115,6 +128,8 @@ def compiler_report(cuda_build, source):
     for function, c in counts.items():
         print(json.dumps({"sass": function, "source": source, **c}),
               flush=True)
+        report.setdefault(function, {"spills": [], "notes": []}).update(c)
+    return report
 
 
 def kernel_ms(fn, reps: int) -> dict:
