@@ -32,12 +32,13 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    grads through the autograd function against autograd of the plain
    forward, CUDA-event timings of each kernel (and in bf16 the card's time)
    and of the chain against the plain versions, and a bitwise determinism
-   check of the chain;
+   check of the chain; each bf16 K3 and K4 call must send its two products
+   to the tensor-core GEMM (a float32 call none);
 7. the training path: the 91M model in bfloat16 trains one warm-up and 5
    timed steps of batch 1024 as 2 x 512 (Adam 2e-4, clip 0.5); every loss
    is finite, each training kernel launched at least (its stacks or
-   layers) x 2 x 6 times, and every product of the stash forward and of K2
-   went to the tensor-core GEMM; one more step under ``torch.profiler``
+   layers) x 2 x 6 times, and every product of the stash forward, K3, K2
+   and K4 went to the tensor-core GEMM; one more step under ``torch.profiler``
    (device ms, launches, GEMM launches) beside the host clock; then one
    float32 step at batch 8 through the kernels on the card is held against
    the same step through the plain versions on the CPU;
@@ -132,7 +133,9 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path,
 its bfloat16 time beside its plain version's (the stack kernels K1-K4 and
-the streaming-attention kernels also with ``card_ms``), the library call's
+the streaming-attention kernels also with ``card_ms``; the stack kernels,
+whose bf16 products all run on the tensor-core GEMM, with ``products``
+naming it), the library call's
 where there is one, and the least time the card could take (the larger of
 its operations over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and
 ``{"ok": true, "device": ...}``.
@@ -270,6 +273,8 @@ ATTENTION_SHAPES = [(8, 16, 24, 64), (128, 16, 12, 64), (8192, 8, 8, 64),
 # within AR_LOGIT_TOL; a token may differ only where the two largest
 # Gumbel-perturbed logits are within AR_GAP of each other
 AR_LOGIT_TOL, AR_GAP = 1e-4, 1e-3
+# where the stack kernels' bf16 products run (K1 and its variants, K2-K4)
+TC_PRODUCTS = "tensor cores (wgmma, csrc/gemm_tc.cuh)"
 # the card's published dense peaks (NVIDIA's H100 SXM data sheet): bf16
 # tensor-core operations a second, device-memory bytes a second
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -505,12 +510,25 @@ def check_backward(dev):
                     kp, x, ctx, multiplier=2, with_stash=True, **kw)
                 pairs = {"stash": [(out, ref)] + [
                     (stash[i], ref_stash[i]) for i in range(stash.shape[0])]}
+                # K3's and K4's bf16 products go to the tensor cores, each
+                # call's CONV_BWD_PRODUCTS of them; float32 ones do not
+                conv_products = {}
                 for fn, plain, key, args in (
                         (tf.bwd_conv_out, tf.bwd_conv_out_reference,
                          "conv_out", (g, ref_stash[-1], w[-2])),
                         (tf.bwd_conv_in_gn, tf.bwd_conv_in_gn_reference,
                          "conv_in_gn", (g, x, w[2], w[0], w[1]))):
-                    pairs[key] = list(zip(fn(*args), plain(*args)))
+                    before = tf.gemm_tc_launches()
+                    got = fn(*args)
+                    conv_products[key] = tf.gemm_tc_launches() - before
+                    pairs[key] = list(zip(got, plain(*args)))
+                want_conv = (tf.CONV_BWD_PRODUCTS
+                             if dtype == torch.bfloat16 else 0)
+                if any(v != want_conv for v in conv_products.values()):
+                    raise AssertionError(
+                        f"{name} {dname}: K3/K4 sent {conv_products} "
+                        f"products to the tensor cores, expected "
+                        f"{want_conv} each")
 
                 def run_layers(fn, s):
                     outs = []
@@ -593,7 +611,8 @@ def check_backward(dev):
                   ms={k: v[0] for k, v in ms.items()}, card_ms=card,
                   plain_ms={k: v[1] for k, v in ms.items()},
                   chain_ms=chain_ms, plain_chain_ms=plain_chain_ms,
-                  deterministic=deterministic)
+                  deterministic=deterministic,
+                  conv_gemm_tc_launches=conv_products)
             bad = {k: v for k, v in errs.items() if not v <= tol}
             if bad or not stack_err <= tol:
                 raise AssertionError(f"{name} {dname}: training kernels "
@@ -632,7 +651,7 @@ def check_backward(dev):
 
 def train_path(dev):
     """Phase 7: the 91M model trains in bf16 at batch 1024 (2 x 512), every
-    product of its stacks' forward and K2 on the tensor cores; then one step
+    product of its stacks' forward, K3, K2 and K4 on the tensor cores; then one step
     under the profiler.  Returns the launches of each training kernel
     during the timed steps."""
     import torch
@@ -1716,7 +1735,8 @@ def device_busy(fn):
 def stack_products(model, backward: bool = False) -> int:
     """Products one forward of the model's Transformer1d stacks sends to the
     tensor-core GEMM in bf16 (gemm_tc.cuh); with ``backward``, those of the
-    stash forward and of K2 (``transformer_fusion.stack_products``)."""
+    stash forward and of the backward chain: K3, K2 over the layers and K4
+    (``transformer_fusion.stack_products``, ``CONV_BWD_PRODUCTS``)."""
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
     from moleculediffusiontransformer_tpu_torch.ops import \
@@ -1727,7 +1747,8 @@ def stack_products(model, backward: bool = False) -> int:
             cross = bool(m.context_features)
             total += tf.stack_products(m.num_layers, cross)
             if backward:
-                total += tf.stack_products(m.num_layers, cross, backward=True)
+                total += (tf.stack_products(m.num_layers, cross, backward=True)
+                          + 2 * tf.CONV_BWD_PRODUCTS)
     return total
 
 
@@ -2228,8 +2249,10 @@ def main() -> int:
         "plain_ms": stack_plain_ms,
         **stack_bound,
         "library_ms": None,
+        "products": TC_PRODUCTS,
     }]
-    # the training kernels' numbers: bf16, batch 512, from phase 6
+    # the training kernels' numbers: bf16, batch 512, from phase 6; every
+    # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
     for key, name, source, line, count in (
             ("stash", "transformer1d_stack_fwd_stash", "transformer1d_fwd.cu",
              313, "STASH_LAUNCHES"),
@@ -2243,7 +2266,8 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": f"{jax_ops}:{line}",
                         "launches": train_launches[count],
-                        **train_kernels[key], "library_ms": None})
+                        **train_kernels[key], "library_ms": None,
+                        "products": TC_PRODUCTS})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({
@@ -2262,7 +2286,8 @@ def main() -> int:
         "max_abs_err": uniform["max_abs_err"], "ms": uniform["ms"],
         "card_ms": uniform["card_ms"],
         "plain_ms": uniform["plain_ms"], "bound_ms": uniform["bound_ms"],
-        "bound_by": uniform["bound_by"], "library_ms": None})
+        "bound_by": uniform["bound_by"], "library_ms": None,
+        "products": TC_PRODUCTS})
     # the streaming-attention kernels: bf16 at bh 16, n = m = 4096, d 64
     # from phase 15 (plain_ms and library_ms of the dq and the dk/dv kernel
     # are those of the whole backward, which computes all three grads);

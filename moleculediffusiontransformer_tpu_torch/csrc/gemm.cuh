@@ -13,9 +13,8 @@
 // Accumulation is float32 on the CUDA cores (64x64 tile, 4x4 outputs a
 // thread); no atomics anywhere, so a second call on the same inputs gives
 // bitwise the same result.  This kernel takes every float32 product and
-// the products of K3, K4 and K8; bf16 products of K1 and K2 go to the
-// tensor cores through gemm_tc.cuh's `launch_gemm_tc`, which takes the
-// same `GemmArgs`.
+// the products of K8; bf16 products of K1-K4 go to the tensor cores through
+// gemm_tc.cuh's `launch_gemm_tc`, which takes the same `GemmArgs`.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,5 +1,5 @@
 // The bf16 GEMM of the Transformer1d stack kernels on the H100's tensor
-// cores (K1, transformer1d_fwd.cu; K2, transformer1d_bwd.cu).
+// cores (K1, transformer1d_fwd.cu; K2, K3 and K4, transformer1d_bwd.cu).
 //
 // `launch_gemm_tc` takes gemm.cuh's `GemmArgs<T, O>` (the layout by
 // strides, the six epilogues, the optional second output `out_t`) and
@@ -59,7 +59,7 @@
 //     MN-major tile) writes.
 //   * Weight grads split over rows.  dW = G^T A has an output of only
 //     256 x 128 .. 1,024 x 1,024 and sums over all batch * L rows.  With a
-//     float32 partial buffer the caller (K2) splits the rows into S chunks,
+//     float32 partial buffer the caller (K2, K3, K4) splits the rows into S chunks,
 //     S from the shape (`split_plan`, about one block an SM); block
 //     (tile, chunk) writes its float32 partial, and a second pass sums the S
 //     partials of each element in chunk order.  No atomics: a call gives

@@ -18,25 +18,40 @@
 // resident in L2.  The weight grads are the awkward part: their output is
 // only C x C..2I x C, so one block an output tile gives 4..64 tiles of
 // 128 x 128 for 132 SMs, each reducing over all 4096 rows; on the CUDA
-// cores, tile by tile, they made K2 slower than its plain version.
+// cores, tile by tile, they made K2 slower than its plain version.  K3 and
+// K4 are two C x C products over the R rows each (0.5..1 GFLOP at the
+// flagship's shapes, a few microseconds at the tensor-core peak) and passes
+// over a few MB (the column sums, the GroupNorm recompute and backward):
+// bound by launches and by how many SMs each pass keeps busy, not by bytes.
 //
 // What the design does about it.  The TPU kernels zero the weight-grad banks
 // at grid step 0 and then `+=` across the batch grid, which is right only
-// because a TPU grid runs in order.  Here K2's products run through
-// gemm_tc.cuh's `launch_gemm_tc`: in bf16 on the tensor cores (`wgmma` from
-// swizzled shared memory), in float32 on the CUDA cores (gemm.cuh).  Every
-// weight grad is dW = G^T A with G^T read in place (`wgmma`'s transpose of
-// A), and in bf16 its rows are split into S chunks, S chosen from the shape
-// so that (tile, chunk) blocks fill the card about once: each block writes
-// a float32 partial into the workspace and a second pass sums the S
-// partials in chunk order.  Bias, LayerNorm and GroupNorm parameter grads
-// are column sums by one block per 32 columns, each column summed in a fixed
-// order.  There is no float atomicAdd, so two calls on the same inputs give
-// bitwise the same grads.  K3 and K4 keep gemm.cuh's CUDA-core kernel for
-// now (their redesign is later work).  Attention is one block per (batch,
-// head): q, k, v, dO and the L x m probability and dP matrices sit in
-// shared memory (L, m <= 64, d <= 128: at most 165 KB, asked for with
-// cudaFuncSetAttribute), P is recomputed from q and k.
+// because a TPU grid runs in order.  Here every product of K2, K3 and K4
+// runs through gemm_tc.cuh's `launch_gemm_tc`: in bf16 on the tensor cores
+// (`wgmma` from swizzled shared memory), in float32 on the CUDA cores
+// (gemm.cuh), chosen on the host by dtype and shape, never by a retry.
+// Every weight grad is dW = G^T A with G^T read in place (`wgmma`'s
+// transpose of A), and in bf16 its rows are split into S chunks, S chosen
+// from the shape so that (tile, chunk) blocks fill the card about once:
+// each block writes a float32 partial into the workspace and a second pass
+// sums the S partials in chunk order.  (K3's and K4's C x C weight grads
+// have only 4..16 tiles of 128 x 128, and at 8 k-steps a chunk the plan
+// gives them 32 blocks for 132 SMs: an under-filled grid, left so.)  K2's
+// bias and LayerNorm parameter grads are column sums by one block per 32
+// columns, each column summed in a fixed order.  K3's and K4's column sums
+// (db, and K4's GroupNorm dgamma, dbeta) are split over rows the same way
+// (`launch_colsums`: (C / 32) x S blocks, about one an SM, each writing a
+// float32 partial a column, and an in-order second pass), K4's two in one
+// launch.  There is no float atomicAdd, so two calls on the same inputs give
+// bitwise the same grads.  K4's GroupNorm recompute and backward run one
+// warp per (batch, group), eight groups a block.  Launches a call: K3 5
+// (dW and its split sum, db and its second pass, dy), K4 7 (GroupNorm
+// statistics, dW and its split sum, dgn, the column sums and their second
+// pass, dx); one fewer for each that does not split (float32 products, or
+// too few rows).  Attention is one block per (batch, head): q, k, v, dO and
+// the L x m probability and dP matrices sit in shared memory (L, m <= 64,
+// d <= 128: at most 165 KB, asked for with cudaFuncSetAttribute), P is
+// recomputed from q and k.
 //
 // Rounding follows the Pallas kernels: g and dO in the compute dtype before
 // their products, the probabilities rounded before dV (and the recomputed
@@ -151,10 +166,10 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy, const T* __restrict_
 // where xhat = (x - mean[s]) * rstd[s] and the statistic index is
 // s = (r / rows_per_stat) * stats_per_row + c / cols_per_stat (LayerNorm: one
 // per row; GroupNorm: one per (batch, group)).  One block per 32 columns,
-// 32 row lanes, each column's partials added in a fixed order.  (The block
-// count is only C/32: on an H100 with 8 lanes the LayerNorm grads took 10% of
-// a flagship train step's device time.  A split over rows with a second pass
-// would fill the card.)
+// 32 row lanes, each column's partials added in a fixed order: K2's column
+// sums.  (The block count is only C/32: on an H100 with 8 lanes the
+// LayerNorm grads took 10% of a flagship train step's device time.  K3 and
+// K4 take the split over rows below, `launch_colsums`, which fills the card.)
 constexpr int CS_COLS = 32, CS_LANES = 32;
 
 template <typename TA, typename T>
@@ -208,65 +223,197 @@ int launch_colsum(const TA* a, int rows, int cols, float* sum, cudaStream_t s) {
                                cols, s);
 }
 
-// --------------------------------------------------------------- GroupNorm
-// Forward recompute, one block per (batch, group): y = GN(x) rounded to T,
-// plus the group's mean and rstd (the forward kernel's arithmetic).
+// Column sums split over rows (K3, K4).  One sum of a call: sum[c] over all
+// rows of `a` and, with x given, xsum[c] as colsum_kernel computes them.
 template <typename T>
-__global__ void gn_stats_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta, int L, int C, int groups,
-                                float eps) {
-  __shared__ float red[32];
-  const int b = blockIdx.x / groups, g = blockIdx.x % groups;
+struct ColSum {
+  const void* a;      // (rows, cols): float32 when a_f32, else T
+  int a_f32;
+  float *sum, *xsum;  // (cols,) float32; xsum null unless x is given
+  const T* x;
+  const float *mean, *rstd;
+  int rows_per_stat, stats_per_row, cols_per_stat;
+  int slot;           // this sum's first row of a chunk's partials
+};
+
+// The rows cut into S chunks so that (cols / 32) x S blocks come to about one
+// an SM (a call of two sums, K4's, two), each chunk at least CS_MIN_ROWS rows.
+constexpr int CS_MIN_ROWS = 64;
+struct ColsumPlan {
+  int splits, chunk;
+};
+inline ColsumPlan colsum_plan(int rows, int cols) {
+  const int col_blocks = gtc::cdiv(cols, CS_COLS);
+  const int want =
+      std::max(1, std::min(gtc::cdiv(gtc::SMS, col_blocks), rows / CS_MIN_ROWS));
+  const int chunk = gtc::cdiv(rows, want);
+  return {gtc::cdiv(rows, chunk), chunk};
+}
+
+// Floats of partials a split call of `slots` sums over (rows, cols) takes (0
+// when it would not split).
+inline long long colsum_elems(int rows, int cols, int slots) {
+  const ColsumPlan p = colsum_plan(rows, cols);
+  return p.splits > 1 ? (long long)p.splits * slots * cols : 0;
+}
+
+// Block (column block, chunk z, sum j): the chunk's sums of 32 columns,
+// 32 row lanes, each lane's rows in order and the lanes in order.  Written
+// to the sum's outputs when `part` is null (one chunk), else to
+// part[z][slot][c] (and the xsum to slot + 1).
+template <typename T>
+__global__ void colsum_split_kernel(const ColSum<T> j0, const ColSum<T> j1, int rows, int cols,
+                                    int chunk, float* __restrict__ part, int slots) {
+  __shared__ float red_s[CS_LANES][CS_COLS + 1];
+  __shared__ float red_x[CS_LANES][CS_COLS + 1];
+  const ColSum<T> j = blockIdx.z == 0 ? j0 : j1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * CS_COLS + tx;
+  const int r0 = blockIdx.y * chunk, r1 = min(rows, r0 + chunk);
+  float s = 0.f, xs = 0.f;
+  if (c < cols) {
+    for (int r = r0 + ty; r < r1; r += CS_LANES) {
+      const size_t idx = (size_t)r * cols + c;
+      const float v = j.a_f32 ? static_cast<const float*>(j.a)[idx]
+                              : to_f(static_cast<const T*>(j.a)[idx]);
+      s += v;
+      if (j.x != nullptr) {
+        const int st = (r / j.rows_per_stat) * j.stats_per_row + c / j.cols_per_stat;
+        xs += v * ((to_f(j.x[idx]) - j.mean[st]) * j.rstd[st]);
+      }
+    }
+  }
+  red_s[ty][tx] = s;
+  red_x[ty][tx] = xs;
+  __syncthreads();
+  if (ty == 0 && c < cols) {
+    float ts = 0.f, txs = 0.f;
+    for (int i = 0; i < CS_LANES; ++i) {
+      ts += red_s[i][tx];
+      txs += red_x[i][tx];
+    }
+    float* sum = j.sum;
+    float* xsum = j.xsum;
+    if (part != nullptr) {
+      sum = part + ((size_t)blockIdx.y * slots + j.slot) * cols;
+      xsum = sum + cols;
+    }
+    sum[c] = ts;
+    if (j.x != nullptr) xsum[c] = txs;
+  }
+}
+
+// out[slot][c] = the chunks' partials part[z][slot][c] summed in chunk order.
+struct ColsumOuts {
+  float* out[4];
+};
+__global__ void colsum_finish_kernel(const float* __restrict__ part, int splits, int cols,
+                                     int slots, const ColsumOuts o) {
+  const int n = slots * cols;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    float v = part[i];
+    for (int z = 1; z < splits; ++z) v += part[(size_t)z * n + i];
+    o.out[i / cols][i % cols] = v;
+  }
+}
+
+// One or two column sums (j1 null: one) over the same rows and columns in
+// one launch, then, when the rows are split, one launch of the second pass.
+// `part` holds colsum_elems(rows, cols, slots) floats.
+template <typename T>
+int launch_colsums(ColSum<T> j0, const ColSum<T>* j1, int rows, int cols, float* part,
+                   cudaStream_t s) {
+  ColSum<T> second = j1 != nullptr ? *j1 : j0;
+  j0.slot = 0;
+  second.slot = j0.x != nullptr ? 2 : 1;
+  const int slots = j1 != nullptr ? second.slot + (second.x != nullptr ? 2 : 1) : second.slot;
+  const ColsumPlan p = colsum_plan(rows, cols);
+  float* chunks = p.splits > 1 ? part : nullptr;
+  if (p.splits > 1 && part == nullptr) return -1;
+  const dim3 grid(gtc::cdiv(cols, CS_COLS), p.splits, j1 != nullptr ? 2 : 1);
+  colsum_split_kernel<T><<<grid, dim3(CS_COLS, CS_LANES), 0, s>>>(j0, second, rows, cols,
+                                                                  p.chunk, chunks, slots);
+  T1D_CHECK((int)cudaGetLastError());
+  if (p.splits == 1) return 0;
+  ColsumOuts o = {{j0.sum, j0.xsum, second.sum, second.xsum}};
+  if (j0.x == nullptr) o = {{j0.sum, second.sum, second.xsum, nullptr}};
+  const int n = slots * cols;
+  colsum_finish_kernel<<<gtc::cdiv(n, 256), 256, 0, s>>>(part, p.splits, cols, slots, o);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- GroupNorm
+// One warp per (batch, group), GN_WARPS groups a block: a group is L x
+// C/groups values (8..64 at the stack shapes), too few for a block of its
+// own.  The values of warp w (= b * groups + g) lie at rows b L.. of the
+// columns g C/groups..; i runs over them row by row.
+constexpr int GN_WARPS = 8;
+
+__device__ __forceinline__ size_t gn_index(int b, int g, int i, int L, int C, int cpg) {
+  return (size_t)b * L * C + (size_t)(i / cpg) * C + (size_t)g * cpg + i % cpg;
+}
+
+// Forward recompute: y = GN(x) rounded to T, plus each group's mean and rstd
+// (the forward kernel's arithmetic, float32).
+template <typename T>
+__global__ void __launch_bounds__(GN_WARPS * 32)
+gn_stats_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ mean_out,
+                float* __restrict__ rstd_out, const float* __restrict__ gamma,
+                const float* __restrict__ beta, int B, int L, int C, int groups, float eps) {
+  const int w = blockIdx.x * GN_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (w >= B * groups) return;
+  const int b = w / groups, g = w % groups;
   const int cpg = C / groups, n = L * cpg;
-  const size_t base = (size_t)b * L * C + (size_t)g * cpg;
   float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s += to_f(x[base + (size_t)(i / cpg) * C + i % cpg]);
-  const float mean = block_sum(s, red) / n;
+  for (int i = lane; i < n; i += 32) s += to_f(x[gn_index(b, g, i, L, C, cpg)]);
+  const float mean = warp_sum(s) / n;
   float v = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = to_f(x[base + (size_t)(i / cpg) * C + i % cpg]) - mean;
+  for (int i = lane; i < n; i += 32) {
+    const float d = to_f(x[gn_index(b, g, i, L, C, cpg)]) - mean;
     v += d * d;
   }
-  const float rstd = rsqrtf(block_sum(v, red) / n + eps);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
+  const float rstd = rsqrtf(warp_sum(v) / n + eps);
+  for (int i = lane; i < n; i += 32) {
+    const size_t idx = gn_index(b, g, i, L, C, cpg);
     const int c = g * cpg + i % cpg;
     y[idx] = from_f<T>((to_f(x[idx]) - mean) * rstd * gamma[c] + beta[c]);
   }
-  if (threadIdx.x == 0) {
-    mean_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = rstd;
+  if (lane == 0) {
+    mean_out[w] = mean;
+    rstd_out[w] = rstd;
   }
 }
 
 // dx = rstd * (dxh - mean_g(dxh) - xhat * mean_g(dxh * xhat)), dxh = dgn * gamma,
-// means over the group's L x C/groups values; one block per (batch, group).
+// means over the group's L x C/groups values.
 template <typename T>
-__global__ void gn_bwd_kernel(const float* __restrict__ dgn, const T* __restrict__ x,
-                              const float* __restrict__ mean, const float* __restrict__ rstd,
-                              const float* __restrict__ gamma, T* __restrict__ dx, int L,
-                              int C, int groups) {
-  __shared__ float red[32];
-  const int b = blockIdx.x / groups, g = blockIdx.x % groups;
+__global__ void __launch_bounds__(GN_WARPS * 32)
+gn_bwd_kernel(const float* __restrict__ dgn, const T* __restrict__ x,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const float* __restrict__ gamma, T* __restrict__ dx, int B, int L, int C,
+              int groups) {
+  const int w = blockIdx.x * GN_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (w >= B * groups) return;
+  const int b = w / groups, g = w % groups;
   const int cpg = C / groups, n = L * cpg;
-  const size_t base = (size_t)b * L * C + (size_t)g * cpg;
-  const float mu = mean[blockIdx.x], rs = rstd[blockIdx.x];
+  const float mu = mean[w], rs = rstd[w];
+  // dxh rounded to float32 once (no FMA contraction into dxh - m1), as the
+  // plain version holds it: a group of one value then gives dx = 0 exactly,
+  // not its rounding error times rstd (1/sqrt(eps) there)
   float s1 = 0.f, s2 = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
-    const float dxh = dgn[idx] * gamma[g * cpg + i % cpg];
+  for (int i = lane; i < n; i += 32) {
+    const size_t idx = gn_index(b, g, i, L, C, cpg);
+    const float dxh = __fmul_rn(dgn[idx], gamma[g * cpg + i % cpg]);
     s1 += dxh;
     s2 += dxh * ((to_f(x[idx]) - mu) * rs);
   }
-  const float m1 = block_sum(s1, red) / n;
-  const float m2 = block_sum(s2, red) / n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t idx = base + (size_t)(i / cpg) * C + i % cpg;
+  const float m1 = warp_sum(s1) / n;
+  const float m2 = warp_sum(s2) / n;
+  for (int i = lane; i < n; i += 32) {
+    const size_t idx = gn_index(b, g, i, L, C, cpg);
     const float xhat = (to_f(x[idx]) - mu) * rs;
-    dx[idx] = from_f<T>(rs * (dgn[idx] * gamma[g * cpg + i % cpg] - m1 - xhat * m2));
+    const float dxh = __fmul_rn(dgn[idx], gamma[g * cpg + i % cpg]);
+    dx[idx] = from_f<T>(rs * (dxh - m1 - xhat * m2));
   }
 }
 
@@ -380,9 +527,16 @@ inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 // Byte offsets into the caller's workspace.  float32 buffers first, then
 // buffers of the compute dtype (element size `es`).
 struct BwdWorkspace {
-  size_t dy32, h32, dh32, dq_in32, dkv_in32, q_mean, q_rstd, kv_mean, kv_rstd, gn_mean,
-      gn_rstd, partial, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
+  size_t partial, dy32, h32, dh32, dq_in32, dkv_in32, q_mean, q_rstd, kv_mean, kv_rstd, gn_mean,
+      gn_rstd, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
 };
+
+// Floats of partials a K3 call takes: its weight grad's split (bf16) and its
+// column sum's, which share them in stream order.
+long long conv_out_partial_elems(long long R, long long C, size_t es) {
+  const long long gemm = es == 2 ? gtc::split_elems((int)C, (int)C, (int)R) : 0;
+  return std::max(gemm, colsum_elems((int)R, (int)C, 1));
+}
 
 BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
                       long long ctx_c, long long heads, long long head_dim, long long mult,
@@ -397,6 +551,22 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
     at += align256(bytes);
     return here;
   };
+  // First, at offset 0, so that K3, which is handed the whole workspace but
+  // not its plan, finds it there: the largest of the weight grads split over
+  // rows of a layer and of K3 and K4 (bf16 only: the float32 products stay
+  // on the CUDA cores, unsplit), and the column sums of K3 and K4 (up to
+  // three sums of R x C).  The products and sums of a call take it in turn,
+  // in stream order.
+  long long part = std::max(conv_out_partial_elems(R, C, es), colsum_elems((int)R, (int)C, 3));
+  if (es == 2) {
+    const long long shapes[][3] = {{C, C, R}, {C, H, R},     {H, C, R},
+                                   {C, I, R}, {I, C, R},     {2 * I, C, R},
+                                   {2 * I, ctx_c, B * ctx_len}};
+    for (const auto& sh : shapes)
+      if (sh[0] > 0 && sh[1] > 0 && sh[2] > 0)
+        part = std::max(part, gtc::split_elems((int)sh[0], (int)sh[1], (int)sh[2]));
+  }
+  w.partial = take(4 * part);
   w.dy32 = take(4 * R * C);
   w.h32 = take(4 * R * H);
   w.dh32 = take(4 * R * H);
@@ -408,17 +578,6 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
   w.kv_rstd = take(4 * kv_rows);
   w.gn_mean = take(4 * B * 32);
   w.gn_rstd = take(4 * B * 32);
-  // the largest of a layer's weight grads split over rows (bf16 only: the
-  // float32 products stay on the CUDA cores, unsplit)
-  long long part = 0;
-  if (es == 2) {
-    const long long shapes[][3] = {{C, H, R}, {H, C, R},          {C, I, R},
-                                   {I, C, R}, {2 * I, C, R}, {2 * I, ctx_c, B * ctx_len}};
-    for (const auto& sh : shapes)
-      if (sh[0] > 0 && sh[1] > 0 && sh[2] > 0)
-        part = std::max(part, gtc::split_elems((int)sh[0], (int)sh[1], (int)sh[2]));
-  }
-  w.partial = take(4 * part);
   w.dy_dt = take(es * R * C);
   w.gd = take(es * R * H);
   w.dh_dt = take(es * R * H);
@@ -606,13 +765,24 @@ int layer_bwd(const T* dy, const T* a, const T* c, const T* f, const T* ctx,
   return launch_cast<float, T>(bf.dy32, dy_prev, (long long)R * C, s);
 }
 
-// K3: dW = g^T y, db = sum g, dy = g W.
+// A plain column sum of `a` into `sum`
+template <typename T, typename TA>
+ColSum<T> col_sum(const TA* a, float* sum) {
+  ColSum<T> j = {};
+  j.a = a;
+  j.a_f32 = std::is_same<TA, float>::value;
+  j.sum = sum;
+  return j;
+}
+
+// K3: dW = g^T y, db = sum g, dy = g W.  `partial`: conv_out_partial_elems
+// floats.
 template <typename T>
-int conv_out_bwd(const T* g, const T* y, const T* w, T* dy, float* dw, float* db, int R,
-                 int C, cudaStream_t s) {
-  T1D_CHECK(launch_gemm(gemm_tn<T>(g, y, dw, R, C, C), s));
-  T1D_CHECK(launch_colsum<T>(g, R, C, db, s));
-  return launch_gemm(gemm_nn<T, T>(g, w, dy, R, C, C), s);
+int conv_out_bwd(const T* g, const T* y, const T* w, T* dy, float* dw, float* db, float* partial,
+                 int R, int C, cudaStream_t s) {
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(g, y, dw, R, C, C), s, partial));
+  T1D_CHECK(launch_colsums(col_sum<T>(g, db), (const ColSum<T>*)nullptr, R, C, partial, s));
+  return launch_gemm_tc(gemm_nn<T, T>(g, w, dy, R, C, C), s);
 }
 
 // K4: recompute GroupNorm(32, eps 1e-6), then the conv-in and GroupNorm
@@ -622,16 +792,24 @@ int conv_in_gn_bwd(const T* x, const T* dy0, const T* w, const float* gs, const 
                    T* dx, float* dw, float* db, float* dgs, float* dgb, const Buffers<T>& bf,
                    int B, int L, int C, cudaStream_t s) {
   const int R = B * L, groups = 32;
-  gn_stats_kernel<T><<<B * groups, 128, 0, s>>>(x, bf.q_in, bf.gn_mean, bf.gn_rstd, gs, gb, L,
-                                                C, groups, 1e-6f);
+  const int gn_blocks = gtc::cdiv((long long)B * groups, GN_WARPS);
+  gn_stats_kernel<T><<<gn_blocks, GN_WARPS * 32, 0, s>>>(x, bf.q_in, bf.gn_mean, bf.gn_rstd, gs,
+                                                         gb, B, L, C, groups, 1e-6f);
   T1D_CHECK((int)cudaGetLastError());
-  T1D_CHECK(launch_gemm(gemm_tn<T>(dy0, bf.q_in, dw, R, C, C), s));
-  T1D_CHECK(launch_colsum<T>(dy0, R, C, db, s));
-  T1D_CHECK(launch_gemm(gemm_nn<T, float>(dy0, w, bf.dq_in32, R, C, C), s));
-  T1D_CHECK(launch_colsum<float, T>(bf.dq_in32, R, C, dgb, dgs, x, bf.gn_mean, bf.gn_rstd, L,
-                                    groups, C / groups, s));
-  gn_bwd_kernel<T><<<B * groups, 128, 0, s>>>(bf.dq_in32, x, bf.gn_mean, bf.gn_rstd, gs, dx,
-                                              L, C, groups);
+  T1D_CHECK(launch_gemm_tc(gemm_tn<T>(dy0, bf.q_in, dw, R, C, C), s, bf.partial));
+  T1D_CHECK(launch_gemm_tc(gemm_nn<T, float>(dy0, w, bf.dq_in32, R, C, C), s));
+  // db = sum dy0, and dbeta = sum dgn, dgamma = sum dgn * xhat, in one launch
+  ColSum<T> dg = col_sum<T>(bf.dq_in32, dgb);
+  dg.xsum = dgs;
+  dg.x = x;
+  dg.mean = bf.gn_mean;
+  dg.rstd = bf.gn_rstd;
+  dg.rows_per_stat = L;
+  dg.stats_per_row = groups;
+  dg.cols_per_stat = C / groups;
+  T1D_CHECK(launch_colsums(col_sum<T>(dy0, db), &dg, R, C, bf.partial, s));
+  gn_bwd_kernel<T><<<gn_blocks, GN_WARPS * 32, 0, s>>>(bf.dq_in32, x, bf.gn_mean, bf.gn_rstd,
+                                                       gs, dx, B, L, C, groups);
   return (int)cudaGetLastError();
 }
 
@@ -669,7 +847,8 @@ bool shapes_ok(int L, int C, int ctx_len, bool cross, int head_dim) {
 
 extern "C" {
 
-// Bytes of workspace `t1d_bwd_layer` and `t1d_bwd_conv_in_gn` take.
+// Bytes of workspace `t1d_bwd_layer` and `t1d_bwd_conv_in_gn` take (and
+// `t1d_bwd_conv_out`, which uses its start).
 long long t1d_bwd_workspace_bytes(int B, int L, int C, int ctx_len, int ctx_c, int heads,
                                   int head_dim, int mult, int dtype) {
   return (long long)plan_bwd(B, L, C, ctx_len, ctx_c, heads, head_dim, mult,
@@ -677,20 +856,32 @@ long long t1d_bwd_workspace_bytes(int B, int L, int C, int ctx_len, int ctx_c, i
       .total;
 }
 
+// Floats of `partial` a `t1d_bwd_conv_out` call takes: its bf16 weight
+// grad's split over rows and its column sum's, one after the other in the
+// same floats.  A `t1d_bwd_workspace_bytes` workspace of the same rows and
+// C holds at least this many at its start.
+long long t1d_bwd_conv_out_partial_elems(int rows, int C, int dtype) {
+  if (rows < 1 || C < 1) return 0;
+  return conv_out_partial_elems(rows, C, dtype == DTYPE_BF16 ? 2 : 4);
+}
+
 // K3.  g, y (rows, C) and w (C, C) in the compute dtype; dy (rows, C) out in
-// the compute dtype, dw (C, C) and db (C,) float32.
+// the compute dtype, dw (C, C) and db (C,) float32; partial:
+// t1d_bwd_conv_out_partial_elems floats.
 int t1d_bwd_conv_out(const void* g, const void* y, const void* w, void* dy, void* dw,
-                     void* db, int rows, int C, int dtype, int device, void* stream) {
-  if (rows < 1 || C < 1) return -1;
+                     void* db, void* partial, int rows, int C, int dtype, int device,
+                     void* stream) {
+  if (rows < 1 || C < 1 || C % 32 != 0) return -1;
   T1D_CHECK((int)cudaSetDevice(device));
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
     return conv_out_bwd<float>((const float*)g, (const float*)y, (const float*)w,
-                               (float*)dy, (float*)dw, (float*)db, rows, C, s);
+                               (float*)dy, (float*)dw, (float*)db, (float*)partial, rows, C,
+                               s);
   if (dtype == DTYPE_BF16)
     return conv_out_bwd<__nv_bfloat16>(
         (const __nv_bfloat16*)g, (const __nv_bfloat16*)y, (const __nv_bfloat16*)w,
-        (__nv_bfloat16*)dy, (float*)dw, (float*)db, rows, C, s);
+        (__nv_bfloat16*)dy, (float*)dw, (float*)db, (float*)partial, rows, C, s);
   return -1;
 }
 
@@ -760,7 +951,7 @@ int t1d_bwd_conv_in_gn(const void* x, const void* dy0, const void* w, const void
   return -1;
 }
 
-// One product through `launch_gemm_tc` alone (K1's and K2's GEMM; no model
+// One product through `launch_gemm_tc` alone (the GEMM of K1-K4; no model
 // path calls this entry): out (M, N) = epilogue(A B) with A[m, k] =
 // A[m sam + k sak], B[k, n] = B[k sbk + n sbn] in `dtype`; out float32 when
 // `out_float`, else in `dtype` (float32 inputs give a float32 out); bias

@@ -33,14 +33,14 @@ want matrices in the compute dtype and vectors in float32
 here, per call.  Weight grads come back in torch's layout: (out, in)
 matrices (a 1x1 conv's without its kernel axis) and vectors.
 
-Every product of K1 and K2 goes through one GEMM, ``csrc/gemm_tc.cuh``: in
-bf16 on the tensor cores (``wgmma``), K2's weight grads split over rows with
-a second pass that sums the chunks in order; in float32 on the CUDA cores,
-so that float32 keeps its 1e-4 parity with the CPU.  ``gemm_tc`` launches
-that GEMM alone (no model path calls it; the card tests and
-``tools/check_torch_gemm.py`` do), ``gemm_tc_reference`` is its plain
-version, and ``gemm_tc_launches`` counts the products the stack libraries
-sent to the tensor cores.
+Every product of K1-K4 goes through one GEMM, ``csrc/gemm_tc.cuh``: in
+bf16 on the tensor cores (``wgmma``), the backward's weight grads split over
+rows with a second pass that sums the chunks in order; in float32 on the
+CUDA cores, so that float32 keeps its 1e-4 parity with the CPU.
+``gemm_tc`` launches that GEMM alone (no model path calls it; the card
+tests and ``tools/check_torch_gemm.py`` do), ``gemm_tc_reference`` is its
+plain version, and ``gemm_tc_launches`` counts the products the stack
+libraries sent to the tensor cores.
 
 ``uniform_ctx`` (the JAX ``attention_shared_kv``): the context is one
 (1, m, C_ctx) table shared by every row, as the CFG null half's
@@ -556,8 +556,10 @@ def bind_bwd_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     --trace`` builds one)."""
     lib.t1d_bwd_workspace_bytes.argtypes = [_I] * 9
     lib.t1d_bwd_workspace_bytes.restype = ctypes.c_longlong
-    lib.t1d_bwd_conv_out.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.t1d_bwd_conv_out.argtypes = [_P] * 7 + [_I] * 4 + [_P]
     lib.t1d_bwd_conv_out.restype = _I
+    lib.t1d_bwd_conv_out_partial_elems.argtypes = [_I] * 3
+    lib.t1d_bwd_conv_out_partial_elems.restype = ctypes.c_longlong
     lib.t1d_bwd_layer.argtypes = ([_P] * 6 + [_I] + [_P] * 2 + [_I]
                                   + [_P] * 2 + [_I] * 10 + [_P])
     lib.t1d_bwd_layer.restype = _I
@@ -706,8 +708,8 @@ def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
 def bwd_workspace(x: torch.Tensor, context: Optional[torch.Tensor], *,
                   heads: int, head_dim: int, multiplier: int
                   ) -> torch.Tensor:
-    """Scratch for ``bwd_layer`` and ``bwd_conv_in_gn`` on the card: one
-    buffer serves a whole backward chain."""
+    """Scratch for ``bwd_layer``, ``bwd_conv_in_gn`` and ``bwd_conv_out`` on
+    the card: one buffer serves a whole backward chain."""
     b, length, c = x.shape
     ctx_len, ctx_c = ((context.shape[1], context.shape[2])
                       if context is not None else (0, 0))
@@ -723,28 +725,43 @@ def _check_dtype(x: torch.Tensor) -> None:
                         f"{x.dtype}")
 
 
-def bwd_conv_out(g: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+def bwd_conv_out(g: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                 workspace: Optional[torch.Tensor] = None):
     """K3, the conv-out backward: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  g, y (b, L, C), w (C, C) in the compute
     dtype -> (dy (b, L, C) in the compute dtype, dW (C, C), db (C,)
-    float32)."""
+    float32).  ``workspace``: scratch for the partial sums of the weight
+    grad and of db, split over rows (a ``bwd_workspace`` of the chain, whose
+    start it uses); without one the wrapper allocates it."""
     global CONV_OUT_BWD_LAUNCHES
-    if _on_cpu(g, y, w):
+    if _on_cpu(g, y, w, workspace):
         return bwd_conv_out_reference(g, y, w)
     _check_dtype(g)
     dt, dev = g.dtype, g.device
     c = g.shape[-1]
+    if c % 32:
+        raise ValueError(f"stack kernel takes C % 32 == 0, got C={c}")
     _check_rows("g", g, g.shape, dt, dev)
     _check_rows("y", y, g.shape, dt, dev)
     _check_rows("w", w, (c, c), dt, dev)
+    rows = g.numel() // c
+    lib = _bwd_library()
+    need = 4 * lib.t1d_bwd_conv_out_partial_elems(rows, c, _DTYPES[dt])
+    if workspace is None:
+        workspace = torch.empty(max(need, 4), dtype=torch.uint8, device=dev)
+    elif (workspace.device != dev or not workspace.is_contiguous()
+          or workspace.numel() * workspace.element_size() < need):
+        raise ValueError(f"conv-out backward needs a contiguous workspace of "
+                         f"{need} bytes on {dev}, got "
+                         f"{workspace.numel() * workspace.element_size()} on "
+                         f"{workspace.device}")
     dy = torch.empty_like(g)
     dw = torch.empty((c, c), dtype=torch.float32, device=dev)
     db = torch.empty((c,), dtype=torch.float32, device=dev)
-    lib = _bwd_library()
     err = lib.t1d_bwd_conv_out(g.data_ptr(), y.data_ptr(), w.data_ptr(),
                                dy.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                               g.numel() // c, c, _DTYPES[dt], dev.index,
-                               _stream(g))
+                               workspace.data_ptr(), rows, c, _DTYPES[dt],
+                               dev.index, _stream(g))
     _raise_on(err, "conv-out backward kernel", lib, "t1d_bwd_error_string")
     CONV_OUT_BWD_LAUNCHES += 1
     return dy, dw, db
@@ -918,6 +935,11 @@ def gemm_tc(x: torch.Tensor, y: torch.Tensor, layout: str, *,
     return out, out_t
 
 
+# Products one K3 or one K4 call sends through the GEMM: a weight grad and an
+# input grad (K3: dW_out, dy; K4: dW_in, dgn).
+CONV_BWD_PRODUCTS = 2
+
+
 def stack_products(num_layers: int, cross: bool,
                    backward: bool = False) -> int:
     """Products one call of a stack kernel sends through the GEMM: the
@@ -925,8 +947,8 @@ def stack_products(num_layers: int, cross: bool,
     out of each attention, the feed-forward pair and the two 1x1 convs; or,
     with ``backward``, K2's over all ``num_layers`` layers: five for the
     feed-forward (recomputed hidden, dW2, dh, dW0, dy) and eight an
-    attention (q, kv, dout, dW_out, dW_q, dW_kv, dq_in, dkv_in).  K3's and
-    K4's products stay on the CUDA cores."""
+    attention (q, kv, dout, dW_out, dW_q, dW_kv, dq_in, dkv_in).  K3 and K4
+    add ``CONV_BWD_PRODUCTS`` each to a backward chain."""
     attns = 2 if cross else 1
     if backward:
         return num_layers * (5 + 8 * attns)
@@ -934,7 +956,7 @@ def stack_products(num_layers: int, cross: bool,
 
 
 def gemm_tc_launches(reset: bool = False) -> int:
-    """Products the stack libraries (K1's and K2's, whichever are loaded)
+    """Products the stack libraries (K1's and K2-K4's, whichever are loaded)
     have sent to the tensor cores since they were loaded or last reset."""
     total = 0
     if _LIB is not None:
@@ -958,7 +980,7 @@ def _backward_chain(conv_out, layer, conv_in_gn, params, x, context, stash,
     ctx = context.to(dt).contiguous() if cross else None
     extra = {} if workspace is None else {"workspace": workspace}
 
-    dy, dk_out, db_out = conv_out(g, stash[-1], w[-2])
+    dy, dk_out, db_out = conv_out(g, stash[-1], w[-2], **extra)
     layer_grads: List[List[torch.Tensor]] = [[] for _ in range(num_layers)]
     dctx = None
     for i in reversed(range(num_layers)):

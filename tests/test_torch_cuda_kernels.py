@@ -194,12 +194,15 @@ def test_stash_forward_matches_plain_version(cuda, length, c, layers, cross,
 def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
                                                cross, batch, ctx_len, dtype):
     """K3, every layer's K2 and K4, each on the plain stash, output by
-    output; K2's bf16 products all on the tensor cores."""
+    output; the bf16 products of all three on the tensor cores."""
     _, kp, x, ctx, _, stash, g, kw = _chain_case(
         cuda, length, c, layers, cross, dtype, batch, ctx_len)
     w = tf._kernel_weights(kp, layers, cross, dtype)
+    conv_products = tf.CONV_BWD_PRODUCTS if dtype == torch.bfloat16 else 0
     with torch.no_grad():
+        products = tf.gemm_tc_launches()
         got = tf.bwd_conv_out(g, stash[-1], w[-2])
+        assert tf.gemm_tc_launches() - products == conv_products
         want = tf.bwd_conv_out_reference(g, stash[-1], w[-2])
         for name, a, b in zip(["dy", "dW", "db"], got, want):
             _within(a, b, dtype, f"K3 {name}")
@@ -221,12 +224,55 @@ def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
                 _within(got[1], want[1], dtype, f"K2 layer {i} dctx")
             for j, (a, b) in enumerate(zip(got[2], want[2])):
                 _within(a, b, dtype, f"K2 layer {i} grad {j}")
+        products = tf.gemm_tc_launches()
         got = tf.bwd_conv_in_gn(g, x, w[2], w[0], w[1])
+        assert tf.gemm_tc_launches() - products == conv_products
         want = tf.bwd_conv_in_gn_reference(g, x, w[2], w[0], w[1])
         for name, a, b in zip(["dx", "dW", "db", "dgamma", "dbeta"], got,
                               want):
             _within(a, b, dtype, f"K4 {name}")
     torch.cuda.synchronize()
+
+
+# C of K3 and K4 (the 18M model's 128, the 91M model's 256 and 512, and the
+# smallest the kernels take) and their rows at L 1: one row, a few, and the
+# 91M model's batch 512 at L 4 and L 8 (the row-split column sums and weight
+# grads split into chunks, the last one ragged at 4,096 rows and C 256)
+CONV_C = [32, 128, 256, 512]
+CONV_ROWS = [1, 24, 2048, 4096]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", CONV_ROWS)
+@pytest.mark.parametrize("c", CONV_C)
+def test_conv_backward_kernels_match_plain_versions(cuda, c, rows, dtype):
+    """K3 and K4 against their plain versions, output by output; a bf16 call
+    sends exactly its ``CONV_BWD_PRODUCTS`` products to the tensor cores and
+    a float32 call none; two calls agree bit for bit (no float atomics in
+    the split weight grads and column sums)."""
+    gen = torch.Generator().manual_seed(rows + 7 * c)
+    g, y, x = (torch.randn(rows, 1, c, generator=gen).to(cuda, dtype)
+               for _ in range(3))
+    w = (torch.randn(c, c, generator=gen) / c ** 0.5).to(cuda, dtype)
+    gs = (1 + 0.1 * torch.randn(c, generator=gen)).to(cuda)
+    gb = (0.1 * torch.randn(c, generator=gen)).to(cuda)
+    conv_products = tf.CONV_BWD_PRODUCTS if dtype == torch.bfloat16 else 0
+    for name, kernel, plain, args, outs in (
+            ("K3", tf.bwd_conv_out, tf.bwd_conv_out_reference, (g, y, w),
+             ["dy", "dW", "db"]),
+            ("K4", tf.bwd_conv_in_gn, tf.bwd_conv_in_gn_reference,
+             (g, x, w, gs, gb), ["dx", "dW", "db", "dgamma", "dbeta"])):
+        with torch.no_grad():
+            products = tf.gemm_tc_launches()
+            got = kernel(*args)
+            assert tf.gemm_tc_launches() - products == conv_products, name
+            again = kernel(*args)
+            want = plain(*args)
+        torch.cuda.synchronize()
+        for out, a, b, c2 in zip(outs, got, want, again):
+            assert a.dtype == b.dtype and a.shape == b.shape, (name, out)
+            _within(a, b, dtype, f"{name} {out}")
+            assert torch.equal(a, c2), f"{name} {out}: two calls differ"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

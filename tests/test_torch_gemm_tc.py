@@ -165,6 +165,32 @@ def test_stack_products_counts_the_plain_versions_products(cross,
     assert len(calls) == tf.stack_products(1, cross, backward=True)
 
 
+@pytest.mark.parametrize("kernel", ["conv_out", "conv_in_gn"])
+def test_conv_bwd_products_count_the_plain_versions_products(kernel,
+                                                             monkeypatch):
+    """``CONV_BWD_PRODUCTS``, the tensor-core launches the card checks each
+    K3 and each K4 call against, is the number of products that the plain
+    version of K3 (``bwd_conv_out_reference``) or of K4
+    (``bwd_conv_in_gn_reference``) computes: a weight grad (``_mm_tn``) and
+    an input grad (``_mm_nn``)."""
+    calls = []
+    for name in ("_mm", "_mm_nn", "_mm_tn"):
+        monkeypatch.setattr(tf, name, lambda *a, _fn=getattr(tf, name),
+                            _name=name: calls.append(_name) or _fn(*a))
+    rng = np.random.default_rng(3)
+    dy, x = (torch.from_numpy(rng.standard_normal((3, 4, 64)).astype(
+        np.float32)) for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    if kernel == "conv_out":
+        tf.bwd_conv_out_reference(dy, x, w)
+    else:
+        gs, gb = (torch.from_numpy(rng.standard_normal(64).astype(
+            np.float32)) for _ in range(2))
+        tf.bwd_conv_in_gn_reference(dy, x, w, gs, gb)
+    assert len(calls) == tf.CONV_BWD_PRODUCTS
+    assert sorted(calls) == ["_mm_nn", "_mm_tn"]
+
+
 @pytest.mark.parametrize("args,match", [
     (((4, 8), (6, 9), "nt"), "inner sizes"),
     (((4, 8), (8, 6), "tt"), "layout"),

@@ -124,6 +124,104 @@ def test_conv_out_backward_matches_pallas(geom):
     _assert_close(got[2], np.asarray(want[2]).reshape(-1), rtol, atol, "db")
 
 
+@pytest.mark.parametrize("geom", ["grid1", "grid4"])
+def test_conv_out_backward_with_a_workspace_on_cpu_is_the_plain_version(geom):
+    """On CPU tensors a workspace changes nothing: the wrapper runs the plain
+    version, launches nothing, and agrees with the Pallas kernel."""
+    _, params, _, _, rng = _setup(False, geom)
+    B, L, C, _ = GEOMS[geom]
+    g, y = (_t(rng.standard_normal((B, L, C))) for _ in range(2))
+    w = _port_weights(params, False)[-2]
+    before = tf.CONV_OUT_BWD_LAUNCHES
+    got = tf.bwd_conv_out(g, y, w, workspace=torch.empty(64, dtype=torch.uint8))
+    assert tf.CONV_OUT_BWD_LAUNCHES == before
+    for a, b in zip(got, tf.bwd_conv_out_reference(g, y, w)):
+        assert torch.equal(a, b)
+    want = jtf._bwd_conv_out(jnp.asarray(g.numpy()), jnp.asarray(y.numpy()),
+                             _jax_ws(params, False)[-2], interpret=True)
+    rtol, atol = BANDS[geom]
+    _assert_close(got[0], want[0], rtol, atol, "dy")
+    _assert_close(got[1], np.asarray(want[1]).T, rtol, atol, "dW")
+    _assert_close(got[2], np.asarray(want[2]).reshape(-1), rtol, atol, "db")
+
+
+def _split_colsum(a: torch.Tensor, splits: int, lanes: int = 32) -> torch.Tensor:
+    """The order in which K3's and K4's row-split column sums add (float32):
+    the rows cut into ``splits`` chunks of ceil(rows / splits); in a chunk,
+    lane l sums rows l, l + lanes, ... in order and the lanes are added in
+    order; then the chunks' partials in chunk order."""
+    rows, cols = a.shape
+    chunk = -(-rows // splits)
+    total = torch.zeros(cols)
+    for r0 in range(0, rows, chunk):
+        part = a[r0:r0 + chunk]
+        pad = -part.shape[0] % lanes      # + 0.0 leaves a float32 sum as is
+        steps = torch.cat([part, torch.zeros(pad, cols)]).reshape(
+            -1, lanes, cols)
+        acc = torch.zeros(lanes, cols)
+        for step in steps:
+            acc = acc + step
+        part_sum = torch.zeros(cols)
+        for lane in acc:
+            part_sum = part_sum + lane
+        total = total + part_sum
+    return total
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("rows,splits", [
+    (1, 1), (24, 1), (97, 3), (2048, 32), (4096, 17), (4109, 17),
+    (1024, 9), (1000, 7)])
+def test_row_split_column_sum_is_the_column_sum(rows, splits, weighted):
+    """The row-split column sum of K3 (db) and K4 (db, dbeta, and dgamma:
+    the sum weighted by xhat), modelled in float32 in the kernels' order,
+    equals ``_colsum`` and JAX's column sum within float32 rounding: two
+    orders of n additions differ by at most 2 (n - 1) 2^-24 sum |a|."""
+    rng = np.random.default_rng(rows * 31 + splits)
+    a = rng.standard_normal((rows, 64)).astype(np.float32)
+    if weighted:
+        a = a * rng.standard_normal((rows, 64)).astype(np.float32)
+    got = _split_colsum(_t(a), splits)
+    want = tf._colsum(_t(a))
+    band = 2 * max(rows - 1, 1) * 2.0 ** -24 * np.abs(a).sum(axis=0)
+    assert np.all(np.abs(got.numpy() - want.numpy()) <= band)
+    jax_sum = np.asarray(jnp.sum(jnp.asarray(a), axis=0))
+    assert np.all(np.abs(got.numpy() - jax_sum) <= band)
+
+
+def test_backward_chain_hands_one_workspace_to_every_stage():
+    """``_backward_chain`` gives its one workspace to K3, to every layer's K2
+    and to K4 (recorders in their place, running the plain versions), and
+    returns what the plain chain returns."""
+    _, params, x, ctx, rng = _setup(True)
+    sd = state_dict_from_jax_params(params)
+    kw = dict(num_layers=LAYERS, heads=HEADS, head_dim=HEAD_DIM)
+    _, stash = tf.transformer1d_reference(sd, _t(x), _t(ctx), multiplier=2,
+                                          with_stash=True, **kw)
+    g = _t(rng.standard_normal(x.shape))
+    workspace = torch.empty(16, dtype=torch.uint8)
+    seen = []
+
+    def recorder(name, plain):
+        def stage(*args, workspace=None, **kwargs):
+            seen.append((name, workspace))
+            return plain(*args, **kwargs)
+        return stage
+
+    got = tf._backward_chain(
+        recorder("K3", tf.bwd_conv_out_reference),
+        recorder("K2", tf.bwd_layer_reference),
+        recorder("K4", tf.bwd_conv_in_gn_reference), sd, _t(x), _t(ctx),
+        stash, g, LAYERS, HEADS, HEAD_DIM, workspace)
+    assert [name for name, _ in seen] == ["K3"] + ["K2"] * LAYERS + ["K4"]
+    assert all(ws is workspace for _, ws in seen)
+    want = tf.transformer1d_backward_reference(sd, _t(x), _t(ctx), stash, g,
+                                               **kw)
+    assert set(got[0]) == set(want[0])
+    assert all(torch.equal(got[0][n], want[0][n]) for n in want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
 def _layer_inputs(cross, geom, dtype=np.float32):
     jmod, params, _, ctx, rng = _setup(cross, geom)
     B, L, C, _ = GEOMS[geom]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The tensor-core GEMM of the PyTorch port's Transformer1d stack kernels
-(``csrc/gemm_tc.cuh``: every product of K1 and K2) on one NVIDIA GPU: what
+(``csrc/gemm_tc.cuh``: every bf16 product of K1-K4) on one NVIDIA GPU: what
 the compiler made of it, how long it takes at the 91M model's product
-shapes, and K1 and K2 of this checkout against another one's.
+shapes, and K1-K4 of this checkout against another one's.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 ``python3 tools/check_torch_gemm.py [--root DIR] [--reps 20]
@@ -20,8 +20,9 @@ It
    ``C7515`` note or is serialised;
 2. times ``t1d_gemm_tc`` (``ops.transformer_fusion.gemm_tc``) at every
    product shape of the 91M model's four stacks at batch 1,024 and 512
-   (forward products NT with their epilogues, the backward's NN and TN, TN
-   split over rows as K2 splits it), on the card's time with the calls
+   (forward products NT with their epilogues, the backward's NN and TN of
+   K2, K3 and K4, TN split over rows as the backward splits it), on the
+   card's time with the calls
    enqueued back to back (``chip_smoke.device_ms``), beside ``torch.matmul``
    of the same bf16 operands (a yardstick only: the port never calls it),
    with each shape's TFLOP/s and bound;
@@ -92,7 +93,11 @@ def product_shapes(batch):
             ("dW0", "tn", r, h, c, "none", "float32"),
             ("dW_out", "tn", r, c, inner, "none", "float32"),
             ("dW_q", "tn", r, inner, c, "none", "float32"),
-            ("dW_kv self", "tn", r, 2 * inner, c, "none", "float32")]
+            ("dW_kv self", "tn", r, 2 * inner, c, "none", "float32"),
+            # K3's and K4's weight grads have one shape
+            ("K3 dW_out, K4 dW_in", "tn", r, c, c, "none", "float32"),
+            ("K3 dy", "nn", r, c, c, "none", "bf16"),
+            ("K4 dgn", "nn", r, c, c, "none", "float32")]
         if cross:
             products += [
                 ("to_kv cross", "nt", kv_rows, 2 * inner, ctx_c, "none",
