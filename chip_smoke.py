@@ -45,10 +45,15 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
 8. the resnet-run kernel (K8, ``csrc/resnet_fwd.cu``, built with phase 2's)
    against its plain version at the eight resnet runs of the 91M inverse
    and the 18M forward presets, batch 1,024 (512 requests under CFG), in
-   float32 and bfloat16, with CUDA-event timings of the kernel, the plain
+   float32 and bfloat16, with CUDA-event timings of the kernel (``ms``, and
+   the card's time with the calls back to back, ``card_ms``), the plain
    version and the module composition the switch-off path runs, and a
-   determinism check; then its gradients through the autograd function
-   against autograd of the composition at batch 512;
+   determinism check; each bf16 call must send all its products (two convs
+   a block, each projection, one FiLM product a run: 7 for a 3-block down
+   run, 13 for a 4-block up run) to the tensor-core GEMM, counted by
+   ``resnet_fusion.gemm_tc_launches``, and a float32 call none; then its
+   gradients through the autograd function against autograd of the
+   composition at batch 512;
 9. K1's uniform-context variant (the shared-KV CFG null half) against its
    plain version at the four cross-stack shapes of the two presets, batch
    512, float32 and bfloat16, with timings (``ms``, ``card_ms``);
@@ -132,10 +137,10 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path,
-its bfloat16 time beside its plain version's (the stack kernels K1-K4 and
-the streaming-attention kernels also with ``card_ms``; the stack kernels,
-whose bf16 products all run on the tensor-core GEMM, with ``products``
-naming it), the library call's
+its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
+and the streaming-attention kernels also with ``card_ms``; the stack
+kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
+``products`` naming it), the library call's
 where there is one, and the least time the card could take (the larger of
 its operations over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and
 ``{"ok": true, "device": ...}``.
@@ -273,7 +278,8 @@ ATTENTION_SHAPES = [(8, 16, 24, 64), (128, 16, 12, 64), (8192, 8, 8, 64),
 # within AR_LOGIT_TOL; a token may differ only where the two largest
 # Gumbel-perturbed logits are within AR_GAP of each other
 AR_LOGIT_TOL, AR_GAP = 1e-4, 1e-3
-# where the stack kernels' bf16 products run (K1 and its variants, K2-K4)
+# where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
+# and of the resnet-run kernel (K8) run
 TC_PRODUCTS = "tensor cores (wgmma, csrc/gemm_tc.cuh)"
 # the card's published dense peaks (NVIDIA's H100 SXM data sheet): bf16
 # tensor-core operations a second, device-memory bytes a second
@@ -924,15 +930,35 @@ def _resnet_case(dev, length, c, n, layout, cm, dtype, batch, seed):
     return blocks, rf.kernel_weights(blocks, dtype), x, mp, skips, kw
 
 
+def resnet_work(w, length: int, batch: int):
+    """(operations, weight bytes) a resnet run needs: the convs' products
+    over batch * length rows, the projections' and the FiLM products.  At
+    L = 1 a conv's two outer taps see only zeros, so only the centre tap's
+    products and third of the conv weights count."""
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
+    rows, taps = batch * length, 1 if length == 1 else 3
+    flops, moved = 0, 0
+    for ws in w:
+        _, c1, fm, _, c2, proj = rf._split(ws, True)
+        conv = (c1[0].numel() + c2[0].numel()) * taps // 3
+        flops += 2 * rows * (conv + (proj[0].numel() if proj else 0))
+        flops += 2 * batch * fm[0].numel()
+        moved += (nbytes(*ws) - (c1[0].numel() + c2[0].numel())
+                  * c1[0].element_size() * (3 - taps) // 3)
+    return flops, moved
+
+
 def check_resnet(dev):
     """Phase 8: K8 against its plain version at the eight resnet runs, then
     its gradients against the composition's.  Returns the largest bf16
-    absolute error, the bf16 kernel, plain and composition milliseconds
-    summed over the runs, and the bound of those calls."""
+    absolute error, the bf16 kernel (CUDA events around one call, and the
+    card's time of calls back to back), plain and composition milliseconds
+    summed over the runs, the bound of those calls and the tensor-core
+    products of one call of each run."""
     import torch
     from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
-    summary = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "composition_ms": 0.0}
+    summary = {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
+               "plain_ms": 0.0, "composition_ms": 0.0, "products": {}}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         tol = KERNEL_TOL[dname]
@@ -941,8 +967,12 @@ def check_resnet(dev):
                 dev, length, c, n, layout, cm, dtype, RESNET_BATCH,
                 seed=length * c + n)
             with torch.no_grad():
+                products = rf.gemm_tc_launches()
                 out, outs = rf.resnet_stack_forward(w, x, mp, skips, **kw)
                 torch.cuda.synchronize()
+                products = rf.gemm_tc_launches() - products
+                want_products = (rf.tc_products(w, True)
+                                 if dtype == torch.bfloat16 else 0)
                 ref, ref_outs = rf.resnet_stack_reference(w, x, mp, skips,
                                                           **kw)
                 pairs = [(out, ref)] + list(zip(outs, ref_outs))
@@ -952,6 +982,8 @@ def check_resnet(dev):
                 deterministic = torch.equal(out, again)
                 t_kernel = cuda_ms(
                     lambda: rf.resnet_stack_forward(w, x, mp, skips, **kw))
+                t_card = device_ms(
+                    lambda: rf.resnet_stack_forward(w, x, mp, skips, **kw))
                 t_plain = cuda_ms(
                     lambda: rf.resnet_stack_reference(w, x, mp, skips, **kw))
                 t_comp = cuda_ms(lambda: rf.resnet_stack_composition(
@@ -959,8 +991,13 @@ def check_resnet(dev):
             phase("resnet_kernel", run=name, dtype=dname, batch=RESNET_BATCH,
                   max_abs_err=err, rel_err=rel, tol=tol,
                   ref_max_abs=ref.float().abs().max().item(), ms=t_kernel,
-                  plain_ms=t_plain, composition_ms=t_comp,
-                  deterministic=deterministic)
+                  card_ms=t_card, plain_ms=t_plain, composition_ms=t_comp,
+                  deterministic=deterministic, gemm_tc_launches=products,
+                  want_gemm_tc_launches=want_products)
+            if products != want_products:
+                raise AssertionError(f"{name} {dname}: K8 sent {products} "
+                                     f"products to the tensor cores, "
+                                     f"expected {want_products}")
             if not rel <= tol:
                 raise AssertionError(f"{name} {dname}: K8 differs from its "
                                      f"plain version by {rel} of scale")
@@ -969,17 +1006,13 @@ def check_resnet(dev):
             if dtype == torch.bfloat16:
                 summary["max_abs_err"] = max(summary["max_abs_err"], err)
                 summary["ms"] += t_kernel
+                summary["card_ms"] += t_card
                 summary["plain_ms"] += t_plain
                 summary["composition_ms"] += t_comp
-                rows, flops = RESNET_BATCH * length, 0
-                for ws in w:
-                    _, c1, fm, _, c2, proj = rf._split(ws, True)
-                    flops += 2 * rows * (c1[0].numel() + c2[0].numel()
-                                         + (proj[0].numel() if proj else 0))
-                    flops += 2 * RESNET_BATCH * fm[0].numel()
-                add_bound(summary, bound(flops, nbytes(
-                    x, mp, *(skips or []), *(outs or [out]),
-                    *[t for ws in w for t in ws])))
+                summary["products"][name] = products
+                flops, weight_bytes = resnet_work(w, length, RESNET_BATCH)
+                add_bound(summary, bound(flops, weight_bytes + nbytes(
+                    x, mp, *(skips or []), *(outs or [out]))))
     try:        # a tensor the kernel does not take raises, on the card too
         rf.resnet_stack_forward(w, x.half(), mp, skips, **kw)
     except TypeError:
@@ -2276,8 +2309,10 @@ def main() -> int:
         "replaces": "moleculediffusiontransformer_tpu/ops/resnet_fusion.py:83",
         "launches": served_on["RESNET_LAUNCHES"],
         "max_abs_err": resnet["max_abs_err"], "ms": resnet["ms"],
+        "card_ms": resnet["card_ms"],
         "plain_ms": resnet["plain_ms"], "bound_ms": resnet["bound_ms"],
-        "bound_by": resnet["bound_by"], "library_ms": None})
+        "bound_by": resnet["bound_by"], "library_ms": None,
+        "products": TC_PRODUCTS})
     kernels.append({
         "name": "transformer1d_stack_fwd_uniform_ctx", "route": "cuda",
         "source": csrc + "transformer1d_fwd.cu",

@@ -1,5 +1,6 @@
-// The bf16 GEMM of the Transformer1d stack kernels on the H100's tensor
-// cores (K1, transformer1d_fwd.cu; K2, K3 and K4, transformer1d_bwd.cu).
+// The bf16 GEMM of the Transformer1d stack kernels and the resnet-run
+// kernel on the H100's tensor cores (K1, transformer1d_fwd.cu; K2, K3 and
+// K4, transformer1d_bwd.cu; K8, resnet_fwd.cu).
 //
 // `launch_gemm_tc` takes gemm.cuh's `GemmArgs<T, O>` (the layout by
 // strides, the six epilogues, the optional second output `out_t`) and

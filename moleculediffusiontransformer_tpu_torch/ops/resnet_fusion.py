@@ -11,6 +11,12 @@ CUDA tensor it launches ``csrc/resnet_fwd.cu`` (built on first use by
 rounding is the Pallas kernel's: each conv's and the projection's
 (acc + bias) rounded to the compute dtype, GroupNorm, FiLM and SiLU in
 float32 and rounded before each conv, ``h + x`` in the compute dtype.
+Every bfloat16 product of the kernel (both convs of each block, each
+widening block's projection, and one FiLM product for the whole run, over
+the blocks' FiLM weights that ``kernel_weights`` lays out as one matrix)
+runs on the tensor-core GEMM of ``csrc/gemm_tc.cuh``; ``tc_products`` says
+how many a call sends there, and ``gemm_tc_launches`` counts them.
+float32 products stay on the CUDA cores.
 
 ``resnet_stack`` is the run with gradients: the kernel forward and, as its
 backward, autograd of the ``ResnetBlock1d`` composition recomputed — the
@@ -73,9 +79,15 @@ def kernel_weights(blocks: Sequence[ResnetBlock1d],
     scale, bias; conv 1 W (C_out, 3*C_in) tap-major ([prev, cur, next]
     blocks of C_in columns), b; [FiLM W (2*C_out, C_m), b]; GroupNorm 2
     scale, bias; conv 2 W, b; [projection W (C_out, C_in), b].  Matrices in
-    ``dtype``, vectors float32, all contiguous and detached."""
+    ``dtype``, vectors float32, all contiguous and detached.  The blocks'
+    FiLM weights and biases are consecutive row blocks of one (n*2*C_out,
+    C_m) matrix and one vector, so that the kernel computes every block's
+    scale and shift in one product (``film_contiguous``)."""
     out = []
     with torch.no_grad():
+        denses = [blk.to_scale_shift.to_scale_shift[1] for blk in blocks
+                  if blk.use_mapping]
+        film = iter(_film_views(denses, dtype) if denses else [])
         for blk in blocks:
             def conv(c):
                 w = c.weight
@@ -88,14 +100,41 @@ def kernel_weights(blocks: Sequence[ResnetBlock1d],
 
             ws = norm(blk.block1.groupnorm) + conv(blk.block1.project)
             if blk.use_mapping:
-                dense = blk.to_scale_shift.to_scale_shift[1]
-                ws += [dense.weight.to(dtype).contiguous(),
-                       dense.bias.float().contiguous()]
+                ws += next(film)
             ws += norm(blk.block2.groupnorm) + conv(blk.block2.project)
             if blk.to_out is not None:
                 ws += conv(blk.to_out)
             out.append([w.detach() for w in ws])
     return out
+
+
+def _film_views(denses, dtype: torch.dtype) -> List[List[torch.Tensor]]:
+    """[W_i, b_i] of each FiLM Dense as views of one concatenated matrix (in
+    ``dtype``) and bias (float32), in order."""
+    rows = [d.weight.shape[0] for d in denses]
+    w = torch.cat([d.weight for d in denses]).to(dtype)
+    b = torch.cat([d.bias for d in denses]).float()
+    return [[wv, bv] for wv, bv in zip(w.split(rows), b.split(rows))]
+
+
+def film_contiguous(weights: Sequence[Sequence[torch.Tensor]]) -> bool:
+    """True when the blocks' FiLM weights and biases (entries 4 and 5 of each
+    block) lie one after the other in memory, as ``kernel_weights`` lays
+    them out: what the kernel's one FiLM product reads."""
+    w0, b0 = weights[0][4], weights[0][5]
+    return all(
+        ws[4].data_ptr() == w0.data_ptr() + i * w0.numel() * w0.element_size()
+        and ws[5].data_ptr() == b0.data_ptr() + i * b0.numel() * 4
+        for i, ws in enumerate(weights))
+
+
+def tc_products(weights: Sequence[Sequence[torch.Tensor]],
+                film: bool) -> int:
+    """Products a bfloat16 kernel call sends to the tensor cores: both convs
+    of every block, the projection of each block that widens, and one FiLM
+    product for the run (a float32 call sends none)."""
+    return (sum(2 + (_split(ws, film)[5] is not None) for ws in weights)
+            + int(film))
 
 
 class WeightCache:
@@ -195,8 +234,17 @@ def _library() -> ctypes.CDLL:
         lib.rs_forward.restype = _I
         lib.rs_error_string.argtypes = [_I]
         lib.rs_error_string.restype = ctypes.c_char_p
+        lib.rs_gemm_tc_launches.argtypes = [_I]
+        lib.rs_gemm_tc_launches.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
+
+
+def gemm_tc_launches(reset: bool = False) -> int:
+    """Products the resnet-run kernel has sent to the tensor cores since its
+    library was loaded or last reset (apart from the stack libraries'
+    ``transformer_fusion.gemm_tc_launches``)."""
+    return 0 if _LIB is None else _LIB.rs_gemm_tc_launches(int(reset))
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype: torch.dtype,
@@ -254,8 +302,7 @@ def resnet_stack_forward(weights: Sequence[Sequence[torch.Tensor]],
     raises for anything the kernel does not take."""
     global RESNET_LAUNCHES
     skip_list = list(skips) if skips is not None else [None] * len(weights)
-    flat = [w for ws in weights for w in ws]
-    if _on_cpu(x, mapping, *skip_list, *flat):
+    if _on_cpu(x, mapping, *skip_list):
         return resnet_stack_reference(weights, x, mapping, skips,
                                       groups=groups, skip_scale=skip_scale,
                                       collect=collect)
@@ -279,9 +326,16 @@ def resnet_stack_forward(weights: Sequence[Sequence[torch.Tensor]],
     for i, s in enumerate(skip_list):
         if s is not None:
             _check(f"skip {i}", s, (b, length, skip_c[i]), dt, dev)
+    flat = [w for ws in weights for w in ws]
+    # up to ~50 weights a call, checked in one lean pass (the wrapper's host
+    # time is most of a call's at the presets); _check words the refusal
     for w in flat:
-        _check("weight", w, w.shape, torch.float32 if w.dim() == 1 else dt,
-               dev)
+        want = torch.float32 if w.dim() == 1 else dt
+        if w.device != dev or w.dtype != want or not w.is_contiguous():
+            _check("weight", w, w.shape, want, dev)
+    if mapping is not None and not film_contiguous(weights):
+        raise ValueError("the blocks' FiLM weights must be consecutive rows "
+                         "of one matrix, as kernel_weights lays them out")
 
     lib = _library()
     n = len(weights)

@@ -469,12 +469,19 @@ def test_gemm_tc_route(cuda):
 # ---------------------------------------------- K8, the resnet-run kernel ---
 
 # (L, C, blocks, layout, C_m): the resnet runs of the 91M inverse preset and
-# the 18M forward preset, and a single block (the bottleneck's shape)
+# the 18M forward preset (L 1: the centre tap alone); a single block (the
+# bottleneck's shape); an L that does not divide 64; a group too long for
+# the GroupNorm kernel's registers (L 1,024 x 8 channels); a group row of 4
+# bf16 values (no 16-byte vectors); and a down run without collect, whose
+# conv 2 writes in place over its residual.  "single" and "flat": no skips,
+# no collect.
 RUNS = [(8, 256, 3, "down", 512), (2, 512, 3, "down", 512),
         (2, 512, 4, "up", 512), (8, 256, 4, "up", 512),
         (4, 128, 3, "down", 256), (1, 256, 3, "down", 256),
         (1, 256, 4, "up", 256), (4, 128, 4, "up", 256),
-        (2, 512, 1, "single", 512)]
+        (2, 512, 1, "single", 512), (12, 128, 2, "down", 64),
+        (1024, 64, 2, "down", 64), (16, 32, 2, "down", 64),
+        (8, 256, 3, "flat", 512)]
 RESNET_BATCH = 256
 
 
@@ -504,14 +511,18 @@ def _resnet_case(dev, length, c, n, layout, cm, dtype, batch=RESNET_BATCH,
 @pytest.mark.parametrize("length,c,n,layout,cm", RUNS)
 def test_resnet_kernel_matches_plain_version(cuda, length, c, n, layout, cm,
                                              dtype):
-    """All three layouts; two calls agree bit for bit."""
+    """All three layouts; every bf16 product on the tensor cores (a float32
+    call sends none there); two calls agree bit for bit."""
     _, w, x, mp, skips, kw = _resnet_case(cuda, length, c, n, layout, cm,
                                           dtype)
     with torch.no_grad():
         before = rf.RESNET_LAUNCHES
+        products = rf.gemm_tc_launches()
         out, outs = rf.resnet_stack_forward(w, x, mp, skips, **kw)
         torch.cuda.synchronize()
         assert rf.RESNET_LAUNCHES == before + 1
+        assert rf.gemm_tc_launches() - products == (
+            rf.tc_products(w, True) if dtype == torch.bfloat16 else 0)
         ref, ref_outs = rf.resnet_stack_reference(w, x, mp, skips, **kw)
         again, _ = rf.resnet_stack_forward(w, x, mp, skips, **kw)
     assert out.dtype == dtype and out.shape == (RESNET_BATCH, length, c)
@@ -533,6 +544,9 @@ def test_resnet_kernel_refuses_what_it_does_not_take(cuda):
         rf.resnet_stack_forward(w, x, mp, None, **kw)   # skips missing
     with pytest.raises(ValueError, match="CPU or CUDA"):
         rf.resnet_stack_forward(w, x.cpu(), mp, skips, **kw)
+    apart = [[t.clone() for t in ws] for ws in w]   # FiLM not one matrix
+    with pytest.raises(ValueError, match="FiLM"):
+        rf.resnet_stack_forward(apart, x, mp, skips, **kw)
 
 
 def test_resnet_grads_on_the_card(cuda):

@@ -293,3 +293,70 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         rf.resnet_stack_forward(ws, torch.zeros(4, 16, 32, device="meta"),
                                 None)
+
+
+def _port_blocks(cins, cout, cm, seed=40):
+    """Blocks of the port alone, initialised from a seed (no JAX)."""
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    gen = torch.Generator().manual_seed(seed)
+    blocks = [tb.ResnetBlock1d(cin, cout, num_groups=8,
+                               context_mapping_features=cm) for cin in cins]
+    for blk in blocks:
+        init_parameters(blk, gen)
+    return blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_film_weights_are_one_matrix_and_follow_the_parameters(dtype):
+    """``kernel_weights`` lays the blocks' FiLM weights and biases out as
+    consecutive rows of one matrix (the kernel's one FiLM product a run),
+    equal to each block's own; ``WeightCache`` builds them once per
+    parameter version and again after an in-place change."""
+    blocks = _port_blocks([64, 64, 64], 32, CM)
+    cache = rf.WeightCache()
+    ws = cache.get(blocks, dtype)
+    assert cache.get(blocks, dtype) is ws            # not rebuilt a call
+    assert rf.film_contiguous(ws)
+
+    def same(weights):
+        for blk, w in zip(blocks, weights):
+            dense = blk.to_scale_shift.to_scale_shift[1]
+            assert w[4].dtype == dtype and w[5].dtype == torch.float32
+            assert torch.equal(w[4], dense.weight.detach().to(dtype))
+            assert torch.equal(w[5], dense.bias.detach().float())
+
+    same(ws)
+    with torch.no_grad():
+        blocks[1].to_scale_shift.to_scale_shift[1].weight.add_(1.0)
+    again = cache.get(blocks, dtype)
+    assert again is not ws and rf.film_contiguous(again)
+    same(again)
+    assert not torch.equal(again[1][4], ws[1][4])
+    # a list whose FiLM entries are separate tensors is not one matrix
+    apart = [[w.clone() for w in blk] for blk in ws]
+    assert not rf.film_contiguous(apart)
+
+
+@pytest.mark.parametrize("cins,cout,cm,want", [
+    ([32, 32, 32], 32, CM, 7),        # a down run of 3: 2 convs a block + FiLM
+    ([64, 64, 64, 64], 32, CM, 13),   # an up run of 4: + 4 projections
+    ([32, 32, 32], 32, None, 6),      # no mapping: no FiLM product
+    ([64, 32], 32, CM, 6)])           # only the widening block projects
+def test_tc_products_follow_the_run(cins, cout, cm, want):
+    """The tensor-core products a bf16 kernel call sends (what the card's
+    smoke run and tests hold the kernel's count to) follow from the run."""
+    ws = rf.kernel_weights(_port_blocks(cins, cout, cm), torch.bfloat16)
+    assert rf.tc_products(ws, cm is not None) == want
+
+
+def test_conv3_at_length_one_is_the_centre_tap():
+    """At L = 1 both neighbours of a row are the zero padding: the k3 conv
+    is the product with W's centre column block (the kernel's K = C
+    product, read in place through W's row stride)."""
+    blocks = _port_blocks([32], 32, None)
+    w, b = rf.kernel_weights(blocks, torch.float32)[0][2:4]
+    v = torch.randn(5, 1, 32, generator=torch.Generator().manual_seed(41))
+    got = rf._conv3(v, w, b)
+    want = v @ w[:, 32:64].t() + b
+    assert _max_diff(got, want.numpy()) <= 1e-6

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The tensor-core GEMM of the PyTorch port's Transformer1d stack kernels
-(``csrc/gemm_tc.cuh``: every bf16 product of K1-K4) on one NVIDIA GPU: what
-the compiler made of it, how long it takes at the 91M model's product
-shapes, and K1-K4 of this checkout against another one's.
+and resnet-run kernel (``csrc/gemm_tc.cuh``: every bf16 product of K1-K4
+and K8) on one NVIDIA GPU: what the compiler made of it, how long it takes
+at the 91M model's product shapes, and K1-K4 and K8 of this checkout
+against another one's.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 ``python3 tools/check_torch_gemm.py [--root DIR] [--reps 20]
@@ -10,13 +11,13 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 [--tiles]``.
 It
 
-1. compiles ``csrc/transformer1d_fwd.cu`` and ``csrc/transformer1d_bwd.cu``
-   once more with ``-Xptxas -v`` and prints the registers, spills and shared
-   memory of each ``gemm_tc_kernel`` instance and any ptxas note about
-   ``wgmma`` (``C7515``: the products were serialised), and counts in the
-   SASS of the built libraries (``cuobjdump -sass``) the ``HGMMA`` against
-   the ``WARPGROUP.DEPBAR`` of each instance (as many waits as products
-   means serialised); it fails at the end if an instance spills, has a
+1. compiles ``csrc/transformer1d_fwd.cu``, ``csrc/transformer1d_bwd.cu``
+   and ``csrc/resnet_fwd.cu`` once more with ``-Xptxas -v`` and prints the
+   registers, spills and shared memory of each ``gemm_tc_kernel`` instance
+   and any ptxas note about ``wgmma`` (``C7515``: the products were
+   serialised), and counts in the SASS of the built libraries
+   (``cuobjdump -sass``) the ``HGMMA`` against the ``WARPGROUP.DEPBAR`` of
+   each instance (as many waits as products means serialised); it fails at the end if an instance spills, has a
    ``C7515`` note or is serialised;
 2. times ``t1d_gemm_tc`` (``ops.transformer_fusion.gemm_tc``) at every
    product shape of the 91M model's four stacks at batch 1,024 and 512
@@ -44,7 +45,9 @@ It
    (``card_ms``) and the host's time to make the call behind a busy card
    (``host_ms``: the wrapper's checks and launches), and the host's time to
    build K1's weight list (``K1 weight list``, summed over the four stacks
-   like the rest).
+   like the rest); for K8 also the products one call of each run sent to
+   the tensor cores (``K8 products``, summed over the runs; absent for a
+   tree whose K8 counts none).
 
 It prints the card's name and power limit first.
 """
@@ -314,9 +317,15 @@ def time_stacks(reps, only=None):
             add("K1 uniform_ctx", lambda: tf.transformer1d_forward(
                 kp, x, table, num_layers=layers, multiplier=MULT,
                 uniform_ctx=True, **kw))
+        counted = getattr(rf, "gemm_tc_launches", None)
         for i, (_, length, c, n, layout, cm) in enumerate(RESNET_RUNS):
             _, w, x, mp, skips, rkw = _resnet_case(
                 dev, length, c, n, layout, cm, dt, RESNET_BATCH, i)
+            if counted is not None and (only is None or "K8" in only):
+                before = counted()
+                rf.resnet_stack_forward(w, x, mp, skips, **rkw)
+                got = sums.setdefault("K8 products", {"products": 0})
+                got["products"] += counted() - before
             add("K8", lambda: rf.resnet_stack_forward(w, x, mp, skips, **rkw))
     return sums
 
@@ -365,12 +374,13 @@ def main() -> int:
         return 0
     from check_torch_flash import compiler_report, smi
     from moleculediffusiontransformer_tpu_torch.ops import cuda_build
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
     print(smi("name,power.limit"), flush=True)
     faults = []
     if not args.no_compiler_report:
-        for source in (tf.SOURCE, tf.BWD_SOURCE):
+        for source in (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE):
             report = compiler_report(cuda_build, source, match="gemm_tc")
             for kernel, r in report.items():
                 if r["spills"] or any("C7515" in n for n in r["notes"]):

@@ -4,8 +4,8 @@ time on one CUDA card.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 tools/profile_torch_train_step.py [--eval] [--root DIR]
-        [--out FILE]
+    python3 tools/profile_torch_train_step.py [--eval] [--resnet-fusion]
+        [--root DIR] [--out FILE]
 
 It trains the flagship preset (``chip_smoke.FLAGSHIP``) in bfloat16 with
 seeded random weights at batch 1024 as 2 x 512, and
@@ -24,7 +24,9 @@ untraced over 5 calls and then traced once as in 2; and the sampling rate
 of one 64-step request of 512 (mol/s, host clock).  ``--root DIR`` takes
 the port package from another checkout (a parent unpacked with ``git
 archive``), so that two trees can be profiled in one call on one card, each
-in its own process.
+in its own process.  ``--resnet-fusion`` turns the resnet-run kernel (K8,
+``ops.resnet_fusion.enable_resnet_fusion``, off by default) on for the
+whole run, in whichever tree is profiled.
 
 Prints one JSON object (also written to ``--out`` when given).  Imports no
 JAX.
@@ -49,6 +51,8 @@ def main() -> int:
                         help="profile a serving eval instead of a step")
     parser.add_argument("--root", default=None,
                         help="the checkout whose port package to profile")
+    parser.add_argument("--resnet-fusion", action="store_true",
+                        help="run the UNet's resnet runs through K8")
     args = parser.parse_args()
 
     import torch
@@ -67,9 +71,12 @@ def main() -> int:
         Transformer1d
     from moleculediffusiontransformer_tpu_torch.nn.primitives import \
         init_parameters
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
     from moleculediffusiontransformer_tpu_torch.train import trainer
+
+    rf.enable_resnet_fusion(args.resnet_fusion)
 
     dev = torch.device("cuda", 0)
     model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
@@ -194,7 +201,9 @@ def serving_profile(model, gen, batch, cond_scale, num_steps) -> dict:
 def report(args, result: dict, package: str) -> int:
     import torch
     text = json.dumps({"device": torch.cuda.get_device_name(0),
-                       "package": package, **result}, indent=1)
+                       "package": package,
+                       "resnet_fusion": args.resnet_fusion, **result},
+                      indent=1)
     print(text)
     if args.out:
         with open(args.out, "w") as f:
