@@ -119,7 +119,11 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    the 91M and 18M presets at 512 requests under CFG, the AR transformer's
    decode step at batch 1024 under CFG (n 1, m 65 and m 13, d 16, beside
    the multi-query module math that computes it in the model) and one shape
-   past K10's range; then the public entry points at the AR decode shapes
+   past K10's range, then at each route's edges (``ATTENTION_EDGE_SHAPES``
+   and the largest m a call takes at d 64 and 128); each line names the
+   route ``ops.attention.plan`` took and adds ``cold_ms``, the same calls on
+   rotating inputs of more than 100 MB that no call finds in L2; then the
+   public entry points at the AR decode shapes
    with the counts set to 0 before and read after -- no model calls these
    two kernels in either package, so this call is their main path;
 22. the inverse AR transformer serving: ``MoleculeTransformerSequence`` at
@@ -274,6 +278,18 @@ ATTENTION_SHAPES = [(8, 16, 24, 64), (128, 16, 12, 64), (8192, 8, 8, 64),
                     (8192, 8, 12, 64), (8192, 2, 2, 64), (8192, 2, 12, 64),
                     (8192, 4, 64, 64), (8192, 1, 64, 64),
                     *AR_DECODE_SHAPES.values(), (64, 256, 256, 64)]
+# and each route's edges: n = 1 at d 128 (a row route team of several
+# warps); n = 15, 16, 17 at m 64 (row route, tile route, a ragged tile);
+# K10 at bh 8 and 130 (fewer head-batches than the card has SMs, and just
+# under two blocks an SM); then, from ``attention_edge_shapes``, the largest
+# m a call takes at n 64 at d 64 and 128, and in bf16 the tile route's own
+# limit where the CUDA-core tiles reach further
+ATTENTION_EDGE_SHAPES = [(4096, 1, 64, 128), (1024, 15, 64, 64),
+                         (1024, 16, 64, 64), (1024, 17, 64, 64),
+                         (8, 1, 13, 16), (130, 1, 13, 16), (130, 4, 64, 64)]
+# rotating input sets of a ``cold_ms`` timing hold more than this together,
+# twice the card's 50 MB L2, so that no call finds its inputs there
+COLD_BYTES = 100 * 2 ** 20
 # A float32 AR request, card against CPU: every step's blended logits
 # within AR_LOGIT_TOL; a token may differ only where the two largest
 # Gumbel-perturbed logits are within AR_GAP of each other
@@ -392,6 +408,58 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def cold_fn(fn, dev, bh, n, m, d, dtype, total: int = COLD_BYTES):
+    """A call of ``fn(q, k, v)`` that takes the next of enough seeded
+    (bh, n, d), (bh, m, d), (bh, m, d) input sets to hold more than
+    ``total`` bytes together, so that a run of calls never finds its inputs
+    in L2 (a decode step reads another layer's cache every time)."""
+    import torch
+    one = (bh * n * d + 2 * bh * m * d) * torch.finfo(dtype).bits // 8
+    sets = max(2, -(-total // one) + 1)
+    gen = torch.Generator(dev).manual_seed(bh + n + m + d)
+    q, k, v = (torch.randn((sets, bh, rows, d), generator=gen, device=dev,
+                           dtype=dtype) for rows in (n, m, m))
+    turn = [0]
+
+    def call():
+        i = turn[0] = (turn[0] + 1) % sets
+        return fn(q[i], k[i], v[i])
+    return call
+
+
+def largest_m(at, n: int, d: int, dtype, route=None) -> int:
+    """The largest m that ``ops.attention`` takes at (1, n, m, d) (through
+    ``route`` only, when given): the routes' limits grow with m."""
+    lo, hi = 0, 1 << 14
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if at.plan(1, n, mid, d, dtype, route=route) is not None:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def attention_edge_shapes(at, dtype) -> list:
+    """``ATTENTION_EDGE_SHAPES`` and the range limits of ``dtype``."""
+    shapes = list(ATTENTION_EDGE_SHAPES)
+    for d in (64, 128):
+        shapes.append((16, 64, largest_m(at, 64, d, dtype), d))
+        tile = largest_m(at, 64, d, dtype, "tile")
+        if tile and (16, 64, tile, d) not in shapes:
+            shapes.append((16, 64, tile, d))
+    return shapes
+
+
+def attention_shapes(at, dtype) -> list:
+    """Phase 21's shapes in ``dtype``: the 11, then the route edges (where
+    ``at`` has no ``plan``, an earlier checkout's, the 11 and the fixed
+    edges)."""
+    if not hasattr(at, "plan"):
+        return ATTENTION_SHAPES + ATTENTION_EDGE_SHAPES
+    return ATTENTION_SHAPES + attention_edge_shapes(at, dtype)
 
 
 def check_stacks(dev):
@@ -1620,8 +1688,9 @@ def mqa_core_ms(dev, bh, m, d, heads, dtype):
 
 
 def check_attention(dev):
-    """Phase 21: K9 and K10 against their plain version.  Returns each
-    kernel's bf16 numbers at its AR decode shape."""
+    """Phase 21: K9 and K10 against their plain version at the 11 shapes
+    and the route edges.  Returns each kernel's bf16 numbers at its AR
+    decode shape."""
     import torch
     import torch.nn.functional as F
     at = attention_ops()
@@ -1629,8 +1698,9 @@ def check_attention(dev):
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         tol = KERNEL_TOL[dname]
-        for shape in ATTENTION_SHAPES:
+        for shape in attention_shapes(at, dtype):
             bh, n, m, d = shape
+            edge = shape not in ATTENTION_SHAPES
             q, k, v = _qkv(dev, bh, n, m, d, dtype)
             scale = d ** -0.5
             fns = {"attention": at.attention}
@@ -1651,20 +1721,23 @@ def check_attention(dev):
                                          dtype)
                              if shape in AR_DECODE_SHAPES.values() else None)
                 limit = bound(4 * bh * n * m * d, nbytes(q, k, v, ref))
+                route = at.plan(bh, n, m, d, dtype).route
                 for name, fn in fns.items():
                     out, again = fn(q, k, v), fn(q, k, v)
                     torch.cuda.synchronize()
                     rel, err = _rel_err(out, ref), _abs_err(out, ref)
                     same = torch.equal(out, again)
                     ms = device_ms(lambda: fn(q, k, v))
+                    # the same calls on inputs no call finds in L2
+                    cold = device_ms(cold_fn(fn, dev, bh, n, m, d, dtype))
                     # one call between two events: the host's time a call
                     call_ms = cuda_ms(lambda: fn(q, k, v))
                     row = close_bound(dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=max(limit.values()), **limit,
-                        library_ms=library_ms))
+                        max_abs_err=err, ms=ms, cold_ms=cold,
+                        plain_ms=plain_ms, bound_ms=max(limit.values()),
+                        **limit, library_ms=library_ms, route=route))
                     phase("attention_kernel", kernel=name, bh=bh, n=n, m=m,
-                          d=d, dtype=dname, rel_err=rel, tol=tol,
+                          d=d, dtype=dname, edge=edge, rel_err=rel, tol=tol,
                           deterministic=same, mqa_module_ms=module_ms,
                           host_call_ms=call_ms, **row)
                     if not rel <= tol:
@@ -1674,13 +1747,16 @@ def check_attention(dev):
                     if not same:
                         raise AssertionError(f"{name} {shape} {dname}: two "
                                              f"calls differ")
-                    if dtype == torch.bfloat16:
+                    if dtype == torch.bfloat16 and not edge:
                         rows[name][shape] = row
+            del q, k, v, ref
+            torch.cuda.empty_cache()
     for name, by_shape in rows.items():
         phase("attention_summary", kernel=name, dtype="bfloat16",
               shapes=len(by_shape),
               **{key: sum(r[key] for r in by_shape.values())
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+                 for key in ("ms", "cold_ms", "plain_ms", "library_ms",
+                             "bound_ms")})
     return {name: rows[name][shape]
             for name, shape in AR_DECODE_SHAPES.items()}
 

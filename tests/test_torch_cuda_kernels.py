@@ -902,12 +902,33 @@ def test_long_model1d_launches_the_flash_kernels(cuda, monkeypatch):
 # the 91M preset's attention under CFG at 512 requests and the 18M preset's
 # (d 64); the AR transformer's decode step at batch 1024 under CFG, self
 # (m 65) and cross (m 13) attention; other head sizes, lengths that are no
-# multiple of the warp width, and one shape past the packed kernel's range
+# multiple of the warp width, and one shape past the packed kernel's range;
+# then the routes' edges: n 1 at d 64 and 128 (a row-route team of several
+# warps), n 15, 16, 17 at m 64 (row route, tile route, a ragged tile), K10
+# at bh 8 and 130, m 1, m no multiple of 8 (masked keys in a staged tile,
+# 16-key tiles, a 100-key two-chunk tile), the two-pass tile (m > 256) and
+# long m on the row route; then several row-route teams a warp with the
+# last block's tail teams idle
 ATTENTION_CASES = [(8, 16, 24, 64), (128, 16, 12, 64), (8192, 8, 8, 64),
                    (8192, 8, 12, 64), (8192, 2, 2, 64), (8192, 2, 12, 64),
                    (64, 4, 64, 64), (64, 1, 64, 64), (16384, 1, 65, 16),
                    (16384, 1, 13, 16), (5, 7, 33, 8), (3, 64, 64, 128),
-                   (2, 17, 5, 32), (64, 256, 256, 64), (2, 100, 256, 128)]
+                   (2, 17, 5, 32), (64, 256, 256, 64), (2, 100, 256, 128),
+                   (4096, 1, 64, 128), (1024, 1, 64, 64), (1024, 15, 64, 64),
+                   (1024, 16, 64, 64), (1024, 17, 64, 64), (8, 1, 13, 16),
+                   (130, 1, 13, 16), (130, 4, 64, 64), (64, 1, 1, 64),
+                   (64, 20, 1, 16), (32, 3, 37, 32), (16, 33, 100, 64),
+                   (8, 40, 13, 128), (8, 64, 300, 64), (4, 1, 1000, 16),
+                   (4, 2, 700, 8), (601, 1, 13, 16), (1201, 2, 13, 16),
+                   (2001, 2, 7, 64)]
+# (bh, n, m, d, dtype) at the largest m a call takes at n 64 (d 64: the
+# tile route in bf16, the CUDA-core tiles in float32; d 128: the CUDA-core
+# tiles in both, and the tile route's own limit in bf16)
+ATTENTION_LIMIT_CASES = [(4, 64, 832, 64, torch.bfloat16),
+                         (4, 64, 704, 64, torch.float32),
+                         (4, 64, 386, 128, torch.bfloat16),
+                         (4, 64, 384, 128, torch.bfloat16),
+                         (4, 64, 386, 128, torch.float32)]
 
 
 def _attention_module():
@@ -939,6 +960,22 @@ def test_attention_kernels_match_plain_version(cuda, bh, n, m, d, dtype):
         _within(a, want, dtype, name)
     scaled = at.attention(q, k, v, scale=0.3)
     _within(scaled, at.attention_reference(q, k, v, 0.3), dtype, "scale")
+
+
+@pytest.mark.parametrize("bh,n,m,d,dtype", ATTENTION_LIMIT_CASES)
+def test_attention_kernels_at_the_range_limit(cuda, bh, n, m, d, dtype):
+    """K9 at the largest m a route takes, bitwise equal across two calls;
+    one more key is refused."""
+    at = _attention_module()
+    q, k, v, _ = _flash_case(cuda, bh, n, m, d, dtype, seed=m)
+    got, again = at.attention(q, k, v), at.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _within(got, at.attention_reference(q, k, v, d ** -0.5), dtype, "K9")
+    if at.plan(bh, n, m + 1, d, dtype) is None:
+        q, k, v, _ = _flash_case(cuda, bh, n, m + 1, d, dtype)
+        with pytest.raises(ValueError, match="flash_attention"):
+            at.attention(q, k, v)
 
 
 def test_attention_refusals(cuda):
