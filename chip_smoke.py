@@ -137,7 +137,31 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    wherever the two largest perturbed logits are more than 1e-3 apart;
 23. the inverse AR transformer training: one warm-up and 5 timed bfloat16
    steps at batch 512 x 64 tokens (Adam 2e-4, clip 0.5), every loss finite;
-   then one float32 batch-8 step on the card against the CPU.
+   then one float32 batch-8 step on the card against the CPU;
+24. the forward transformer: ``MoleculeTransformerSequenceEncoder`` at its
+   notebook preset (3.2M parameters, full width and depth, seeded random
+   weights, bfloat16) predicts the properties of 1, 16 and 1,024 SMILES
+   of the synthetic QM9 stand-in through
+   ``predict_properties_from_smiles_transformer`` (finite, (b, 12)), a
+   traced request of 1,024, then one warm-up and 5 timed training steps at
+   batch 256 (Adam 2e-4, clip 0.5), every loss finite; no kernel lies on
+   its path; then a float32 batch-8 prediction and step on the card
+   against the CPU;
+25. the inverse-design pipeline on the 91M preset at the tokenizer's
+   vocabulary (bfloat16): ``generate_from_conditioning`` for 64 targets
+   (100 steps, cond scale 7.5), every stack call through K1 (9 x 198
+   launches) with its products on the tensor cores; ``evaluate_generated``
+   against the training set; a traced denoise evaluation;
+   ``inpaint_from_draft_and_conditioning`` (4 candidates, 2 resamples, 9 x
+   396 K1 launches, the fixed positions decoding to the draft's tokens);
+   ``rescore_generated`` with the 18M model (5 x 198 K1 launches) and with
+   phase 24's encoder; ``generate_from_conditioning_transformer`` on the
+   AR preset for 16 targets; the generate again with K8 on (4 x 198 K8
+   launches);
+26. float32 parity of the pipeline: ``generate_from_conditioning`` and
+   ``qm_diffusion.inpaint`` at batch 8 and 64 steps on the card against the
+   CPU on the same draws, within the full-UNet band of phase 4, the decoded
+   tokens equal wherever the two largest channels are more than 1e-3 apart.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path,
@@ -294,6 +318,30 @@ COLD_BYTES = 100 * 2 ** 20
 # within AR_LOGIT_TOL; a token may differ only where the two largest
 # Gumbel-perturbed logits are within AR_GAP of each other
 AR_LOGIT_TOL, AR_GAP = 1e-4, 1e-3
+# the forward transformer's notebook preset
+# (core/config.py::forward_transformer_qm9; 3,162,496 parameters at 24
+# tokens): SMILES ids (b, 64) -> (b, 1, 12) properties
+ENCODER_PRESET = dict(dim=256, depth=6, heads=16, ff_mult=2, logits_dim=1,
+                      logits_dim_length=12, max_length=64, max_tokens=24,
+                      embed_dim=16)
+ENCODER_REQUESTS = (1, 16, 1024)
+# train/recipes.py::PRODUCTION_BATCHES["forward_transformer"]
+ENCODER_TRAIN_BATCH = 256
+# the design pipeline (design/inverse_design.py at its defaults: 100 steps,
+# cond scale 7.5) on the synthetic QM9 stand-in of data/qm9.py in its
+# chemically valid mode, so that validity and novelty mean something
+DESIGN_SMILES = 4096
+DESIGN_TARGETS, DESIGN_STEPS, DESIGN_COND_SCALE = 64, 100, 7.5
+DESIGN_EVALS = 2 * (DESIGN_STEPS - 1)
+# rescore_generated predicts with predict_properties_from_smiles's 100 steps
+RESCORE_EVALS = 2 * (100 - 1)
+INPAINT_CANDIDATES, INPAINT_RESAMPLES = 4, 2
+INPAINT_FIXED = (0, 1, 2, 3)
+AR_DESIGN_TARGETS = 16
+# float32 parity of the pipeline, card against CPU: NUM_STEPS-step requests
+# of 8 held to SAMPLE_TOL; a decoded token may differ only where the CPU's
+# two largest channels at its position are within DESIGN_GAP
+DESIGN_PARITY_BATCH, DESIGN_GAP = 8, 1e-3
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
 TC_PRODUCTS = "tensor cores (wgmma, csrc/gemm_tc.cuh)"
@@ -2053,6 +2101,376 @@ def ar_fp32_step_vs_cpu(dev):
                              f"grads {grad_err}")
 
 
+def timed(fn):
+    """(fn(), host seconds), the card synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_no_launches(what):
+    stray = {k: v for k, v in counts().items() if v}
+    if stray:
+        raise AssertionError(f"{what} launched {stray}: no kernel lies on "
+                             f"its path")
+
+
+def design_data():
+    """The synthetic QM9 stand-in, prepared for the inverse diffusion model
+    and, with start and end characters, for the transformers."""
+    from moleculediffusiontransformer_tpu_torch.data.qm9 import (
+        prepare_qm9, synthetic_qm9)
+    smiles, props = synthetic_qm9(DESIGN_SMILES, seed=20,
+                                  chemically_valid=True)
+    return (prepare_qm9(smiles, props, mode="inverse_diffusion"),
+            prepare_qm9(smiles, props, mode="transformer"))
+
+
+def encoder_model(dev, dtype, seed=21):
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        MoleculeTransformerSequenceEncoder
+    return MoleculeTransformerSequenceEncoder(
+        device=dev, dtype=dtype,
+        generator=torch.Generator().manual_seed(seed), **ENCODER_PRESET)
+
+
+def encoder_serve_and_train(dev, tr):
+    """Phase 24, bfloat16: predictions for 1, 16 and 1,024 SMILES, a traced
+    one of 1,024, and training at batch 256.  Returns the serving model."""
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch.design import \
+        predict_properties_from_smiles_transformer as predict
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    model = encoder_model(dev, torch.bfloat16).eval()
+
+    def request(b):
+        return predict(model, tr.smiles[:b], tr.tokenizer, tr.scaler)
+
+    request(1)                                                # warm-up
+    reset_counts()
+    for b in ENCODER_REQUESTS:
+        props, seconds = timed(lambda: request(b))
+        finite = bool(np.isfinite(props).all())
+        phase("encoder_request", batch=b, seconds=seconds,
+              predictions_per_s=b / seconds, shape=list(props.shape),
+              finite=finite)
+        if props.shape != (b, 12) or not finite:
+            raise AssertionError(f"encoder request {b}: {props.shape}, "
+                                 f"finite {finite}")
+    b = ENCODER_REQUESTS[-1]
+    device_ms, launches, wall_ms = device_busy(lambda: request(b))
+    phase("encoder_request_traced", batch=b, device_ms=device_ms,
+          kernel_launches=launches, traced_wall_ms=wall_ms,
+          device_busy_share=device_ms / wall_ms)
+
+    train = encoder_model(dev, torch.bfloat16).train()
+    ids = torch.tensor(tr.X_train[:ENCODER_TRAIN_BATCH], dtype=torch.long,
+                       device=dev)
+    targets = torch.tensor(tr.y_train[:ENCODER_TRAIN_BATCH], device=dev)
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(train, opt)
+    step = trainer.make_encoder_train_step(train, opt)
+    losses = [step(state, ids, targets).item()]               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    steps, seconds = timed(lambda: [step(state, ids, targets)
+                                    for _ in range(TIMED_STEPS)])
+    losses += [t.item() for t in steps]
+    seconds /= TIMED_STEPS
+    phase("encoder_train", batch=ENCODER_TRAIN_BATCH, steps=1 + TIMED_STEPS,
+          seconds_per_step=seconds,
+          samples_per_s=ENCODER_TRAIN_BATCH / seconds, losses=losses,
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite encoder training loss: {losses}")
+    check_no_launches("the forward transformer")
+    phase("encoder_phase_seconds", seconds=time.perf_counter() - t0)
+    return model
+
+
+def encoder_fp32_vs_cpu(dev, tr):
+    """Phase 24, float32: a batch-8 prediction and one step on the card
+    against the CPU."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    cpu = torch.device("cpu")
+    model32 = encoder_model(cpu, torch.float32)
+    ids = torch.tensor(tr.X_test[:8], dtype=torch.long)
+    targets = torch.tensor(tr.y_test[:8])
+    results = []
+    for device in (dev, cpu):
+        m = copy.deepcopy(model32).to(device)
+        with torch.no_grad():
+            logits = m(ids.to(device)).cpu()
+        o = trainer.make_optimizer(trainer.OptimizerConfig())
+        loss = trainer.make_encoder_train_step(m, o)(
+            trainer.TrainState.create(m, o), ids.to(device),
+            targets.to(device)).item()
+        results.append((logits, loss, {n: p.grad.cpu()
+                                       for n, p in m.named_parameters()}))
+    (card_logits, card_loss, card_grads), (cpu_logits, cpu_loss,
+                                           cpu_grads) = results
+    logit_err = _rel_err(card_logits, cpu_logits)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = max(_rel_err(card_grads[n], cpu_grads[n], STEP_GRAD_FLOOR)
+                   for n in cpu_grads)
+    tol = {"logits": KERNEL_TOL["float32"], "loss": STEP_LOSS_TOL,
+           "grad": STEP_GRAD_TOL}
+    phase("encoder_fp32_vs_cpu", batch=8, logits_rel_err=logit_err,
+          loss=card_loss, plain_loss=cpu_loss, loss_rel_err=loss_err,
+          grad_rel_err=grad_err, tol=tol)
+    if not (logit_err <= tol["logits"] and loss_err <= tol["loss"]
+            and grad_err <= tol["grad"]):
+        raise AssertionError(f"encoder fp32, card vs CPU: logits "
+                             f"{logit_err}, loss {loss_err}, grads "
+                             f"{grad_err}")
+
+
+def design_model(dev, inv, dtype, seed=22):
+    """The 91M inverse preset at the tokenizer's vocabulary
+    (core/config.py::inverse_diffusion_qm9(vocab))."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        QMDiffusion
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    model = QMDiffusion(**dict(FLAGSHIP, pred_dim=inv.vocab_size),
+                        dtype=dtype)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def design_pipeline(dev, inv, tr, encoder):
+    """Phase 25, bfloat16: generate, evaluate, inpaint and re-score on the
+    91M model, the 18M model, the encoder and the AR transformer, each
+    request with the counts set to 0 before it and read after it."""
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch import design
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        QMDiffusionForward
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+
+    t0 = time.perf_counter()
+    model = design_model(dev, inv, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    targets = inv.scaler.inverse_transform(inv.y_test[:DESIGN_TARGETS])
+    kw = dict(scaler=inv.scaler, training_smiles=inv.smiles,
+              cond_scale=DESIGN_COND_SCALE, timesteps=DESIGN_STEPS)
+    design.generate_from_conditioning(model, targets[:1], inv.tokenizer,
+                                      gen, **dict(kw, timesteps=3))
+    stack_calls = STACKS_PER_EVAL * DESIGN_EVALS
+
+    def generate(what, resnet_runs=0):
+        reset_counts()
+        products = tf.gemm_tc_launches()
+        report, seconds = timed(lambda: design.generate_from_conditioning(
+            model, targets, inv.tokenizer, gen, **kw))
+        launched = counts()
+        products = tf.gemm_tc_launches() - products
+        raw = report["raw_samples"]
+        phase(what, targets=len(targets), steps=DESIGN_STEPS,
+              cond_scale=DESIGN_COND_SCALE, seconds=seconds,
+              molecules_per_s=len(targets) / seconds,
+              launches={k: v for k, v in launched.items() if v},
+              gemm_tc_launches=products, shape=list(raw.shape),
+              num_valid=report["num_valid"], num_novel=report["num_novel"],
+              sample_smiles=report["smiles"][:4])
+        want = {k: 0 for k in launched}
+        want.update(LAUNCHES=stack_calls,
+                    RESNET_LAUNCHES=RESNET_RUNS_PER_EVAL * DESIGN_EVALS
+                    * resnet_runs)
+        if launched != want:
+            raise AssertionError(f"{what}: launches {launched}, expected "
+                                 f"{want} (every stack and, with K8 on, "
+                                 f"every resnet run through its kernel)")
+        if products != stack_products(model) * DESIGN_EVALS:
+            raise AssertionError(f"{what}: {products} products on the "
+                                 f"tensor cores, expected "
+                                 f"{stack_products(model) * DESIGN_EVALS}")
+        if (raw.shape != (len(targets), model.max_length, model.pred_dim)
+                or not np.isfinite(raw).all()):
+            raise AssertionError(f"{what}: samples {raw.shape}, finite "
+                                 f"{bool(np.isfinite(raw).all())}")
+        return report
+
+    report = generate("design_generate")
+    smiles = report["smiles"]
+    rep, seconds = timed(lambda: design.evaluate_generated(smiles,
+                                                           inv.smiles))
+    phase("design_evaluate", seconds=seconds, num_samples=rep["num_samples"],
+          num_valid=rep["num_valid"], num_novel=rep["num_novel"],
+          validity_fraction=rep["validity_fraction"],
+          novelty_fraction=rep["novelty_fraction"],
+          training_smiles=len(inv.smiles))
+    if not (len(smiles) == rep["num_samples"] == DESIGN_TARGETS
+            and rep["num_novel"] <= rep["num_valid"] <= rep["num_samples"]):
+        raise AssertionError(f"evaluate_generated: {len(smiles)} strings, "
+                             f"{rep}")
+    phase("design_eval_profile", batch=DESIGN_TARGETS,
+          cond_scale=DESIGN_COND_SCALE,
+          **eval_profile(model, DESIGN_TARGETS, gen))
+
+    draft = next(s for s in inv.smiles if len(s) >= 8)
+    reset_counts()
+    inpainted, seconds = timed(
+        lambda: design.inpaint_from_draft_and_conditioning(
+            model, draft, targets[0], INPAINT_FIXED, inv.tokenizer, gen,
+            scaler=inv.scaler, num_resamples=INPAINT_RESAMPLES,
+            cond_scale=DESIGN_COND_SCALE, timesteps=DESIGN_STEPS,
+            num_candidates=INPAINT_CANDIDATES, training_smiles=inv.smiles))
+    launched = counts()
+    prefix = draft[:len(INPAINT_FIXED)]
+    phase("design_inpaint", draft=draft, fixed=list(INPAINT_FIXED),
+          candidates=INPAINT_CANDIDATES, resamples=INPAINT_RESAMPLES,
+          steps=DESIGN_STEPS, seconds=seconds,
+          launches={k: v for k, v in launched.items() if v},
+          smiles=inpainted["smiles"], num_valid=inpainted["num_valid"])
+    if launched["LAUNCHES"] != stack_calls * INPAINT_RESAMPLES:
+        raise AssertionError(f"inpainting launched K1 "
+                             f"{launched['LAUNCHES']} times, expected "
+                             f"{stack_calls * INPAINT_RESAMPLES}")
+    if (len(inpainted["smiles"]) != INPAINT_CANDIDATES
+            or not all(s.startswith(prefix) for s in inpainted["smiles"])):
+        raise AssertionError(f"inpainting lost the fixed positions of "
+                             f"{draft!r}: {inpainted['smiles']}")
+
+    fmodel = QMDiffusionForward(**FORWARD, dtype=torch.bfloat16)
+    init_parameters(fmodel, torch.Generator().manual_seed(24))
+    fmodel = fmodel.to(dev).eval()
+    for what, run, want in (
+            ("design_rescore_forward_diffusion",
+             lambda: design.rescore_generated(
+                 fmodel, smiles, targets, inv.tokenizer, inv.scaler, gen),
+             {"LAUNCHES": CROSS_STACKS_PER_EVAL * RESCORE_EVALS}),
+            ("design_rescore_encoder",
+             lambda: design.rescore_generated(
+                 None, smiles, targets, tr.tokenizer, tr.scaler,
+                 transformer_encoder=encoder), {})):
+        reset_counts()
+        scores, seconds = timed(run)
+        launched = {k: v for k, v in counts().items() if v}
+        preds = scores["predicted_properties"]
+        phase(what, molecules=len(smiles), seconds=seconds,
+              launches=launched, overall_r2=scores["overall_r2"],
+              mae=scores["mae"], shape=list(preds.shape))
+        if launched != want or preds.shape != (len(smiles), 12) or not (
+                np.isfinite(preds).all()):
+            raise AssertionError(f"{what}: launches {launched} (expected "
+                                 f"{want}), predictions {preds.shape}")
+
+    ar = ar_model(dev, torch.bfloat16).eval()
+    reset_counts()
+    ar_report, seconds = timed(
+        lambda: design.generate_from_conditioning_transformer(
+            ar, targets[:AR_DESIGN_TARGETS], tr.tokenizer, gen,
+            scaler=tr.scaler, training_smiles=tr.smiles))
+    phase("design_generate_transformer", targets=AR_DESIGN_TARGETS,
+          seconds=seconds, molecules_per_s=AR_DESIGN_TARGETS / seconds,
+          num_valid=ar_report["num_valid"], num_novel=ar_report["num_novel"],
+          sample_smiles=ar_report["smiles"][:4])
+    check_no_launches("the AR design request")
+    if len(ar_report["smiles"]) != AR_DESIGN_TARGETS:
+        raise AssertionError(f"AR design: {len(ar_report['smiles'])} "
+                             f"strings")
+
+    rf.enable_resnet_fusion(True)
+    try:
+        generate("design_generate_resnet_fusion", resnet_runs=1)
+    finally:
+        rf.enable_resnet_fusion(False)
+    phase("design_phase_seconds", seconds=time.perf_counter() - t0)
+
+
+def decode_agreement(card, cpu, gap=DESIGN_GAP):
+    """(tokens that differ although the CPU's two largest channels at their
+    position are more than ``gap`` apart, rows whose tokens all agree)."""
+    differ = card.argmax(-1) != cpu.argmax(-1)
+    top2 = cpu.topk(2, dim=-1).values
+    unexplained = int((differ & (top2[..., 0] - top2[..., 1] > gap)).sum())
+    return unexplained, ~differ.any(-1)
+
+
+def design_fp32_vs_cpu(dev, inv):
+    """Phase 26, float32: ``generate_from_conditioning`` and
+    ``qm_diffusion.inpaint`` (the pipeline's source and mask for a draft) at
+    batch 8 on the card against the CPU, on the same draws."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch import design
+    from moleculediffusiontransformer_tpu_torch.data.tokenizer import (
+        one_hot_signed, pad_sequences)
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        inpaint
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    model32 = design_model(cpu, inv, torch.float32)
+    b, vocab = DESIGN_PARITY_BATCH, inv.vocab_size
+    shape = (b, FLAGSHIP["max_length"], vocab)
+    g = torch.Generator().manual_seed(25)
+    targets = inv.scaler.inverse_transform(inv.y_test[:b])
+    draws = dict(noise=torch.randn(shape, generator=g),
+                 step_noise=torch.randn(NUM_STEPS - 1, *shape, generator=g))
+    draft = next(s for s in inv.smiles if len(s) >= 8)
+    cond = torch.tensor(inv.scaler.transform(targets[:1]),
+                        dtype=torch.float32).repeat(b, 1)
+    source = torch.tensor(one_hot_signed(pad_sequences(
+        inv.tokenizer.texts_to_sequences([draft]), shape[1]),
+        vocab)).repeat(b, 1, 1)
+    mask = torch.zeros(shape, dtype=torch.bool)
+    mask[:, list(INPAINT_FIXED)] = True
+    r = INPAINT_RESAMPLES
+    inpaint_draws = dict(
+        noise=torch.randn(shape, generator=g),
+        source_noise=torch.randn(NUM_STEPS - 1, *shape, generator=g),
+        step_noise=torch.randn(NUM_STEPS - 1, r, *shape, generator=g),
+        renoise=torch.randn(NUM_STEPS - 1, r, *shape, generator=g))
+    results = []
+    for m, device in ((copy.deepcopy(model32).to(dev), dev), (model32, cpu)):
+        report = design.generate_from_conditioning(
+            m, targets, inv.tokenizer, scaler=inv.scaler,
+            cond_scale=DESIGN_COND_SCALE, timesteps=NUM_STEPS,
+            **{k: v.to(device) for k, v in draws.items()})
+        out = inpaint(m, cond.to(device), source.to(device),
+                      mask.to(device), num_steps=NUM_STEPS,
+                      num_resamples=r, cond_scale=DESIGN_COND_SCALE,
+                      **{k: v.to(device) for k, v in inpaint_draws.items()})
+        results.append((torch.from_numpy(report["raw_samples"]),
+                        report["smiles"], out.cpu(),
+                        design.decode_one_hot(out, inv.tokenizer)))
+    (card_gen, card_smiles, card_inp, card_inp_smiles), \
+        (cpu_gen, cpu_smiles, cpu_inp, cpu_inp_smiles) = results
+    record = {}
+    for what, card, plain, card_s, plain_s in (
+            ("generate", card_gen, cpu_gen, card_smiles, cpu_smiles),
+            ("inpaint", card_inp, cpu_inp, card_inp_smiles,
+             cpu_inp_smiles)):
+        unexplained, agree = decode_agreement(card, plain)
+        record[what] = dict(
+            max_abs_err=_abs_err(card, plain),
+            tokens_differing_without_a_near_tie=unexplained,
+            rows_equal=int(agree.sum()),
+            smiles_equal_where_tokens_agree=all(
+                card_s[i] == plain_s[i] for i in range(b) if agree[i]))
+    phase("design_fp32_vs_cpu", batch=b, steps=NUM_STEPS,
+          resamples=r, tol=SAMPLE_TOL, near_tie_gap=DESIGN_GAP,
+          seconds=time.perf_counter() - t0, **record)
+    for what, rec in record.items():
+        if not (rec["max_abs_err"] <= SAMPLE_TOL
+                and rec["tokens_differing_without_a_near_tie"] == 0
+                and rec["smiles_equal_where_tokens_agree"]):
+            raise AssertionError(f"fp32 {what}, card vs CPU: {rec}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2338,6 +2756,17 @@ def main() -> int:
     # 23. the inverse AR transformer training
     ar_train(dev)
     ar_fp32_step_vs_cpu(dev)
+
+    # 24. the forward transformer
+    inv, tr = design_data()
+    encoder = encoder_serve_and_train(dev, tr)
+    encoder_fp32_vs_cpu(dev, tr)
+
+    # 25. the inverse-design pipeline on the 91M model
+    design_pipeline(dev, inv, tr, encoder)
+
+    # 26. float32 parity of the pipeline, card against CPU
+    design_fp32_vs_cpu(dev, inv)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))

@@ -3,7 +3,8 @@
 ``denoise`` is a closure ``denoise(x, sigmas_batch) -> x0_hat`` with sigmas
 shaped (batch,); conditioning and CFG live inside it (see ``models/``).
 ADPM2 with ``rho=1`` is the production sampler of every QM model, the
-deterministic v-sampler that of the ``Model1d`` family.
+deterministic v-sampler that of the ``Model1d`` family; ``inpaint_adpm2``
+is ADPM2 under a keep-mask (RePaint-style inpainting).
 
 The step sigmas are computed host-side in numpy float32, as the JAX package
 computes them on the device in float32.  The ancestral noise of step ``i``
@@ -59,6 +60,16 @@ def adpm2_step(denoise: DenoiseFn, x: torch.Tensor, sigma, sigma_next,
     return x + noise * float(sigma_up)
 
 
+def _draw(given: Optional[torch.Tensor], like: torch.Tensor,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """An injected draw, or a standard normal like ``like`` from
+    ``generator``."""
+    if given is not None:
+        return given
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+
+
 def sample_adpm2(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
                  num_steps: int, *, step_noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
@@ -75,13 +86,51 @@ def sample_adpm2(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
                          f"expected {num_steps - 1}")
     x = noise * float(sigmas[0])
     for i in range(num_steps - 1):
-        if step_noise is not None:
-            eps = step_noise[i]
-        else:
-            eps = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                              device=x.device)
+        eps = _draw(None if step_noise is None else step_noise[i], x,
+                    generator)
         x = adpm2_step(denoise, x, sigmas[i], sigmas[i + 1], eps, rho)
     return x
+
+
+def inpaint_adpm2(denoise: DenoiseFn, source: torch.Tensor,
+                  mask: torch.Tensor, sigmas: np.ndarray, num_steps: int,
+                  num_resamples: int, *, noise: Optional[torch.Tensor] = None,
+                  source_noise: Optional[torch.Tensor] = None,
+                  step_noise: Optional[torch.Tensor] = None,
+                  renoise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  rho: float = 1.0) -> torch.Tensor:
+    """RePaint-style masked inpainting: ``mask`` is boolean, True = keep
+    from ``source``.  x starts at ``sigmas[0] * noise``; before every ADPM2
+    step of each of the ``num_resamples`` resamples of step i the kept
+    positions take ``source + sigma_i * source_noise[i]``; between resamples
+    x is re-noised by ``sqrt(sigma_i**2 - sigma_{i+1}**2) * renoise[i, r]``;
+    the result is ``where(mask, source, x)``.
+
+    Every draw can be injected -- ``noise`` (like source), ``source_noise``
+    (num_steps - 1, ...), ``step_noise`` and ``renoise`` (num_steps - 1,
+    num_resamples, ...; the last resample's renoise is not used) -- and is
+    otherwise drawn from ``generator``."""
+    sigmas = np.asarray(sigmas, dtype=np.float32)
+    draws = [noise, source_noise, step_noise]
+    if num_resamples > 1:
+        draws.append(renoise)
+    if generator is None and any(t is None for t in draws):
+        raise ValueError("inpaint_adpm2 needs a generator or every draw")
+    mask = mask.to(torch.bool)
+    x = _draw(noise, source, generator) * float(sigmas[0])
+    for i in range(num_steps - 1):
+        s, sn = sigmas[i], sigmas[i + 1]
+        eps_src = None if source_noise is None else source_noise[i]
+        source_noisy = source + _draw(eps_src, source, generator) * float(s)
+        for r in range(num_resamples):
+            x = torch.where(mask, source_noisy, x)
+            eps = None if step_noise is None else step_noise[i, r]
+            x = adpm2_step(denoise, x, s, sn, _draw(eps, x, generator), rho)
+            if r < num_resamples - 1:
+                eps = None if renoise is None else renoise[i, r]
+                x = x + _draw(eps, x, generator) * float(_sqrt_sq_diff(s, sn))
+    return torch.where(mask, source, x)
 
 
 def sample_v(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,

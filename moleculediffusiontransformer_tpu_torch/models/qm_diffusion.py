@@ -10,8 +10,10 @@ with a Fourier position code) feeds a CFG UNet through the K-diffusion
 objective (sigma_data 0.1).  ``sample`` is the
 serving path: ADPM2 (rho 1) over a Karras (1e-3, 9.0, rho 3) schedule with
 batched classifier-free guidance — two doubled-batch UNet evaluations per
-step.  Calling the model is the training path: the K-diffusion loss at
-LogNormal(-1.2, 1.2) noise levels, one UNet pass at embedding scale 1.
+step; ``inpaint`` runs the same steps under a keep-mask, each step
+``num_resamples`` times.  Calling the model is the training path: the
+K-diffusion loss at LogNormal(-1.2, 1.2) noise levels, one UNet pass at
+embedding scale 1.
 
 Parameter names (``fc1``, ``unet.*``) are the reference's, so the JAX
 package's params (``nn.jax_import.state_dict_from_jax_params``) and
@@ -26,6 +28,7 @@ from torch import nn
 
 from ..diffusion.distributions import LogNormalDistribution
 from ..diffusion.objectives import KDiffusion
+from ..diffusion.samplers import inpaint_adpm2
 from ..diffusion.samplers import sample as run_sampler
 from ..diffusion.schedules import karras_schedule
 from ..nn.embeddings import positional_encoding_1d
@@ -213,3 +216,33 @@ def sample(model: QMDiffusionBase, sequences: torch.Tensor,
     return run_sampler(denoise, noise.float(), sigmas, num_steps,
                        sampler="adpm2", clamp=clamp, objective_alias="k",
                        step_noise=step_noise, generator=generator, rho=1.0)
+
+
+@torch.no_grad()
+def inpaint(model: QMDiffusionBase, sequences: torch.Tensor,
+            source: torch.Tensor, mask: torch.Tensor,
+            generator: Optional[torch.Generator] = None, *,
+            num_steps: int = 100, num_resamples: int = 1,
+            cond_scale: float = 7.5, sigma_min: float = 1e-3,
+            sigma_max: float = 9.0, rho: float = 3.0,
+            noise: Optional[torch.Tensor] = None,
+            source_noise: Optional[torch.Tensor] = None,
+            step_noise: Optional[torch.Tensor] = None,
+            renoise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RePaint-style masked inpainting under property conditioning:
+    ``source`` and ``mask`` (b, max_length, pred_dim) channels-last on the
+    model's device, mask True = keep from ``source``.  ADPM2 (rho 1) over
+    the Karras(sigma_min, sigma_max, rho) schedule, each step
+    ``num_resamples`` times (``diffusion.samplers.inpaint_adpm2``, whose
+    draws ``noise``, ``source_noise``, ``step_noise`` and ``renoise`` are
+    taken as given or drawn from ``generator``).  Returns float32."""
+    emb = model.embed_conditioning(sequences)
+    sigmas = karras_schedule(num_steps, sigma_min, sigma_max, rho)
+
+    def denoise(x, s):
+        return model.denoise(x, s, emb, cond_scale)
+
+    return inpaint_adpm2(denoise, source.float(), mask, sigmas, num_steps,
+                         num_resamples, noise=noise, source_noise=source_noise,
+                         step_noise=step_noise, renoise=renoise,
+                         generator=generator, rho=1.0)

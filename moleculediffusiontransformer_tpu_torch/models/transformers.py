@@ -1,7 +1,8 @@
-"""The paper's inverse autoregressive transformer (port of
-`models/transformers.py`: ``cross_entropy_mean``, the decoder base,
-``MoleculeTransformerSequence``, ``generate_sequence`` and
-``forward_with_cond_scale``).
+"""The paper's inverse autoregressive transformer and the forward property
+transformer (port of `models/transformers.py`: ``cross_entropy_mean``, the
+decoder base, ``MoleculeTransformerSequence``, ``generate_sequence``,
+``forward_with_cond_scale``, ``TorchMHA`` and
+``MoleculeTransformerSequenceEncoder``).
 
 ``MoleculeTransformerSequence`` is a token AR decoder with property
 cross-attention, trained with cross entropy and conditioning dropout.
@@ -16,12 +17,21 @@ attention, ``layers.0.1`` cross attention, ``layers.0.2`` the feed-forward
 Sequential), so ``nn.jax_import.state_dict_from_jax_params`` loads the JAX
 package's parameters with ``strict=True``.
 
+``MoleculeTransformerSequenceEncoder`` is the bidirectional forward
+predictor: token ids (b, L) in, (b, 1, 12) property logits out at the
+notebook preset (``from_encoder_config``).  Its attention, ``TorchMHA``, is
+torch's ``nn.MultiheadAttention`` math written out as the JAX package writes
+it: plain products and a float32 softmax, masked with the finite
+``NEG_INF``, so a row whose keys are all padding attends uniformly (no
+hand-written kernel lies on this path in either package).
+
 The other decoders (Internaldim, the continuous ``MoleculeTransformer``, the
-encoder, the GPT models) are not ported yet.
+GPT models) are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple, Union
+import math
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +39,9 @@ from torch import nn
 
 from ..nn.embeddings import positional_encoding_1d
 from ..nn.primitives import Dense, Embed, gelu, init_parameters
-from ..nn.transformer_blocks import (LNGamma, MQAttention, gumbel_sample,
-                                     prob_mask_like, top_k_filter)
+from ..nn.transformer_blocks import (NEG_INF, LNGamma, MQAttention,
+                                     gumbel_sample, prob_mask_like,
+                                     top_k_filter)
 
 Uniforms = Union[torch.Tensor, Callable[[int], torch.Tensor]]
 
@@ -301,3 +312,153 @@ def forward_with_cond_scale(model: MoleculeTransformerSequence,
     null_logits = model(sequences, output, cond_drop_prob=0.0,
                         text_mask=null_mask, **kwargs)
     return null_logits + (logits - null_logits) * cond_scale
+
+
+# ------------------------------------------------------- forward encoder --
+
+class TorchMHA(nn.Module):
+    """torch ``nn.MultiheadAttention`` (batch first) as the JAX package
+    computes it: a fused QKV in-projection ``in_proj_weight`` (3d, d) and
+    ``in_proj_bias`` (3d,), then ``out_proj``; ``key_padding_mask`` (b, m)
+    True = masked, and an optional causal mask.
+
+    The in-projection runs in ``dtype`` and its float32 bias lifts q, k and
+    v to float32 (JAX's type promotion); the scores and their softmax are
+    float32, the probabilities are rounded to ``dtype`` before the float32
+    product with v, whose result is rounded to ``dtype``.  Masked scores are
+    the finite ``NEG_INF``: a row with every key masked gets a uniform
+    softmax, as in JAX, where ``scaled_dot_product_attention`` would give
+    NaN."""
+
+    def __init__(self, dim: int, heads: int, causal: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.heads, self.causal, self.dtype = dim, heads, causal, dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = Dense(dim, dim, dtype=dtype)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Xavier-uniform in-projection and a zero bias (torch's and JAX's
+        init); ``out_proj`` resets itself."""
+        bound = math.sqrt(6.0 / (self.dim + 3 * self.dim))
+        with torch.no_grad():
+            self.in_proj_weight.uniform_(-bound, bound, generator=generator)
+            self.in_proj_bias.zero_()
+
+    def forward(self, x: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        b, n, d = x.shape
+        h = self.heads
+        qkv = (F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype))
+               .float() + self.in_proj_bias.float())
+        q, k, v = (t.reshape(b, n, h, d // h).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        sim = torch.matmul(q, k.transpose(-1, -2)) * (d // h) ** -0.5
+        if key_padding_mask is not None:
+            sim = sim.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+        if self.causal:
+            causal = torch.ones(n, n, dtype=torch.bool,
+                                device=x.device).triu(1)
+            sim = sim.masked_fill(causal, NEG_INF)
+        attn = sim.softmax(dim=-1).to(self.dtype).float()
+        out = torch.matmul(attn, v).to(self.dtype)
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, d))
+
+
+class MoleculeTransformerSequenceEncoder(nn.Module):
+    """Bidirectional forward property predictor: token embedding + Fourier
+    position code -> ``to_dim`` -> ``init_norm`` -> depth x (MHA with the
+    key-padding mask + residual, then LN -> Linear -> GELU -> LN -> Linear +
+    residual) -> ``final_norm`` -> ``to_logits`` -> the length-axis
+    projection ``to_logits_dim_length``.  ids (b, L) -> (b, logits_dim,
+    logits_dim_length) logits, or (b, L, logits_dim) without the length
+    projection.  When ``max_length`` is set the sequence is cut to it and
+    the keys equal to ``padding_token`` are masked.  No dropout (the JAX
+    model has none either).
+
+    ``device=None`` builds on the card (and raises where there is none); a
+    CPU run asks for ``device="cpu"``.  ``generator`` seeds the weights."""
+
+    def __init__(self, dim: int = 256, depth: int = 6, logits_dim: int = 32,
+                 logits_dim_length: Optional[int] = None,
+                 max_length: Optional[int] = None, max_tokens: int = 32,
+                 heads: int = 8, ff_mult: int = 4, embed_dim: int = 16,
+                 padding_token: int = 0, dtype: torch.dtype = torch.float32,
+                 *, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if logits_dim_length is not None and max_length is None:
+            raise ValueError("max_length and logits_dim_length must be set "
+                             "together")
+        self.dim, self.depth, self.logits_dim = dim, depth, logits_dim
+        self.logits_dim_length, self.max_length = logits_dim_length, max_length
+        self.embed_dim, self.padding_token = embed_dim, padding_token
+        self.dtype = dtype
+        hidden = int(dim * ff_mult)
+        self.init_norm = LNGamma(dim, dtype=dtype)
+        self.layers = nn.ModuleList([nn.ModuleList([
+            TorchMHA(dim, heads, dtype=dtype),
+            nn.Sequential(LNGamma(dim, dtype=dtype),
+                          Dense(dim, hidden, bias=False, dtype=dtype),
+                          _GELU(), LNGamma(hidden, dtype=dtype),
+                          Dense(hidden, dim, bias=False, dtype=dtype)),
+        ]) for _ in range(depth)])
+        self.final_norm = LNGamma(dim, dtype=dtype)
+        self.token_embed = Embed(max_tokens, embed_dim, dtype=dtype)
+        self.to_dim = Dense(embed_dim, dim, bias=False, dtype=dtype)
+        self.to_logits = Dense(dim, logits_dim, bias=False, dtype=dtype)
+        if logits_dim_length is not None:
+            self.to_logits_dim_length = Dense(max_length, logits_dim_length,
+                                              bias=False, dtype=dtype)
+        if generator is not None:
+            init_parameters(self, generator)
+        self.to("cuda" if device is None else device)
+
+    def forward(self, input_sequence: torch.Tensor,
+                text_mask: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """ids (b, L) -> logits; ``text_mask`` (b, L) True = masked, by
+        default the padding tokens when ``max_length`` is set.  With
+        ``return_hidden`` the (b, L, dim) output of ``final_norm``."""
+        x = self.token_embed(input_sequence)
+        pe = positional_encoding_1d(x.shape[1], self.embed_dim, dtype=x.dtype,
+                                    device=x.device)
+        x = self.to_dim(x + pe[None])
+        if self.max_length is not None:
+            if text_mask is None:
+                text_mask = input_sequence == self.padding_token
+            x = x[:, :self.max_length]
+            text_mask = text_mask[:, :self.max_length]
+        x = self.init_norm(x)
+        for attn, ff in self.layers:
+            x = attn(x, key_padding_mask=text_mask) + x
+            x = ff(x) + x
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        logits = self.to_logits(x)
+        if self.logits_dim_length is not None:
+            logits = self.to_logits_dim_length(logits.transpose(1, 2))
+        return logits
+
+
+def from_encoder_config(config: Any, vocab_size: Optional[int] = None,
+                        device=None, dtype: torch.dtype = torch.float32,
+                        generator: Optional[torch.Generator] = None
+                        ) -> MoleculeTransformerSequenceEncoder:
+    """The forward encoder from an ``EncoderConfig`` (the JAX package's
+    ``core/config.py``, e.g. ``forward_transformer_qm9()``; read by
+    attribute, so the port imports nothing of that package), mapped as the
+    JAX package's ``train/recipes.py`` maps it: ``max_tokens`` is
+    ``vocab_size`` when given, else the config's.  On the card unless
+    ``device`` names another; weights from ``generator``."""
+    return MoleculeTransformerSequenceEncoder(
+        dim=config.dim, depth=config.depth, heads=config.heads,
+        ff_mult=config.ff_mult, logits_dim=config.logits_dim,
+        logits_dim_length=config.logits_dim_length,
+        max_length=config.max_length,
+        max_tokens=vocab_size or config.max_tokens,
+        embed_dim=config.embed_dim, padding_token=config.padding_token,
+        dtype=dtype, device=device, generator=generator)

@@ -5,9 +5,11 @@ port never imports the JAX package's ``nn``).
 A flax param tree is nested dicts keyed by module names in which torch
 Sequential/ModuleList indices are merged into the name (``to_in_0``,
 ``blocks_1``, ``layers_0_2_1``); leaves are ``kernel``/``tkernel``/
-``scale``/``embedding``/``bias``/``weights``.  The torch key splits the
-trailing index tokens back out (``to_in.0``, ``layers.0.2.1``) and names
-the leaf as torch does; conv and linear kernels go back to torch layout.
+``scale``/``embedding``/``bias``/``weights``, or a torch name kept as it is
+(``in_proj_weight``, ``gamma``).  The torch key splits the trailing index
+tokens back out (``to_in.0``, ``layers.0.2.1``) and names the leaf as torch
+does; conv and linear kernels and the attention's fused in-projection go
+back to torch layout.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
         return np.transpose(value, (1, 0))  # linear (in, out) -> (out, in)
     if leaf == "tkernel":                  # convT (k, in, out) -> (in, out, k)
         return np.transpose(value, (1, 2, 0))
+    if leaf == "in_proj_weight":           # torch MHA (d, 3d) -> (3d, d)
+        return np.transpose(value, (1, 0))
     return value
 
 

@@ -1,7 +1,7 @@
 """Building blocks of the autoregressive transformer models (port of
 `nn/transformer_blocks.py`, the parts the Sequence decoder needs): Gumbel /
-top-k sampling, the gamma-only LayerNorm and multi-query attention with a
-learned null KV.
+top-k sampling, the gamma-only LayerNorm (and the affine one under its torch
+name) and multi-query attention with a learned null KV.
 
 Distinct from ``nn/attention.py`` (the UNet's attention): one shared KV head
 that serves as keys and values, a learned null KV prepended for
@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .primitives import Dense
+from .primitives import Dense, LayerNorm
 
 NEG_INF = -torch.finfo(torch.float32).max
 
@@ -104,6 +104,12 @@ class LNGamma(nn.Module):
         var = (xf - mean).square().mean(dim=-1, keepdim=True)
         return ((xf - mean) * torch.rsqrt(var + self.eps)
                 * self.gamma.float()).to(self.dtype)
+
+
+# The JAX package's ``TorchLayerNorm``: the affine LayerNorm under torch's
+# names (``weight``, ``bias``), eps 1e-5, float32 statistics, output in
+# ``dtype`` -- the primitives' ``LayerNorm`` computes exactly this.
+TorchLayerNorm = LayerNorm
 
 
 # ------------------------------------------------------------ attention ----

@@ -1,8 +1,8 @@
 """Training: Adam behind a global-norm clip, and the diffusion train step with
 gradient accumulation (port of `train/trainer.py`: ``make_optimizer``,
-``make_diffusion_train_step``, ``make_transformer_train_step``;
-``make_model1d_train_step`` is the diffusion step for a model whose loss
-takes only the data).
+``make_diffusion_train_step``, ``make_transformer_train_step``,
+``make_encoder_train_step``; ``make_model1d_train_step`` is the diffusion
+step for a model whose loss takes only the data).
 
 The optimizer is written out rather than taken from ``torch.optim`` so that
 it computes what the JAX package's ``optax.chain(clip_by_global_norm(c),
@@ -271,5 +271,29 @@ def make_transformer_train_step(model: nn.Module,
             params, optimizer, state, 1, props.shape[0], ids.device,
             lambda rows: model(props, ids, return_loss=True,
                                generator=generator, keep=keep))
+
+    return train_step
+
+
+def make_encoder_train_step(model: nn.Module,
+                            optimizer: ClipAdam) -> Callable:
+    """``step(state, ids, targets) -> loss`` for the forward encoder: the
+    mean squared error of the first ``targets.shape[1]`` logits of each row
+    (``model(ids)`` flattened: the (b, 1, 12) outputs of the notebook
+    preset) against ``targets`` (b, 12), in float32; one clip and one Adam
+    update, no accumulation.  The float32 grads stay on the parameters'
+    ``.grad``; returns the loss (a float32 tensor on the model's device)."""
+    params = list(model.parameters())
+
+    def loss_of(ids: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        logits = model(ids)
+        preds = logits.reshape(logits.shape[0], -1)[:, :targets.shape[1]]
+        return (preds.float() - targets.float()).square().mean()
+
+    def train_step(state: TrainState, ids: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+        return _accumulated_step(params, optimizer, state, 1, ids.shape[0],
+                                 ids.device,
+                                 lambda rows: loss_of(ids, targets))
 
     return train_step

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from moleculediffusiontransformer_tpu.core.config import (
-    forward_diffusion_qm9, inverse_diffusion_qm9)
+    forward_diffusion_qm9, forward_transformer_qm9, inverse_diffusion_qm9)
 from moleculediffusiontransformer_tpu.models import qm_diffusion as jqm
 from moleculediffusiontransformer_tpu.nn.torch_import import (
     _flatten, flax_path_to_torch_key, params_to_state_dict)
@@ -52,6 +52,14 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.models.audio",
     "moleculediffusiontransformer_tpu_torch.models.transformers",
     "moleculediffusiontransformer_tpu_torch.train.trainer",
+    "moleculediffusiontransformer_tpu_torch.train.eval",
+    "moleculediffusiontransformer_tpu_torch.data",
+    "moleculediffusiontransformer_tpu_torch.data.tokenizer",
+    "moleculediffusiontransformer_tpu_torch.data.preprocess",
+    "moleculediffusiontransformer_tpu_torch.data.qm9",
+    "moleculediffusiontransformer_tpu_torch.design",
+    "moleculediffusiontransformer_tpu_torch.design.valence",
+    "moleculediffusiontransformer_tpu_torch.design.inverse_design",
 ]
 
 
@@ -75,12 +83,28 @@ def test_keys_and_shapes_match_port(jax_params):
 
 
 def test_values_match_params_to_state_dict(jax_params):
-    sd = state_dict_from_jax_params(jax_params)
-    ref = params_to_state_dict(jax_params)
-    assert set(sd) == set(ref)
-    for k, v in ref.items():
-        assert sd[k].dtype == torch.float32
-        np.testing.assert_array_equal(sd[k].numpy(), v)
+    """The QM model's params, then the forward encoder's, whose fused
+    attention in-projection ``in_proj_weight`` JAX stores as (d, 3d) and
+    torch as (3d, d)."""
+    from moleculediffusiontransformer_tpu.models.transformers import \
+        MoleculeTransformerSequenceEncoder
+    encoder = MoleculeTransformerSequenceEncoder(
+        dim=16, depth=1, heads=2, ff_mult=2, logits_dim=1,
+        logits_dim_length=12, max_length=8, max_tokens=10)
+    shapes = jax.eval_shape(encoder.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8), jnp.int32))["params"]
+    rng = np.random.default_rng(0)
+    encoder_params = jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    assert encoder_params["layers_0_0"]["in_proj_weight"].shape == (16, 48)
+    for params in (jax_params, encoder_params):
+        sd = state_dict_from_jax_params(params)
+        ref = params_to_state_dict(params)
+        assert set(sd) == set(ref)
+        for k, v in ref.items():
+            assert sd[k].dtype == torch.float32
+            np.testing.assert_array_equal(sd[k].numpy(), v)
+    assert tuple(sd["layers.0.0.in_proj_weight"].shape) == (48, 16)
 
 
 def test_torch_key_matches_jax_package(jax_params):
@@ -102,8 +126,9 @@ def test_flagship_parameter_count():
 
 
 def test_entry_points_default_to_the_card():
-    """``from_config``, the ``Model1d`` factories and the AR transformer put
-    the model on the card unless the caller names a device: with no device
+    """``from_config``, the ``Model1d`` factories, the AR transformer, the
+    forward encoder and ``from_encoder_config`` put the model on the card
+    unless the caller names a device: with no device
     argument they ask for "cuda" (which raises on a host without one), never
     the CPU."""
     from moleculediffusiontransformer_tpu_torch.models import (audio,
@@ -118,7 +143,12 @@ def test_entry_points_default_to_the_card():
               lambda **kw: audio.AudioDiffusionModel(**tiny, **kw),
               lambda **kw: transformers.MoleculeTransformerSequence(
                   dim=16, depth=1, heads=2, dim_head=8, logits_dim=24,
-                  text_embed_dim=16, max_text_len=12, **kw)]
+                  text_embed_dim=16, max_text_len=12, **kw),
+              lambda **kw: transformers.MoleculeTransformerSequenceEncoder(
+                  dim=16, depth=1, heads=2, logits_dim=1,
+                  logits_dim_length=12, max_length=8, **kw),
+              lambda **kw: transformers.from_encoder_config(
+                  forward_transformer_qm9(), **kw)]
     for build in builds:
         if torch.cuda.is_available():
             assert next(build().parameters()).device.type == "cuda"
@@ -177,6 +207,21 @@ def test_chip_smoke_builds_the_ar_preset():
     assert (a.cond_drop_prob, a.max_text_len) == (b.cond_drop_prob,
                                                   b.max_text_len)
     assert sum(p.numel() for p in a.parameters()) == 2_407_712
+
+
+def test_chip_smoke_builds_the_encoder_preset():
+    """The same for the forward encoder's preset, against
+    ``from_encoder_config(forward_transformer_qm9())``."""
+    from moleculediffusiontransformer_tpu_torch.models import transformers
+    a = _meta_model(build=transformers.MoleculeTransformerSequenceEncoder,
+                    device="meta", **_smoke().ENCODER_PRESET)
+    b = _meta_model(build=transformers.from_encoder_config,
+                    config=forward_transformer_qm9(), device="meta")
+    assert _same_architecture(a, b)
+    assert (a.max_length, a.logits_dim_length, a.padding_token,
+            a.layers[0][0].heads) == (b.max_length, b.logits_dim_length,
+                                      b.padding_token, b.layers[0][0].heads)
+    assert sum(p.numel() for p in a.parameters()) == 3_162_496
 
 
 def _run(code: str, env=None) -> subprocess.CompletedProcess:
