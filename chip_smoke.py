@@ -161,10 +161,39 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
 26. float32 parity of the pipeline: ``generate_from_conditioning`` and
    ``qm_diffusion.inpaint`` at batch 8 and 64 steps on the card against the
    CPU on the same draws, within the full-UNet band of phase 4, the decoded
-   tokens equal wherever the two largest channels are more than 1e-3 apart.
+   tokens equal wherever the two largest channels are more than 1e-3 apart;
+27. the training loop, checkpoints and the command line, called in-process
+   (``cli.main``) on the CLI's synthetic stand-in of 4,096 rows: ``train
+   --task inverse_diffusion --preset notebook`` (91M, float32, the recipes'
+   default; batch and micro-batches from ``PRODUCTION_BATCHES``) for 2
+   epochs into one directory, for 1 into another and ``--resume`` there for
+   1 more: every loss finite, the resumed run's checkpoint equal to the
+   straight run's (bitwise, or every tensor within 1e-6 of its scale; the
+   phase says which held), and K1 stash, K3, K4 launched exactly stacks x
+   micro-batches (the steps' and the preflight pass's), K2 layers x as
+   many, K1 stacks x the held-out eval's evaluations and nothing else; the
+   step through ``recipes.train_task`` at 1,024 x 1 and 4 x 256 in float32
+   and 1,024 x 1 in bf16 (every bf16 product on the tensor cores): peak
+   memory and seconds a step beside ``preflight_memory_check``'s estimate,
+   and the float32 peak held against ``PRODUCTION_BATCHES`` (accumulation
+   only above 70% of the card); the grads of one micro-batch three times
+   with cuDNN's default and with its deterministic algorithms (which the
+   loop runs), in float32 and bf16: the tensors that differ and seconds a
+   forward and backward; ``eval``, ``sample`` (16 molecules, 64
+   steps) and ``inpaint`` from the checkpoint, K1 exactly stacks x
+   evaluations; the 18M forward model, the AR transformer and the forward
+   transformer one epoch each at their notebook presets, then ``predict``
+   or ``sample`` from their checkpoints (the 18M with its training and
+   serving launches counted as the 91M's, the transformers launching
+   nothing); two float32 ``train_diffusion`` steps of the 91M model at
+   batch 8 on the same draws, card against CPU, the losses within 1e-4;
+   and seconds an epoch with ``prefetch`` 2 and 0 in turns.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
-are a JSON record of the kernels -- each with its launches on its main path,
+are a JSON record of the kernels -- each with its launches on its main path
+(K1 and the training kernels also with ``launches_cli_train``, those of
+phase 27's straight CLI train: its steps, its preflight pass and its
+held-out eval),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -178,6 +207,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -342,6 +372,27 @@ AR_DESIGN_TARGETS = 16
 # of 8 held to SAMPLE_TOL; a decoded token may differ only where the CPU's
 # two largest channels at its position are within DESIGN_GAP
 DESIGN_PARITY_BATCH, DESIGN_GAP = 8, 1e-3
+# phase 27: the training loop, checkpoints and the CLI on the CLI's own
+# data (``synthetic_qm9(rows, seed=0)``, chemically valid): a held-out eval
+# of LOOP_NUM_EVAL targets at LOOP_EVAL_STEPS steps after each train, and
+# the checkpoint's eval, sample and inpaint
+LOOP_ROWS = 4096
+LOOP_EVAL_STEPS, LOOP_NUM_EVAL = 32, 8
+LOOP_SAMPLE_NUM, LOOP_SAMPLE_STEPS = 16, 64
+LOOP_DRAFT, LOOP_FIXED = "CC(=O)N", ("0", "1", "2", "3")
+# the step's peak memory and seconds: 7 steps of 1,024 an epoch, the first
+# untimed; (dtype, batch, micro-batches): float32 at the full batch, the JAX
+# package's v5e plan of 4 x 256, bf16 at the full batch
+MEMORY_ROWS = 8192
+MEMORY_RUNS = (("float32", 1024, 1), ("float32", 1024, 4),
+               ("bfloat16", 1024, 1))
+# accumulation is kept only where the float32 step at the full batch would
+# peak above this share of the card (train/recipes.py::PRODUCTION_BATCHES)
+ACCUMULATION_SHARE = 0.7
+# the resumed run's parameters against the straight run's: bitwise, or else
+# every tensor within RESUME_TOL of its largest magnitude
+RESUME_TOL = 1e-6
+LOADER_TURNS = (2, 0, 0, 2, 2, 0, 0, 2)
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
 TC_PRODUCTS = "tensor cores (wgmma, csrc/gemm_tc.cuh)"
@@ -2471,6 +2522,444 @@ def design_fp32_vs_cpu(dev, inv):
             raise AssertionError(f"fp32 {what}, card vs CPU: {rec}")
 
 
+def cli_run(argv):
+    """``cli.main(argv)`` in this process, its JSON kept out of the output:
+    (payload, host seconds, kernel launches, tensor-core products), the
+    counts set to 0 just before and read just after."""
+    import io
+
+    import torch
+    from moleculediffusiontransformer_tpu_torch import cli
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    torch.cuda.synchronize()
+    reset_counts()
+    products = tf.gemm_tc_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, counts(), tf.gemm_tc_launches() - products
+
+
+def task_stacks(task):
+    """A task's notebook model on the meta device, with its Transformer1d
+    stacks and their layers counted as phase 7 counts them."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    with torch.device("meta"):
+        model = recipes.build_model(task, device="meta")
+    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
+    return model, len(stacks), sum(m.num_layers for m in stacks)
+
+
+def loop_want(stacks, layers, micro_batches, evals):
+    """The launches of a train (``micro_batches`` forwards with the stash
+    and backward chains: the steps' and the preflight pass's) and of
+    ``evals`` denoise evaluations, every other count 0."""
+    want = {k: 0 for k in counts()}
+    want.update(STASH_LAUNCHES=stacks * micro_batches,
+                CONV_OUT_BWD_LAUNCHES=stacks * micro_batches,
+                LAYER_BWD_LAUNCHES=layers * micro_batches,
+                CONV_IN_GN_BWD_LAUNCHES=stacks * micro_batches,
+                LAUNCHES=stacks * evals)
+    return want
+
+
+def check_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, expected {want}")
+
+
+def resume_agreement(straight_path, resumed_path):
+    """Compare two checkpoints: how the parameters agree ('bitwise',
+    'within 1e-6 of scale' or None), and the largest difference over a
+    tensor's largest magnitude, with its tensor's name, among the
+    parameters and among Adam's moments."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
+        load_checkpoint
+    a, b = (load_checkpoint(p, torch.device("cpu"))
+            for p in (straight_path, resumed_path))
+    params = {k: (a["model"][k], b["model"][k]) for k in b["model"]}
+    moments = {f"{m}.{k}": (a["adam"][m][k], b["adam"][m][k])
+               for m in ("mu", "nu") for k in b["adam"][m]}
+
+    def worst(pairs):
+        name = max(pairs, key=lambda k: _rel_err(*pairs[k]))
+        return {"max_rel_err": _rel_err(*pairs[name]), "tensor": name,
+                "bitwise": all(torch.equal(x, y) for x, y in pairs.values())}
+
+    record = {"params": worst(params), "moments": worst(moments),
+              "counts_equal": (a["step"], a["epoch"], a["adam"]["count"])
+              == (b["step"], b["epoch"], b["adam"]["count"])}
+    held = None
+    if record["counts_equal"] and record["params"]["bitwise"]:
+        held = "bitwise"
+    elif (record["counts_equal"]
+          and record["params"]["max_rel_err"] <= RESUME_TOL):
+        held = f"within {RESUME_TOL} of scale"
+    return held, record
+
+
+def loop_train_and_resume(tmp):
+    """Phase 27, steps 1 and 3: the 91M inverse model trained through the
+    CLI (float32, the recipes' default) for 2 epochs into D1, for 1 into
+    D2 and resumed there for 1 more; every launch counted; then ``eval``,
+    ``sample`` and ``inpaint`` from D1's latest checkpoint.  Returns the
+    straight run's launches."""
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
+        latest_checkpoint
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    task = "inverse_diffusion"
+    _, stacks, layers = task_stacks(task)
+    batch, micro = recipes.PRODUCTION_BATCHES[task]
+    d1, d2 = os.path.join(tmp, "d1"), os.path.join(tmp, "d2")
+    base = ["train", "--task", task, "--preset", "notebook",
+            "--rows", str(LOOP_ROWS), "--batch-size", str(batch),
+            "--accumulation-steps", str(micro), "--print-loss-every", "1",
+            "--timesteps", str(LOOP_EVAL_STEPS),
+            "--num-eval", str(LOOP_NUM_EVAL)]
+    evals = 2 * (LOOP_EVAL_STEPS - 1)
+    runs, launches = {}, {}
+    for name, extra in (("straight", ["--epochs", "2", "--checkpoint-dir",
+                                      d1]),
+                        ("first", ["--epochs", "1", "--checkpoint-dir", d2]),
+                        ("resumed", ["--epochs", "1", "--checkpoint-dir", d2,
+                                     "--resume"])):
+        out, seconds, launched, _ = cli_run(base + extra)
+        steps = out["step"] - (runs["first"]["step"] if name == "resumed"
+                               else 0)
+        losses = out["losses"]
+        want = loop_want(stacks, layers, micro * steps + 1, evals)
+        phase("loop_train", run=name, task=task, dtype="float32",
+              batch=batch, micro_batches=micro, steps=steps,
+              seconds=seconds, losses=losses, launches=launched,
+              validity=out["validity_fraction"])
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: losses {losses} for {steps} "
+                                 f"steps")
+        check_launches(f"CLI train ({name})", launched, want)
+        runs[name], launches[name] = out, launched
+    straight_ckpt, resumed_ckpt = latest_checkpoint(d1), latest_checkpoint(d2)
+    held, record = resume_agreement(straight_ckpt, resumed_ckpt)
+    phase("loop_resume", straight=os.path.basename(straight_ckpt),
+          resumed=os.path.basename(resumed_ckpt), held=held, **record,
+          losses_equal=runs["straight"]["losses"] == (
+              runs["first"]["losses"] + runs["resumed"]["losses"]))
+    if held is None:
+        raise AssertionError(f"the resumed run's parameters differ from "
+                             f"the straight run's: {record}")
+
+    use = ["--preset", "notebook", "--rows", str(LOOP_ROWS),
+           "--checkpoint", straight_ckpt]
+    for name, argv, steps, n in (
+            ("eval", ["eval", "--task", task, *use, "--timesteps",
+                      str(LOOP_EVAL_STEPS), "--num-eval",
+                      str(LOOP_NUM_EVAL)], LOOP_EVAL_STEPS, None),
+            ("sample", ["sample", "--task", task, *use, "--num",
+                        str(LOOP_SAMPLE_NUM), "--timesteps",
+                        str(LOOP_SAMPLE_STEPS)], LOOP_SAMPLE_STEPS,
+             LOOP_SAMPLE_NUM),
+            ("inpaint", ["inpaint", LOOP_DRAFT, "--fixed", *LOOP_FIXED,
+                         *use, "--timesteps", str(LOOP_SAMPLE_STEPS)],
+             LOOP_SAMPLE_STEPS, 4)):
+        out, seconds, launched, _ = cli_run(argv)
+        smiles = out.get("smiles")
+        phase("loop_use", command=name, seconds=seconds, launches=launched,
+              smiles=smiles, validity=out.get("validity_fraction"),
+              novelty=out.get("novelty_fraction"))
+        check_launches(f"CLI {name}", launched,
+                       loop_want(stacks, layers, 0, 2 * (steps - 1)))
+        if n is not None and len(smiles) != n:
+            raise AssertionError(f"CLI {name}: {len(smiles)} SMILES")
+        if name == "inpaint" and not all(
+                s.startswith(LOOP_DRAFT[:len(LOOP_FIXED)]) for s in smiles):
+            raise AssertionError(f"inpaint lost the fixed positions: "
+                                 f"{smiles}")
+    return launches["straight"]
+
+
+def loop_step_memory(dev):
+    """Phase 27, step 2: ``recipes.train_task`` (the CLI's training call) on
+    the 91M inverse model at each of MEMORY_RUNS: peak memory, seconds a
+    step from the loop's own clock (the loss read back every step), the
+    preflight estimate beside the peak.  Returns the prepared data."""
+    import gc
+
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.config import \
+        TrainConfig
+    from moleculediffusiontransformer_tpu_torch.data.qm9 import (
+        prepare_qm9, synthetic_qm9)
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    from moleculediffusiontransformer_tpu_torch.train import (recipes,
+                                                              trainer)
+    task = "inverse_diffusion"
+    data = prepare_qm9(*synthetic_qm9(MEMORY_ROWS, seed=0,
+                                      chemically_valid=True), mode=task)
+    card = torch.cuda.mem_get_info()[1]
+    peaks = {}
+    for dtype, batch, micro in MEMORY_RUNS:
+        model = recipes.build_model(task, data.vocab_size, "notebook",
+                                    dtype=getattr(torch, dtype), device=dev)
+        config = TrainConfig(batch_size=batch, epochs=1, print_loss_every=1,
+                             accumulation_steps=micro)
+        estimate = trainer.preflight_memory_check(
+            model, trainer.TrainState.create(
+                model, trainer.make_optimizer(config)),
+            torch.as_tensor(data.y_train[:batch], device=dev),
+            torch.as_tensor(data.X_train[:batch], device=dev), micro)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        products = tf.gemm_tc_launches()
+        state, logger = recipes.train_task(task, model, data, config)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        products = tf.gemm_tc_launches() - products
+        logged = [r for r in logger.history if "loss" in r]
+        elapsed = [r["step"] * batch / r["samples_per_sec"] for r in logged]
+        seconds = (elapsed[-1] - elapsed[0]) / (len(elapsed) - 1)
+        want_products = (stack_products(model, backward=True)
+                         * (micro * state.step + 1)
+                         if dtype == "bfloat16" else 0)
+        peaks[(dtype, micro)] = peak
+        phase("loop_step_memory", dtype=dtype, batch=batch,
+              micro_batches=micro, steps=state.step,
+              seconds_per_step=seconds, samples_per_s=batch / seconds,
+              max_memory_allocated=peak, card_bytes=card,
+              card_share=peak / card,
+              preflight_estimated_bytes=estimate["estimated_bytes"],
+              preflight_peak_bytes=estimate["peak_bytes"],
+              losses=[r["loss"] for r in logged], gemm_tc_launches=products,
+              want_gemm_tc_launches=want_products)
+        if not all(math.isfinite(r["loss"]) for r in logged):
+            raise AssertionError(f"{dtype} {micro} x {batch // micro}: "
+                                 f"non-finite loss")
+        if dtype == "bfloat16" and products != want_products:
+            raise AssertionError(f"bf16 training sent {products} products "
+                                 f"to the tensor cores, expected "
+                                 f"{want_products}")
+        del model, state, logger
+        gc.collect()
+        torch.cuda.empty_cache()
+    needs = peaks[("float32", 1)] > ACCUMULATION_SHARE * card
+    planned = recipes.PRODUCTION_BATCHES[task][1]
+    phase("loop_production_batches", task=task,
+          float32_full_batch_share=peaks[("float32", 1)] / card,
+          limit_share=ACCUMULATION_SHARE, accumulation_needed=needs,
+          planned=recipes.PRODUCTION_BATCHES[task])
+    if needs != (planned > 1):
+        raise AssertionError(f"PRODUCTION_BATCHES[{task!r}] accumulates "
+                             f"{planned}, but the float32 step peaks at "
+                             f"{peaks[('float32', 1)] / card:.2f} of the "
+                             f"card")
+    return data
+
+
+def loop_determinism(dev, data):
+    """Phase 27, step 2: why the loop runs cuDNN's deterministic algorithms
+    (``trainer.deterministic_convs``): the grads of one 91M micro-batch of
+    1,024, three times from the same draws, with cuDNN's default and with
+    its deterministic algorithms, in float32 and bf16; the tensors whose
+    grads differ between the passes, the largest difference over a
+    tensor's scale, and seconds a forward and backward."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    cond = torch.as_tensor(data.y_train[:1024], device=dev)
+    target = torch.as_tensor(data.X_train[:1024], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = recipes.build_model("inverse_diffusion", data.vocab_size,
+                                    "notebook", dtype=dtype, device=dev)
+        params = [(n, p) for n, p in model.named_parameters()]
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            grads, seconds = [], []
+            for _ in range(3):
+                for _, p in params:
+                    p.grad = None
+                gen = torch.Generator(device=dev).manual_seed(0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(cond, target, gen).backward()
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                grads.append([None if p.grad is None else p.grad.clone()
+                              for _, p in params])
+            differ = {}
+            for i, (name, _) in enumerate(params):
+                if grads[0][i] is None:
+                    continue
+                err = max(_rel_err(g[i], grads[0][i]) for g in grads[1:])
+                if err:
+                    differ[name] = err
+            worst = max(differ, key=differ.get) if differ else None
+            phase("loop_determinism", dtype=str(dtype).split(".")[-1],
+                  cudnn_deterministic=deterministic, batch=1024,
+                  tensors=sum(g is not None for g in grads[0]),
+                  tensors_differing=len(differ), worst_tensor=worst,
+                  worst_rel_err=differ.get(worst, 0.0),
+                  fwd_bwd_seconds=statistics.median(seconds[1:]))
+        torch.backends.cudnn.deterministic = False
+        del model, params, grads
+        torch.cuda.empty_cache()
+
+
+def loop_other_tasks(tmp):
+    """Phase 27, step 4: the three other tasks, one epoch each at their
+    notebook presets and production batches through the CLI, then
+    ``predict`` or ``sample`` from the checkpoint."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
+        latest_checkpoint
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    card = torch.cuda.mem_get_info()[1]
+    smiles = ["CCO", "C1CC1", LOOP_DRAFT]
+    for task in ("forward_diffusion", "inverse_transformer",
+                 "forward_transformer"):
+        _, stacks, layers = task_stacks(task)
+        batch, micro = recipes.PRODUCTION_BATCHES[task]
+        directory = os.path.join(tmp, task)
+        torch.cuda.reset_peak_memory_stats()
+        out, seconds, launched, _ = cli_run(
+            ["train", "--task", task, "--preset", "notebook", "--rows",
+             str(LOOP_ROWS), "--batch-size", str(batch),
+             "--accumulation-steps", str(micro), "--print-loss-every", "1",
+             "--timesteps", str(LOOP_EVAL_STEPS), "--num-eval",
+             str(LOOP_NUM_EVAL), "--checkpoint-dir", directory])
+        peak = torch.cuda.max_memory_allocated()
+        losses = out["losses"]
+        metrics = {k: out[k] for k in ("r2", "mae", "validity_fraction",
+                                       "novelty_fraction") if k in out}
+        phase("loop_task_train", task=task, batch=batch,
+              micro_batches=micro, steps=out["step"], seconds=seconds,
+              max_memory_allocated=peak, card_share=peak / card,
+              losses=losses, launches=launched, **metrics)
+        if len(losses) != out["step"] or not all(map(math.isfinite,
+                                                     losses)):
+            raise AssertionError(f"{task}: losses {losses}")
+        diffusion = task == "forward_diffusion"
+        check_launches(f"CLI train {task}", launched, loop_want(
+            stacks, layers, micro * out["step"] + 1,
+            2 * (LOOP_EVAL_STEPS - 1)) if diffusion else loop_want(
+            0, 0, 0, 0))
+        if diffusion and (peak > ACCUMULATION_SHARE * card) != (micro > 1):
+            raise AssertionError(f"PRODUCTION_BATCHES[{task!r}] accumulates "
+                                 f"{micro}, but training peaks at "
+                                 f"{peak / card:.2f} of the card")
+        use = ["--task", task, "--preset", "notebook", "--rows",
+               str(LOOP_ROWS), "--checkpoint", latest_checkpoint(directory)]
+        if task == "inverse_transformer":
+            argv = ["sample", *use, "--num", str(LOOP_SAMPLE_NUM)]
+        else:
+            argv = ["predict", *use, "--timesteps", str(LOOP_EVAL_STEPS),
+                    *smiles]
+        out, seconds, launched, _ = cli_run(argv)
+        phase("loop_task_use", task=task, command=argv[0], seconds=seconds,
+              launches=launched, smiles=out.get("smiles"),
+              predictions=out.get("predictions"))
+        check_launches(f"CLI {argv[0]} {task}", launched, loop_want(
+            stacks, layers, 0, 2 * (LOOP_EVAL_STEPS - 1)) if diffusion
+            else loop_want(0, 0, 0, 0))
+        if task == "inverse_transformer":
+            if len(out["smiles"]) != LOOP_SAMPLE_NUM:
+                raise AssertionError(f"AR sample: {out['smiles']}")
+        elif not all(len(v) == 12 and all(map(math.isfinite, v))
+                     for v in out["predictions"].values()):
+            raise AssertionError(f"{task} predict: {out['predictions']}")
+
+
+def loop_fp32_vs_cpu(dev, data):
+    """Phase 27, step 5: two float32 ``train_diffusion`` steps of the 91M
+    model at batch 8 on the same injected draws, on the card (prefetched
+    on a side stream, preflight on) and on the CPU: the losses within
+    STEP_LOSS_TOL."""
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.config import \
+        TrainConfig
+    from moleculediffusiontransformer_tpu_torch.data.qm9 import \
+        batch_iterator
+    from moleculediffusiontransformer_tpu_torch.train import (recipes,
+                                                              trainer)
+    batch, steps = 8, 2
+    cpu = torch.device("cpu")
+    model = recipes.build_model("inverse_diffusion", data.vocab_size,
+                                "notebook", device=cpu)
+    g = torch.Generator().manual_seed(27)
+    draws = [(torch.exp(-1.2 + 1.2 * torch.randn(batch, generator=g)),
+              torch.randn(batch, FLAGSHIP["max_length"], data.vocab_size,
+                          generator=g)) for _ in range(steps)]
+    X, y = data.X_train[:batch * steps], data.y_train[:batch * steps]
+    config = TrainConfig(batch_size=batch, epochs=1, print_loss_every=1)
+    results = []
+    for m in (copy.deepcopy(model).to(dev), model):
+        _, log = trainer.train_diffusion(
+            m, lambda: batch_iterator(X, y, batch,
+                                      rng=np.random.RandomState(0)),
+            config, draws=lambda step: draws[step])
+        results.append(([r["loss"] for r in log.history],
+                        [p.detach().cpu() for p in m.parameters()]))
+    (card, card_p), (plain, plain_p) = results
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
+    phase("loop_fp32_vs_cpu", batch=batch, steps=steps, losses=card,
+          plain_losses=plain, loss_rel_err=err, tol=STEP_LOSS_TOL,
+          params_max_abs_err=max(_abs_err(a, b)
+                                 for a, b in zip(card_p, plain_p)))
+    if len(card) != steps or not err <= STEP_LOSS_TOL:
+        raise AssertionError(f"train_diffusion fp32 card vs CPU: {err}")
+
+
+def loop_loader_ab(dev, data):
+    """Phase 27, step 6: seconds an epoch of bf16 91M training (7 steps of
+    1,024) with ``prefetch`` 2 against 0, in turns, after a warm-up."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.config import \
+        TrainConfig
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    task = "inverse_diffusion"
+    model = recipes.build_model(task, data.vocab_size, "notebook",
+                                dtype=torch.bfloat16, device=dev)
+
+    def epoch_seconds(prefetch):
+        config = TrainConfig(batch_size=1024, epochs=1, prefetch=prefetch,
+                             preflight_memory_check=False,
+                             print_loss_every=10 ** 9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recipes.train_task(task, model, data, config)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    epoch_seconds(2)
+    turns = [(p, epoch_seconds(p)) for p in LOADER_TURNS]
+    phase("loop_loader", steps_an_epoch=len(data.X_train) // 1024,
+          turns=[{"prefetch": p, "seconds": t} for p, t in turns])
+
+
+def train_loop(dev):
+    """Phase 27: the training loop, checkpoints and resume, the task
+    recipes and the CLI.  Returns the launches of the straight CLI train of
+    the 91M model (its steps and its held-out eval)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = loop_train_and_resume(tmp)
+        data = loop_step_memory(dev)
+        loop_determinism(dev, data)
+        loop_other_tasks(tmp)
+    loop_fp32_vs_cpu(dev, data)
+    loop_loader_ab(dev, data)
+    phase("train_loop_phase_seconds", seconds=time.perf_counter() - t0)
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2768,6 +3257,9 @@ def main() -> int:
     # 26. float32 parity of the pipeline, card against CPU
     design_fp32_vs_cpu(dev, inv)
 
+    # 27. the training loop, checkpoints and resume, the recipes, the CLI
+    loop_launches = train_loop(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -2788,6 +3280,7 @@ def main() -> int:
         **stack_bound,
         "library_ms": None,
         "products": TC_PRODUCTS,
+        "launches_cli_train": loop_launches["LAUNCHES"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -2805,7 +3298,8 @@ def main() -> int:
                         "replaces": f"{jax_ops}:{line}",
                         "launches": train_launches[count],
                         **train_kernels[key], "library_ms": None,
-                        "products": TC_PRODUCTS})
+                        "products": TC_PRODUCTS,
+                        "launches_cli_train": loop_launches[count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({

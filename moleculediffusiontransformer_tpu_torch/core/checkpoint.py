@@ -1,0 +1,121 @@
+"""Checkpoint / resume (torch-native counterpart of `core/checkpoint.py`).
+
+The reference saves a bare ``model.state_dict()`` and never persists the
+optimizer (`generative.py:582-584,1168-1172`).  Here a checkpoint is one
+``torch.save`` file holding the model's ``state_dict()``, the optimizer's
+``AdamState`` (``mu`` and ``nu`` keyed by parameter name, so that a
+reordered ``parameters()`` cannot misassign them, and ``count``, the lr
+schedule's position), ``TrainState.step`` and ``TrainState.epoch`` (the
+epochs completed), so resume is exact and its epochs keep their labels.
+Step checkpoints are ``step_{N}.pt`` under a directory.
+
+A restore lands on the model's device, whatever device saved the file.  The
+JAX package's second tier, ``core/checkpoint_orbax.py``, is JAX-only and
+has no counterpart.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, List, Optional
+
+import torch
+
+FORMAT = "moleculediffusiontransformer_tpu_torch.checkpoint/1"
+
+
+def checkpoint_state(model: torch.nn.Module, state: Any = None) -> Dict:
+    """What a checkpoint holds: the model's ``state_dict()`` and, when a
+    ``train.trainer.TrainState`` is given, its Adam moments keyed by
+    parameter name, their count, the step and the epochs completed."""
+    out: Dict[str, Any] = {"format": FORMAT, "model": model.state_dict()}
+    if state is not None:
+        names = [n for n, _ in model.named_parameters()]
+        adam = state.opt_state
+        out["adam"] = {"mu": dict(zip(names, adam.mu)),
+                       "nu": dict(zip(names, adam.nu)),
+                       "count": int(adam.count)}
+        out["step"] = int(state.step)
+        out["epoch"] = int(state.epoch)
+    return out
+
+
+def save_checkpoint(path: str, state: Dict) -> str:
+    """Write ``state`` (a ``checkpoint_state`` dict) to ``path``: written
+    beside it first, then renamed over it, so a reader never sees half a
+    file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.save(state, f)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, device: Optional[torch.device] = None
+                    ) -> Dict:
+    """The dict a port checkpoint holds, its tensors on ``device``; raises
+    ``ValueError`` for a file that is not one."""
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    if not (isinstance(ckpt, dict) and ckpt.get("format") == FORMAT):
+        raise ValueError(f"{path} is not a checkpoint of this package")
+    return ckpt
+
+
+def restore_checkpoint(path: str, model: torch.nn.Module,
+                       state: Any = None) -> Dict:
+    """Load a checkpoint into ``model`` (strict keys) and, when given, into
+    ``state`` (a ``TrainState``: Adam moments by parameter name, count,
+    step, epochs completed), everything on the model's device.  Returns
+    the checkpoint."""
+    device = next(model.parameters()).device
+    ckpt = load_checkpoint(path, device)
+    model.load_state_dict(ckpt["model"], strict=True)
+    if state is not None:
+        if "adam" not in ckpt:
+            raise ValueError(f"{path} holds no optimizer state to resume")
+        names = [n for n, _ in model.named_parameters()]
+        adam = ckpt["adam"]
+        if set(adam["mu"]) != set(names) or set(adam["nu"]) != set(names):
+            raise ValueError(f"{path}: the Adam moments name other "
+                             f"parameters than the model's")
+        state.opt_state.mu = [adam["mu"][n] for n in names]
+        state.opt_state.nu = [adam["nu"][n] for n in names]
+        state.opt_state.count = int(adam["count"])
+        state.step = int(ckpt["step"])
+        state.epoch = int(ckpt["epoch"])
+    return ckpt
+
+
+_STEP_RE = re.compile(r"step_(\d+)\.pt$")
+
+
+def save_step_checkpoint(directory: str, state: Dict, step: int,
+                         keep: int = 3) -> str:
+    """Save ``step_{N}.pt`` under ``directory`` and prune all but the
+    ``keep`` newest."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"step_{step}.pt")
+    save_checkpoint(path, state)
+    steps = sorted(all_checkpoint_steps(directory))
+    for old in steps[:-keep]:
+        os.remove(os.path.join(directory, f"step_{old}.pt"))
+    return path
+
+
+def all_checkpoint_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        m = _STEP_RE.search(name)
+        if m:
+            out.append(int(m.group(1)))
+    return out
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    steps = all_checkpoint_steps(directory)
+    if not steps:
+        return None
+    return os.path.join(directory, f"step_{max(steps)}.pt")

@@ -7,14 +7,16 @@ padded post/post; the inverse-diffusion input one-hot with 0 -> -1.
 ``synthetic_qm9`` is a deterministic stand-in with the QM9 schema, made from
 a seed, for tests and the card's smoke run.
 
-Not copied: ``load_qm9`` and ``verify_qm9_csv`` (the CSV is a download) and
-the JAX package's native tokenizer (``prepare_qm9`` here takes the numpy
-path, which that tokenizer equals by its own tests).
+``load_qm9`` reads the reference CSV (a download: the tests write their
+own) on the JAX package's Python csv path; that package's native CSV reader
+and native tokenizer are not copied (its own tests hold each equal to the
+Python path).  ``batch_iterator`` is the host-side batch stream of the
+training loops.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,6 +29,102 @@ PROPERTY_NAMES: Tuple[str, ...] = (
     "zpve", "cv", "u0", "u298", "h298", "g298",
 )
 NUM_PROPERTIES = len(PROPERTY_NAMES)
+
+
+# the canonical QM9 release: 133,885 molecules (reference README.md:30's
+# Dropbox blob is this set + the 12 property columns above)
+QM9_EXPECTED_ROWS = 133_885
+# sha256 of known-good qm9_.csv blobs.  EMPTY until the blob has been seen
+# once: the reference distributes it via a Dropbox link (README.md:30)
+# that is absent from this snapshot, so no ground-truth hash exists yet.
+# The day it appears, `verify_qm9_csv` prints the computed hash — pin it
+# here and every later run is checksum-verified.
+QM9_KNOWN_SHA256: Tuple[str, ...] = ()
+
+
+def verify_qm9_csv(csv_path: str,
+                   expected_sha256: Optional[str] = None) -> dict:
+    """Structural + checksum verification of a candidate ``qm9_.csv``.
+
+    Always enforced (raises ``ValueError``): the header must contain a
+    SMILES column and all 12 property columns.  Recorded but only warned
+    about (the synthetic stand-in and row-limited slices are legitimate):
+    row count != the canonical 133,885; sha256 not among the known-good
+    hashes.  Pass ``expected_sha256`` (or pin ``QM9_KNOWN_SHA256``) to
+    make the checksum mismatch fatal.
+
+    Returns ``{"sha256", "rows", "header_ok", "row_count_ok",
+    "checksum_ok"}``, so that a quality table can name the exact blob.
+    """
+    import csv
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(csv_path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    sha256 = h.hexdigest()
+
+    with open(csv_path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader, [])
+        rows = sum(1 for _ in reader)
+
+    missing = [c for c in PROPERTY_NAMES if c not in header]
+    has_smiles = any(c in header
+                     for c in ("smiles", "SMILES", "canonical_smiles"))
+    if missing or not has_smiles:
+        raise ValueError(
+            f"{csv_path} is not a QM9 CSV: missing property columns "
+            f"{missing}" + ("" if has_smiles else " and a SMILES column"))
+
+    known = QM9_KNOWN_SHA256 + ((expected_sha256,) if expected_sha256 else ())
+    checksum_ok = sha256 in known if known else None
+    if expected_sha256 and sha256 != expected_sha256:
+        raise ValueError(
+            f"{csv_path} sha256 {sha256} != expected {expected_sha256}")
+    report = {"sha256": sha256, "rows": rows, "header_ok": True,
+              "row_count_ok": rows == QM9_EXPECTED_ROWS,
+              "checksum_ok": checksum_ok}
+    if not report["row_count_ok"]:
+        print(f"WARNING: {csv_path} has {rows} rows "
+              f"(canonical QM9: {QM9_EXPECTED_ROWS}) — partial or stand-in "
+              "dataset; quality numbers are not BASELINE.md-comparable")
+    if checksum_ok is None:
+        print(f"NOTE: no known-good QM9 hash pinned yet; this blob's "
+              f"sha256 is {sha256} — pin it in "
+              "data/qm9.py::QM9_KNOWN_SHA256 once validated")
+    return report
+
+
+def load_qm9(csv_path: str, smiles_column: str = "smiles",
+             max_rows: Optional[int] = None) -> Tuple[List[str], np.ndarray]:
+    """Load (smiles, properties[n, 12]) from the reference CSV (the JAX
+    package's Python csv path)."""
+    import csv
+
+    smiles: List[str] = []
+    rows: List[List[float]] = []
+    with open(csv_path, newline="") as f:
+        reader = csv.DictReader(f)
+        cols = [c for c in PROPERTY_NAMES if c in (reader.fieldnames or [])]
+        if len(cols) != NUM_PROPERTIES:
+            raise ValueError(
+                f"CSV at {csv_path} missing property columns; found {cols}")
+        smi_col = smiles_column if smiles_column in reader.fieldnames else None
+        if smi_col is None:
+            for cand in ("smiles", "SMILES", "canonical_smiles"):
+                if cand in reader.fieldnames:
+                    smi_col = cand
+                    break
+        if smi_col is None:
+            raise ValueError(f"No SMILES column in {csv_path}")
+        for i, row in enumerate(reader):
+            if max_rows is not None and i >= max_rows:
+                break
+            smiles.append(row[smi_col])
+            rows.append([float(row[c]) for c in PROPERTY_NAMES])
+    return smiles, np.asarray(rows, dtype=np.float32)
 
 
 _SYNTH_ATOMS = ["C", "N", "O", "F"]
@@ -242,3 +340,20 @@ def prepare_qm9(smiles: Sequence[str], properties: np.ndarray, *,
 def is_novel(all_smiles: Sequence[str], smi: str) -> bool:
     """Membership-novelty test (reference `generative.py:1063-1067`)."""
     return smi not in all_smiles
+
+
+def batch_iterator(X: np.ndarray, y: np.ndarray, batch_size: int, *,
+                   rng: Optional[np.random.RandomState] = None,
+                   shuffle: bool = True,
+                   drop_remainder: bool = True) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Host-side batch stream.  With ``drop_remainder`` every batch has
+    the same shape, so every step of an epoch splits into the same
+    micro-batches."""
+    n = len(X)
+    idx = np.arange(n)
+    if shuffle:
+        (rng or np.random.RandomState(0)).shuffle(idx)
+    stop = (n // batch_size) * batch_size if drop_remainder else n
+    for start in range(0, stop, batch_size):
+        sel = idx[start:start + batch_size]
+        yield X[sel], y[sel]

@@ -1,8 +1,10 @@
-"""Training: Adam behind a global-norm clip, and the diffusion train step with
-gradient accumulation (port of `train/trainer.py`: ``make_optimizer``,
-``make_diffusion_train_step``, ``make_transformer_train_step``,
-``make_encoder_train_step``; ``make_model1d_train_step`` is the diffusion
-step for a model whose loss takes only the data).
+"""Training: Adam behind a global-norm clip, the train steps, and the epoch
+loop with checkpoints and exact resume (port of `train/trainer.py`:
+``make_optimizer``, ``make_diffusion_train_step``,
+``make_transformer_train_step``, ``make_encoder_train_step``,
+``preflight_memory_check``, ``MetricsLogger``, ``train_diffusion``;
+``make_model1d_train_step`` is the diffusion step for a model whose loss
+takes only the data).
 
 The optimizer is written out rather than taken from ``torch.optim`` so that
 it computes what the JAX package's ``optax.chain(clip_by_global_norm(c),
@@ -14,36 +16,40 @@ dtype; so do the grads and both moments.
 
 The step runs eagerly: A micro-batches, each with its own draws, their
 float32 grads summed by autograd and divided by A, one clip and one Adam
-update.  Checkpointing with the optimizer state, the epoch loop, DDP and
-FSDP are not ported yet.
+update.  The draws of step N come from a generator seeded from
+(``TrainConfig.seed``, N) alone (``step_generator``), so a resumed run
+draws what an uninterrupted one draws, as JAX folds the step into its key.
+Not ported yet: ``mesh`` and ``param_sharding="fsdp"`` (the parallel layer,
+ROADMAP.md item A9) and the Orbax checkpoint tier (JAX-only).
 """
 from __future__ import annotations
 
+import contextlib
+import json
 import math
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Union
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
+                               restore_checkpoint, save_step_checkpoint)
+from ..core.config import TrainConfig
+from ..data.prefetch import ThreadedLoader, prefetch_to_device, to_device
 
 Schedule = Callable[[int], float]
 # optax.adam's defaults, which the JAX package trains with
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
-@dataclass(frozen=True)
-class OptimizerConfig:
-    """The optimizer fields of the JAX package's ``core/config.py``
-    ``TrainConfig``, with its defaults (the reference's Adam(2e-4) + clip
-    0.5).  ``make_optimizer`` reads these by attribute, so a ``TrainConfig``
-    serves as well."""
-    learning_rate: float = 2e-4
-    grad_clip_norm: float = 0.5
-    lr_schedule: str = "constant"
-    lr_warmup_steps: int = 0
-    lr_decay_steps: Optional[int] = None
-    lr_min_ratio: float = 0.0
+# the optimizer reads its fields of ``TrainConfig`` by attribute (the
+# reference's Adam(2e-4) + clip 0.5 by default)
+OptimizerConfig = TrainConfig
 
 
 def warmup_cosine_schedule(init_value: float, peak_value: float,
@@ -142,10 +148,12 @@ def make_optimizer(config) -> ClipAdam:
 
 @dataclass
 class TrainState:
-    """The optimizer's state and the count of steps taken; the parameters
-    are the model's own."""
+    """The optimizer's state, the count of steps taken and the count of
+    epochs completed (so that a resumed run labels its epochs as an
+    uninterrupted one does); the parameters are the model's own."""
     opt_state: AdamState
     step: int = 0
+    epoch: int = 0
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: ClipAdam) -> "TrainState":
@@ -193,7 +201,8 @@ def _part(t: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
 
 
 def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
-                              accumulation_steps: int = 1) -> Callable:
+                              accumulation_steps: int = 1,
+                              remat: bool = False) -> Callable:
     """``step(state, conditioning, target, generator=None, *, sigmas=None,
     noise=None) -> loss`` for the QM diffusion models, whose call is
     ``(conditioning, target, generator, sigmas=, noise=) -> loss``.
@@ -204,9 +213,29 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
     ``target``) when they are handed in.  The float32 grads are summed over
     the micro-batches and divided by A, then clipped and applied once; they
     stay on the parameters' ``.grad`` after the step.  Returns the mean loss
-    of the micro-batches (a float32 tensor on the model's device)."""
+    of the micro-batches (a float32 tensor on the model's device).
+
+    ``remat=True`` runs each micro-batch's loss under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward instead of kept, for about one more forward.
+    The draws are taken before the checkpointed region, in the order the
+    loss takes them, so the step equals the one without remat."""
     A = _accumulation_steps(accumulation_steps)
     params = list(model.parameters())
+
+    def loss_of(c: torch.Tensor, t: torch.Tensor,
+                generator: Optional[torch.Generator],
+                sigmas: Optional[torch.Tensor],
+                noise: Optional[torch.Tensor]) -> torch.Tensor:
+        if not remat:
+            return model(c, t, generator, sigmas=sigmas, noise=noise)
+        if sigmas is None:
+            sigmas = model.sigma_distribution(t.shape[0], generator, t.device)
+        if noise is None:
+            noise = torch.randn(t.shape, generator=generator, device=t.device,
+                                dtype=torch.float32)
+        return checkpoint(model, c, t, sigmas=sigmas, noise=noise,
+                          use_reentrant=False)
 
     def train_step(state: TrainState, conditioning: torch.Tensor,
                    target: torch.Tensor,
@@ -215,9 +244,8 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         return _accumulated_step(
             params, optimizer, state, A, conditioning.shape[0], target.device,
-            lambda rows: model(conditioning[rows], target[rows], generator,
-                               sigmas=_part(sigmas, rows),
-                               noise=_part(noise, rows)))
+            lambda rows: loss_of(conditioning[rows], target[rows], generator,
+                                 _part(sigmas, rows), _part(noise, rows)))
 
     return train_step
 
@@ -297,3 +325,230 @@ def make_encoder_train_step(model: nn.Module,
                                  lambda rows: loss_of(ids, targets))
 
     return train_step
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s draws, on ``device``: seeded from
+    (``seed``, ``step``) alone, so that a resumed run draws what an
+    uninterrupted one draws (JAX folds the step into its data key)."""
+    mixed = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(mixed[0]))
+
+
+def preflight_memory_check(model: nn.Module, state: TrainState,
+                           conditioning: torch.Tensor, target: torch.Tensor,
+                           accumulation_steps: int = 1,
+                           margin: float = 0.92) -> Dict:
+    """Run one micro-batch's forward and backward (draws from a throwaway
+    generator) and check that the step fits the card's memory.
+
+    The peak of that pass (``torch.cuda.max_memory_allocated``, the
+    parameters and the optimizer state included) plus the optimizer state's
+    bytes again (the update builds the new moments beside the old) is held
+    against the card's memory (``torch.cuda.mem_get_info``); above
+    ``margin`` of it this raises ``RuntimeError`` before the first step.
+    The pass's grads are dropped: the parameters, the optimizer state and
+    the step stay as they were.  On the CPU the pass runs and the check only
+    reports.  Returns the estimate as a dict."""
+    params = list(model.parameters())
+    device = target.device
+    mb = conditioning.shape[0] // _accumulation_steps(accumulation_steps)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    saved = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    try:
+        model(conditioning[:mb], target[:mb],
+              torch.Generator(device=device).manual_seed(0)).backward()
+    finally:
+        for p, g in zip(params, saved):
+            p.grad = g
+    info: Dict[str, Any] = {"ok": True}
+    if not on_card:
+        return info
+    peak = torch.cuda.max_memory_allocated(device)
+    moments = sum(t.numel() * t.element_size()
+                  for t in state.opt_state.mu + state.opt_state.nu)
+    limit = torch.cuda.mem_get_info(device)[1]
+    total = peak + moments
+    info.update(estimated_bytes=total, peak_bytes=peak,
+                optimizer_bytes=moments, bytes_limit=limit)
+    if total > margin * limit:
+        info["ok"] = False
+        raise RuntimeError(
+            f"preflight: the train step needs ~{total / 1e9:.2f} GB of "
+            f"device memory but the card has {limit / 1e9:.2f} GB (margin "
+            f"{margin}).  Reduce batch size or raise "
+            f"TrainConfig.accumulation_steps.")
+    return info
+
+
+@dataclass
+class MetricsLogger:
+    """JSONL-appending metrics log (replaces the reference's print+matplotlib
+    observability, SURVEY §5)."""
+    path: Optional[str] = None
+    history: List[Dict] = field(default_factory=list)
+
+    def log(self, **metrics) -> Dict:
+        rec = {k: (float(v) if hasattr(v, "__float__") else v)
+               for k, v in metrics.items()}
+        self.history.append(rec)
+        if self.path:
+            os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                        exist_ok=True)
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        return rec
+
+
+Draws = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms for the duration of the block
+    (``torch.backends.cudnn.deterministic``, restored after).  With cuDNN's
+    default algorithms two float32 backward passes of the same 91M batch
+    differ in most parameters' grads (``chip_smoke.py`` phase 27, PERF.md),
+    and a resumed run then drifts from an uninterrupted one."""
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = previous
+
+
+def check_single_card(config, mesh=None) -> None:
+    """Refuse what the port cannot run yet: a mesh or FSDP (ROADMAP.md item
+    A9, the parallel layer) and the Orbax checkpoint tier (JAX-only)."""
+    if mesh is not None:
+        raise ValueError("training over a mesh is not ported yet: it waits "
+                         "for the parallel layer (ROADMAP.md, item A9)")
+    if config.param_sharding != "replicated":
+        raise ValueError(f"param_sharding={config.param_sharding!r} is not "
+                         f"ported yet: FSDP waits for the parallel layer "
+                         f"(ROADMAP.md, item A9)")
+    if config.checkpoint_backend != "msgpack":
+        raise ValueError(f"checkpoint_backend={config.checkpoint_backend!r}"
+                         f": Orbax is JAX-only; the port writes its own "
+                         f"single-file checkpoints (core/checkpoint.py)")
+
+
+def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
+                    config: TrainConfig, *, mesh=None,
+                    eval_fn: Optional[Callable[[TrainState], Dict]] = None,
+                    checkpoint_dir: Optional[str] = None,
+                    resume: bool = False, swap_xy: bool = False,
+                    logger: Optional[MetricsLogger] = None,
+                    draws: Optional[Draws] = None
+                    ) -> Tuple[TrainState, MetricsLogger]:
+    """Generic trainer for both QM diffusion directions; trains ``model``
+    (its parameters as built or loaded) in place on its device.
+
+    ``data_iter_fn()`` yields (X, y) host batches per epoch.  For the
+    inverse model conditioning=y (properties), target=X (one-hot) -- pass
+    ``swap_xy=False`` with iterators already in (conditioning, target)
+    order, or ``swap_xy=True`` to swap, mirroring ``train_loop_forward``'s
+    role swap (`generative.py:525-533`).
+
+    The cadence is the JAX package's: the loss is read back and logged
+    every ``config.print_loss_every`` steps (and only then); with
+    ``eval_every_steps`` an in-epoch ``eval_fn(state)`` and save; after
+    every epoch ``eval_fn``, and a step checkpoint every
+    ``checkpoint_every_epochs`` epochs and after the last.  ``resume``
+    restores the latest step checkpoint of ``checkpoint_dir`` (model,
+    Adam state, step, epochs) and runs ``config.epochs`` more epochs.
+    ``config.prefetch`` > 0 assembles batches on a worker thread and copies
+    them that many steps ahead (``data/prefetch.py``);
+    ``preflight_memory_check`` runs before the first step.
+
+    Step N's draws come from ``step_generator(config.seed, N)``, or are
+    ``draws(N)`` -> (sigmas (b,), noise (b, L, C)) when given (the JAX
+    package's own draws, in a test).  The loop runs under
+    ``deterministic_convs``, so that on the card, as on the CPU, a resumed
+    run equals an uninterrupted one.  Returns the state and the logger."""
+    check_single_card(config, mesh)
+    logger = logger or MetricsLogger()
+    device = next(model.parameters()).device
+    optimizer = make_optimizer(config)
+    state = TrainState.create(model, optimizer)
+    if resume and checkpoint_dir:
+        ckpt = latest_checkpoint(checkpoint_dir)
+        if ckpt:
+            restore_checkpoint(ckpt, model, state)
+    train_step = make_diffusion_train_step(model, optimizer,
+                                           config.accumulation_steps)
+
+    def save() -> None:
+        save_step_checkpoint(checkpoint_dir, checkpoint_state(model, state),
+                             state.step)
+
+    loader = ThreadedLoader(data_iter_fn) if config.prefetch > 0 else None
+
+    def device_batches():
+        def host_batches():
+            for X, y in (data_iter_fn() if loader is None
+                         else loader.epoch()):
+                yield (y, X) if not swap_xy else (X, y)
+
+        if loader is None:
+            for batch in host_batches():
+                yield to_device(batch, device)
+            return
+        yield from prefetch_to_device(host_batches(), device,
+                                      size=config.prefetch)
+
+    t0 = time.time()
+    samples_seen = 0
+    preflighted = False
+    with deterministic_convs():
+        try:
+            for i in range(config.epochs):
+                epoch = state.epoch
+                for cond, target in device_batches():
+                    if config.preflight_memory_check and not preflighted:
+                        preflight_memory_check(model, state, cond, target,
+                                               config.accumulation_steps)
+                        preflighted = True
+                    if draws is None:
+                        gen = step_generator(config.seed, state.step, device)
+                        loss = train_step(state, cond, target, gen)
+                    else:
+                        sigmas, noise = draws(state.step)
+                        loss = train_step(state, cond, target,
+                                          sigmas=sigmas.to(device),
+                                          noise=noise.to(device))
+                    samples_seen += cond.shape[0]
+                    if state.step % config.print_loss_every == 0:
+                        elapsed = time.time() - t0
+                        logger.log(step=state.step, epoch=epoch,
+                                   loss=float(loss),
+                                   samples_per_sec=samples_seen / max(
+                                       elapsed, 1e-9))
+                    # in-epoch eval + checkpoint cadence (reference
+                    # evals/saves every print_loss steps inside the epoch,
+                    # `generative.py:1139-1172`)
+                    if (config.eval_every_steps
+                            and state.step % config.eval_every_steps == 0):
+                        if eval_fn is not None:
+                            logger.log(step=state.step, epoch=epoch,
+                                       in_epoch=True, **eval_fn(state))
+                        if checkpoint_dir:
+                            save()
+                state.epoch += 1
+                if eval_fn is not None:
+                    logger.log(step=state.step, epoch=epoch,
+                               **eval_fn(state))
+                if checkpoint_dir and (
+                        state.epoch % config.checkpoint_every_epochs == 0
+                        or i == config.epochs - 1):
+                    save()
+        finally:
+            if loader is not None:
+                loader.close()
+    return state, logger

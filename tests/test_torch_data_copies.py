@@ -1,15 +1,21 @@
 """The port's own copies of the JAX package's neutral modules
-(``data/tokenizer.py``, ``data/preprocess.py``, ``data/qm9.py``,
-``design/valence.py``) against the originals: the same inputs, made from a
+(``data/tokenizer.py``, ``data/preprocess.py``, ``data/qm9.py`` with
+``load_qm9``, ``verify_qm9_csv`` and ``batch_iterator``,
+``design/valence.py``, ``core/config.py``, ``core/utils.py``'s
+``count_parameters``) against the originals: the same inputs, made from a
 seed, give equal results -- exactly, with no tolerance."""
+import dataclasses
+
 import numpy as np
 import pytest
 
+from moleculediffusiontransformer_tpu.core import config as jcfg
 from moleculediffusiontransformer_tpu.data import preprocess as jpre
 from moleculediffusiontransformer_tpu.data import qm9 as jqm9
 from moleculediffusiontransformer_tpu.data import tokenizer as jtok
 from moleculediffusiontransformer_tpu.design.valence import \
     valence_smiles_valid as jax_valid
+from moleculediffusiontransformer_tpu_torch.core import config as tcfg
 from moleculediffusiontransformer_tpu_torch.data import preprocess as tpre
 from moleculediffusiontransformer_tpu_torch.data import qm9 as tqm9
 from moleculediffusiontransformer_tpu_torch.data import tokenizer as ttok
@@ -112,3 +118,119 @@ def test_valence_checker_matches_on_corpus_and_synthetic():
     assert all(verdicts[:len(RDKIT_VALID)])
     assert not any(verdicts[len(RDKIT_VALID):len(corpus)])
     assert 0 < sum(verdicts[len(corpus):]) < len(synthetic)
+
+
+CONFIGS = ("UNet1dConfig", "DiffusionConfig", "SamplingConfig",
+           "QMDiffusionConfig", "TrainConfig", "TransformerConfig",
+           "EncoderConfig")
+PRESETS = ("forward_diffusion_qm9", "inverse_diffusion_qm9",
+           "inverse_transformer_qm9", "forward_transformer_qm9")
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_classes_match_field_by_field(name):
+    got, want = getattr(tcfg, name), getattr(jcfg, name)
+    fields = [(f.name, f.type, f.default, f.default_factory)
+              for f in dataclasses.fields(got)]
+    assert fields == [(f.name, f.type, f.default, f.default_factory)
+                      if f.default_factory is dataclasses.MISSING else
+                      (f.name, f.type, f.default,
+                       getattr(tcfg, f.default_factory.__name__))
+                      for f in dataclasses.fields(want)]
+    assert got.__dataclass_params__.frozen == want.__dataclass_params__.frozen
+    assert [n for n in vars(got) if not n.startswith("__")] == \
+        [n for n in vars(want) if not n.startswith("__")]
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_config_presets_match(name):
+    def as_dict(c):
+        return {k: (as_dict(v) if dataclasses.is_dataclass(v) else v)
+                for k, v in dataclasses.asdict(c).items()}
+
+    args = [(), (10,)] if name == "inverse_diffusion_qm9" else [()]
+    for a in args:
+        got, want = getattr(tcfg, name)(*a), getattr(jcfg, name)(*a)
+        assert type(got).__name__ == type(want).__name__
+        assert as_dict(got) == as_dict(want)
+        if hasattr(want, "conditioning_features"):
+            assert got.conditioning_features == want.conditioning_features
+        if hasattr(want, "num_layers"):
+            assert got.num_layers == want.num_layers
+
+
+def _write_csv(path, smiles, props, header=None, quote=False):
+    header = header or ["smiles", *tqm9.PROPERTY_NAMES]
+    with open(path, "w") as f:
+        f.write(",".join(header) + "\n")
+        for s, row in zip(smiles, props):
+            s = f'"{s}"' if quote else s
+            f.write(",".join([s, *(repr(float(v)) for v in row)]) + "\n")
+
+
+@pytest.mark.parametrize("quote", [False, True])
+def test_load_and_verify_qm9_csv_match(tmp_path, capsys, quote):
+    smiles, props = jqm9.synthetic_qm9(50, seed=9, chemically_valid=True)
+    path = str(tmp_path / "qm9_.csv")
+    _write_csv(path, smiles, props, quote=quote)
+    for max_rows in (None, 17):
+        got = tqm9.load_qm9(path, max_rows=max_rows)
+        want = jqm9.load_qm9(path, max_rows=max_rows)
+        assert got[0] == want[0]
+        assert got[1].dtype == want[1].dtype
+        np.testing.assert_array_equal(got[1], want[1])
+    assert tqm9.verify_qm9_csv(path) == jqm9.verify_qm9_csv(path)
+    capsys.readouterr()
+    bad = str(tmp_path / "bad.csv")
+    _write_csv(bad, smiles, props[:, :11],
+               header=["smiles", *tqm9.PROPERTY_NAMES[:11]])
+    for module in (tqm9, jqm9):
+        with pytest.raises(ValueError):
+            module.load_qm9(bad)
+        with pytest.raises(ValueError):
+            module.verify_qm9_csv(bad)
+        with pytest.raises(ValueError):
+            module.verify_qm9_csv(path, expected_sha256="0" * 64)
+    assert tqm9.QM9_EXPECTED_ROWS == jqm9.QM9_EXPECTED_ROWS
+    assert tqm9.QM9_KNOWN_SHA256 == jqm9.QM9_KNOWN_SHA256
+
+
+@pytest.mark.parametrize("shuffle, drop", [(True, True), (True, False),
+                                           (False, True)])
+def test_batch_iterator_matches(shuffle, drop):
+    X = np.arange(23 * 3, dtype=np.float32).reshape(23, 3)
+    y = np.arange(23, dtype=np.float32)
+    got = list(tqm9.batch_iterator(X, y, 5, rng=np.random.RandomState(4),
+                                   shuffle=shuffle, drop_remainder=drop))
+    want = list(jqm9.batch_iterator(X, y, 5, rng=np.random.RandomState(4),
+                                    shuffle=shuffle, drop_remainder=drop))
+    assert len(got) == len(want) == (4 if drop else 5)
+    for (a, b), (c, d) in zip(got, want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+
+
+def test_count_parameters_matches(capsys):
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from moleculediffusiontransformer_tpu.core.utils import \
+        count_parameters as jax_count
+    from moleculediffusiontransformer_tpu.train import recipes as jrecipes
+    from moleculediffusiontransformer_tpu_torch.core.utils import \
+        count_parameters
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+
+    jm = jrecipes.build_model("forward_transformer", 20, "tiny")
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64), jnp.int32))["params"]
+    port = recipes.build_model("forward_transformer", 20, "tiny",
+                               device="cpu")
+    assert count_parameters(port) == jax_count(shapes)
+    assert capsys.readouterr().out.count("Total parameters") == 2
+    assert count_parameters(list(port.parameters()), verbose=False) == \
+        sum(p.numel() for p in port.parameters())
+    with torch.device("meta"):
+        big = recipes.build_model("inverse_diffusion", 22, device="meta")
+    assert count_parameters(big, verbose=False) == 90_965_554

@@ -60,6 +60,15 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.design",
     "moleculediffusiontransformer_tpu_torch.design.valence",
     "moleculediffusiontransformer_tpu_torch.design.inverse_design",
+    "moleculediffusiontransformer_tpu_torch.core",
+    "moleculediffusiontransformer_tpu_torch.core.config",
+    "moleculediffusiontransformer_tpu_torch.core.utils",
+    "moleculediffusiontransformer_tpu_torch.core.checkpoint",
+    "moleculediffusiontransformer_tpu_torch.data.prefetch",
+    "moleculediffusiontransformer_tpu_torch.train.profiling",
+    "moleculediffusiontransformer_tpu_torch.train.recipes",
+    "moleculediffusiontransformer_tpu_torch.cli",
+    "moleculediffusiontransformer_tpu_torch.__main__",
 ]
 
 
@@ -233,7 +242,7 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'flax', "
+              "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack', "
               "'moleculediffusiontransformer_tpu'))\n"
               "print(bad)\n")
     proc = _run(code)
