@@ -187,13 +187,47 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    serving launches counted as the 91M's, the transformers launching
    nothing); two float32 ``train_diffusion`` steps of the 91M model at
    batch 8 on the same draws, card against CPU, the losses within 1e-4;
-   and seconds an epoch with ``prefetch`` 2 and 0 in turns.
+   and seconds an epoch with ``prefetch`` 2 and 0 in turns;
+28. the diffusion options on the audio preset
+   (``AudioDiffusionConditional(768, 64, unet_type="all",
+   diffusion_type="vk")``, 115M parameters at full width, bfloat16, seeded
+   random weights, a random 64 x 768 conditioning): one warm-up and 3 timed
+   training steps at batch 8 x 2**15 samples with ``embedding_mask_proba``
+   0.1, every loss finite and K1 stash, K3, K4 launched exactly stacks x
+   steps, K2 layers x steps; a 50-step Karras request with churn and a
+   50-step ancestral Euler request at scale 5.0, batch 8, K1 launched
+   exactly stacks x the denoise evaluations counted at the UNet; 2 spans of
+   ``span_by_span_compose`` over ``inpaint_adpm2`` (K1 counted the same
+   way); an evaluation and a step under ``torch.profiler``, the stack
+   kernels' share of the device time; each of the 7 stacks against the
+   plain versions on the activations of a CFG evaluation: bf16 K1 at the
+   doubled batch 16, the stash forward, K3, K2 and K4 output by output at
+   batch 8, within 2e-2 of scale; the "ncca" UNet at the same widths (one
+   request with ``channels_augmentation``, one training step, launches
+   exact); a ``use_rel_pos`` Transformer1d at the 91M cross stack's shape,
+   K1-K4 launched 0 times and its forward and grads within 1e-4 of the CPU
+   in float32; and float32 at batch 2 card against CPU: a 4-step Karras
+   sample within 1e-4, the vk loss within 1e-4 relative and its grads
+   (through K1 stash, K3, K2, K4) within 1e-3 of each grad's scale;
+29. the GPT family (no kernel lies on its path: every count stays 0):
+   ``MoleculeTransformerGPT`` at the reference's class defaults (bf16)
+   answering ``generate_gpt`` requests of 1, 16 and 1,024 (31 tokens), a
+   traced 16-token request of 1,024 for the device's busy share, one
+   warm-up and 5 timed steps at 512 x 32 tokens; the MoE variant (8
+   experts, top 2) 3 steps at batch 64 with ``aux_loss_weight`` 1e-2, its
+   peak memory and dispatch bytes; the GNN variant one step;
+   ``generate_gpt_mha`` at batch 16; ``generate_vectors`` of
+   ``MoleculeTransformer`` and a forward of the Internaldim decoder at the
+   AR preset's widths; then each class in float32 at batch 8, card against
+   CPU: logits within 1e-4 and one train step's loss within 1e-4
+   relative.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
 (K1 and the training kernels also with ``launches_cli_train``, those of
 phase 27's straight CLI train: its steps, its preflight pass and its
-held-out eval),
+held-out eval; the training kernels also with
+``launches_audio_all_train``, those of phase 28's training steps),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -393,6 +427,43 @@ ACCUMULATION_SHARE = 0.7
 # every tensor within RESUME_TOL of its largest magnitude
 RESUME_TOL = 1e-6
 LOADER_TURNS = (2, 0, 0, 2, 2, 0, 0, 2)
+# phase 28: the audio preset (AudioDiffusionConditional's full widths:
+# channels 128, multipliers to 4, patch 16; 115,442,196 parameters) as a
+# CFG+NCCA ("all") UNet under the vk objective, conditioned on 64 x 768
+# (T5-base's width; a random tensor, not T5's output) on 2**15-sample mono
+# waveforms; trained with the documented dropout of 0.1 and sampled at the
+# documented scale 5.0 by Karras (with churn) and ancestral Euler
+AUDIO_ALL = dict(embedding_features=768, embedding_max_length=64,
+                 in_channels=1, unet_type="all", diffusion_type="vk")
+AUDIO_NCCA = dict(in_channels=1, unet_type="ncca", context_channels=(1,),
+                  context_features=128)
+AUDIO_SAMPLES, AUDIO_BATCH, AUDIO_TRAIN_STEPS = 2 ** 15, 8, 3
+AUDIO_MASK_PROBA, AUDIO_SCALE = 0.1, 5.0
+AUDIO_STEPS, AUDIO_CHURN = 50, 1.0
+NCCA_SCALE = 0.5
+SPAN_STEPS, SPAN_RESAMPLES, SPANS = 10, 1, 2
+# the 91M preset's cross stack (L 8, C 256, 4 layers, 12 x 128 context) with
+# the T5 bias (32 buckets, distance 128), batch 64, float32
+REL_STACK = dict(num_layers=4, channels=256, num_heads=8, head_features=64,
+                 multiplier=2, context_features=128, use_rel_pos=True,
+                 rel_pos_num_buckets=32, rel_pos_max_distance=128)
+REL_BATCH, REL_TOL = 64, 1e-4
+AUDIO_PARITY_BATCH, AUDIO_PARITY_STEPS = 2, 4
+# phase 29: the GPT at the reference's class defaults (dim 128, depth 12,
+# 8 heads x 64, one KV head, 32 tokens and logits), its MoE and GNN
+# variants, the MHA GPT at the same widths, and the continuous and
+# Internaldim decoders at the inverse AR preset's widths
+GPT_PRESET = dict(dim=128, depth=12, heads=8, dim_head=64, max_tokens=32,
+                  logits_dim=32)
+GPT_MOE = dict(ff_num_experts=8, ff_expert_top_k=2)
+GPT_GNN = dict(gnn_layers=2, use_null_kv=False)
+GPT_MHA = dict(dim=128, depth=12, heads=8, max_tokens=32, logits_dim=32)
+GPT_REQUESTS, GPT_TOKENS, GPT_TRACED_TOKENS = (1, 16, 1024), 31, 16
+GPT_TRAIN_BATCH, GPT_TRAIN_TOKENS = 512, 32
+GPT_MOE_BATCH, GPT_MOE_AUX = 64, 1e-2
+GPT_SMALL_BATCH = 16
+GPT_PARITY_BATCH = 8
+
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
 TC_PRODUCTS = "tensor cores (wgmma, csrc/gemm_tc.cuh)"
@@ -2960,6 +3031,667 @@ def train_loop(dev):
     return launched
 
 
+def count_calls(module):
+    """A list that grows by one at every forward of ``module``, and the
+    hook's handle."""
+    calls = []
+    handle = module.register_forward_hook(lambda *args: calls.append(1))
+    return calls, handle
+
+
+STACK_KERNEL_SOURCES = ("transformer1d_fwd.cu", "transformer1d_bwd.cu",
+                        "gemm_tc.cuh", "gemm.cuh")
+
+
+def stack_kernel_pattern():
+    """A regex matching the profiler's name of a kernel of the stack
+    libraries (K1-K4): a ``__global__`` function of STACK_KERNEL_SOURCES in
+    their top-level anonymous namespace (``gtc::`` for the GEMM; a name
+    carries its return type only when it is a template's).  ATen's
+    kernels in ``at::native::(anonymous namespace)`` do not match.  K8's
+    library shares the GEMM's names: callers keep its switch off."""
+    import re
+    csrc = os.path.join(ROOT, "moleculediffusiontransformer_tpu_torch",
+                        "csrc")
+    names = set()
+    for src in STACK_KERNEL_SOURCES:
+        with open(os.path.join(csrc, src)) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)", f.read()))
+    return re.compile(r"^(?:void )?\(anonymous namespace\)::(?:gtc::)?"
+                      r"(?:%s)[<(]" % "|".join(sorted(names)))
+
+
+def stack_library_share(fn, top: int = 8):
+    """Device ms of ``fn()`` under ``torch.profiler`` and the part of it in
+    the stack libraries' kernels (``stack_kernel_pattern``), with the
+    ``top`` kernels counted there and outside by device ms, the launches and
+    the traced wall ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion
+    if resnet_fusion.resnet_fusion_enabled():
+        raise AssertionError("K8 shares the stack GEMM's kernel names: turn "
+                             "it off to count the stack kernels")
+    pattern = stack_kernel_pattern()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = 0
+    kernels = {True: [], False: []}
+    for evt in prof.key_averages():
+        if evt.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launches += evt.count
+        if evt.device_type == DeviceType.CUDA:
+            us = float(getattr(evt, "self_device_time_total",
+                               getattr(evt, "self_cuda_time_total", 0.0)))
+            kernels[bool(pattern.match(evt.key))].append((us, evt.key))
+    stack = sum(us for us, _ in kernels[True])
+    total = stack + sum(us for us, _ in kernels[False])
+
+    def largest(rows):
+        return [[key[:100], us / 1e3] for us, key in sorted(rows)[::-1][:top]]
+
+    return {"device_ms": total / 1e3, "stack_kernels_ms": stack / 1e3,
+            "stack_share": stack / total if total else None,
+            "launches": launches, "traced_wall_ms": wall_ms,
+            "stack_kernels_top_ms": largest(kernels[True]),
+            "other_kernels_top_ms": largest(kernels[False])}
+
+
+def audio_stacks(model):
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
+    return len(stacks), sum(m.num_layers for m in stacks)
+
+
+def audio_all_model(dev, dtype, seed=31):
+    import torch
+    from moleculediffusiontransformer_tpu_torch.diffusion.distributions \
+        import make_distribution
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    return audio.AudioDiffusionConditional(
+        **AUDIO_ALL, diffusion_sigma_distribution=make_distribution("vk"),
+        dtype=dtype, device=dev,
+        generator=torch.Generator().manual_seed(seed))
+
+
+def audio_request(model, what, stacks, evals, gen, emb, **kw):
+    """One ``sample_model1d`` request at the audio shape; its output
+    finite, clamped, of the request's shape, the sampler's denoise
+    evaluations (counted at the UNet) ``evals``, and K1 launched exactly
+    stacks x evals (and nothing else).  Returns (output, seconds)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    b = emb.shape[0] if emb is not None else kw.pop("batch")
+    calls, handle = count_calls(model.unet)
+    reset_counts()
+    out, seconds = timed(lambda: audio.sample_model1d(
+        model, shape=(b, AUDIO_SAMPLES, model.in_channels), generator=gen,
+        num_steps=AUDIO_STEPS, **({} if emb is None else dict(embedding=emb)),
+        **kw))
+    handle.remove()
+    launched = counts()
+    phase("audio_request", what=what, batch=b, num_steps=AUDIO_STEPS,
+          evals=len(calls), seconds=seconds, launches=launched,
+          samples_per_s=b * AUDIO_SAMPLES / seconds,
+          finite=bool(torch.isfinite(out).all()))
+    if tuple(out.shape) != (b, AUDIO_SAMPLES, model.in_channels) or not (
+            torch.isfinite(out).all() and out.abs().max() <= 1):
+        raise AssertionError(f"{what}: output {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    if len(calls) != evals:
+        raise AssertionError(f"{what}: {len(calls)} evaluations, expected "
+                             f"{evals}")
+    check_launches(what, launched, loop_want(stacks, 0, 0, evals))
+    return out, seconds
+
+
+def audio_train_step(model):
+    """``step(x, gen, **net_kwargs) -> loss``: ``make_model1d_train_step``
+    with its own optimizer state."""
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_model1d_train_step(model, opt)
+    return lambda x, gen, **kw: step(state, x, gen, **kw)
+
+
+def audio_train(model, what, stacks, layers, gen, steps, **net_kwargs):
+    """One warm-up and ``steps`` timed bf16 steps at AUDIO_BATCH: every loss
+    finite, K1 stash, K3, K4 launched stacks x steps, K2 layers x steps and
+    nothing else.  Returns the launches."""
+    import torch
+    step = audio_train_step(model)
+    x = torch.rand(AUDIO_BATCH, AUDIO_SAMPLES, model.in_channels,
+                   generator=gen, device=gen.device) * 2 - 1
+    reset_counts()
+    first, first_seconds = timed(lambda: step(x, gen, **net_kwargs))
+    losses = [first.item()]
+    torch.cuda.reset_peak_memory_stats()
+    timed_losses, seconds = timed(
+        lambda: [step(x, gen, **net_kwargs) for _ in range(steps)])
+    losses += [t.item() for t in timed_losses]
+    launched = counts()
+    per_step = seconds / steps if steps else None
+    phase("audio_train", what=what, batch=AUDIO_BATCH,
+          samples=AUDIO_SAMPLES, steps=1 + steps,
+          first_step_seconds=first_seconds, seconds_per_step=per_step,
+          samples_per_s=AUDIO_BATCH / per_step if steps else None,
+          losses=losses,
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          launches=launched)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    check_launches(what, launched, loop_want(stacks, layers, 1 + steps, 0))
+    return launched
+
+
+def stack_inputs(model, run):
+    """Each Transformer1d of ``model`` beside the (x, context) it was first
+    called with during ``run()`` (no grad)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    seen = {}
+
+    def keep(mod, args, kwargs):
+        ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
+        seen.setdefault(mod, (args[0].detach().contiguous(),
+                              ctx.detach().contiguous()
+                              if mod.context_features else None))
+
+    handles = [m.register_forward_pre_hook(keep, with_kwargs=True)
+               for m in model.modules() if isinstance(m, Transformer1d)]
+    with torch.no_grad():
+        run()
+    for h in handles:
+        h.remove()
+    return seen
+
+
+def audio_stack_kernels(model, run):
+    """Phase 28: every stack of the bf16 "all" model against the plain
+    versions on the activations it gets in ``run()`` (one CFG evaluation):
+    K1 at the CFG-doubled batch, and the stash forward, K3, K2 and K4
+    output by output at the first AUDIO_BATCH rows with a random output
+    grad, as phase 6 does at the 91M shapes.  Each within KERNEL_TOL of its
+    plain version's scale; K3 and K4 each sent CONV_BWD_PRODUCTS products
+    to the tensor cores.  Launches here are not the main path's."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    tol = KERNEL_TOL["bfloat16"]
+    gen = torch.Generator().manual_seed(36)
+    worst = {}
+    for i, (mod, (x2, c2)) in enumerate(stack_inputs(model, run).items()):
+        kp, geom = mod.kernel_params(), mod._geometry()
+        layers, heads, hd = (geom["num_layers"], geom["heads"],
+                             geom["head_dim"])
+        cross = c2 is not None
+        with torch.no_grad():
+            pairs = {"fwd": [(tf.transformer1d_forward(kp, x2, c2, **geom),
+                              tf.transformer1d_reference(kp, x2, c2,
+                                                         **geom))]}
+            x = x2[:AUDIO_BATCH]
+            ctx = None if c2 is None else c2[:AUDIO_BATCH].to(x.dtype)
+            g = torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
+            w = tf._kernel_weights(kp, layers, cross, x.dtype)
+            per_layer, per_stash = (20, 3) if cross else (12, 2)
+            out, stash = tf.transformer1d_forward(kp, x, ctx,
+                                                  with_stash=True, **geom)
+            ref, ref_stash = tf.transformer1d_reference(
+                kp, x, ctx, with_stash=True, **geom)
+            pairs["stash"] = [(out, ref)] + list(zip(stash, ref_stash))
+            products = {}
+            for fn, plain, key, args in (
+                    (tf.bwd_conv_out, tf.bwd_conv_out_reference, "conv_out",
+                     (g, ref_stash[-1], w[-2])),
+                    (tf.bwd_conv_in_gn, tf.bwd_conv_in_gn_reference,
+                     "conv_in_gn", (g, x, w[2], w[0], w[1]))):
+                before = tf.gemm_tc_launches()
+                got = fn(*args)
+                products[key] = tf.gemm_tc_launches() - before
+                pairs[key] = list(zip(got, plain(*args)))
+            pairs["layer"] = []
+            for j in range(layers):
+                s0 = j * per_stash
+                args = (g, ref_stash[s0],
+                        ref_stash[s0 + 1] if cross else None,
+                        ref_stash[s0 + per_stash - 1], ctx,
+                        w[4 + j * per_layer:4 + (j + 1) * per_layer])
+                got = tf.bwd_layer(*args, heads=heads, head_dim=hd)
+                want = tf.bwd_layer_reference(*args, heads=heads,
+                                              head_dim=hd)
+                pairs["layer"] += [(got[0], want[0])] + list(
+                    zip(got[2], want[2]))
+                if cross:
+                    pairs["layer"].append((got[1], want[1]))
+        errs = {k: max(_rel_err(a, b) for a, b in v)
+                for k, v in pairs.items()}
+        phase("audio_stack_kernels", stack=i, layers=layers,
+              channels=x.shape[-1], length=x.shape[1], batch=x2.shape[0],
+              train_batch=x.shape[0],
+              context=None if c2 is None else list(c2.shape[1:]),
+              rel_err=errs, conv_gemm_tc_launches=products, tol=tol)
+        bad = {k: v for k, v in errs.items() if not v <= tol}
+        if bad or any(v != tf.CONV_BWD_PRODUCTS for v in products.values()):
+            raise AssertionError(f"audio stack {i}: kernels differ from the "
+                                 f"plain versions {bad}, K3/K4 tensor-core "
+                                 f"products {products}")
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    return worst
+
+
+def rel_pos_stack(dev):
+    """Phase 28: a ``use_rel_pos`` Transformer1d at the 91M cross stack's
+    shape, float32: K1-K4 launch 0 times on the card, and its forward and
+    backward (every grad) are within REL_TOL of the same on the CPU, as a
+    fraction of each tensor's largest magnitude."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    g = torch.Generator().manual_seed(32)
+    cpu = Transformer1d(**REL_STACK)
+    init_parameters(cpu, g)
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(REL_BATCH, 8, 256, generator=g)
+    ctx = torch.randn(REL_BATCH, 12, 128, generator=g)
+    w = torch.randn(REL_BATCH, 8, 256, generator=g)
+    results, launched = [], []
+    for m, d in ((card, dev), (cpu, torch.device("cpu"))):
+        xx = x.to(d).requires_grad_(True)
+        cc = ctx.to(d).requires_grad_(True)
+        reset_counts()
+        out = m(xx, cc)
+        (out * w.to(d)).sum().backward()
+        torch.cuda.synchronize()
+        launched.append(counts())
+        results.append([out.detach().cpu(), xx.grad.cpu(), cc.grad.cpu()]
+                       + [p.grad.cpu() for p in m.parameters()])
+    launched = launched[0]
+    errs = [_rel_err(a, b) for a, b in zip(*results)]
+    phase("rel_pos_stack", batch=REL_BATCH, shape=[8, 256], context=[12, 128],
+          launches=launched, out_rel_err=errs[0], grad_rel_err=max(errs[1:]),
+          tol=REL_TOL)
+    if any(launched.values()):
+        raise AssertionError(f"a rel-pos stack launched {launched}")
+    if not max(errs) <= REL_TOL:
+        raise AssertionError(f"rel-pos stack, card vs CPU: {errs}")
+
+
+def audio_fp32_vs_cpu(dev):
+    """Phase 28: the "all"/vk model in float32 at batch 2 on the same
+    draws, card against CPU: a 4-step Karras sample at scale 5.0 within
+    SAMPLE_TOL; then one step's loss (with the dropout's keep mask handed
+    in) within STEP_LOSS_TOL relative and its grads, through K1 stash and
+    K3, K2, K4 on the card, within STEP_GRAD_TOL of each grad's scale."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    cpu = torch.device("cpu")
+    model = audio_all_model(cpu, torch.float32)
+    g = torch.Generator().manual_seed(33)
+    b, shape = AUDIO_PARITY_BATCH, (AUDIO_PARITY_BATCH, AUDIO_SAMPLES, 1)
+    x = torch.rand(shape, generator=g) * 2 - 1
+    emb = torch.randn(b, AUDIO_ALL["embedding_max_length"],
+                      AUDIO_ALL["embedding_features"], generator=g)
+    sigmas = model.sigma_distribution(b, normals=torch.randn(b, generator=g))
+    noise = torch.randn(shape, generator=g)
+    keep = torch.tensor([True, False])
+    start = torch.randn(shape, generator=g)
+    step_noise = torch.randn((AUDIO_PARITY_STEPS - 1,) + shape, generator=g)
+    results = []
+    for m, d in ((copy.deepcopy(model).to(dev), dev), (model, cpu)):
+        out = audio.sample_model1d(
+            m.eval(), start.to(d), num_steps=AUDIO_PARITY_STEPS,
+            sampler="karras", schedule="karras", step_noise=step_noise.to(d),
+            sampler_kwargs={"s_churn": AUDIO_CHURN}, embedding=emb.to(d),
+            embedding_scale=AUDIO_SCALE).cpu()
+        reset_counts()
+        loss = m.train()(x.to(d), sigmas=sigmas.to(d), noise=noise.to(d),
+                         embedding=emb.to(d),
+                         embedding_mask_proba=AUDIO_MASK_PROBA,
+                         embedding_keep=keep.to(d))
+        loss.backward()
+        launched = counts()
+        results.append((loss.item(), out, launched, {
+            n: p.grad.cpu() for n, p in m.named_parameters()}))
+    (card_loss, card_out, launched, card_grads), (cpu_loss, cpu_out, _,
+                                                  cpu_grads) = results
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = max(_rel_err(card_grads[n], cpu_grads[n], STEP_GRAD_FLOOR)
+                   for n in cpu_grads)
+    sample_err = _abs_err(card_out, cpu_out)
+    phase("audio_fp32_vs_cpu", batch=b, loss=card_loss, plain_loss=cpu_loss,
+          loss_rel_err=loss_err, grad_rel_err=grad_err,
+          step_launches=launched, sample_steps=AUDIO_PARITY_STEPS,
+          sample_max_abs_err=sample_err,
+          tol={"loss": STEP_LOSS_TOL, "grad": STEP_GRAD_TOL,
+               "sample": SAMPLE_TOL})
+    stacks, layers = audio_stacks(model)
+    check_launches("audio fp32 step", launched,
+                   loop_want(stacks, layers, 1, 0))
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL
+            and sample_err <= SAMPLE_TOL):
+        raise AssertionError(f"audio fp32 card vs CPU: loss {loss_err}, "
+                             f"grads {grad_err}, sample {sample_err}")
+
+
+def audio_options(dev):
+    """Phase 28: the ported diffusion options on the audio preset.  Returns
+    the training launches of the "all" model."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.diffusion import samplers
+    from moleculediffusiontransformer_tpu_torch.diffusion.schedules import \
+        karras_schedule
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    t0 = time.perf_counter()
+    model = audio_all_model(dev, torch.bfloat16)
+    stacks, layers = audio_stacks(model)
+    phase("audio_all_model", parameters=sum(p.numel()
+                                            for p in model.parameters()),
+          stacks=stacks, layers=layers, dtype="bfloat16", **{
+              k: v for k, v in AUDIO_ALL.items() if k != "in_channels"})
+    gen = torch.Generator(device=dev).manual_seed(34)
+    emb = torch.randn(AUDIO_BATCH, AUDIO_ALL["embedding_max_length"],
+                      AUDIO_ALL["embedding_features"], generator=gen,
+                      device=dev)
+    launched = audio_train(model.train(), "all/vk training", stacks, layers,
+                           gen, AUDIO_TRAIN_STEPS, embedding=emb,
+                           embedding_mask_proba=AUDIO_MASK_PROBA)
+    model.eval()
+    # Karras: two evaluations a step (sigma_next is never 0 inside the
+    # schedule's first AUDIO_STEPS sigmas); ancestral Euler: one
+    sampled, _ = audio_request(
+        model, "all/vk karras", stacks, 2 * (AUDIO_STEPS - 1), gen, emb,
+        sampler="karras", schedule="karras",
+        sampler_kwargs={"s_churn": AUDIO_CHURN}, embedding_scale=AUDIO_SCALE)
+    audio_request(model, "all/vk aeuler", stacks, AUDIO_STEPS - 1, gen, emb,
+                  sampler="aeuler", schedule="karras",
+                  embedding_scale=AUDIO_SCALE)
+
+    # where an evaluation's and a training step's device time goes (the
+    # first profiler window of a process carries its start-up: take an
+    # empty one first)
+    stack_library_share(lambda: None)
+    x = torch.randn(AUDIO_BATCH, AUDIO_SAMPLES, 1, generator=gen,
+                    device=dev)
+    sig = torch.full((AUDIO_BATCH,), 1.0, device=dev)
+    with torch.no_grad():
+        phase("audio_eval_profile", batch=AUDIO_BATCH,
+              embedding_scale=AUDIO_SCALE, **stack_library_share(
+                  lambda: model.denoise(x, sig, gen, embedding=emb,
+                                        embedding_scale=AUDIO_SCALE)))
+    model.train()
+    step_model = audio_train_step(model)
+    phase("audio_step_profile", batch=AUDIO_BATCH, **stack_library_share(
+        lambda: step_model(x, gen, embedding=emb,
+                           embedding_mask_proba=AUDIO_MASK_PROBA)))
+    model.eval()
+    del step_model
+    audio_stack_kernels(model, lambda: model.denoise(
+        x, sig, gen, embedding=emb, embedding_scale=AUDIO_SCALE))
+
+    # span-by-span outpainting over RePaint inpainting, starting from the
+    # Karras sample
+    sigmas = karras_schedule(SPAN_STEPS)
+    calls, handle = count_calls(model.unet)
+
+    def inpaint(source, mask):
+        return samplers.inpaint_adpm2(
+            lambda x, s: model.denoise(x, s, gen, embedding=emb,
+                                       embedding_scale=AUDIO_SCALE),
+            source, mask, sigmas, SPAN_STEPS, SPAN_RESAMPLES, generator=gen)
+
+    reset_counts()
+    with torch.no_grad():
+        spans, seconds = timed(lambda: samplers.span_by_span_compose(
+            inpaint, sampled, SPANS))
+    handle.remove()
+    span_launched = counts()
+    phase("audio_span_by_span", spans=SPANS, steps=SPAN_STEPS,
+          resamples=SPAN_RESAMPLES, evals=len(calls), seconds=seconds,
+          shape=list(spans.shape), launches=span_launched)
+    span_evals = SPANS * (SPAN_STEPS - 1) * SPAN_RESAMPLES * 2
+    if tuple(spans.shape) != (AUDIO_BATCH, SPANS * AUDIO_SAMPLES // 2, 1) \
+            or not torch.isfinite(spans).all() or len(calls) != span_evals:
+        raise AssertionError(f"span_by_span_compose: {tuple(spans.shape)}, "
+                             f"{len(calls)} evaluations")
+    check_launches("span_by_span_compose", span_launched,
+                   loop_want(stacks, 0, 0, span_evals))
+    del model, sampled, spans
+
+    # the NCCA UNet at the same widths: one request and one step
+    ncca = audio.AudioDiffusionModel(
+        **AUDIO_NCCA, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(35))
+    nstacks, nlayers = audio_stacks(ncca)
+    chan = torch.rand(AUDIO_BATCH, AUDIO_SAMPLES, 1, generator=gen,
+                      device=dev) * 2 - 1
+    ncca_kw = dict(channels_list=[chan], channels_augmentation=True,
+                   channels_scale=NCCA_SCALE)
+    audio_request(ncca.eval(), "ncca v", nstacks, AUDIO_STEPS - 1, gen, None,
+                  batch=AUDIO_BATCH, **ncca_kw)
+    audio_train(ncca.train(), "ncca training", nstacks, nlayers, gen, 0,
+                **ncca_kw)
+    del ncca
+    torch.cuda.empty_cache()
+
+    rel_pos_stack(dev)
+    audio_fp32_vs_cpu(dev)
+    phase("audio_options_phase_seconds", seconds=time.perf_counter() - t0)
+    return launched
+
+
+def gpt_model(cls, dev, dtype, seed, **kw):
+    import torch
+    return cls(dtype=dtype, device=dev,
+               generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def gpt_ids(batch, tokens, gen, vocab):
+    import torch
+    return torch.randint(0, vocab, (batch, tokens), generator=gen,
+                         device=gen.device)
+
+
+def gpt_request(model, batch, tokens, gen):
+    """One ``generate_gpt`` request from a (b, 1) start of ones: (ids,
+    seconds)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        generate_gpt
+    start = torch.ones(batch, 1, dtype=torch.long, device=gen.device)
+    return timed(lambda: generate_gpt(model, start, gen,
+                                      tokens_to_generate=tokens))
+
+
+def gpt_train(model, what, batch, steps, gen, **kw):
+    """One warm-up and ``steps`` timed ``make_gpt_train_step`` steps at
+    ``batch`` x GPT_TRAIN_TOKENS: every loss finite."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_gpt_train_step(model, opt, **kw)
+    ids = gpt_ids(batch, GPT_TRAIN_TOKENS, gen, GPT_PRESET["logits_dim"])
+    losses = [step(state, ids).item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed_losses, seconds = timed(lambda: [step(state, ids)
+                                           for _ in range(steps)])
+    losses += [t.item() for t in timed_losses]
+    per_step = seconds / max(steps, 1)
+    record = dict(what=what, batch=batch, tokens=GPT_TRAIN_TOKENS,
+                  steps=1 + steps, seconds_per_step=per_step,
+                  tokens_per_s=batch * GPT_TRAIN_TOKENS / per_step,
+                  losses=losses,
+                  max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return record
+
+
+def gpt_fp32_vs_cpu(dev):
+    """Phase 29: each class in float32 at batch 8, card against CPU on the
+    same inputs: logits within AR_LOGIT_TOL, one train step's loss within
+    STEP_LOSS_TOL relative."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import transformers
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    g = torch.Generator().manual_seed(41)
+    b = GPT_PARITY_BATCH
+    ids = torch.randint(0, 32, (b, GPT_TRAIN_TOKENS), generator=g)
+    props = torch.rand(b, 12, generator=g) * 2 - 1
+    ar_ids = torch.randint(0, AR_PRESET["logits_dim"], (b, 64), generator=g)
+    vectors = torch.randn(b, 31, AR_PRESET["logits_dim"], generator=g)
+    keep = torch.tensor([True, False] * (b // 2))
+    cases = [
+        ("gpt", transformers.MoleculeTransformerGPT, GPT_PRESET, "gpt",
+         (ids,)),
+        ("gpt_moe", transformers.MoleculeTransformerGPT,
+         dict(GPT_PRESET, **GPT_MOE), "gpt", (ids,)),
+        ("gpt_gnn", transformers.MoleculeTransformerGPT,
+         dict(GPT_PRESET, **GPT_GNN), "gpt", (ids,)),
+        ("gpt_mha", transformers.MoleculeTransformerGPTPyTorch, GPT_MHA,
+         "gpt", (ids,)),
+        ("continuous", transformers.MoleculeTransformer, AR_PRESET,
+         "transformer", (props, vectors)),
+        ("internaldim", transformers.MoleculeTransformerSequenceInternaldim,
+         dict(AR_PRESET, max_tokens=AR_PRESET["logits_dim"]), "transformer",
+         (props, ar_ids))]
+    for name, cls, kw, kind, inputs in cases:
+        cpu_model = gpt_model(cls, "cpu", torch.float32, 42, **kw)
+        results = []
+        for m, d in ((copy.deepcopy(cpu_model).to(dev), dev),
+                     (cpu_model, torch.device("cpu"))):
+            args = [t.to(d) for t in inputs]
+            opt = trainer.make_optimizer(trainer.OptimizerConfig())
+            state = trainer.TrainState.create(m, opt)
+            with torch.no_grad():
+                logits = (m(*args) if kind == "gpt"
+                          else m(*args, cond_drop_prob=0.0)).float().cpu()
+            if kind == "gpt":
+                loss = trainer.make_gpt_train_step(
+                    m, opt, aux_loss_weight=GPT_MOE_AUX)(state, *args)
+            else:
+                loss = trainer.make_transformer_train_step(m, opt)(
+                    state, *args, keep=keep.to(d))
+            results.append((logits, loss.item()))
+        (card, card_loss), (plain, plain_loss) = results
+        logit_err = _abs_err(card, plain)
+        loss_err = abs(card_loss - plain_loss) / abs(plain_loss)
+        phase("gpt_fp32_vs_cpu", model=name, batch=b,
+              logits_max_abs_err=logit_err, loss=card_loss,
+              plain_loss=plain_loss, loss_rel_err=loss_err,
+              tol={"logits": AR_LOGIT_TOL, "loss": STEP_LOSS_TOL})
+        if not (logit_err <= AR_LOGIT_TOL and loss_err <= STEP_LOSS_TOL):
+            raise AssertionError(f"{name} fp32 card vs CPU: logits "
+                                 f"{logit_err}, loss {loss_err}")
+
+
+def gpt_family(dev):
+    """Phase 29: the GPT family on the card; no kernel lies on its path."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import transformers
+    from moleculediffusiontransformer_tpu_torch.nn.moe import moe_capacity
+    t0 = time.perf_counter()
+    reset_counts()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(43)
+    model = gpt_model(transformers.MoleculeTransformerGPT, dev, bf16, 44,
+                      **GPT_PRESET).eval()
+    phase("gpt_model", parameters=sum(p.numel() for p in model.parameters()),
+          dtype="bfloat16", **GPT_PRESET)
+    for b in GPT_REQUESTS:
+        ids, seconds = gpt_request(model, b, GPT_TOKENS, gen)
+        phase("gpt_request", batch=b, tokens=GPT_TOKENS, seconds=seconds,
+              tokens_per_s=b * GPT_TOKENS / seconds)
+        if tuple(ids.shape) != (b, GPT_TOKENS + 1) or not (
+                (ids >= 0) & (ids < GPT_PRESET["logits_dim"])).all():
+            raise AssertionError(f"generate_gpt batch {b}: {ids.shape}")
+    big = GPT_REQUESTS[-1]
+    gpt_request(model, big, GPT_TRACED_TOKENS, gen)
+    device_ms_, launches, wall_ms = device_busy(
+        lambda: gpt_request(model, big, GPT_TRACED_TOKENS, gen))
+    phase("gpt_request_traced", batch=big, tokens=GPT_TRACED_TOKENS,
+          device_ms=device_ms_, traced_wall_ms=wall_ms, launches=launches,
+          device_busy_share=device_ms_ / wall_ms,
+          launches_per_token=launches / GPT_TRACED_TOKENS)
+    del model
+
+    train = gpt_model(transformers.MoleculeTransformerGPT, dev, bf16, 44,
+                      **GPT_PRESET).train()
+    phase("gpt_train", **gpt_train(train, "dense", GPT_TRAIN_BATCH,
+                                   TIMED_STEPS, gen))
+    del train
+    moe = gpt_model(transformers.MoleculeTransformerGPT, dev, bf16, 45,
+                    **GPT_PRESET, **GPT_MOE).train()
+    tokens = GPT_MOE_BATCH * GPT_TRAIN_TOKENS
+    cap = moe_capacity(tokens, GPT_MOE["ff_num_experts"],
+                       GPT_MOE["ff_expert_top_k"], 1.25)
+    record = gpt_train(moe, "moe", GPT_MOE_BATCH, 3, gen,
+                       aux_loss_weight=GPT_MOE_AUX)
+    phase("gpt_train", parameters=sum(p.numel() for p in moe.parameters()),
+          capacity=cap, dispatch_bytes=tokens * GPT_MOE["ff_num_experts"]
+          * cap * 4, aux_losses=[a.item() for a in moe.moe_aux_losses()],
+          **record)
+    del moe
+    gnn = gpt_model(transformers.MoleculeTransformerGPT, dev, bf16, 46,
+                    **GPT_PRESET, **GPT_GNN).train()
+    phase("gpt_train", **gpt_train(gnn, "gnn", GPT_MOE_BATCH, 1, gen))
+    del gnn
+
+    mha = gpt_model(transformers.MoleculeTransformerGPTPyTorch, dev, bf16,
+                    47, **GPT_MHA).eval()
+    start = torch.ones(GPT_SMALL_BATCH, 1, dtype=torch.long, device=dev)
+    ids, seconds = timed(lambda: transformers.generate_gpt_mha(
+        mha, start, gen, tokens_to_generate=GPT_TOKENS))
+    phase("gpt_mha_request", batch=GPT_SMALL_BATCH, tokens=GPT_TOKENS,
+          seconds=seconds, tokens_per_s=GPT_SMALL_BATCH * GPT_TOKENS / seconds)
+    if tuple(ids.shape) != (GPT_SMALL_BATCH, GPT_TOKENS + 1):
+        raise AssertionError(f"generate_gpt_mha: {ids.shape}")
+    del mha
+
+    props = torch.rand(GPT_SMALL_BATCH, 12, generator=gen, device=dev) * 2 - 1
+    vec = gpt_model(transformers.MoleculeTransformer, dev, bf16, 48,
+                    **AR_PRESET).eval()
+    out, seconds = timed(lambda: transformers.generate_vectors(
+        vec, props, tokens_to_generate=GPT_TOKENS))
+    phase("continuous_request", batch=GPT_SMALL_BATCH, tokens=GPT_TOKENS,
+          seconds=seconds, shape=list(out.shape))
+    if tuple(out.shape) != (GPT_SMALL_BATCH, GPT_TOKENS,
+                            AR_PRESET["logits_dim"]) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"generate_vectors: {tuple(out.shape)}")
+    internal = gpt_model(transformers.MoleculeTransformerSequenceInternaldim,
+                         dev, bf16, 49, max_tokens=AR_PRESET["logits_dim"],
+                         **AR_PRESET).eval()
+    ids = gpt_ids(GPT_SMALL_BATCH, 64, gen, AR_PRESET["logits_dim"])
+    with torch.no_grad():
+        logits, seconds = timed(lambda: internal(props, ids,
+                                                 cond_drop_prob=0.0))
+    phase("internaldim_forward", batch=GPT_SMALL_BATCH, tokens=64,
+          seconds=seconds, shape=list(logits.shape),
+          finite=bool(torch.isfinite(logits).all()))
+    if not torch.isfinite(logits).all():
+        raise AssertionError("Internaldim forward: non-finite logits")
+    del vec, internal
+    check_no_launches("the GPT family")
+    gpt_fp32_vs_cpu(dev)
+    check_no_launches("the GPT family")
+    phase("gpt_family_phase_seconds", seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3260,6 +3992,12 @@ def main() -> int:
     # 27. the training loop, checkpoints and resume, the recipes, the CLI
     loop_launches = train_loop(dev)
 
+    # 28. the diffusion options on the audio preset
+    audio_launches = audio_options(dev)
+
+    # 29. the GPT family
+    gpt_family(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -3299,7 +4037,8 @@ def main() -> int:
                         "launches": train_launches[count],
                         **train_kernels[key], "library_ms": None,
                         "products": TC_PRODUCTS,
-                        "launches_cli_train": loop_launches[count]})
+                        "launches_cli_train": loop_launches[count],
+                        "launches_audio_all_train": audio_launches[count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({

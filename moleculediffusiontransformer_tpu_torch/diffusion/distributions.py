@@ -63,3 +63,16 @@ class VKDistribution:
             normals = _draw(torch.randn, num_samples, generator, device)
         u = (max_cdf - min_cdf) * normals + min_cdf
         return torch.tan(u * math.pi / 2) * self.sigma_data
+
+
+def make_distribution(name: str, *, mean: float = -1.2, std: float = 1.2,
+                      sigma_data: float = 1.0):
+    """The sigma distribution called ``name``: "lognormal", "uniform" or
+    "vk"."""
+    if name == "lognormal":
+        return LogNormalDistribution(mean, std)
+    if name == "uniform":
+        return UniformDistribution()
+    if name == "vk":
+        return VKDistribution(sigma_data=sigma_data)
+    raise ValueError(f"Unknown sigma distribution: {name}")

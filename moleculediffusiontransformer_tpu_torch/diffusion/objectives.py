@@ -1,7 +1,7 @@
 """The diffusion objectives, denoiser and training loss: K-diffusion (Karras
-elucidated; the production objective of every QM9 model) and v-diffusion
-(the ``Model1d`` family's) (port of `diffusion/objectives.py`; the vk
-objective is not ported yet).
+elucidated; the production objective of every QM9 model), v-diffusion (the
+``Model1d`` family's) and the v-objective in Karras parametrization, "vk"
+(port of `diffusion/objectives.py`).
 
 The network enters as a closure ``net(x, t) -> x_pred``; tensors are
 channels-last (b, L, C) and sigmas (b,), broadcast as (b, 1, 1).  Draws come
@@ -18,13 +18,31 @@ import torch
 NetFn = Callable[..., torch.Tensor]
 
 
+def pad_dims(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``x`` with ``ndim`` trailing axes of size 1."""
+    return x.reshape(tuple(x.shape) + (1,) * ndim)
+
+
+def to_batch(batch_size: int, sigma: Optional[float] = None,
+             sigmas: Optional[torch.Tensor] = None,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+    """A (batch,) float32 vector of ``sigma``, or ``sigmas`` as given:
+    exactly one of the two."""
+    if (sigma is None) == (sigmas is None):
+        raise ValueError("Either sigma or sigmas")
+    if sigma is not None:
+        return torch.full((batch_size,), sigma, dtype=torch.float32,
+                          device=device)
+    return sigmas
+
+
 def clip(x: torch.Tensor, dynamic_threshold: float = 0.0) -> torch.Tensor:
     """Clamp to [-1, 1], or Imagen-style dynamic quantile thresholding."""
     if dynamic_threshold == 0.0:
         return x.clamp(-1.0, 1.0)
     x_flat = x.reshape(x.shape[0], -1)
     scale = torch.quantile(x_flat.abs().float(), dynamic_threshold, dim=-1)
-    scale = scale.clamp(min=1.0).reshape((-1,) + (1,) * (x.dim() - 1))
+    scale = pad_dims(scale.clamp(min=1.0), x.dim() - 1)
     return torch.maximum(torch.minimum(x, scale), -scale) / scale
 
 
@@ -120,14 +138,55 @@ class KDiffusion(Objective):
         return (losses * self.loss_weight(sigmas)).mean()
 
 
+@dataclass(frozen=True)
+class VKDiffusion(Objective):
+    """The v-objective in Karras parametrization (sigma_data 1): the network
+    sees ``c_in * x_noisy`` at ``t = atan(sigma) * 2 / pi`` and predicts
+    ``v = (x - c_skip * x_noisy) / c_out``; nothing is clipped."""
+    alias: str = "vk"
+
+    @staticmethod
+    def get_scale_weights(sigmas: torch.Tensor):
+        sigma_data = 1.0
+        s = sigmas.reshape(-1, 1, 1)
+        c_skip = (sigma_data ** 2) / (s ** 2 + sigma_data ** 2)
+        c_out = -s * sigma_data * (sigma_data ** 2 + s ** 2) ** -0.5
+        c_in = (s ** 2 + sigma_data ** 2) ** -0.5
+        return c_skip, c_out, c_in
+
+    @staticmethod
+    def sigma_to_t(sigmas: torch.Tensor) -> torch.Tensor:
+        return torch.atan(sigmas) / math.pi * 2
+
+    @staticmethod
+    def t_to_sigma(t: torch.Tensor) -> torch.Tensor:
+        return torch.tan(t * math.pi / 2)
+
+    def denoise(self, net: NetFn, x_noisy: torch.Tensor,
+                sigmas: torch.Tensor, **cond) -> torch.Tensor:
+        c_skip, c_out, c_in = self.get_scale_weights(sigmas)
+        x_pred = net(c_in * x_noisy, self.sigma_to_t(sigmas), **cond)
+        return c_skip * x_noisy + c_out * x_pred
+
+    def loss(self, net: NetFn, x: torch.Tensor, sigmas: torch.Tensor,
+             noise: torch.Tensor, **cond) -> torch.Tensor:
+        """MSE of the network's v prediction at ``x + sigma * noise``
+        against ``(x - c_skip * x_noisy) / (c_out + 1e-7)``."""
+        x_noisy = x + sigmas.reshape(-1, 1, 1) * noise
+        c_skip, c_out, c_in = self.get_scale_weights(sigmas)
+        x_pred = net(c_in * x_noisy, self.sigma_to_t(sigmas), **cond)
+        v_target = (x - c_skip * x_noisy) / (c_out + 1e-7)
+        return ((x_pred - v_target) ** 2).mean()
+
+
 def make_objective(alias: str, *, sigma_data: float = 0.1,
                    dynamic_threshold: float = 0.0) -> Objective:
-    """The objective of a ``diffusion_type``: "v" or "k"."""
+    """The objective of a ``diffusion_type``: "v", "k" or "vk"."""
     if alias == "v":
         return VDiffusion()
     if alias == "k":
         return KDiffusion(sigma_data=sigma_data,
                           dynamic_threshold=dynamic_threshold)
     if alias == "vk":
-        raise NotImplementedError("the vk objective is not ported yet")
+        return VKDiffusion()
     raise ValueError(f"type='{alias}' must be one of ('v', 'k', 'vk')")

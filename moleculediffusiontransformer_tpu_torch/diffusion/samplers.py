@@ -1,10 +1,13 @@
-"""The ADPM2 and v diffusion samplers (port of `diffusion/samplers.py`).
+"""The diffusion samplers (port of `diffusion/samplers.py`): ADPM2, the
+ancestral Euler ("aeuler"), Karras ("karras") and v samplers, RePaint-style
+inpainting and span-by-span outpainting.
 
 ``denoise`` is a closure ``denoise(x, sigmas_batch) -> x0_hat`` with sigmas
 shaped (batch,); conditioning and CFG live inside it (see ``models/``).
 ADPM2 with ``rho=1`` is the production sampler of every QM model, the
 deterministic v-sampler that of the ``Model1d`` family; ``inpaint_adpm2``
-is ADPM2 under a keep-mask (RePaint-style inpainting).
+is ADPM2 under a keep-mask, and ``span_by_span_compose`` chains inpaints
+into an outpainting of ever new spans.
 
 The step sigmas are computed host-side in numpy float32, as the JAX package
 computes them on the device in float32.  The ancestral noise of step ``i``
@@ -133,6 +136,84 @@ def inpaint_adpm2(denoise: DenoiseFn, source: torch.Tensor,
     return torch.where(mask, source, x)
 
 
+def _check_draws(name: str, step_noise: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator], num_steps: int):
+    if step_noise is None and generator is None:
+        raise ValueError(f"{name} needs step_noise or a generator")
+    if step_noise is not None and step_noise.shape[0] != num_steps - 1:
+        raise ValueError(f"step_noise has {step_noise.shape[0]} steps, "
+                         f"expected {num_steps - 1}")
+
+
+def aeuler_sigmas(sigma, sigma_next):
+    """Ancestral Euler sigma split (float32): (sigma_up, sigma_down)."""
+    sigma, sigma_next = np.float32(sigma), np.float32(sigma_next)
+    sigma_up = np.sqrt(sigma_next ** 2 * (sigma ** 2 - sigma_next ** 2)
+                       / sigma ** 2)
+    return sigma_up, _sqrt_sq_diff(sigma_next, sigma_up)
+
+
+def sample_aeuler(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
+                  num_steps: int, *, step_noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Ancestral Euler: ``num_steps - 1`` steps from ``sigmas[0] * noise``,
+    one denoise evaluation each, then ``noise * sigma_up``; the ancestral
+    noise is ``step_noise`` (num_steps - 1, *noise.shape) or drawn from
+    ``generator``."""
+    sigmas = np.asarray(sigmas, dtype=np.float32)
+    _check_draws("sample_aeuler", step_noise, generator, num_steps)
+    x = noise * float(sigmas[0])
+    for i in range(num_steps - 1):
+        s = sigmas[i]
+        sigma_up, sigma_down = aeuler_sigmas(s, sigmas[i + 1])
+        d = (x - _batched(denoise, x, s)) / float(s)
+        x = x + d * float(sigma_down - s)
+        eps = _draw(None if step_noise is None else step_noise[i], x,
+                    generator)
+        x = x + eps * float(sigma_up)
+    return x
+
+
+def sample_karras(denoise: DenoiseFn, noise: torch.Tensor,
+                  sigmas: np.ndarray, num_steps: int, *,
+                  step_noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  s_tmin: float = 0.0, s_tmax: float = float("inf"),
+                  s_churn: float = 0.0, s_noise: float = 1.0) -> torch.Tensor:
+    """Karras et al. algorithm 2 with churn: ``num_steps - 1`` steps from
+    ``sigmas[0] * noise``.  Each step raises sigma to ``sigma_hat = (1 +
+    gamma) * sigma`` (gamma = min(s_churn / num_steps, sqrt 2 - 1) where
+    s_tmin <= sigma <= s_tmax, else 0) with ``s_noise * step_noise[i]``,
+    takes an Euler step to sigma_next and corrects it with a second
+    evaluation there.  The correction is the paper's ``0.5 * (sigma_next -
+    sigma_hat)``, as in the JAX package (the reference's ``0.5 * (sigma -
+    sigma_hat)`` makes the sampler a no-op without churn).
+
+    A step draws its noise even where gamma is 0, as the JAX package does.
+    Where sigma_next is 0 the Euler step is the result, and its second
+    evaluation, which the JAX package computes and discards, is not made."""
+    full = np.asarray(sigmas, dtype=np.float32)
+    _check_draws("sample_karras", step_noise, generator, num_steps)
+    gamma_on = np.float32(min(s_churn / num_steps, math.sqrt(2) - 1))
+    gammas = np.where((full >= s_tmin) & (full <= s_tmax), gamma_on,
+                      np.float32(0.0)).astype(np.float32)
+    x = noise * float(full[0])
+    for i in range(num_steps - 1):
+        s, sn = full[i], full[i + 1]
+        sigma_hat = np.float32(s + gammas[i] * s)
+        eps = _draw(None if step_noise is None else step_noise[i], x,
+                    generator) * s_noise
+        x_hat = x + float(_sqrt_sq_diff(sigma_hat, s)) * eps
+        d = (x_hat - _batched(denoise, x_hat, sigma_hat)) / float(sigma_hat)
+        x_euler = x_hat + float(sn - sigma_hat) * d
+        if sn == 0:
+            x = x_euler
+            continue
+        d_prime = (x_euler - _batched(denoise, x_euler, sn)) / float(sn)
+        x = x_hat + float(np.float32(0.5) * (sn - sigma_hat)) * (d + d_prime)
+    return x
+
+
 def sample_v(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
              num_steps: int) -> torch.Tensor:
     """DDIM-like v-sampler, deterministic: ``num_steps - 1`` steps from
@@ -156,10 +237,12 @@ def sample_v(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
     return x_pred
 
 
-_SAMPLERS = {"adpm2": sample_adpm2, "v": sample_v}
+_SAMPLERS = {"adpm2": sample_adpm2, "aeuler": sample_aeuler,
+             "karras": sample_karras, "v": sample_v}
 
 # sampler -> objectives it is valid for
-SAMPLER_COMPAT = {"adpm2": ("k", "vk"), "v": ("v",)}
+SAMPLER_COMPAT = {"adpm2": ("k", "vk"), "aeuler": ("k", "vk"),
+                  "karras": ("k", "vk"), "v": ("v",)}
 
 
 def sample(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
@@ -167,12 +250,42 @@ def sample(denoise: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray,
            objective_alias: Optional[str] = None,
            **sampler_kwargs) -> torch.Tensor:
     """Run the chosen sampler over the schedule, optionally clamping the
-    result to [-1, 1].  "adpm2" and "v" are ported so far."""
+    result to [-1, 1]; ``sampler_kwargs`` go to the sampler (its draws,
+    ``step_noise=`` or ``generator=``, and its own settings)."""
     if sampler not in _SAMPLERS:
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+        raise ValueError(f"Unknown sampler {sampler!r}: one of "
+                         f"{sorted(_SAMPLERS)}")
     if objective_alias is not None:
         assert objective_alias in SAMPLER_COMPAT[sampler], (
             f"{sampler} incompatible with objective '{objective_alias}'")
     x = _SAMPLERS[sampler](denoise, noise, sigmas, num_steps,
                            **sampler_kwargs)
     return x.clamp(-1.0, 1.0) if clamp else x
+
+
+def sequential_mask(like: torch.Tensor, start: int) -> torch.Tensor:
+    """A boolean mask like ``like`` (b, L, C): True before ``start`` along
+    the length axis."""
+    mask = torch.ones(like.shape, dtype=torch.bool, device=like.device)
+    mask[:, start:] = False
+    return mask
+
+
+def span_by_span_compose(inpaint_fn, start: torch.Tensor, num_spans: int,
+                         keep_start: bool = False) -> torch.Tensor:
+    """Outpainting by repeated inpainting: ``start`` (b, L, C); each of the
+    ``num_spans`` calls of ``inpaint_fn(source, mask)`` keeps the first half
+    (the previous span's second half) and fills the second, which becomes
+    the next span.  Returns the spans joined along the length axis, after
+    the two halves of ``start`` when ``keep_start``."""
+    half = start.shape[1] // 2
+    spans = list(start.split(half, dim=1)) if keep_start else []
+    inpaint = torch.zeros_like(start)
+    inpaint[:, :half] = start[:, half:]
+    mask = sequential_mask(start, half)
+    for _ in range(num_spans):
+        second_half = inpaint_fn(inpaint, mask)[:, half:]
+        inpaint = inpaint.clone()
+        inpaint[:, :half] = second_half
+        spans.append(second_half)
+    return torch.cat(spans, dim=1)

@@ -2,10 +2,11 @@
 `models/audio.py`: ``Model1d``, ``sample_model1d`` and the
 ``AudioDiffusionModel`` / ``AudioDiffusionConditional`` presets).
 
-``Model1d`` is a UNet under a diffusion objective (v-diffusion for the
-presets): calling it is the training loss, ``denoise`` is the sampler's
-closure, ``sample_model1d`` the serving path (a linear schedule, the
-deterministic v-sampler and a clamp by default).  All tensors channels-last
+``Model1d`` is a UNet (``XUNet1d``: "base", "cfg", "ncca" or "all") under a
+diffusion objective ("v" for the presets, "k" or "vk"): calling it is the
+training loss, ``denoise`` is the sampler's closure, ``sample_model1d`` the
+serving path (a linear schedule, the deterministic v-sampler and a clamp by
+default; the ADPM2, ancestral Euler and Karras samplers on request).  All tensors channels-last
 (b, L, C).  On a 2**15-sample waveform the default preset attends at lengths
 32 to 4; a shallower net on a longer waveform attends at thousands of tokens,
 and ``nn.attention.sdpa`` then streams attention through
@@ -16,9 +17,13 @@ device.  Parameter names are the reference's (``unet.*``), so the JAX
 package's params load with ``strict=True``
 (``nn.jax_import.state_dict_from_jax_params``).
 
+The UNet variants' draws (the "cfg"/"all" conditioning dropout of
+``embedding_mask_proba``, the "ncca" noise) come from the ``generator`` that
+the loss and the sampler are given, or are handed in through the UNet's
+keyword arguments (``embedding_keep=``, ``channels_noise=``).
+
 Not ported yet: the upsampler, autoencoder, vocoder, upphaser and
-autoregressive assemblies, the "ncca" and "all" UNet types, and the
-training-time conditioning dropout of the "cfg" type.
+autoregressive assemblies.
 """
 from __future__ import annotations
 
@@ -88,6 +93,16 @@ class Model1d(nn.Module):
                 context_embedding_features=context_embedding_features)
         self.unet = XUNet1d(type=unet_type, **kwargs)
 
+    def _net(self, generator: Optional[torch.Generator], net_kwargs):
+        """The UNet as the objective calls it; the variants that draw take
+        ``generator`` too."""
+        if self.unet_type != "base":
+            net_kwargs = dict(net_kwargs, generator=generator)
+
+        def net(xn, t):
+            return self.unet(xn, t, **net_kwargs)
+        return net
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None, *,
                 sigmas: Optional[torch.Tensor] = None,
@@ -95,20 +110,20 @@ class Model1d(nn.Module):
                 **net_kwargs) -> torch.Tensor:
         """Training loss (a scalar).  x (b, L, in_channels); the sigmas (b,)
         and the noise (like x) are drawn from ``generator`` on x's device
-        unless handed in; ``net_kwargs`` go to the UNet (``embedding=`` for
-        the "cfg" type)."""
-        def net(xn, t):
-            return self.unet(xn, t, **net_kwargs)
+        unless handed in, in that order, then the UNet's own draws;
+        ``net_kwargs`` go to the UNet (``embedding=`` and
+        ``embedding_mask_proba=`` for "cfg"/"all", ``channels_list=`` for
+        "ncca")."""
         return self.objective.loss_from_draws(
-            net, x, self.sigma_distribution, generator, sigmas=sigmas,
-            noise=noise)
+            self._net(generator, net_kwargs), x, self.sigma_distribution,
+            generator, sigmas=sigmas, noise=noise)
 
     def denoise(self, x: torch.Tensor, sigmas: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
                 **net_kwargs) -> torch.Tensor:
         """One denoise evaluation, the sampler's closure."""
-        def net(xn, t):
-            return self.unet(xn, t, **net_kwargs)
-        return self.objective.denoise(net, x, sigmas)
+        return self.objective.denoise(self._net(generator, net_kwargs), x,
+                                      sigmas)
 
 
 @torch.no_grad()
@@ -118,12 +133,20 @@ def sample_model1d(model: Model1d, noise: Optional[torch.Tensor] = None,
                    num_steps: int = 50, sampler: str = "v",
                    schedule: str = "linear", sigma_min: float = 1e-3,
                    sigma_max: float = 9.0, schedule_rho: float = 3.0,
-                   clamp: bool = True, **net_kwargs) -> torch.Tensor:
+                   clamp: bool = True,
+                   step_noise: Optional[torch.Tensor] = None,
+                   sampler_kwargs: Optional[Dict[str, Any]] = None,
+                   **net_kwargs) -> torch.Tensor:
     """Sample the ``Model1d`` family; the defaults are
     ``get_default_sampling_kwargs`` (linear schedule, v-sampler, clamp).
     Runs on the model's device: ``noise`` (b, L, in_channels) is moved
     there, or drawn there from ``generator`` at ``shape`` when it is None.
-    ``net_kwargs`` go to the UNet (``embedding=``, ``embedding_scale=``)."""
+    The stochastic samplers ("adpm2", "aeuler", "karras") take their step
+    noise from ``step_noise`` (num_steps - 1, b, L, in_channels) or from
+    ``generator``; ``sampler_kwargs`` are the sampler's own settings
+    (``s_churn=`` of "karras").  ``net_kwargs`` go to the UNet
+    (``embedding=``, ``embedding_scale=``); the UNet variants that draw take
+    ``generator`` too."""
     device = next(model.parameters()).device
     if noise is None:
         if shape is None or generator is None:
@@ -134,11 +157,15 @@ def sample_model1d(model: Model1d, noise: Optional[torch.Tensor] = None,
                            sigma_max=sigma_max, rho=schedule_rho)
 
     def denoise(x, s):
-        return model.denoise(x, s, **net_kwargs)
+        return model.denoise(x, s, generator, **net_kwargs)
 
+    kwargs = dict(sampler_kwargs or {})
+    if sampler != "v":
+        kwargs.update(step_noise=None if step_noise is None
+                      else step_noise.to(device), generator=generator)
     return run_sampler(denoise, noise.to(device), sigmas, num_steps,
                        sampler=sampler, clamp=clamp,
-                       objective_alias=model.diffusion_type)
+                       objective_alias=model.diffusion_type, **kwargs)
 
 
 # -------------------------------------------------- presets ---------------

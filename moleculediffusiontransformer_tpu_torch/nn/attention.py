@@ -4,7 +4,9 @@
 Channels-last; softmax in float32.  ``AttentionBase`` computes plain
 scaled-dot-product attention: the JAX package's ``packed_sdpa`` packs
 (batch, head) pairs block-diagonally only to fill the TPU's 128x128 matrix
-unit, and its math is exactly this.
+unit, and its math is exactly this.  With ``use_rel_pos`` it adds the T5
+bucketed ``RelativePositionBias`` to the float32 scores before the
+``d**-0.5`` scale, as the reference does, in self- and cross-attention.
 
 ``Transformer1d`` dispatches the whole stack to
 ``ops.transformer_fusion.transformer1d`` (the hand-written CUDA kernels on a
@@ -19,18 +21,71 @@ With the shared-KV switch on (``ops.transformer_fusion.enable_sharedkv``), a
 cross-attention stack called on the doubled batch that ``cfg_forward``
 flagged splits it: the conditioned half as above, the null half through
 the uniform-context kernel against the one FixedEmbedding table
-(``ops.transformer_fusion.null_half_table`` says when that holds).
+(``ops.transformer_fusion.null_half_table`` says when that holds).  A stack
+with relative position bias is never the kernel's: the gate refuses it, as
+the JAX ``fusable`` does.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops import flash_attention as fa
 from ..ops import transformer_fusion as tf
-from .primitives import Conv1d, Dense, GroupNorm, LayerNorm
+from .primitives import Conv1d, Dense, Embed, GroupNorm, LayerNorm
+
+
+def relative_position_bucket(relative_position: np.ndarray, num_buckets: int,
+                             max_distance: int) -> np.ndarray:
+    """T5 bucketing of relative positions (host numpy, int64): half the
+    buckets for each sign, exact below half of those, log-spaced up to
+    ``max_distance`` above."""
+    num_buckets //= 2
+    ret = (relative_position >= 0).astype(np.int64) * num_buckets
+    n = np.abs(relative_position)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = (max_exact
+                    + (np.log(np.maximum(n, 1).astype(np.float32) / max_exact)
+                       / math.log(max_distance / max_exact)
+                       * (num_buckets - max_exact)).astype(np.int64))
+    val_if_large = np.minimum(val_if_large, num_buckets - 1)
+    return ret + np.where(is_small, n, val_if_large)
+
+
+@functools.lru_cache(maxsize=64)
+def _buckets(num_queries: int, num_keys: int, num_buckets: int,
+             max_distance: int) -> np.ndarray:
+    """The (i, j) buckets of queries at positions j - i .. j - 1 against
+    keys at 0 .. j - 1."""
+    i, j = num_queries, num_keys
+    q_pos = np.arange(j - i, j, dtype=np.int64)
+    k_pos = np.arange(j, dtype=np.int64)
+    return relative_position_bucket(k_pos[None, :] - q_pos[:, None],
+                                    num_buckets, max_distance)
+
+
+class RelativePositionBias(nn.Module):
+    """T5-style bucketed relative bias: a float32 (num_buckets, heads) table
+    ``relative_attention_bias``; ``forward(i, j)`` is the (1, h, i, j) bias
+    of i queries at the last positions of j keys."""
+
+    def __init__(self, num_buckets: int, max_distance: int, num_heads: int):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = Embed(num_buckets, num_heads)
+
+    def forward(self, num_queries: int, num_keys: int) -> torch.Tensor:
+        table = self.relative_attention_bias.weight
+        buckets = torch.from_numpy(_buckets(
+            num_queries, num_keys, self.num_buckets,
+            self.max_distance)).to(table.device)
+        return table.float()[buckets].permute(2, 0, 1)[None]
 
 
 def feed_forward(features: int, multiplier: int,
@@ -62,13 +117,20 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 
 class AttentionBase(nn.Module):
-    """Multi-head SDPA core + output projection."""
+    """Multi-head SDPA core + output projection; with ``use_rel_pos`` the
+    relative bias ``rel_pos`` joins the float32 scores before the scale."""
 
     def __init__(self, features: int, head_features: int, num_heads: int,
+                 use_rel_pos: bool = False,
+                 rel_pos_num_buckets: Optional[int] = None,
+                 rel_pos_max_distance: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.head_features, self.num_heads, self.dtype = (
             head_features, num_heads, dtype)
+        self.rel_pos = (RelativePositionBias(rel_pos_num_buckets,
+                                             rel_pos_max_distance, num_heads)
+                        if use_rel_pos else None)
         self.to_out = Dense(head_features * num_heads, features, dtype=dtype)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
@@ -79,8 +141,14 @@ class AttentionBase(nn.Module):
         def split_heads(t):
             return t.reshape(b, -1, h, d).transpose(1, 2)
 
-        out = sdpa(split_heads(q), split_heads(k), split_heads(v),
-                   d ** -0.5, self.dtype)
+        q, k, v = split_heads(q), split_heads(k), split_heads(v)
+        if self.rel_pos is None:
+            out = sdpa(q, k, v, d ** -0.5, self.dtype)
+        else:
+            sim = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            sim = (sim + self.rel_pos(n, k.shape[2])) * (d ** -0.5)
+            attn = torch.softmax(sim, dim=-1)
+            out = torch.matmul(attn.to(self.dtype), v.to(self.dtype))
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))
 
 
@@ -90,6 +158,9 @@ class Attention(nn.Module):
 
     def __init__(self, features: int, head_features: int, num_heads: int,
                  context_features: Optional[int] = None,
+                 use_rel_pos: bool = False,
+                 rel_pos_num_buckets: Optional[int] = None,
+                 rel_pos_max_distance: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.context_features = context_features
@@ -99,8 +170,10 @@ class Attention(nn.Module):
         self.norm_context = LayerNorm(ctx, dtype=dtype)
         self.to_q = Dense(features, mid, bias=False, dtype=dtype)
         self.to_kv = Dense(ctx, mid * 2, bias=False, dtype=dtype)
-        self.attention = AttentionBase(features, head_features, num_heads,
-                                       dtype=dtype)
+        self.attention = AttentionBase(
+            features, head_features, num_heads, use_rel_pos=use_rel_pos,
+            rel_pos_num_buckets=rel_pos_num_buckets,
+            rel_pos_max_distance=rel_pos_max_distance, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -117,15 +190,15 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, features: int, num_heads: int, head_features: int,
                  multiplier: int, context_features: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, **rel_pos):
         super().__init__()
         self.use_cross = context_features is not None and context_features > 0
         self.attention = Attention(features, head_features, num_heads,
-                                   dtype=dtype)
+                                   dtype=dtype, **rel_pos)
         if self.use_cross:
             self.cross_attention = Attention(
                 features, head_features, num_heads,
-                context_features=context_features, dtype=dtype)
+                context_features=context_features, dtype=dtype, **rel_pos)
         self.feed_forward = feed_forward(features, multiplier, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
@@ -143,18 +216,19 @@ class Transformer1d(nn.Module):
     at the reference key ``to_out.1``.
 
     ``disable_fusion`` pins this instance to the module composition (the JAX
-    module's field of the same name)."""
+    module's field of the same name); so does ``use_rel_pos``, which the
+    stack kernel does not take."""
 
     def __init__(self, num_layers: int, channels: int, num_heads: int,
                  head_features: int, multiplier: int,
                  use_rel_pos: bool = False,
+                 rel_pos_num_buckets: Optional[int] = None,
+                 rel_pos_max_distance: Optional[int] = None,
                  context_features: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  disable_fusion: bool = False):
         super().__init__()
-        if use_rel_pos:
-            raise NotImplementedError(
-                "RelativePositionBias is not ported yet")
+        self.use_rel_pos = use_rel_pos
         self.num_layers, self.channels = num_layers, channels
         self.num_heads, self.head_features = num_heads, head_features
         self.multiplier, self.context_features = multiplier, context_features
@@ -166,7 +240,10 @@ class Transformer1d(nn.Module):
             TransformerBlock(channels, num_heads=num_heads,
                              head_features=head_features,
                              multiplier=multiplier,
-                             context_features=context_features, dtype=dtype)
+                             context_features=context_features, dtype=dtype,
+                             use_rel_pos=use_rel_pos,
+                             rel_pos_num_buckets=rel_pos_num_buckets,
+                             rel_pos_max_distance=rel_pos_max_distance)
             for _ in range(num_layers)])
         self.to_out = nn.Sequential(
             nn.Identity(),
@@ -199,7 +276,7 @@ class Transformer1d(nn.Module):
         ctx = context if has_cross else None
         if self.disable_fusion or not tf.stack_kernel_takes(
                 x, ctx, channels=self.channels, dtype=self.dtype,
-                head_dim=self.head_features):
+                head_dim=self.head_features, use_rel_pos=self.use_rel_pos):
             return self._compose(x, context)
         # the kernel reads dense (b, L, C) rows; a conv's channels-last
         # output is a transposed view

@@ -163,3 +163,17 @@ class Unpatcher(nn.Module):
     def forward(self, x: torch.Tensor,
                 mapping: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.block(unpatchify(x, self.patch_size), mapping)
+
+
+class ConditionedSequential(nn.Module):
+    """Sequential whose modules all take ``(x, mapping)``."""
+
+    def __init__(self, *modules: nn.Module):
+        super().__init__()
+        self.modules_list = nn.ModuleList(modules)
+
+    def forward(self, x: torch.Tensor,
+                mapping: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for module in self.modules_list:
+            x = module(x, mapping)
+        return x

@@ -1,6 +1,9 @@
-"""Time / position embeddings of the denoiser (port of `nn/embeddings.py`):
-the random-Fourier sigma embedding, the CFG null table and the non-learned
-1-D Fourier code of the conditioning head."""
+"""Time / position / number embeddings (port of `nn/embeddings.py`): the
+random-Fourier sigma embedding, the CFG null table, the sinusoidal integer
+embedding, ``NumberEmbedder`` (scalars through the sigma embedding, the NCCA
+UNet's noise-scale features) and the non-learned 1-D, 2-D and 3-D Fourier
+position codes, computed host-side in numpy float32 as the JAX package
+computes them."""
 from __future__ import annotations
 
 import math
@@ -11,6 +14,16 @@ import torch
 from torch import nn
 
 from .primitives import Dense, Embed
+
+
+def sinusoidal_embedding(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Log-spaced sin/cos embedding of integers (b,) -> (b, dim) float32."""
+    half_dim = dim // 2
+    emb = math.log(10000) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32,
+                                 device=x.device) * -emb)
+    emb = x[:, None].float() * emb[None, :]
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
 class LearnedPositionalEmbedding(nn.Module):
@@ -59,6 +72,39 @@ class FixedEmbedding(nn.Module):
         return emb[None].expand(batch, length, emb.shape[-1])
 
 
+class NumberEmbedder(nn.Module):
+    """Scalars of any shape -> shape + (features,): each through the
+    random-Fourier embedding and a Dense (``embedding.0`` / ``embedding.1``,
+    the reference's names)."""
+
+    def __init__(self, features: int, dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.features = features
+        self.embedding = time_positional_embedding(dim, features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32)
+        return self.embedding(x.reshape(-1)).reshape(*x.shape, self.features)
+
+
+def _fourier_inv_freq(channels: int) -> np.ndarray:
+    return 1.0 / (10000 ** (np.arange(0, channels, 2, dtype=np.float32)
+                            / channels))
+
+
+def _fourier(n: int, inv_freq: np.ndarray) -> np.ndarray:
+    """[sin(w x) ..., cos(w x) ...] at positions 0 .. n - 1."""
+    s = np.einsum("i,j->ij", np.arange(n, dtype=np.float32), inv_freq)
+    return np.concatenate([np.sin(s), np.cos(s)], axis=-1)
+
+
+def _to_torch(a: np.ndarray, dtype: torch.dtype,
+              device: Optional[torch.device]) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
+
+
 def positional_encoding_1d(length: int, channels: int,
                            dtype: torch.dtype = torch.float32,
                            device: Optional[torch.device] = None
@@ -68,11 +114,38 @@ def positional_encoding_1d(length: int, channels: int,
     truncated to ``channels``.  Computed in numpy float32, as the JAX
     package does."""
     ch = int(np.ceil(channels / 2) * 2)
-    inv_freq = 1.0 / (10000 ** (np.arange(0, ch, 2, dtype=np.float32) / ch))
-    pos = np.arange(length, dtype=np.float32)
-    sin_inp = np.einsum("i,j->ij", pos, inv_freq)
-    emb = np.concatenate([np.sin(sin_inp), np.cos(sin_inp)], axis=-1)
+    emb = _fourier(length, _fourier_inv_freq(ch))
     out = np.zeros((length, ch), dtype=np.float32)
     out[:, :emb.shape[1]] = emb
-    return torch.from_numpy(out[:, :channels].copy()).to(
-        device=device, dtype=dtype)
+    return _to_torch(out[:, :channels], dtype, device)
+
+
+def positional_encoding_2d(nx: int, ny: int, channels: int,
+                           dtype: torch.dtype = torch.float32,
+                           device: Optional[torch.device] = None
+                           ) -> torch.Tensor:
+    """(nx, ny, channels) sinusoidal 2-D encoding: the x code in the first
+    quarter-rounded half of the channels, the y code in the second."""
+    ch = int(np.ceil(channels / 4) * 2)
+    inv_freq = _fourier_inv_freq(ch)
+    out = np.zeros((nx, ny, ch * 2), dtype=np.float32)
+    out[:, :, :ch] = _fourier(nx, inv_freq)[:, None, :]
+    out[:, :, ch:2 * ch] = _fourier(ny, inv_freq)[None, :, :]
+    return _to_torch(out[:, :, :channels], dtype, device)
+
+
+def positional_encoding_3d(nx: int, ny: int, nz: int, channels: int,
+                           dtype: torch.dtype = torch.float32,
+                           device: Optional[torch.device] = None
+                           ) -> torch.Tensor:
+    """(nx, ny, nz, channels) sinusoidal 3-D encoding: x, y and z codes in
+    three equal, even runs of channels."""
+    ch = int(np.ceil(channels / 6) * 2)
+    if ch % 2:
+        ch += 1
+    inv_freq = _fourier_inv_freq(ch)
+    out = np.zeros((nx, ny, nz, ch * 3), dtype=np.float32)
+    out[..., :ch] = _fourier(nx, inv_freq)[:, None, None, :]
+    out[..., ch:2 * ch] = _fourier(ny, inv_freq)[None, :, None, :]
+    out[..., 2 * ch:] = _fourier(nz, inv_freq)[None, None, :, :]
+    return _to_torch(out[..., :channels], dtype, device)

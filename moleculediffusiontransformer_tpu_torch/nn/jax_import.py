@@ -5,11 +5,15 @@ port never imports the JAX package's ``nn``).
 A flax param tree is nested dicts keyed by module names in which torch
 Sequential/ModuleList indices are merged into the name (``to_in_0``,
 ``blocks_1``, ``layers_0_2_1``); leaves are ``kernel``/``tkernel``/
-``scale``/``embedding``/``bias``/``weights``, or a torch name kept as it is
-(``in_proj_weight``, ``gamma``).  The torch key splits the trailing index
-tokens back out (``to_in.0``, ``layers.0.2.1``) and names the leaf as torch
-does; conv and linear kernels and the attention's fused in-projection go
-back to torch layout.
+``scale``/``embedding``/``bias``/``weights``, or a name kept as it is
+(``in_proj_weight``, ``gamma``, ``null_k``, ``pos_bias``, the MoE's
+``router``, ``w_in`` and ``w_out``).  The torch key splits the index tokens
+back out (``to_in.0``, ``layers.0.2.1``, ``layers.0.1.moe``) and names the
+leaf as torch does; conv and linear kernels (a depthwise conv's (k, 1, c)
+too, to (c, 1, k)) and the attention's fused in-projection go back to torch
+layout.  Every other leaf keeps its layout: the MoE's stacked (E, d, h) and
+(E, h, d) experts and its (d, E) router, and the ``Embed`` tables
+(``relative_attention_bias``).
 """
 from __future__ import annotations
 
@@ -36,16 +40,24 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
 
 def torch_key(path: Tuple[str, ...]) -> str:
     """``('downsamples_0', 'blocks_1', 'block1', 'project', 'weight')`` ->
-    ``'downsamples.0.blocks.1.block1.project.weight'``.  Digits inside an
-    attribute name without '_' (``block1``) stay put."""
+    ``'downsamples.0.blocks.1.block1.project.weight'``.  Every '_'-token
+    that is all digits is an index of its own; the tokens between are one
+    attribute name (``layers_0_1_moe`` -> ``layers.0.1.moe``, the GPT's MoE
+    feed-forward).  Digits inside an attribute name without '_'
+    (``block1``) stay put."""
     segs: List[str] = []
     for seg in path:
-        tokens = seg.split("_")
-        i = len(tokens)
-        while i > 1 and tokens[i - 1].isdigit():
-            i -= 1
-        segs.append("_".join(tokens[:i]))
-        segs.extend(tokens[i:])
+        name: List[str] = []
+        for token in seg.split("_"):
+            if not token.isdigit():
+                name.append(token)
+                continue
+            if name:
+                segs.append("_".join(name))
+                name = []
+            segs.append(token)
+        if name:
+            segs.append("_".join(name))
     return ".".join(segs)
 
 

@@ -1,4 +1,8 @@
-"""The 1-D denoiser UNet and its CFG variant (port of `nn/unet.py`).
+"""The 1-D denoiser UNet and its variants (port of `nn/unet.py`): the base
+``UNet1d``, ``UNetCFG1d`` (classifier-free guidance, with the training-time
+conditioning dropout ``embedding_mask_proba``), ``UNetNCCA1d`` (noise-channel
+conditioning augmentation) and ``UNetAll1d`` (CFG with the NCCA embedder's
+parameters), built by ``XUNet1d``.
 
 Channels-last (b, L, C).  Classifier-free guidance runs as one
 doubled-batch forward, ``[conditioned; null]``, blended as
@@ -6,12 +10,13 @@ doubled-batch forward, ``[conditioned; null]``, blended as
 per-sample.  Submodule names are the reference's, so ``state_dict`` keys
 match the JAX package's export.
 
+The variants' draws (the dropout's keep mask, the NCCA noise) are handed in
+or drawn from a ``torch.Generator``, never from torch's global generator.
+
 Each down and up block runs its ResnetBlock1d's as modules by default, or,
 with ``ops.resnet_fusion.enable_resnet_fusion()``, as one kernel run
 (``_resnet_run``, as the JAX package routes it; the bottleneck's blocks and
 the Patcher/Unpatcher stay modules there too).
-
-Not ported yet: the NCCA and All variants (``XUNet1d`` types "ncca"/"all").
 """
 from __future__ import annotations
 
@@ -25,13 +30,17 @@ from ..ops import transformer_fusion as tf
 from .attention import Transformer1d
 from .blocks import (Patcher, ResnetBlock1d, Unpatcher, downsample1d,
                      upsample1d)
-from .embeddings import FixedEmbedding, time_positional_embedding
+from .embeddings import (FixedEmbedding, NumberEmbedder,
+                         time_positional_embedding)
 from .primitives import Dense
 
 
-def _attention_kwargs(heads, features, multiplier, use_rel_pos):
+def _attention_kwargs(heads, features, multiplier, use_rel_pos,
+                      rel_pos_num_buckets, rel_pos_max_distance):
     return dict(num_heads=heads, head_features=features,
-                multiplier=multiplier, use_rel_pos=use_rel_pos)
+                multiplier=multiplier, use_rel_pos=use_rel_pos,
+                rel_pos_num_buckets=rel_pos_num_buckets,
+                rel_pos_max_distance=rel_pos_max_distance)
 
 
 def _resnet_run(mod: nn.Module, x: torch.Tensor,
@@ -72,6 +81,8 @@ class DownsampleBlock1d(nn.Module):
                  attention_features: Optional[int] = None,
                  attention_multiplier: Optional[int] = None,
                  attention_use_rel_pos: bool = False,
+                 attention_rel_pos_num_buckets: Optional[int] = None,
+                 attention_rel_pos_max_distance: Optional[int] = None,
                  context_mapping_features: Optional[int] = None,
                  context_embedding_features: Optional[int] = None,
                  pre_transformer: int = 0,
@@ -82,7 +93,9 @@ class DownsampleBlock1d(nn.Module):
         self.num_groups = num_groups
         self.resnet_weights = rf.WeightCache()
         attn = _attention_kwargs(attention_heads, attention_features,
-                                 attention_multiplier, attention_use_rel_pos)
+                                 attention_multiplier, attention_use_rel_pos,
+                                 attention_rel_pos_num_buckets,
+                                 attention_rel_pos_max_distance)
         ch = out_channels
         self.downsample = downsample1d(in_channels, out_channels, factor,
                                        kernel_multiplier, dtype=dtype)
@@ -136,6 +149,8 @@ class UpsampleBlock1d(nn.Module):
                  attention_features: Optional[int] = None,
                  attention_multiplier: Optional[int] = None,
                  attention_use_rel_pos: bool = False,
+                 attention_rel_pos_num_buckets: Optional[int] = None,
+                 attention_rel_pos_max_distance: Optional[int] = None,
                  context_mapping_features: Optional[int] = None,
                  context_embedding_features: Optional[int] = None,
                  pre_transformer: int = 0,
@@ -146,7 +161,9 @@ class UpsampleBlock1d(nn.Module):
         self.num_groups = num_groups
         self.resnet_weights = rf.WeightCache()
         attn = _attention_kwargs(attention_heads, attention_features,
-                                 attention_multiplier, attention_use_rel_pos)
+                                 attention_multiplier, attention_use_rel_pos,
+                                 attention_rel_pos_num_buckets,
+                                 attention_rel_pos_max_distance)
         ch = in_channels
         self.blocks = nn.ModuleList([
             ResnetBlock1d(ch + skip_channels if use_skip else ch, ch,
@@ -187,6 +204,8 @@ class BottleneckBlock1d(nn.Module):
                  attention_features: Optional[int] = None,
                  attention_multiplier: Optional[int] = None,
                  attention_use_rel_pos: bool = False,
+                 attention_rel_pos_num_buckets: Optional[int] = None,
+                 attention_rel_pos_max_distance: Optional[int] = None,
                  context_mapping_features: Optional[int] = None,
                  context_embedding_features: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
@@ -201,7 +220,9 @@ class BottleneckBlock1d(nn.Module):
                           **_attention_kwargs(attention_heads,
                                               attention_features,
                                               attention_multiplier,
-                                              attention_use_rel_pos))
+                                              attention_use_rel_pos,
+                                              attention_rel_pos_num_buckets,
+                                              attention_rel_pos_max_distance))
             if num_transformer_blocks > 0 else None)
         self.post_block = ResnetBlock1d(
             channels, channels, num_groups=num_groups,
@@ -241,6 +262,8 @@ class UNet1d(nn.Module):
                  attention_features: Optional[int] = None,
                  attention_multiplier: Optional[int] = None,
                  attention_use_rel_pos: bool = False,
+                 attention_rel_pos_max_distance: Optional[int] = None,
+                 attention_rel_pos_num_buckets: Optional[int] = None,
                  pre_transformer: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -261,7 +284,10 @@ class UNet1d(nn.Module):
         attn = dict(attention_heads=attention_heads,
                     attention_features=attention_features,
                     attention_multiplier=attention_multiplier,
-                    attention_use_rel_pos=attention_use_rel_pos)
+                    attention_use_rel_pos=attention_use_rel_pos,
+                    attention_rel_pos_num_buckets=attention_rel_pos_num_buckets,
+                    attention_rel_pos_max_distance=(
+                        attention_rel_pos_max_distance))
 
         if use_context_time:
             self.to_time = nn.Sequential(
@@ -413,11 +439,29 @@ def cfg_forward(unet_apply, x: torch.Tensor, time: torch.Tensor,
     return out_masked + (out - out_masked) * embedding_scale
 
 
+def _keep_mask(keep: Optional[torch.Tensor], proba: float, batch: int,
+               generator: Optional[torch.Generator],
+               device: torch.device) -> torch.Tensor:
+    """The conditioning dropout's (b, 1, 1) keep mask: ``keep`` as handed in
+    (any shape of b elements), or True where a uniform from ``generator`` is
+    at least ``proba`` (JAX's ``bernoulli(proba)`` marks the dropped rows)."""
+    if keep is None:
+        if generator is None:
+            raise ValueError("embedding_mask_proba > 0 needs a keep mask "
+                             "(embedding_keep=) or a generator")
+        u = torch.rand(batch, generator=generator, device=generator.device)
+        keep = u >= proba
+    return keep.to(device=device, dtype=torch.bool).reshape(batch, 1, 1)
+
+
 class UNetCFG1d(UNet1d):
     """UNet1d with classifier-free guidance; the null conditioning is a
-    learned positional table of the live embedding's shape.  (The
-    training-time conditioning dropout, ``embedding_mask_proba``, comes
-    with the training port.)"""
+    learned positional table of the live embedding's shape.
+
+    ``embedding_mask_proba > 0`` (the training-time conditioning dropout)
+    replaces a row's embedding by the null table where its keep mask is
+    False: ``embedding_keep`` (b, 1, 1) is handed in, or drawn from
+    ``generator`` with probability ``1 - embedding_mask_proba``."""
 
     def __init__(self, *, context_embedding_max_length: int, **kwargs):
         super().__init__(**kwargs)
@@ -427,19 +471,86 @@ class UNetCFG1d(UNet1d):
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None,
                 *, embedding: torch.Tensor, embedding_scale: float = 1.0,
+                embedding_mask_proba: float = 0.0,
+                embedding_keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
                 **kwargs) -> torch.Tensor:
         fixed = self.fixed_embedding(embedding)
+        if embedding_mask_proba > 0.0:
+            keep = _keep_mask(embedding_keep, embedding_mask_proba,
+                              embedding.shape[0], generator, embedding.device)
+            embedding = torch.where(keep, embedding, fixed)
         return cfg_forward(self.unet_forward, x, time, embedding, fixed,
                            embedding_scale=embedding_scale, **kwargs)
 
 
+class UNetNCCA1d(UNet1d):
+    """UNet1d with noise-channel conditioning augmentation: each item of
+    ``channels_list`` becomes ``noise * s + item * (1 - s)`` with ``s =
+    channels_scale * channels_augmentation`` (per row and item), and the raw
+    ``channels_scale`` is embedded (``embedder``, a NumberEmbedder; the
+    reference embeds the scale before the augmentation gates it) and summed
+    over the items into the UNet's ``features``.  The noise, one standard
+    normal like each item, is handed in (``channels_noise``) or drawn from
+    ``generator``."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.embedder = NumberEmbedder(self.context_features,
+                                       dtype=self.dtype)
+
+    def forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None,
+                *, channels_list: Sequence[torch.Tensor],
+                channels_augmentation: Any = False,
+                channels_scale: Any = 0.0,
+                channels_noise: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                **kwargs) -> torch.Tensor:
+        b, n = x.shape[0], len(channels_list)
+        if channels_noise is None and generator is None:
+            raise ValueError("UNetNCCA1d needs channels_noise or a generator")
+        aug = torch.as_tensor(channels_augmentation, dtype=x.dtype,
+                              device=x.device).expand(b, n)
+        raw_scale = torch.as_tensor(channels_scale, dtype=x.dtype,
+                                    device=x.device).expand(b, n)
+        scale = raw_scale * aug
+        out_channels_list = []
+        for i, item in enumerate(channels_list):
+            s = scale[:, i].reshape(-1, 1, 1)
+            if channels_noise is None:
+                noise = torch.randn(item.shape, generator=generator,
+                                    dtype=item.dtype, device=item.device)
+            else:
+                noise = channels_noise[i].to(item.device, item.dtype)
+            out_channels_list.append(noise * s + item * (1 - s))
+        features = self.embedder(raw_scale).sum(dim=1)
+        return self.unet_forward(x, time, channels_list=out_channels_list,
+                                 features=features, **kwargs)
+
+
+class UNetAll1d(UNetCFG1d):
+    """CFG with the NCCA embedder's parameters: the reference's class
+    inherits both, so with ``context_features`` it owns ``embedder`` (which
+    its forward never uses; kept so that checkpoints load), and it runs the
+    CFG forward."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        if self.context_features is not None:
+            self.embedder = NumberEmbedder(self.context_features,
+                                           dtype=self.dtype)
+
+
 def XUNet1d(type: str = "base", **kwargs) -> UNet1d:
-    """Factory mirroring the reference's ``XUNet1d`` for the ported types."""
+    """Factory mirroring the reference's ``XUNet1d``: "base", "cfg", "ncca"
+    or "all"."""
     if type == "base":
         kwargs.pop("context_embedding_max_length", None)
         return UNet1d(**kwargs)
+    if type == "all":
+        return UNetAll1d(**kwargs)
     if type == "cfg":
         return UNetCFG1d(**kwargs)
-    if type in ("ncca", "all"):
-        raise NotImplementedError(f"XUNet1d type {type!r} is not ported yet")
+    if type == "ncca":
+        return UNetNCCA1d(**kwargs)
     raise ValueError(f"Unknown XUNet1d type: {type}")

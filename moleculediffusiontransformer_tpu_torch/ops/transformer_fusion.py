@@ -145,13 +145,14 @@ def null_half_table(context: torch.Tensor) -> Optional[torch.Tensor]:
 
 
 def stack_kernel_takes(x: torch.Tensor, context: Optional[torch.Tensor], *,
-                       channels: int, dtype: torch.dtype,
-                       head_dim: int) -> bool:
+                       channels: int, dtype: torch.dtype, head_dim: int,
+                       use_rel_pos: bool = False) -> bool:
     """The static part of the JAX ``fusable`` gate: a stack the kernel takes.
-    (``use_rel_pos`` is refused by the module itself; the VMEM budget of the
-    TPU gate has no counterpart here.)  A head size past ``MAX_HEAD_DIM``
-    is, like a length past ``MAX_LENGTH``, the composition's."""
-    return (channels % 32 == 0 and x.dim() == 3 and x.shape[-1] == channels
+    A stack with relative position bias never is (the kernel has no bias
+    term; the JAX gate refuses it too); the VMEM budget of the TPU gate has
+    no counterpart here.  A head size past ``MAX_HEAD_DIM`` is, like a length
+    past ``MAX_LENGTH``, the composition's."""
+    return (not use_rel_pos and channels % 32 == 0 and x.dim() == 3 and x.shape[-1] == channels
             and x.dtype == dtype and dtype in _DTYPES
             and 1 <= x.shape[1] <= MAX_LENGTH
             and 1 <= head_dim <= MAX_HEAD_DIM

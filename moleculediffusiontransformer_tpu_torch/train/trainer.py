@@ -1,7 +1,8 @@
 """Training: Adam behind a global-norm clip, the train steps, and the epoch
 loop with checkpoints and exact resume (port of `train/trainer.py`:
 ``make_optimizer``, ``make_diffusion_train_step``,
-``make_transformer_train_step``, ``make_encoder_train_step``,
+``make_transformer_train_step``, ``make_gpt_train_step``,
+``make_encoder_train_step``,
 ``preflight_memory_check``, ``MetricsLogger``, ``train_diffusion``;
 ``make_model1d_train_step`` is the diffusion step for a model whose loss
 takes only the data).
@@ -299,6 +300,36 @@ def make_transformer_train_step(model: nn.Module,
             params, optimizer, state, 1, props.shape[0], ids.device,
             lambda rows: model(props, ids, return_loss=True,
                                generator=generator, keep=keep))
+
+    return train_step
+
+
+def make_gpt_train_step(model: nn.Module, optimizer: ClipAdam,
+                        aux_loss_weight: float = 0.0,
+                        ignore_padding_zeros: bool = False) -> Callable:
+    """``step(state, ids) -> loss`` for the unconditional GPT decoders: the
+    next-token cross entropy of ``model(ids, return_loss=True)`` (the label
+    0 skipped with ``ignore_padding_zeros``), one clip and one Adam update,
+    no accumulation.  ``aux_loss_weight > 0`` adds that weight times the
+    mean over the MoE layers of their load-balance losses
+    (``model.moe_aux_losses()``; Switch Transformer's recipe, typically
+    1e-2), which a dense model does not have.  The float32 grads stay on
+    the parameters' ``.grad``; returns the loss (a float32 tensor on the
+    model's device)."""
+    params = list(model.parameters())
+
+    def loss_of(ids: torch.Tensor) -> torch.Tensor:
+        loss = model(ids, return_loss=True,
+                     ignore_padding_zeros=ignore_padding_zeros)
+        if aux_loss_weight:
+            aux = model.moe_aux_losses()
+            if aux:
+                loss = loss + aux_loss_weight * (sum(aux) / len(aux))
+        return loss
+
+    def train_step(state: TrainState, ids: torch.Tensor) -> torch.Tensor:
+        return _accumulated_step(params, optimizer, state, 1, ids.shape[0],
+                                 ids.device, lambda rows: loss_of(ids))
 
     return train_step
 

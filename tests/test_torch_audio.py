@@ -95,8 +95,8 @@ def test_make_objective():
     k = objectives.make_objective("k", sigma_data=0.3, dynamic_threshold=0.9)
     assert (k.alias, k.sigma_data, k.dynamic_threshold) == ("k", 0.3, 0.9)
     assert objectives.make_objective("v").alias == "v"
-    with pytest.raises(NotImplementedError):
-        objectives.make_objective("vk")
+    assert isinstance(objectives.make_objective("vk"),
+                      objectives.VKDiffusion)
     with pytest.raises(ValueError):
         objectives.make_objective("x")
 
@@ -143,14 +143,15 @@ def test_v_sampler_matches_jax(steps):
     got = samplers.sample(tden, torch.tensor(noise), sig, steps,
                           sampler="v", clamp=False, objective_alias="v")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
-    assert samplers.SAMPLER_COMPAT == {
-        k: jsamplers.SAMPLER_COMPAT[k] for k in ("adpm2", "v")}
+    assert samplers.SAMPLER_COMPAT == jsamplers.SAMPLER_COMPAT
     with pytest.raises(AssertionError):
         samplers.sample(tden, torch.tensor(noise), sig, steps, sampler="v",
                         objective_alias="k")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="step_noise or a generator"):
         samplers.sample(tden, torch.tensor(noise), sig, steps,
                         sampler="karras")
+    with pytest.raises(ValueError, match="Unknown sampler"):
+        samplers.sample(tden, torch.tensor(noise), sig, steps, sampler="x")
 
 
 def test_tiny_model1d_denoise_and_sample():

@@ -38,6 +38,7 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.nn.attention",
     "moleculediffusiontransformer_tpu_torch.nn.unet",
     "moleculediffusiontransformer_tpu_torch.nn.transformer_blocks",
+    "moleculediffusiontransformer_tpu_torch.nn.moe",
     "moleculediffusiontransformer_tpu_torch.nn.jax_import",
     "moleculediffusiontransformer_tpu_torch.ops.cuda_build",
     "moleculediffusiontransformer_tpu_torch.ops.transformer_fusion",
@@ -135,9 +136,11 @@ def test_flagship_parameter_count():
 
 
 def test_entry_points_default_to_the_card():
-    """``from_config``, the ``Model1d`` factories, the AR transformer, the
-    forward encoder and ``from_encoder_config`` put the model on the card
-    unless the caller names a device: with no device
+    """``from_config``, the ``Model1d`` factories (the "all"/vk and "ncca"
+    types too), the AR transformer, the forward encoder,
+    ``from_encoder_config``, both GPTs, the continuous decoder and the
+    Internaldim decoder put the model on the card unless the caller names a
+    device: with no device
     argument they ask for "cuda" (which raises on a host without one), never
     the CPU."""
     from moleculediffusiontransformer_tpu_torch.models import (audio,
@@ -157,7 +160,23 @@ def test_entry_points_default_to_the_card():
                   dim=16, depth=1, heads=2, logits_dim=1,
                   logits_dim_length=12, max_length=8, **kw),
               lambda **kw: transformers.from_encoder_config(
-                  forward_transformer_qm9(), **kw)]
+                  forward_transformer_qm9(), **kw),
+              lambda **kw: audio.AudioDiffusionConditional(
+                  8, 6, unet_type="all", diffusion_type="vk", **tiny, **kw),
+              lambda **kw: audio.AudioDiffusionModel(
+                  **dict(tiny, in_channels=1), unet_type="ncca",
+                  context_channels=(1,), context_features=8, **kw),
+              lambda **kw: transformers.MoleculeTransformerGPT(
+                  dim=16, depth=1, heads=2, dim_head=8, ff_num_experts=2,
+                  **kw),
+              lambda **kw: transformers.MoleculeTransformerGPTPyTorch(
+                  dim=16, depth=1, heads=2, **kw),
+              lambda **kw: transformers.MoleculeTransformer(
+                  dim=16, depth=1, heads=2, dim_head=8, logits_dim=8,
+                  text_embed_dim=16, **kw),
+              lambda **kw: transformers.MoleculeTransformerSequenceInternaldim(
+                  dim=16, depth=1, heads=2, dim_head=8, logits_dim=24,
+                  text_embed_dim=16, **kw)]
     for build in builds:
         if torch.cuda.is_available():
             assert next(build().parameters()).device.type == "cuda"
@@ -231,6 +250,50 @@ def test_chip_smoke_builds_the_encoder_preset():
             a.layers[0][0].heads) == (b.max_length, b.logits_dim_length,
                                       b.padding_token, b.layers[0][0].heads)
     assert sum(p.numel() for p in a.parameters()) == 3_162_496
+
+
+def test_chip_smoke_builds_the_gpt_preset():
+    """Phase 29's GPT is ``MoleculeTransformerGPT`` at the JAX class's
+    defaults, its MoE and GNN variants the JAX package's: equal parameter
+    counts."""
+    from moleculediffusiontransformer_tpu.models.transformers import \
+        MoleculeTransformerGPT as JGPT
+    from moleculediffusiontransformer_tpu_torch.models import transformers
+    smoke = _smoke()
+    ids = jnp.zeros((1, 32), jnp.int32)
+    for kw in ({}, smoke.GPT_MOE, smoke.GPT_GNN):
+        a = _meta_model(build=transformers.MoleculeTransformerGPT,
+                        device="meta", **smoke.GPT_PRESET, **kw)
+        shapes = jax.eval_shape(JGPT(**kw).init, jax.random.PRNGKey(0),
+                                ids)["params"]
+        assert sum(p.numel() for p in a.parameters()) == sum(
+            int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
+
+
+def test_chip_smoke_builds_the_audio_all_preset():
+    """Phase 28's "all"/vk model is the JAX package's
+    ``AudioDiffusionConditional`` at the same arguments: the same
+    parameters, by key and shape."""
+    from moleculediffusiontransformer_tpu.diffusion import \
+        distributions as jdist
+    from moleculediffusiontransformer_tpu.models import audio as jaudio
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    smoke = _smoke()
+    a = _meta_model(build=audio.AudioDiffusionConditional, device="meta",
+                    **smoke.AUDIO_ALL)
+    kw = dict(smoke.AUDIO_ALL)
+    kw["diffusion_sigma_distribution"] = jdist.make_distribution("vk")
+    j = jaudio.AudioDiffusionConditional(**kw)
+    length = 16 * 4 * 4 * 4 * 2 * 2 * 2
+    shapes = jax.eval_shape(
+        j.init, {"params": jax.random.PRNGKey(0)},
+        jnp.zeros((1, length, kw["in_channels"])), jax.random.PRNGKey(0),
+        embedding=jnp.zeros((1, kw["embedding_max_length"],
+                             kw["embedding_features"])))["params"]
+    want = {k: tuple(v.shape) for k, v in state_dict_from_jax_params(
+        jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                               shapes)).items()}
+    assert {k: tuple(v.shape) for k, v in a.state_dict().items()} == want
 
 
 def _run(code: str, env=None) -> subprocess.CompletedProcess:
