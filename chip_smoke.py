@@ -222,9 +222,37 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    CPU: logits within 1e-4 and one train step's loss within 1e-4
    relative.
 
+30. serving (``design/export.py``, ``design/serve.py``,
+   ``design/http_serve.py``): through ``cli.main(["export", ...])`` the 91M
+   sampler (bf16, batch 512, 64 steps, cond scale 2.0; once with both
+   switches off, once with both on; and in float32 at batch 8, 8 steps,
+   both on), its inpainter (batch 64), the AR generator (batch 1,024, 63
+   tokens) and the encoder (batch 1,024), each loaded in
+   ``ArtifactServer`` on the card, which must serve on its graph tier (one
+   whole request captured in a CUDA graph); each against the live path on
+   the same weights and draws, on both tiers: within 2e-2 of scale in
+   bf16, 1e-4 in float32, the generator's ids equal; again after
+   ``reload_checkpoint`` to second weights (switches on: bf16 on the graph
+   tier, float32 on both); K1, uniform_ctx and K8 launched exactly stacks
+   (or runs) x evaluations by the live request, captured in the graph and
+   launched by the eager tier, and none by a replay; each captured graph's
+   kernel nodes (read through libcuda) of K1's GroupNorm kernel and K8's
+   SiLU kernel, each launched once a call, equal to those launch counts; a
+   traced replay of the sampler, the generator and the encoder (device
+   ms, the device's busy share of the traced request,
+   the stack kernels seen running in it, the largest kernels); then
+   ``make_httpd`` on
+   localhost:
+   ``/healthz`` names the graph tier, ``/sample``, ``/inpaint``,
+   ``/generate`` equal the direct call, ``/reload`` and ``/metrics``, and 64
+   concurrent one-row ``/predict`` requests coalesced into fewer device
+   calls, each equal to one direct call of all 64 rows.
+
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
-(K1 and the training kernels also with ``launches_cli_train``, those of
+(K1, K8 and uniform_ctx also with ``launches_served``, those of phase 30's
+served requests; K1 and the training kernels also with
+``launches_cli_train``, those of
 phase 27's straight CLI train: its steps, its preflight pass and its
 held-out eval; the training kernels also with
 ``launches_audio_all_train``, those of phase 28's training steps),
@@ -463,6 +491,14 @@ GPT_TRAIN_BATCH, GPT_TRAIN_TOKENS = 512, 32
 GPT_MOE_BATCH, GPT_MOE_AUX = 64, 1e-2
 GPT_SMALL_BATCH = 16
 GPT_PARITY_BATCH = 8
+# phase 30: the serving artifacts, exported through the CLI's code at the
+# notebook presets (the 91M sampler at the tokenizer's vocabulary, its
+# inpainter, the AR generator, the encoder), bf16, seeded random weights;
+# the float32 check at batch 8; 64 one-row /predict clients
+SERVE_BATCH, SERVE_INPAINT_BATCH, SERVE_AR_BATCH = 512, 64, 1024
+SERVE_ENCODER_BATCH, SERVE_PARITY_BATCH, SERVE_PARITY_STEPS = 1024, 8, 8
+SERVE_PREDICT_CLIENTS, SERVE_WINDOW_MS = 64, 200.0
+SERVE_PRESET = "notebook"
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -3692,7 +3728,612 @@ def gpt_family(dev):
     phase("gpt_family_phase_seconds", seconds=time.perf_counter() - t0)
 
 
+def serve_export(dev, tmp, name, task, *args):
+    """``python -m ... export`` of ``task`` at ``SERVE_PRESET`` on ``dev``,
+    in this process (``cli_run``): the artifact's path.  Export calls each
+    program once before tracing it (the launches reported)."""
+    path = os.path.join(tmp, name + ".pt2")
+    _, seconds, launched, _ = cli_run(
+        ["export", "--task", task, "--preset", SERVE_PRESET, "--device",
+         dev.type, "--out", path, *args])
+    phase("serve_export", artifact=name, task=task, args=list(args),
+          seconds=seconds, bytes=os.path.getsize(path),
+          launched={k: v for k, v in launched.items() if v})
+    return path
+
+
+def serve_artifact_args(vocab, tvocab):
+    """Phase 30's exports: name -> (task, the CLI's arguments), at the
+    inverse tokenizer's ``vocab`` and the transformer one's ``tvocab``."""
+    def diffusion(batch, steps=NUM_STEPS):
+        return ("--vocab", str(vocab), "--timesteps", str(steps),
+                "--cond-scale", str(COND_SCALE), "--batch", str(batch))
+
+    inverse, ar, enc = ("inverse_diffusion", "inverse_transformer",
+                        "forward_transformer")
+    return {
+        "sampler": (inverse, diffusion(SERVE_BATCH)),
+        "sampler_switches_on": (inverse, diffusion(SERVE_BATCH)),
+        "sampler_fp32": (inverse, (*diffusion(SERVE_PARITY_BATCH,
+                                              SERVE_PARITY_STEPS),
+                                   "--dtype", "float32")),
+        "inpainter": (inverse, (*diffusion(SERVE_INPAINT_BATCH),
+                                "--inpaint")),
+        "generator": (ar, ("--vocab", str(tvocab), "--batch",
+                           str(SERVE_AR_BATCH), "--tokens", str(AR_TOKENS),
+                           "--cond-scale", str(AR_COND_SCALE))),
+        "encoder": (enc, ("--vocab", str(tvocab), "--batch",
+                          str(SERVE_ENCODER_BATCH)))}
+
+
+def serve_model(dev, task, vocab, seed, dtype):
+    """The task's model at ``SERVE_PRESET`` with seeded weights on ``dev``,
+    in eval mode (its weights are float32 whatever ``dtype`` computes
+    in)."""
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    return recipes.build_model(task, vocab, SERVE_PRESET, dtype=dtype,
+                               device=dev, seed=seed).eval()
+
+
+def serve_checkpoint(tmp, model, name):
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import (
+        checkpoint_state, save_checkpoint)
+    return save_checkpoint(os.path.join(tmp, name + ".pt"),
+                           checkpoint_state(model))
+
+
+def serve_load(dev, path, checkpoint, what):
+    """``ArtifactServer`` on ``dev``: the graph tier must serve, its graph
+    holding each kernel the wrappers counted (``graph_kernel_nodes``)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.design import ArtifactServer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with kept_graphs():
+        server = ArtifactServer(path, checkpoint, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    phase("serve_load", artifact=what, kind=server.kind, tier=server.tier,
+          exec_error=server.exec_error, seconds=seconds,
+          startup=server.startup, captured_launches=server.launches,
+          batch=server.batch, graph_nodes=len(server.program.graph.nodes),
+          programs={k: len(p.graph.nodes) for k, p in
+                    server.programs.items()},
+          constants={k: [str(v.device), *v.shape] for k, v in
+                     server.program.constants.items()
+                     if isinstance(v, torch.Tensor)})
+    if server.tier != "graph":
+        raise AssertionError(f"{what}: the graph tier did not capture: "
+                             f"{server.exec_error}")
+    graph_kernel_nodes(what, server)
+    return server
+
+
+# a kernel each wrapper launches exactly once a call: K1's GroupNorm (also
+# under uniform_ctx), K8's SiLU of the mapping (every served run has FiLM)
+GRAPH_KERNELS = {
+    "group_norm_kernel": ("LAUNCHES", "UNIFORM_LAUNCHES"),
+    "silu_kernel": ("RESNET_LAUNCHES",)}
+
+
+def graph_kernel_pattern(name: str):
+    """``name``, mangled or demangled, a template ``__global__`` of the
+    port's libraries in their top-level anonymous namespace (which nvcc
+    mangles as ``_GLOBAL__N_`` and a name of the file's own); not ATen's
+    kernels of the same name, which are not templates, nor at top level."""
+    import re
+    return re.compile(r"(?:^|[^:\w])(?:_ZN\d+_GLOBAL__N_\w*?%d%sI|"
+                      r"\(anonymous namespace\)::%s<)"
+                      % (len(name), name, name), re.M)
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """``torch.cuda.CUDAGraph`` made with ``keep_graph=True`` inside: the
+    captured ``cudaGraph_t`` is kept, for ``graph_kernel_names``."""
+    import torch
+    made = torch.cuda.CUDAGraph
+
+    class Kept(made):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+
+
+def graph_kernel_names(graph) -> list:
+    """The (mangled) function name of every kernel node of a captured
+    ``torch.cuda.CUDAGraph`` kept by ``kept_graphs``, read through
+    libcuda."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} returned CUresult {err}")
+
+    class Params(ctypes.Structure):        # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3),
+                    ("shared", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = Params()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if p.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(p.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(p.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def graph_kernel_nodes(what, server):
+    """The kernel nodes of ``server``'s captured graph (kept:
+    ``kept_graphs``) that run ``GRAPH_KERNELS``: each count must equal the
+    launches the wrappers counted while capturing.  A replay runs every
+    node of its graph, so a replay launches exactly those.  The graph is
+    instantiated here, before its first replay."""
+    names = graph_kernel_names(server._graph)
+    server._graph.instantiate()
+    nodes, want = {}, {}
+    for name, counters in GRAPH_KERNELS.items():
+        pattern = graph_kernel_pattern(name)
+        nodes[name] = sum(bool(pattern.search(n)) for n in names)
+        want[name] = sum(server.launches[k] for k in counters)
+    phase("serve_graph_nodes", what=what, kernel_nodes_all=len(names),
+          kernel_nodes=nodes, launches_captured=want,
+          names_seen={k: sorted({n for n in names if k in n})[:3]
+                      for k in GRAPH_KERNELS} if nodes != want else None)
+    if nodes != want:
+        raise AssertionError(f"{what}: the graph's kernel nodes {nodes}, "
+                             f"the launches captured {want}")
+    return nodes
+
+
+SERVED_COUNTS = ("LAUNCHES", "UNIFORM_LAUNCHES", "RESNET_LAUNCHES")
+
+
+def launches_served(servers):
+    """K1, uniform_ctx and K8 launches of the requests the servers answered:
+    a request's launches (the capture's, which each eager request also
+    makes: ``serve_compare`` checks both, and the graph holds: checked by
+    ``graph_kernel_nodes``) times the requests of both tiers."""
+    return {k: sum(s.launches[k] * (s.served["graph"] + s.served["eager"])
+                   for s in servers) for k in SERVED_COUNTS}
+
+
+def serve_compare(what, server, live_fn, inputs, draws, tol, want,
+                  exact=False, eager=True):
+    """The artifact on both tiers (``eager=False``: the graph tier alone)
+    against ``live_fn()`` on the same weights and draws: each within
+    ``tol`` of the live output's scale (``exact``: equal); K1, uniform_ctx
+    and K8 launched ``want`` (the rest 0) by the live request, captured in
+    the graph, and launched by the eager tier's request.  Each request is
+    timed once (rows a second: molecules, tokens generated, predictions).
+    Returns (the graph tier's output, seconds by path)."""
+    none = {k: 0 for k in counts()}
+    reset_counts()
+    live, live_s = timed(live_fn)
+    check_launches(f"{what}, live", counts(), dict(none, **want))
+    check_launches(f"{what}, captured", {
+        k: server.launches[k] for k in SERVED_COUNTS},
+        {k: want.get(k, 0) for k in SERVED_COUNTS})
+    reset_counts()
+    graph, graph_s = timed(lambda: server.call(*inputs, **draws))
+    check_launches(f"{what}, a replay", counts(), none)
+    outs, seconds = {"graph": graph}, {"live": live_s, "graph": graph_s}
+    if eager:
+        outs["eager"], seconds["eager"] = timed(
+            lambda: server.call(*inputs, eager=True, **draws))
+        check_launches(f"{what}, eager", counts(), dict(none, **want))
+    if exact:
+        errs = {f"{k}_mismatches": int((v != live).sum())
+                for k, v in outs.items()}
+        ok = not any(errs.values())
+    else:
+        errs = {f"{k}_rel_err": _rel_err(v, live)
+                for k, v in outs.items()}
+        ok = all(v <= tol for v in errs.values())
+    rows = live.shape[0] * (live.shape[1] - 1 if exact else 1)
+    phase("serve_vs_live", what=what, tol=None if exact else tol,
+          seconds=seconds, rows=rows,
+          rows_per_s={k: rows / v for k, v in seconds.items()},
+          launches=want, **errs)
+    if not ok:
+        raise AssertionError(f"{what}: served vs live {errs}")
+    return graph, seconds
+
+
+def replay_trace(what, server, inputs):
+    """A graph replay under ``torch.profiler``: the device's kernels and
+    copies in it (device ms, and the busy ms: the union of their intervals),
+    the host launches, the busy share (busy ms over the traced request's
+    own milliseconds, from the same trace), the stack kernels and
+    ``GRAPH_KERNELS`` seen running in it (the profiler may lose records of
+    a long graph: the graph's own nodes are counted by
+    ``graph_kernel_nodes``) and the largest kernels by device ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    pattern = stack_kernel_pattern()
+    named = {k: graph_kernel_pattern(k) for k in GRAPH_KERNELS}
+    _, untraced = timed(lambda: server.call(*inputs, seed=1))
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("served_request"):
+            server.call(*inputs, seed=1)
+            torch.cuda.synchronize()
+    events = prof.events()
+    request = next(e for e in events if e.name == "served_request"
+                   and e.device_type == DeviceType.CPU)
+    spans, launches, graph_launches, stack = [], 0, 0, {}
+    seen = {k: 0 for k in GRAPH_KERNELS}
+    by_name = {}
+    for evt in events:
+        if evt.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launches += 1
+        if evt.name == "cudaGraphLaunch":
+            graph_launches += 1
+        if evt.device_type != DeviceType.CUDA or evt.name == request.name:
+            continue        # the range's own mark on the device timeline
+        spans.append((evt.time_range.start, evt.time_range.end))
+        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + (
+            evt.time_range.end - evt.time_range.start)
+        if pattern.match(evt.name):
+            stack[evt.name[:60]] = stack.get(evt.name[:60], 0) + 1
+        for k, pat in named.items():
+            seen[k] += bool(pat.search(evt.name))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = request.time_range.end - request.time_range.start
+    out = {"device_ms": sum(b - a for a, b in spans) / 1e3,
+           "busy_ms": busy / 1e3, "traced_request_ms": window / 1e3,
+           "busy_share": busy / window, "untraced_ms": untraced * 1e3,
+           "kernel_launches": launches, "graph_launches": graph_launches,
+           "stack_kernels_run": sum(stack.values()),
+           "graph_kernels_run": seen,
+           "graph_kernels_captured": {
+               k: sum(server.launches[c] for c in counters)
+               for k, counters in GRAPH_KERNELS.items()},
+           "top_kernels_ms": [[k, v / 1e3] for k, v in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    phase("serve_replay_trace", what=what,
+          seconds=time.perf_counter() - t0, **out)
+    return out
+
+
+def http_json(base, route, payload=None):
+    """(status, JSON) of a GET (no payload) or POST to the daemon."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + route, data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def http_daemon(server, data, **kw):
+    """``make_httpd`` on localhost (a free port), served from a thread;
+    shut down and closed on exit."""
+    import threading
+    from moleculediffusiontransformer_tpu_torch.design.http_serve import \
+        make_httpd
+    httpd = make_httpd(server, data.tokenizer, data.scaler, data.smiles,
+                       port=0, quiet=True, **kw)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}", httpd
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+
+
+def serve_http(servers, inv, tr, ck_b, ck_a):
+    """Phase 30's HTTP part: every route against the direct call."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor as Pool
+    from moleculediffusiontransformer_tpu_torch.data.tokenizer import (
+        add_start_end_char, one_hot_signed, pad_sequences,
+        remove_start_end_token_first)
+    from moleculediffusiontransformer_tpu_torch.design import decode_one_hot
+    t0 = time.perf_counter()
+    checks = {}
+    physical = inv.scaler.inverse_transform(
+        np.asarray(inv.y_test[:2], np.float32))
+    rows = [[float(v) for v in r] for r in physical]
+    scaled = np.asarray(inv.scaler.transform(physical.astype(np.float32)),
+                        np.float32)[:, :12]
+    sampler, inpainter, generator, encoder = servers
+    with http_daemon(sampler, inv) as (base, _):
+        status, health = http_json(base, "/healthz")
+        checks["healthz_tier"] = health["tier"]
+        _, out = http_json(base, "/sample", {"properties": rows, "seed": 7})
+        direct = decode_one_hot(sampler.call_padded(scaled, seed=7),
+                                inv.tokenizer)
+        checks["sample"] = out["smiles"] == direct
+        status, rep = http_json(base, "/reload", {"checkpoint": ck_b})
+        _, out = http_json(base, "/sample", {"properties": rows, "seed": 7})
+        direct_b = decode_one_hot(sampler.call_padded(scaled, seed=7),
+                                  inv.tokenizer)
+        checks["reload"] = (status == 200 and out["smiles"] == direct_b
+                            and rep["restored_from"] == ck_b)
+        http_json(base, "/reload", {"checkpoint": ck_a})
+        _, metrics = http_json(base, "/metrics")
+        checks["metrics"] = (metrics["routes"]["/sample"]["count"] == 2
+                             and metrics["routes"]["/reload"]["count"] == 2)
+    with http_daemon(inpainter, inv) as (base, _):
+        draft, fixed = inv.smiles[0], list(INPAINT_FIXED)
+        _, out = http_json(base, "/inpaint", {"properties": rows,
+                                              "draft": draft,
+                                              "fixed": fixed, "seed": 3})
+        length, width = inpainter.specs[1].shape[1:]
+        ids = pad_sequences(inv.tokenizer.texts_to_sequences([draft]),
+                            length)
+        source = np.repeat(one_hot_signed(ids, width), 2,
+                           axis=0).astype(np.float32)
+        mask = np.zeros((2, length, width), bool)
+        mask[:, fixed, :] = True
+        direct = decode_one_hot(inpainter.call_padded(scaled, source, mask,
+                                                      seed=3), inv.tokenizer)
+        checks["inpaint"] = out["smiles"] == direct
+    tphysical = tr.scaler.inverse_transform(
+        np.asarray(tr.y_test[:2], np.float32))
+    trows = [[float(v) for v in r] for r in tphysical]
+    tscaled = np.asarray(tr.scaler.transform(
+        tphysical.astype(np.float32)), np.float32)[:, :12]
+    with http_daemon(generator, tr) as (base, _):
+        _, out = http_json(base, "/generate", {"properties": trows,
+                                               "seed": 11})
+        start = np.full((2, 1), tr.tokenizer.word_index.get("@", 1),
+                        np.int64)
+        ids = generator.call_padded(tscaled, start, seed=11)
+        checks["generate"] = out["smiles"] == [
+            remove_start_end_token_first(t) for t in tr.tokenizer.decode(ids)]
+    with http_daemon(encoder, tr, batch_window_ms=SERVE_WINDOW_MS) as (
+            base, _):
+        mols = [tr.smiles[i] for i in range(SERVE_PREDICT_CLIENTS)]
+        with Pool(SERVE_PREDICT_CLIENTS) as pool:
+            answers = list(pool.map(
+                lambda m: http_json(base, "/predict", {"smiles": [m]}),
+                mols))
+        _, metrics = http_json(base, "/metrics")
+        ids = pad_sequences(tr.tokenizer.texts_to_sequences(
+            add_start_end_char(mols)), encoder.specs[0].shape[1])
+        logits = encoder.call_padded(np.asarray(ids, np.int64))
+        direct = tr.scaler.inverse_transform(
+            logits.reshape(len(mols), -1)[:, :12])
+        got = np.asarray([a[1]["properties"][0] for a in answers])
+        batching = metrics["predict_batching"]
+        checks["predict_status"] = all(a[0] == 200 for a in answers)
+        checks["predict_max_abs_diff"] = float(np.abs(got - direct).max())
+        checks["predict_coalesced"] = batching["device_calls"] < len(mols)
+        checks["predict_batching"] = batching
+    seconds = time.perf_counter() - t0
+    phase("serve_http", seconds=seconds, **checks)
+    bad = [k for k in ("sample", "reload", "metrics", "inpaint", "generate",
+                       "predict_status", "predict_coalesced")
+           if checks[k] is not True]
+    if (bad or checks["healthz_tier"] != "graph"
+            or checks["predict_max_abs_diff"] != 0.0):
+        raise AssertionError(f"the HTTP routes: {checks}")
+
+
+def serving_artifacts(dev, inv, tr):
+    """Phase 30: export, load and serve the four artifact kinds on the card
+    against the live path, time the tiers, and drive the HTTP routes.
+    Returns the K1, uniform_ctx and K8 launches of the served requests."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch.data.tokenizer import (
+        add_start_end_char, one_hot_signed, pad_sequences)
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import (
+        inpaint, sample)
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        generate_sequence
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="serve_", dir=os.path.join(
+        ROOT, "moleculediffusiontransformer_tpu_torch", "_build"))
+    gen = torch.Generator(device=dev).manual_seed(30)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def k1(steps, on=False):
+        """A request's K1 (and with the switches on, uniform_ctx and K8)
+        launches: stacks (runs) x evaluations."""
+        evals = 2 * (steps - 1)
+        want = {"LAUNCHES": STACKS_PER_EVAL * evals}
+        if on:
+            want.update(UNIFORM_LAUNCHES=CROSS_STACKS_PER_EVAL * evals,
+                        RESNET_LAUNCHES=RESNET_RUNS_PER_EVAL * evals)
+        return want
+    inv_task, ar_task, enc_task = ("inverse_diffusion", "inverse_transformer",
+                                   "forward_transformer")
+    exports = serve_artifact_args(inv.vocab_size, tr.vocab_size)
+
+    def export(name):
+        return serve_export(dev, tmp, name, exports[name][0],
+                            *exports[name][1])
+
+    model_a = serve_model(dev, inv_task, inv.vocab_size, 0, bf16)
+    model_b = serve_model(dev, inv_task, inv.vocab_size, 1, bf16)
+    ck_a = serve_checkpoint(tmp, model_a, "inverse_a")
+    ck_b = serve_checkpoint(tmp, model_b, "inverse_b")
+
+    # the 91M sampler, bf16, batch 512, both switches off (the default)
+    sampler = serve_load(dev, export("sampler"), ck_a, "sampler")
+    props = torch.rand(SERVE_BATCH, 12, generator=gen, device=dev) * 2 - 1
+    track = (SERVE_BATCH, *sampler.meta["shape"])
+    draws = dict(noise=torch.randn(track, generator=gen, device=dev),
+                 step_noise=torch.randn((NUM_STEPS - 1, *track),
+                                        generator=gen, device=dev))
+
+    def live_sample(model, p=props, d=draws):
+        return sample(model, p, num_steps=NUM_STEPS, cond_scale=COND_SCALE,
+                      **d)
+
+    with torch.no_grad():
+        _, sampler_times = serve_compare(
+            "sampler bf16 512", sampler, lambda: live_sample(model_a),
+            (props,), draws, KERNEL_TOL["bfloat16"], k1(NUM_STEPS))
+        sampler_trace = replay_trace("sampler bf16 512", sampler, (props,))
+    if sampler_trace["stack_kernels_run"] <= 0:
+        raise AssertionError(f"no stack kernel ran in a traced replay: "
+                             f"{sampler_trace}")
+
+    # both switches on: bf16 batch 512, then reloaded to second weights;
+    # float32 at batch 8 on both tiers, then reloaded
+    switches(True)
+    try:
+        sampler_on = serve_load(dev, export("sampler_switches_on"), ck_a,
+                                "sampler switches on")
+        with torch.no_grad():
+            _, on_times = serve_compare(
+                "sampler bf16 512 switches on", sampler_on,
+                lambda: live_sample(model_a), (props,), draws,
+                KERNEL_TOL["bfloat16"], k1(NUM_STEPS, True), eager=False)
+            sampler_on.reload_checkpoint(ck_b)
+            serve_compare("sampler bf16 512 switches on, reloaded",
+                          sampler_on, lambda: live_sample(model_b), (props,),
+                          draws, KERNEL_TOL["bfloat16"],
+                          k1(NUM_STEPS, True), eager=False)
+        sampler32 = serve_load(dev, export("sampler_fp32"), ck_a,
+                               "sampler float32")
+        p8 = props[:SERVE_PARITY_BATCH].contiguous()
+        d8 = {"noise": draws["noise"][:SERVE_PARITY_BATCH].contiguous(),
+              "step_noise": draws["step_noise"][
+                  :SERVE_PARITY_STEPS - 1, :SERVE_PARITY_BATCH].contiguous()}
+        with torch.no_grad():
+            for seed, ck, what in ((0, None, "sampler fp32 8"),
+                                   (1, ck_b, "sampler fp32 8, reloaded")):
+                if ck:
+                    sampler32.reload_checkpoint(ck)
+                m32 = serve_model(dev, inv_task, inv.vocab_size, seed, f32)
+                serve_compare(what, sampler32, lambda: sample(
+                    m32, p8, num_steps=SERVE_PARITY_STEPS,
+                    cond_scale=COND_SCALE, **d8), (p8,), d8,
+                    KERNEL_TOL["float32"], k1(SERVE_PARITY_STEPS, True))
+        del m32
+    finally:
+        switches(False)
+    del model_b
+
+    # the inpainter, bf16, batch 64: a draft's first positions kept
+    inpainter = serve_load(dev, export("inpainter"), ck_a, "inpainter")
+    length, width = inpainter.specs[1].shape[1:]
+    ids = pad_sequences(inv.tokenizer.texts_to_sequences([inv.smiles[0]]),
+                        length)
+    source = torch.from_numpy(np.repeat(one_hot_signed(ids, width),
+                                        SERVE_INPAINT_BATCH, 0)).float()
+    mask = torch.zeros(source.shape, dtype=torch.bool)
+    mask[:, list(INPAINT_FIXED)] = True
+    source, mask = source.to(dev), mask.to(dev)
+    ip_props = props[:SERVE_INPAINT_BATCH].contiguous()
+    shape = tuple(source.shape)
+    ip_draws = dict(
+        noise=torch.randn(shape, generator=gen, device=dev),
+        source_noise=torch.randn((NUM_STEPS - 1, *shape), generator=gen,
+                                 device=dev),
+        step_noise=torch.randn((NUM_STEPS - 1, 1, *shape), generator=gen,
+                               device=dev))
+    with torch.no_grad():
+        out, _ = serve_compare("inpainter bf16 64", inpainter, lambda: inpaint(
+            model_a, ip_props, source, mask, num_steps=NUM_STEPS,
+            cond_scale=COND_SCALE, **ip_draws), (ip_props, source, mask),
+            ip_draws, KERNEL_TOL["bfloat16"], k1(NUM_STEPS))
+    if not torch.equal(out[mask], source[mask]):
+        raise AssertionError("the inpainter changed a kept position")
+
+    # the AR generator, bf16, batch 1,024, 63 tokens: no kernel on its path
+    ar_live = serve_model(dev, ar_task, tr.vocab_size, 0, bf16)
+    generator = serve_load(dev, export("generator"),
+                           serve_checkpoint(tmp, ar_live, "ar"), "generator")
+    ar_props = torch.rand(SERVE_AR_BATCH, 12, generator=gen, device=dev)
+    start = torch.ones(SERVE_AR_BATCH, 1, dtype=torch.long, device=dev)
+    uniforms = torch.rand((AR_TOKENS, SERVE_AR_BATCH, tr.vocab_size),
+                          generator=gen, device=dev)
+    _, ar_times = serve_compare(
+        "generator bf16 1024", generator,
+        lambda: generate_sequence(
+            ar_live, ar_props, start, uniforms=uniforms,
+            tokens_to_generate=AR_TOKENS, cond_scale=AR_COND_SCALE,
+            filter_thres=AR_FILTER_THRES),
+        (ar_props, start), {"uniforms": uniforms}, None, {}, exact=True)
+    ar_trace = replay_trace("generator bf16 1024", generator,
+                            (ar_props, start))
+
+    # the encoder, bf16, batch 1,024 SMILES
+    enc_live = serve_model(dev, enc_task, tr.vocab_size, 0, bf16)
+    encoder = serve_load(dev, export("encoder"),
+                         serve_checkpoint(tmp, enc_live, "enc"), "encoder")
+    smiles = [tr.smiles[i % len(tr.smiles)]
+              for i in range(SERVE_ENCODER_BATCH)]
+    enc_ids = torch.as_tensor(np.asarray(pad_sequences(
+        tr.tokenizer.texts_to_sequences(add_start_end_char(smiles)),
+        encoder.specs[0].shape[1]), np.int64), device=dev)
+    with torch.no_grad():
+        _, enc_times = serve_compare(
+            "encoder bf16 1024", encoder, lambda: enc_live(enc_ids),
+            (enc_ids,), {}, KERNEL_TOL["bfloat16"], {})
+        enc_trace = replay_trace("encoder bf16 1024", encoder, (enc_ids,))
+
+    serve_http((sampler, inpainter, generator, encoder), inv, tr, ck_b, ck_a)
+    served = launches_served((sampler, sampler_on, sampler32, inpainter,
+                              generator, encoder))
+    phase("serving", seconds=time.perf_counter() - t_phase,
+          launches_served=served,
+          graph_speedup_over_live={
+              name: t["live"] / t["graph"]
+              for name, t in (("sampler", sampler_times),
+                              ("sampler_switches_on", on_times),
+                              ("generator", ar_times),
+                              ("encoder", enc_times))},
+          busy_share={"sampler": sampler_trace["busy_share"],
+                      "generator": ar_trace["busy_share"],
+                      "encoder": enc_trace["busy_share"]})
+    return served
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3998,6 +4639,9 @@ def main() -> int:
     # 29. the GPT family
     gpt_family(dev)
 
+    # 30. serving: the artifacts, both tiers, the HTTP front end
+    served = serving_artifacts(dev, inv, tr)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -4019,6 +4663,7 @@ def main() -> int:
         "library_ms": None,
         "products": TC_PRODUCTS,
         "launches_cli_train": loop_launches["LAUNCHES"],
+        "launches_served": served["LAUNCHES"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -4050,7 +4695,8 @@ def main() -> int:
         "card_ms": resnet["card_ms"],
         "plain_ms": resnet["plain_ms"], "bound_ms": resnet["bound_ms"],
         "bound_by": resnet["bound_by"], "library_ms": None,
-        "products": TC_PRODUCTS})
+        "products": TC_PRODUCTS,
+        "launches_served": served["RESNET_LAUNCHES"]})
     kernels.append({
         "name": "transformer1d_stack_fwd_uniform_ctx", "route": "cuda",
         "source": csrc + "transformer1d_fwd.cu",
@@ -4060,7 +4706,8 @@ def main() -> int:
         "card_ms": uniform["card_ms"],
         "plain_ms": uniform["plain_ms"], "bound_ms": uniform["bound_ms"],
         "bound_by": uniform["bound_by"], "library_ms": None,
-        "products": TC_PRODUCTS})
+        "products": TC_PRODUCTS,
+        "launches_served": served["UNIFORM_LAUNCHES"]})
     # the streaming-attention kernels: bf16 at bh 16, n = m = 4096, d 64
     # from phase 15 (plain_ms and library_ms of the dq and the dk/dv kernel
     # are those of the whole backward, which computes all three grads);
@@ -4095,6 +4742,7 @@ def main() -> int:
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its main "
                              f"path: {kernels}")
+    phase("script_seconds", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,13 @@ each:
   inpaint   constrained design: freeze draft positions, regenerate
             the rest under property conditioning (RePaint)
   predict   forward direction: SMILES -> 12 QM9 properties
+  export    a serving artifact of a model (``design/export.py``)
+  export-torch
+            a checkpoint as a reference-layout state dict (.pt or .npz)
+  inspect   an artifact's kind, inputs, parameter count and bundle
+  serve     run an artifact without model code (``design/serve.py``);
+            ``--http PORT`` starts the JSON daemon
+            (``design/http_serve.py``)
 
 Every subcommand that runs a model runs it on the card (``--device cuda``,
 the default) unless ``--device cpu`` asks for the CPU; without a card it
@@ -23,9 +30,9 @@ the port's own checkpoints and reference-layout state dicts (``.pt``,
 ``.pth``, or the ``.npz``/``.pt`` the JAX package's ``export-torch`` writes
 from its msgpack checkpoints).  ``--seed`` seeds the weights, the dataset
 stand-in and the samplers' generators; it cannot give JAX's draws.  The
-JSON printed carries the JAX CLI's keys.  ``export``, ``export-torch``,
-``inspect`` and ``serve`` are not offered yet (serving is ROADMAP.md item
-A8).
+JSON printed carries the JAX CLI's keys.  ``export`` exports on the device it
+runs on, where the artifact must be served (``--device cuda`` exports for
+the card).
 
 Dataset flags: ``--csv qm9_.csv`` for the reference set (reference
 README.md:30), a synthetic valence-correct stand-in otherwise.  Reference
@@ -283,6 +290,184 @@ def cmd_predict(args) -> Dict:
                                   for s, row in zip(args.smiles, preds)}})
 
 
+DIFFUSION_TASKS = ("inverse_diffusion", "forward_diffusion")
+
+
+def cmd_export(args) -> Dict:
+    """A serving artifact of the task's model (``design/export.py``)."""
+    import os
+
+    from .design import export as dexport
+    from .train import recipes
+    device = _device(args)
+    bundle = {}
+    vocab = args.vocab
+    if args.embed_vocab:
+        # a self-contained serving bundle: tokenizer, scaler and novelty
+        # corpus ride with the program
+        data = _dataset(args, recipes.data_mode(args.task))
+        bundle = dict(tokenizer=data.tokenizer, scaler=data.scaler,
+                      training_smiles=data.smiles)
+        if vocab is None:
+            vocab = data.vocab_size
+    model = recipes.build_model(args.task, vocab, args.preset,
+                                dtype=DTYPES[args.dtype], device=device,
+                                seed=args.seed)
+    if args.checkpoint:
+        recipes.load_params(args.checkpoint, args.task, model)
+    model.eval()
+    if args.inpaint and args.task not in DIFFUSION_TASKS:
+        raise SystemExit("--inpaint applies to the diffusion tasks only")
+    if args.inpaint:
+        art = dexport.export_inpainter(
+            model, batch=args.batch, num_steps=args.timesteps,
+            num_resamples=args.resamples, cond_scale=args.cond_scale,
+            device=device)
+    elif args.task in DIFFUSION_TASKS:
+        art = dexport.export_sampler(model, batch=args.batch,
+                                     num_steps=args.timesteps,
+                                     cond_scale=args.cond_scale,
+                                     device=device)
+    elif args.task == "inverse_transformer":
+        art = dexport.export_generator(model, batch=args.batch,
+                                       tokens_to_generate=args.tokens,
+                                       cond_scale=args.cond_scale,
+                                       device=device)
+    else:
+        art = dexport.export_encoder(model, batch=args.batch,
+                                     max_length=args.max_length,
+                                     device=device)
+    dexport.save_artifact(art, args.out, extra={"task": args.task}, **bundle)
+    size = os.path.getsize(args.out)
+    print(f"wrote {args.out} ({size / 1e6:.2f} MB"
+          f"{', vocab+scaler embedded' if bundle else ''})", file=sys.stderr)
+    return _emit({"artifact": args.out, "kind": art.header["kind"],
+                  "task": args.task, "device": art.header["device"],
+                  "bytes": size, "bundled": bool(bundle)})
+
+
+def cmd_export_torch(args) -> Dict:
+    """A checkpoint -> a reference-layout ``state_dict`` file (the keys and
+    tensor layouts of the reference's torch modules and of the JAX
+    package's ``params_to_state_dict``), for the reference's torch tooling
+    (``model.load_state_dict(torch.load(out), strict=False)``)."""
+    import numpy as np
+
+    from .core.checkpoint import read_state_dict
+    device = _device(args)
+    sd = {k: v.to(device) for k, v in read_state_dict(
+        args.checkpoint).items()}
+    host = {k: v.detach().float().cpu() for k, v in sd.items()}
+    if args.out.endswith(".npz"):
+        np.savez(args.out, **{k: v.numpy() for k, v in host.items()})
+    else:
+        torch.save(host, args.out)
+    total = sum(v.numel() for v in host.values())
+    print(f"wrote {args.out}: {len(host)} tensors, {total:,} parameters",
+          file=sys.stderr)
+    return _emit({"out": args.out, "tensors": len(host),
+                  "parameters": total})
+
+
+def cmd_inspect(args) -> Dict:
+    """An artifact's kind, input specs, device, parameter count and bundle
+    contents, without running it."""
+    import math
+
+    from .design import export as dexport
+    _device(args)
+    program, header = dexport.load_bundle(args.artifact)
+    variables = dexport.variables_skeleton(program, "meta")
+    rest = {k: v for k, v in header.items()
+            if k not in ("tokenizer", "scaler", "training_smiles", "kind",
+                         "device", "inputs", "format")}
+    return _emit({
+        "artifact": args.artifact,
+        "kind": header["kind"],
+        "device": header["device"],
+        "param_count": sum(math.prod(v.shape) for v in variables.values()),
+        "inputs": header["inputs"],
+        "bundle": {
+            "tokenizer_vocab": (len(header["tokenizer"]["word_index"]) + 1
+                                if "tokenizer" in header else None),
+            "scaler": "scaler" in header,
+            "novelty_corpus": len(header.get("training_smiles", [])),
+            **rest,
+        },
+    })
+
+
+def cmd_serve(args) -> Dict:
+    """Model-code-free serving: artifact + checkpoint + vocabulary ->
+    outputs, once, or as an HTTP daemon with ``--http PORT``."""
+    import numpy as np
+
+    from .design import ArtifactServer, decode_one_hot, evaluate_generated
+    server = ArtifactServer(args.artifact, args.checkpoint, seed=args.seed,
+                            device=_device(args))
+    if args.checkpoint is None:
+        print("NOTE: random placeholder params (pass --checkpoint)",
+              file=sys.stderr)
+    if args.http is not None:
+        from .design.http_serve import make_httpd
+        if server.tokenizer is not None:     # bundled artifact: no dataset
+            httpd = make_httpd(server, host=args.host, port=args.http,
+                               batch_window_ms=args.batch_window_ms)
+        else:
+            mode = {"encoder": "transformer",
+                    "generator": "transformer"}.get(server.kind,
+                                                    "inverse_diffusion")
+            data = _dataset(args, mode)
+            httpd = make_httpd(server, data.tokenizer, data.scaler,
+                               data.smiles, host=args.host, port=args.http,
+                               batch_window_ms=args.batch_window_ms)
+        print(f"serving {server.kind} artifact ({server.tier} tier) on "
+              f"http://{httpd.server_address[0]}:{httpd.server_address[1]} "
+              "(POST /sample|/generate|/predict|/inpaint|/reload, "
+              "GET /healthz|/specs|/metrics)", file=sys.stderr)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
+        return {}
+    n = min(args.num, server.batch)
+    if server.kind == "encoder":
+        max_length = server.specs[0].shape[1]
+        data = _dataset(args, "transformer")
+        ids = np.asarray(data.X_test[:n], np.int64)[:, :max_length]
+        scaled = server.call_padded(ids).reshape(n, -1)[:, :12]
+        props = data.scaler.inverse_transform(scaled)
+        return _emit({"kind": server.kind, "tier": server.tier,
+                      "predicted_properties": [[float(v) for v in r]
+                                               for r in props]})
+    n_cond = server.specs[0].shape[1]
+    if server.kind == "sampler":
+        data = _dataset(args, "inverse_diffusion")
+        props = np.asarray(data.y_test[:n], np.float32)[:, :n_cond]
+        out = server.call_padded(props, seed=args.seed)
+        smiles = decode_one_hot(out, data.tokenizer)
+    elif server.kind == "generator":
+        from .data.tokenizer import remove_start_end_token_first
+        data = _dataset(args, "transformer")
+        props = np.asarray(data.y_test[:n], np.float32)[:, :n_cond]
+        start_id = data.tokenizer.word_index.get("@", 1)
+        start = np.full((n, server.specs[1].shape[1]), start_id, np.int64)
+        ids = server.call_padded(props, start, seed=args.seed)
+        smiles = [remove_start_end_token_first(t)
+                  for t in data.tokenizer.decode(ids)]
+    else:
+        raise SystemExit("inpainter artifacts need source/mask inputs: "
+                         "serve them with --http (POST /inpaint) or drive "
+                         "design.ArtifactServer.call directly")
+    rep = evaluate_generated(smiles, data.smiles)
+    return _emit({"kind": server.kind, "tier": server.tier,
+                  "smiles": smiles,
+                  "validity_fraction": rep["validity_fraction"],
+                  "novelty_fraction": rep["novelty_fraction"]})
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .train.recipes import TASKS
     p = argparse.ArgumentParser(
@@ -358,6 +543,72 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--timesteps", type=int, default=100)
     pr.add_argument("smiles", nargs="+")
     pr.set_defaults(fn=cmd_predict)
+
+    x = sub.add_parser("export", help="serving artifact of a model (.pt2)")
+    x.add_argument("--task", default=TASKS[0], choices=list(TASKS))
+    x.add_argument("--preset", default="notebook",
+                   choices=("tiny", "notebook"),
+                   help="architecture scale (tiny: CPU-feasible smoke)")
+    x.add_argument("--device", default="cuda",
+                   help="where the artifact is exported and will be "
+                   "served: cuda (the default) or cpu")
+    x.add_argument("--dtype", default="bfloat16", choices=tuple(DTYPES),
+                   help="the model's compute dtype")
+    _data_flags(x)
+    x.add_argument("--embed-vocab", action="store_true",
+                   help="embed the dataset's tokenizer/scaler/novelty "
+                   "corpus in the artifact (self-contained serving)")
+    x.add_argument("--inpaint", action="store_true",
+                   help="export the RePaint inpainter instead of the "
+                   "sampler (diffusion tasks; serve via --http POST "
+                   "/inpaint)")
+    x.add_argument("--out", required=True)
+    x.add_argument("--checkpoint", default=None)
+    x.add_argument("--vocab", type=int, default=None)
+    x.add_argument("--batch", type=int, default=512)
+    x.add_argument("--timesteps", type=int, default=64)
+    x.add_argument("--resamples", type=int, default=1)
+    x.add_argument("--cond-scale", type=float, default=2.0)
+    x.add_argument("--tokens", type=int, default=63)
+    x.add_argument("--max-length", type=int, default=64)
+    x.set_defaults(fn=cmd_export)
+
+    xt = sub.add_parser("export-torch", help="checkpoint -> reference-layout "
+                        "state_dict (.pt or .npz)")
+    xt.add_argument("--checkpoint", required=True,
+                    help="a checkpoint of this package or a "
+                    "reference-layout state dict")
+    xt.add_argument("--out", required=True,
+                    help=".pt (torch.save) or .npz (numpy) output")
+    xt.add_argument("--device", default="cuda",
+                    help="where the weights are loaded: cuda (the default) "
+                    "or cpu")
+    xt.set_defaults(fn=cmd_export_torch)
+
+    ins = sub.add_parser("inspect", help="artifact kind/specs/bundle report "
+                         "(runs nothing)")
+    ins.add_argument("artifact")
+    ins.add_argument("--device", default="cuda",
+                     help="cuda (the default) or cpu")
+    ins.set_defaults(fn=cmd_inspect)
+
+    sv = sub.add_parser("serve", help="serve an artifact (no model code)")
+    sv.add_argument("artifact")
+    sv.add_argument("--checkpoint", default=None)
+    sv.add_argument("--device", default="cuda",
+                    help="where it serves: cuda (the default) or cpu")
+    sv.add_argument("--num", type=int, default=4,
+                    help="held-out rows to serve (<= artifact batch)")
+    sv.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="start a JSON HTTP daemon instead of a one-shot "
+                    "run (design/http_serve.py)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help="dynamic-batching window for /predict on encoder "
+                    "artifacts: concurrent requests within the window "
+                    "coalesce into one device call (exact; 0 disables)")
+    _data_flags(sv)
+    sv.set_defaults(fn=cmd_serve)
     return p
 
 

@@ -19,6 +19,7 @@ import os
 import re
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 FORMAT = "moleculediffusiontransformer_tpu_torch.checkpoint/1"
@@ -60,6 +61,28 @@ def load_checkpoint(path: str, device: Optional[torch.device] = None
     if not (isinstance(ckpt, dict) and ckpt.get("format") == FORMAT):
         raise ValueError(f"{path} is not a checkpoint of this package")
     return ckpt
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model weights a file holds, on the CPU: a checkpoint of this
+    package, or a reference-layout state dict -- a ``.pt``/``.pth`` file of
+    tensors (the reference's checkpoints, README.md:44-60) or the
+    ``.npz``/``.pt`` that an ``export-torch`` writes.  A JAX msgpack file
+    itself cannot be read here: it crosses through the JAX package's
+    ``export-torch``."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    if not path.endswith((".pt", ".pth")):
+        raise ValueError(
+            f"{path}: expected a .pt/.pth or .npz file; a JAX msgpack "
+            f"checkpoint crosses through `python -m "
+            f"moleculediffusiontransformer_tpu export-torch --checkpoint "
+            f"{path} --out model.npz`")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and sd.get("format") == FORMAT:
+        sd = sd["model"]
+    return sd
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module,

@@ -1,5 +1,6 @@
 """Inverse-design pipeline of the port: generate -> decode -> validate ->
-novelty -> re-score with a forward model."""
+novelty -> re-score with a forward model; and serving: exported artifacts
+(``export``), ``ArtifactServer`` and its HTTP front end."""
 from .inverse_design import (HAS_RDKIT, canonicalize, decode_one_hot,
                              evaluate_generated,
                              generate_from_conditioning,
@@ -8,3 +9,8 @@ from .inverse_design import (HAS_RDKIT, canonicalize, decode_one_hot,
                              predict_properties_from_smiles,
                              predict_properties_from_smiles_transformer,
                              rescore_generated, smiles_is_valid)
+from .export import (export_encoder, export_generator, export_inpainter,
+                     export_sampler, load_artifact, load_bundle,
+                     save_artifact, variables_skeleton)
+from .serve import ArtifactServer
+from .http_serve import ServingError, make_httpd

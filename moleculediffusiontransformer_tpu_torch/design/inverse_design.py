@@ -11,8 +11,8 @@ their weights, so no function takes a ``variables`` argument.
 
 Validity is RDKit's parse where RDKit imports, else the port's own copy of
 the valence-aware checker (``design/valence.py``).  Not ported: the JAX
-function's ``mesh`` (parallel serving), ``export``, ``serve``,
-``http_serve`` and ``plots``.
+function's ``mesh`` (parallel serving) and ``plots``.  Serving is
+``design/export.py``, ``design/serve.py`` and ``design/http_serve.py``.
 """
 from __future__ import annotations
 

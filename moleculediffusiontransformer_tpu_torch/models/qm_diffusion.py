@@ -61,6 +61,7 @@ class QMDiffusionBase(nn.Module):
         self.pos_emb_fourier = pos_emb_fourier
         self.pos_emb_fourier_add = pos_emb_fourier_add
         self.embed_dim_position = embed_dim_position
+        self.context_embedding_max_length = context_embedding_max_length
         self.objective = KDiffusion(sigma_data=sigma_data,
                                     dynamic_threshold=dynamic_threshold)
         self.sigma_distribution = LogNormalDistribution(sigma_mean, sigma_std)

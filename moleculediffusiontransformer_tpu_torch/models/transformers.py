@@ -50,7 +50,7 @@ hand-written kernel lies on this path in either package).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -60,9 +60,9 @@ from ..nn.embeddings import positional_encoding_1d
 from ..nn.moe import MoEFeedForward
 from ..nn.primitives import Dense, Embed, gelu, init_parameters
 from ..nn.transformer_blocks import (NEG_INF, AttentionQKV, FeedForwardCNN,
-                                     LNGamma, MQAttention, feed_forward_parti,
-                                     gumbel_sample, prob_mask_like,
-                                     top_k_filter)
+                                     LNGamma, MQAttention, decode_loop,
+                                     feed_forward_parti, gumbel_sample,
+                                     prob_mask_like, top_k_filter)
 
 Uniforms = Union[torch.Tensor, Callable[[int], torch.Tensor]]
 
@@ -229,12 +229,14 @@ class _DecoderBase(nn.Module):
         ``token_embed``), as the layers take it: unchanged here."""
         return x
 
-    def decode_step(self, x_t: torch.Tensor, pos: int, cross_kvs: List,
-                    caches: List, text_mask: torch.Tensor
+    def decode_step(self, x_t: torch.Tensor, pos: Union[int, torch.Tensor],
+                    cross_kvs: List, caches: List, text_mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, List]:
         """One position through all layers against the KV caches, which are
         written in place.  ``x_t`` (b, 1, dim) is already embedded and
-        positioned.  Returns ((b, logits_dim) logits, the caches)."""
+        positioned; ``pos`` an ``int`` or a 0-d integer tensor on the
+        device (``MQAttention.step``).  Returns ((b, logits_dim) logits, the
+        caches)."""
         x = self.init_norm(x_t)
         for (attn, cross, ff), cross_kv, cache in zip(self.layers, cross_kvs,
                                                       caches):
@@ -242,6 +244,42 @@ class _DecoderBase(nn.Module):
             x = cross.cross_step(x, cross_kv, text_mask) + x
             x = ff(x) + x
         return self.to_logits(self.final_norm(x))[:, 0], caches
+
+    def decode_context(self, sequences: torch.Tensor, total: int) -> Dict:
+        """What every decode step of one CFG generation reads: the doubled
+        batch's cross-attention KV and text mask (the conditioned half keeps
+        every property position, the null half none), the token table and
+        the position code of ``total`` positions."""
+        device = self.to_logits.weight.device
+        cond = self.embed_conditioning(sequences.to(device))
+        cond = cond[:, :self.max_text_len]
+        b, n_ctx = cond.shape[:2]
+        text_mask2 = torch.cat([
+            torch.ones(b, n_ctx, dtype=torch.bool, device=device),
+            torch.zeros(b, n_ctx, dtype=torch.bool, device=device)])
+        # float32, as in the JAX package: the sum with the embedding is
+        # rounded only by the first norm (the Internaldim variant's by
+        # ``to_dim``)
+        table = self.token_embed.weight.to(self.dtype)
+        return dict(cross_kvs=self.cross_kv(torch.cat([cond, cond])),
+                    text_mask=text_mask2, table=table,
+                    pe=positional_encoding_1d(total, table.shape[1],
+                                              device=device))
+
+    def decode_token(self, token: torch.Tensor, pos: Union[int, torch.Tensor],
+                     context: Dict, caches: List) -> torch.Tensor:
+        """One position of a CFG generation: token (b,) ids at ``pos`` (an
+        ``int`` or a 0-d tensor on the device), ``context`` from
+        :meth:`decode_context`, the doubled batch's caches written in place.
+        Returns the (2b, logits_dim) logits, the conditioned half first."""
+        pe = context["pe"]
+        pe_t = (pe[pos] if not isinstance(pos, torch.Tensor)
+                else pe.index_select(0, pos.reshape(1))[0])
+        x_t = self.project_token((context["table"][token] + pe_t)[:, None])
+        logits2, _ = self.decode_step(torch.cat([x_t, x_t]), pos,
+                                      context["cross_kvs"], caches,
+                                      context["text_mask"])
+        return logits2
 
 
 class MoleculeTransformerSequence(_DecoderBase):
@@ -410,40 +448,15 @@ def generate_sequence(model: _DecoderBase, sequences: torch.Tensor,
     t0 = start_ids.shape[1]
     total = t0 + tokens_to_generate
 
-    cond = model.embed_conditioning(sequences.to(device))
-    cond = cond[:, :model.max_text_len]
-    n_ctx = cond.shape[1]
-    # conditioned half: every context position kept; null half: none
-    text_mask2 = torch.cat([
-        torch.ones(b, n_ctx, dtype=torch.bool, device=device),
-        torch.zeros(b, n_ctx, dtype=torch.bool, device=device)])
-    cross_kvs = model.cross_kv(torch.cat([cond, cond]))
+    context = model.decode_context(sequences, total)
     caches = model.init_cache(2 * b, total, device)
-
     ids = torch.zeros(b, total, dtype=start_ids.dtype, device=device)
     ids[:, :t0] = start_ids
-    # float32, as in the JAX package: the sum with the embedding is rounded
-    # only by the first norm (the Internaldim variant's by ``to_dim``)
-    table = model.token_embed.weight.to(model.dtype)
-    pe = positional_encoding_1d(total, table.shape[1], device=device)
-    kept = [] if return_logits else None
-    for pos in range(total - 1):
-        token = ids[:, pos]
-        x_t = model.project_token((table[token] + pe[pos])[:, None])
-        logits2, caches = model.decode_step(
-            torch.cat([x_t, x_t]), pos, cross_kvs, caches, text_mask2)
-        logits_c, logits_n = logits2[:b], logits2[b:]
-        logits = (logits_n + (logits_c - logits_n) * cond_scale).float()
-        if kept is not None:
-            kept.append(logits)
-        if pos + 1 < t0:        # inside the prompt: the token stays
-            continue
-        ids[:, pos + 1] = _sample_next(
-            logits, filter_thres, temperature, True, generator,
-            _step_uniforms(uniforms, pos)).to(ids.dtype)
-    if return_logits:
-        return ids, torch.stack(kept)
-    return ids
+    return decode_loop(
+        lambda token, pos: model.decode_token(token, pos, context, caches),
+        ids, t0, cond_scale=cond_scale, filter_thres=filter_thres,
+        temperature=temperature, generator=generator, uniforms=uniforms,
+        return_logits=return_logits)
 
 
 @torch.no_grad()

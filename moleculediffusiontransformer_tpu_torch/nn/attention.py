@@ -249,21 +249,41 @@ class Transformer1d(nn.Module):
             nn.Identity(),
             Conv1d(channels, channels, kernel_size=1, padding=0, dtype=dtype))
         self._stack_params: Optional[tuple] = None
+        # set while a serving program is traced (``design.export``): the
+        # kernel parameters that are not their parameter as it is (the
+        # casts), as the program's inputs, made once per load
+        self.given_kernel_params: Optional[Dict[str, torch.Tensor]] = None
 
     def kernel_params(self) -> Dict[str, torch.Tensor]:
         """This stack's parameters as the stack kernel takes them: matmul
         weights in the compute dtype, vectors in float32.  Cached; the cache
-        is rebuilt when a parameter is replaced or modified in place."""
+        is rebuilt when a parameter is replaced or modified in place.  While
+        ``torch.export`` traces a serving program (the parameters are then
+        fake tensors, with no storage) they are ``given_kernel_params`` (a
+        parameter not there is taken as it is)."""
         params = dict(self.named_parameters())
+        if self.given_kernel_params is not None:
+            given = self.given_kernel_params
+            return {name: given.get(name, p) for name, p in params.items()}
         key = tuple((p.data_ptr(), p._version, p.device)
                     for p in params.values())
         if self._stack_params is None or self._stack_params[0] != key:
             with torch.no_grad():
-                cast = {name: (p.detach().float() if p.dim() == 1
-                               else p.detach().to(self.dtype))
+                casts = self.kernel_casts()
+                cast = {name: casts.get(name, p).detach()
                         for name, p in params.items()}
             self._stack_params = (key, cast)
         return self._stack_params[1]
+
+    def kernel_casts(self) -> Dict[str, torch.Tensor]:
+        """The parameters of ``kernel_params`` that are not in their kernel
+        dtype already (float32 vectors, compute-dtype matrices), cast."""
+        out = {}
+        for name, p in self.named_parameters():
+            want = torch.float32 if p.dim() == 1 else self.dtype
+            if p.dtype != want:
+                out[name] = p.to(want)
+        return out
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:

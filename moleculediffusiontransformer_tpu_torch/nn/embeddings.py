@@ -3,7 +3,7 @@ random-Fourier sigma embedding, the CFG null table, the sinusoidal integer
 embedding, ``NumberEmbedder`` (scalars through the sigma embedding, the NCCA
 UNet's noise-scale features) and the non-learned 1-D, 2-D and 3-D Fourier
 position codes, computed host-side in numpy float32 as the JAX package
-computes them."""
+computes them (the 1-D code is kept on its device once made)."""
 from __future__ import annotations
 
 import math
@@ -112,12 +112,24 @@ def positional_encoding_1d(length: int, channels: int,
     """Non-learned sinusoidal 1-D positional encoding, (length, channels):
     ``[sin(w0 x) ... sin(wn x), cos(w0 x) ... cos(wn x)]``, zero-padded and
     truncated to ``channels``.  Computed in numpy float32, as the JAX
-    package does."""
-    ch = int(np.ceil(channels / 2) * 2)
-    emb = _fourier(length, _fourier_inv_freq(ch))
-    out = np.zeros((length, ch), dtype=np.float32)
-    out[:, :emb.shape[1]] = emb
-    return _to_torch(out[:, :channels], dtype, device)
+    package does, and copied to ``device`` once: the float32 code is kept
+    there (read-only) and handed to every later call, so that a model's
+    forward makes no copy from the host, and a program traced by
+    ``torch.export`` holds the code as a device constant."""
+    key = (length, channels, torch.device(device or "cpu"))
+    code = _POSITION_CODES.get(key)
+    if code is None:
+        ch = int(np.ceil(channels / 2) * 2)
+        emb = _fourier(length, _fourier_inv_freq(ch))
+        out = np.zeros((length, ch), dtype=np.float32)
+        out[:, :emb.shape[1]] = emb
+        code = _to_torch(out[:, :channels], torch.float32, device)
+        if not torch.compiler.is_compiling():    # a traced value is fake
+            _POSITION_CODES[key] = code
+    return code.to(dtype)
+
+
+_POSITION_CODES: dict = {}
 
 
 def positional_encoding_2d(nx: int, ny: int, channels: int,

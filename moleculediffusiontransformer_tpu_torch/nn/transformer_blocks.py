@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,6 +74,47 @@ def top_k_filter(logits: torch.Tensor, thres: float = 0.9) -> torch.Tensor:
     k = max(int((1 - thres) * logits.shape[-1]), 1)
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]
     return torch.where(logits < kth, NEG_INF, logits)
+
+
+def decode_loop(step: Callable[[torch.Tensor, int], torch.Tensor],
+                ids: torch.Tensor, t0: int, *, cond_scale: float,
+                filter_thres: float, temperature: float,
+                generator: Optional[torch.Generator] = None,
+                uniforms=None, return_logits: bool = False):
+    """The token loop of KV-cached generation with batched classifier-free
+    guidance, shared by ``models.transformers.generate_sequence`` and the
+    exported generator that ``design.serve.ArtifactServer`` runs.
+
+    ``ids`` (b, total) holds the prompt in its first ``t0`` columns and is
+    written in place.  ``step(token, pos)`` runs one position: token (b,)
+    the ids at ``pos``; it returns the (2b, vocab) logits of the doubled
+    batch, the conditioned half first.  They are blended ``null + (cond -
+    null) * cond_scale`` in float32, filtered to the top ``1 -
+    filter_thres`` of the vocabulary and sampled by Gumbel-max with the
+    step's uniforms (b, vocab): ``uniforms[pos]`` of a (total - 1, b,
+    vocab) tensor, ``uniforms(pos)`` of a callable, or drawn from
+    ``generator``.  A position inside the prompt keeps its token.  Returns
+    ``ids``, and with ``return_logits`` also the blended logits of every
+    step, (total - 1, b, vocab) float32."""
+    b, total = ids.shape
+    kept: Optional[List[torch.Tensor]] = [] if return_logits else None
+    for pos in range(total - 1):
+        logits2 = step(ids[:, pos], pos)
+        logits_c, logits_n = logits2[:b], logits2[b:]
+        logits = (logits_n + (logits_c - logits_n) * cond_scale).float()
+        if kept is not None:
+            kept.append(logits)
+        if pos + 1 < t0:        # inside the prompt: the token stays
+            continue
+        u = None
+        if uniforms is not None:
+            u = uniforms(pos) if callable(uniforms) else uniforms[pos]
+        ids[:, pos + 1] = gumbel_sample(
+            top_k_filter(logits, filter_thres), temperature,
+            generator=generator, uniforms=u).to(ids.dtype)
+    if return_logits:
+        return ids, torch.stack(kept)
+    return ids
 
 
 def prob_mask_like(shape: Sequence[int], prob: float, *,
@@ -385,16 +426,24 @@ class MQAttention(nn.Module):
         return torch.zeros(batch, total_len, self.dim_head, dtype=self.dtype,
                            device=device)
 
-    def step(self, x_t: torch.Tensor, cache: torch.Tensor, pos: int
+    def step(self, x_t: torch.Tensor, cache: torch.Tensor,
+             pos: Union[int, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One causal decode step against a fixed-size KV cache.
 
         x_t (b, 1, dim): the current position (the pre-norm is applied
-        here); cache (b, T, dim_head), written in place at ``pos``.
+        here); cache (b, T, dim_head), written in place at ``pos``: an
+        ``int``, or a 0-d integer tensor on the cache's device, which the
+        write and the mask read on the device (an exported decode step
+        takes it so, and it never reaches the host).
         Returns (out (b, 1, dim), the cache)."""
         x_t = self.norm(x_t)
         q = self._queries(x_t)
-        cache[:, pos] = self.to_kv(x_t)[:, 0].to(cache.dtype)
+        kv_t = self.to_kv(x_t).to(cache.dtype)
+        if isinstance(pos, torch.Tensor):
+            cache.index_copy_(1, pos.reshape(1), kv_t)
+        else:
+            cache[:, pos] = kv_t[:, 0]
         null = self.null_kv.to(cache.dtype).expand(cache.shape[0], 1,
                                                    self.dim_head)
         kv = torch.cat([null, cache], dim=1)              # (b, 1 + T, d)

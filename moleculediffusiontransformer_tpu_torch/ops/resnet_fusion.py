@@ -18,6 +18,11 @@ runs on the tensor-core GEMM of ``csrc/gemm_tc.cuh``; ``tc_products`` says
 how many a call sends there, and ``gemm_tc_launches`` counts them.
 float32 products stay on the CUDA cores.
 
+The call goes through the operator ``mdt_torch::resnet_run``
+(``torch.library.custom_op``, with a fake for the outputs' shapes), so that
+``torch.export`` records it as one node and a CUDA graph captures its
+launch.
+
 ``resnet_stack`` is the run with gradients: the kernel forward and, as its
 backward, autograd of the ``ResnetBlock1d`` composition recomputed — the
 JAX ``custom_vjp`` differentiates its slow path the same way, and has no
@@ -29,7 +34,7 @@ down and up blocks dispatch to it when it is on (``nn/unet.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -83,38 +88,73 @@ def kernel_weights(blocks: Sequence[ResnetBlock1d],
     FiLM weights and biases are consecutive row blocks of one (n*2*C_out,
     C_m) matrix and one vector, so that the kernel computes every block's
     scale and shift in one product (``film_contiguous``)."""
-    out = []
+    return kernel_layout(blocks, kernel_tensors(blocks, dtype))
+
+
+def _block_params(blk: ResnetBlock1d) -> List[Optional[torch.Tensor]]:
+    """The parameter behind each of a block's ``kernel_weights`` entries
+    (None for the FiLM pair, whose entries are views of the run's FiLM
+    matrix and vector)."""
+    one, two = blk.block1, blk.block2
+    ps = [one.groupnorm.weight, one.groupnorm.bias, one.project.weight,
+          one.project.bias]
+    if blk.use_mapping:
+        ps += [None, None]
+    ps += [two.groupnorm.weight, two.groupnorm.bias, two.project.weight,
+           two.project.bias]
+    if blk.to_out is not None:
+        ps += [blk.to_out.weight, blk.to_out.bias]
+    return ps
+
+
+def kernel_tensors(blocks: Sequence[ResnetBlock1d], dtype: torch.dtype,
+                   derived_only: bool = False) -> Dict[str, torch.Tensor]:
+    """``kernel_weights`` as named tensors: ``"{i}.{j}"`` entry j of block
+    i, except the FiLM pairs, which are ``"film.w"`` and ``"film.b"``, the
+    whole matrix and vector.  ``derived_only``: only the entries that are
+    not their parameter as it is (a serving program takes these as inputs,
+    made once per load: ``design.export``)."""
+    out: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
         denses = [blk.to_scale_shift.to_scale_shift[1] for blk in blocks
                   if blk.use_mapping]
-        film = iter(_film_views(denses, dtype) if denses else [])
-        for blk in blocks:
-            def conv(c):
-                w = c.weight
-                return [w.permute(0, 2, 1).reshape(w.shape[0], -1).to(dtype)
-                        .contiguous(), c.bias.float().contiguous()]
-
-            def norm(n):
-                return [n.weight.float().contiguous(),
-                        n.bias.float().contiguous()]
-
-            ws = norm(blk.block1.groupnorm) + conv(blk.block1.project)
-            if blk.use_mapping:
-                ws += next(film)
-            ws += norm(blk.block2.groupnorm) + conv(blk.block2.project)
-            if blk.to_out is not None:
-                ws += conv(blk.to_out)
-            out.append([w.detach() for w in ws])
+        if denses:
+            out["film.w"] = torch.cat([d.weight for d in denses]).to(dtype)
+            out["film.b"] = torch.cat([d.bias for d in denses]).float()
+        for i, blk in enumerate(blocks):
+            for j, p in enumerate(_block_params(blk)):
+                if p is None:
+                    continue
+                if p.dim() == 3:    # a conv's W as (C_out, 3*C_in), tap-major
+                    w = p.permute(0, 2, 1).reshape(p.shape[0], -1).to(
+                        dtype).contiguous()
+                elif p.dtype == torch.float32 and p.is_contiguous():
+                    if derived_only:
+                        continue
+                    w = p
+                else:
+                    w = p.float().contiguous()
+                out[f"{i}.{j}"] = w.detach()
     return out
 
 
-def _film_views(denses, dtype: torch.dtype) -> List[List[torch.Tensor]]:
-    """[W_i, b_i] of each FiLM Dense as views of one concatenated matrix (in
-    ``dtype``) and bias (float32), in order."""
-    rows = [d.weight.shape[0] for d in denses]
-    w = torch.cat([d.weight for d in denses]).to(dtype)
-    b = torch.cat([d.bias for d in denses]).float()
-    return [[wv, bv] for wv, bv in zip(w.split(rows), b.split(rows))]
+def kernel_layout(blocks: Sequence[ResnetBlock1d],
+                  tensors: Dict[str, torch.Tensor]) -> List[List[torch.Tensor]]:
+    """``kernel_tensors``' entries as ``kernel_weights``' lists, each FiLM
+    pair a view of the one matrix and vector, an entry not given the
+    parameter itself."""
+    rows = [blk.to_scale_shift.to_scale_shift[1].weight.shape[0]
+            for blk in blocks if blk.use_mapping]
+    film = iter(zip(tensors["film.w"].split(rows),
+                    tensors["film.b"].split(rows)) if rows else ())
+    out = []
+    for i, blk in enumerate(blocks):
+        ws = [tensors.get(f"{i}.{j}", p)
+              for j, p in enumerate(_block_params(blk))]
+        if blk.use_mapping:
+            ws[4:6] = next(film)
+        out.append(ws)
+    return out
 
 
 def film_contiguous(weights: Sequence[Sequence[torch.Tensor]]) -> bool:
@@ -144,9 +184,14 @@ class WeightCache:
     def __init__(self):
         self._key = None
         self._weights: List[List[torch.Tensor]] = []
+        # set while a serving program is traced (``design.export``): the
+        # run's ``kernel_tensors`` as the program's inputs, made once per load
+        self.given: Optional[Dict[str, torch.Tensor]] = None
 
     def get(self, blocks: Sequence[ResnetBlock1d],
             dtype: torch.dtype) -> List[List[torch.Tensor]]:
+        if self.given is not None:      # traced by ``design.export``
+            return kernel_layout(blocks, self.given)
         key = (dtype, tuple((p.data_ptr(), p._version, p.device)
                             for blk in blocks for p in blk.parameters()))
         if key != self._key:
@@ -299,13 +344,52 @@ def resnet_stack_forward(weights: Sequence[Sequence[torch.Tensor]],
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Run the blocks: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (arguments and result as ``resnet_stack_reference``);
-    raises for anything the kernel does not take."""
-    global RESNET_LAUNCHES
+    raises for anything the kernel does not take.  The call goes through
+    the operator ``mdt_torch::resnet_run``."""
     skip_list = list(skips) if skips is not None else [None] * len(weights)
-    if _on_cpu(x, mapping, *skip_list):
-        return resnet_stack_reference(weights, x, mapping, skips,
-                                      groups=groups, skip_scale=skip_scale,
-                                      collect=collect)
+    _on_cpu(x, mapping, *skip_list)     # refuses other devices and mixes
+    outs = torch.ops.mdt_torch.resnet_run(
+        x, mapping, skip_list, [w for ws in weights for w in ws],
+        [len(ws) for ws in weights], groups, float(skip_scale), collect)
+    return outs[-1], (list(outs) if collect else [])
+
+
+@torch.library.custom_op("mdt_torch::resnet_run", mutates_args=())
+def resnet_run_op(x: torch.Tensor, mapping: Optional[torch.Tensor],
+                  skips: List[Optional[torch.Tensor]],
+                  weights: List[torch.Tensor], block_sizes: List[int],
+                  groups: int, skip_scale: float,
+                  collect: bool) -> List[torch.Tensor]:
+    """K8 as a PyTorch operator (``torch.export`` records one node, a CUDA
+    graph captures the launch): ``weights`` is ``kernel_weights``' list
+    flattened, ``block_sizes`` the entries of each block.  Returns every
+    block's output with ``collect``, else the last one alone.  On CUDA
+    tensors it launches the kernel, on CPU tensors it runs the plain
+    version."""
+    it = iter(weights)
+    nested = [[next(it) for _ in range(k)] for k in block_sizes]
+    if _on_cpu(x, mapping, *skips):
+        out, outs = resnet_stack_reference(nested, x, mapping, skips,
+                                           groups=groups,
+                                           skip_scale=skip_scale,
+                                           collect=collect)
+        return outs if collect else [out]
+    return _launch(nested, x, mapping, skips, groups, skip_scale, collect)
+
+
+@resnet_run_op.register_fake
+def _resnet_run_fake(x, mapping, skips, weights, block_sizes, groups,
+                     skip_scale, collect):
+    shape = (*x.shape[:-1], weights[2].shape[0])   # C_out of conv 1
+    return [x.new_empty(shape) for _ in range(len(block_sizes)
+                                              if collect else 1)]
+
+
+def _launch(weights, x, mapping, skip_list, groups, skip_scale, collect):
+    """Launch K8 on CUDA tensors and count the launch in
+    ``RESNET_LAUNCHES`` (here alone, where the kernel is enqueued: a traced
+    call counts nothing, a CUDA graph's replays nothing either)."""
+    global RESNET_LAUNCHES
     dt, dev = x.dtype, x.device
     if dt not in _DTYPES:
         raise TypeError(f"resnet kernel takes float32 or bfloat16, not {dt}")
@@ -359,7 +443,7 @@ def resnet_stack_forward(weights: Sequence[Sequence[torch.Tensor]],
         dev.index, _stream(x))
     _raise_on(err, "resnet stack kernel", lib, "rs_error_string")
     RESNET_LAUNCHES += 1
-    return outs[-1], (outs if collect else [])
+    return outs
 
 
 # --------------------------------------------------------------------------

@@ -15,7 +15,11 @@ Every wrapper launches its kernel (``csrc/transformer1d_fwd.cu``,
 ``csrc/transformer1d_bwd.cu``, built on first use by ``ops.cuda_build``) on a
 CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch version
 (the ``*_reference`` functions), the same computation.  There is no fallback
-from one to the other.
+from one to the other.  The serving forward (no stash, with or without a
+uniform context) is the operator ``mdt_torch::t1d_forward``
+(``torch.library.custom_op``, with a fake that gives the output's shape and
+dtype), so that ``torch.export`` records it as one node and a CUDA graph
+captures its launch; the live path calls the same operator.
 
 Numerics follow the JAX package's Pallas kernels: norm and softmax
 statistics in float32, every product accumulated in float32, q/kv cast to
@@ -645,33 +649,17 @@ def _check_cuda_args(x: torch.Tensor, context: Optional[torch.Tensor],
                              f"not fit multiplier {multiplier} at C={c}")
 
 
-def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                          context: Optional[torch.Tensor], *,
-                          num_layers: int, heads: int, head_dim: int,
-                          multiplier: int, with_stash: bool = False,
-                          uniform_ctx: bool = False):
-    """Run a Transformer1d stack: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor; raises for anything the kernel does not
-    take.  x (b, L, C); context (b, m, C_ctx), (1, m, C_ctx) with
-    ``uniform_ctx``, or None; returns (b, L, C) in x's dtype, and with
-    ``with_stash`` also the stash (slots, b, L, C) of
-    ``transformer1d_reference``.  ``LAUNCHES`` counts the plain forward's
-    launches, ``UNIFORM_LAUNCHES`` the uniform-context ones and
-    ``STASH_LAUNCHES`` those with a stash."""
+def _launch_forward(weights: List[torch.Tensor], x: torch.Tensor,
+                    context: Optional[torch.Tensor], *, num_layers: int,
+                    heads: int, head_dim: int, multiplier: int,
+                    with_stash: bool, uniform_ctx: bool):
+    """Launch the stack kernel on CUDA tensors (``weights``: the kernel's
+    list, ``_kernel_weights``) and count the launch: ``STASH_LAUNCHES``
+    with a stash, else ``UNIFORM_LAUNCHES`` or ``LAUNCHES``.  The counters
+    move only here, where a kernel is enqueued, so a traced call counts
+    nothing and a CUDA graph's replays count nothing either."""
     global LAUNCHES, STASH_LAUNCHES, UNIFORM_LAUNCHES
-    if x.device.type == "cpu":
-        return transformer1d_reference(params, x, context,
-                                       num_layers=num_layers, heads=heads,
-                                       head_dim=head_dim,
-                                       multiplier=multiplier,
-                                       with_stash=with_stash,
-                                       uniform_ctx=uniform_ctx)
-    if x.device.type != "cuda":
-        raise ValueError(f"stack kernel takes CPU or CUDA tensors, not "
-                         f"{x.device}")
     cross = context is not None
-    _check_context_batch(x, context, uniform_ctx)
-    weights = _kernel_weights(params, num_layers, cross, x.dtype)
     _check_cuda_args(x, context, weights, heads, head_dim, multiplier)
     ctx = context.to(x.dtype).contiguous() if cross else None
     b, length, c = x.shape
@@ -704,6 +692,70 @@ def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         LAUNCHES += 1
     return out
+
+
+@torch.library.custom_op("mdt_torch::t1d_forward", mutates_args=())
+def t1d_forward_op(x: torch.Tensor, context: Optional[torch.Tensor],
+                   weights: List[torch.Tensor], num_layers: int, heads: int,
+                   head_dim: int, multiplier: int,
+                   uniform_ctx: bool) -> torch.Tensor:
+    """K1 (and its uniform-context variant) as a PyTorch operator, so that
+    ``torch.export`` records it as one graph node and a CUDA graph captures
+    its launch.  ``weights``: the kernel's list (``_kernel_weights``).  On
+    CUDA tensors it launches the kernel, on CPU tensors it runs the plain
+    version."""
+    if x.device.type == "cpu":
+        params = dict(zip(_abi_names(num_layers, context is not None),
+                          weights))
+        return transformer1d_reference(
+            params, x, context, num_layers=num_layers, heads=heads,
+            head_dim=head_dim, multiplier=multiplier, uniform_ctx=uniform_ctx)
+    return _launch_forward(weights, x, context, num_layers=num_layers,
+                           heads=heads, head_dim=head_dim,
+                           multiplier=multiplier, with_stash=False,
+                           uniform_ctx=uniform_ctx)
+
+
+@t1d_forward_op.register_fake
+def _t1d_forward_fake(x, context, weights, num_layers, heads, head_dim,
+                      multiplier, uniform_ctx):
+    return torch.empty_like(x)
+
+
+def transformer1d_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                          context: Optional[torch.Tensor], *,
+                          num_layers: int, heads: int, head_dim: int,
+                          multiplier: int, with_stash: bool = False,
+                          uniform_ctx: bool = False):
+    """Run a Transformer1d stack: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor; raises for anything the kernel does not
+    take.  x (b, L, C); context (b, m, C_ctx), (1, m, C_ctx) with
+    ``uniform_ctx``, or None; returns (b, L, C) in x's dtype, and with
+    ``with_stash`` also the stash (slots, b, L, C) of
+    ``transformer1d_reference``.  ``LAUNCHES`` counts the plain forward's
+    launches, ``UNIFORM_LAUNCHES`` the uniform-context ones and
+    ``STASH_LAUNCHES`` those with a stash.
+
+    Without a stash (serving) the call goes through the operator
+    ``mdt_torch::t1d_forward``; the stash (training) is called directly,
+    inside the autograd function ``_Stack``."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"stack kernel takes CPU or CUDA tensors, not "
+                         f"{x.device}")
+    _check_context_batch(x, context, uniform_ctx)
+    weights = _kernel_weights(params, num_layers, context is not None,
+                              x.dtype)
+    geometry = dict(num_layers=num_layers, heads=heads, head_dim=head_dim,
+                    multiplier=multiplier)
+    if not with_stash:
+        return torch.ops.mdt_torch.t1d_forward(
+            x, context, weights, num_layers, heads, head_dim, multiplier,
+            uniform_ctx)
+    if x.device.type == "cpu":
+        return transformer1d_reference(params, x, context, with_stash=True,
+                                       uniform_ctx=uniform_ctx, **geometry)
+    return _launch_forward(weights, x, context, with_stash=True,
+                           uniform_ctx=uniform_ctx, **geometry)
 
 
 def bwd_workspace(x: torch.Tensor, context: Optional[torch.Tensor], *,

@@ -139,25 +139,12 @@ def load_params(path: Optional[str], task: str,
     state_dict_from_jax_params``), so they load with ``strict=True``.  A
     msgpack file itself cannot be read here: convert it with ``python -m
     moleculediffusiontransformer_tpu export-torch``."""
-    from ..core.checkpoint import FORMAT
+    from ..core.checkpoint import read_state_dict
     if task not in TASKS:
         raise ValueError(f"unknown task: {task!r} (expected one of {TASKS})")
     if path is None:
         return model, "random-init (no checkpoint found)"
-    if path.endswith(".npz"):
-        with np.load(path) as z:
-            sd = {k: torch.from_numpy(z[k]) for k in z.files}
-    elif path.endswith((".pt", ".pth")):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and sd.get("format") == FORMAT:
-            sd = sd["model"]
-    else:
-        raise ValueError(
-            f"{path}: expected a .pt/.pth or .npz file; a JAX msgpack "
-            f"checkpoint crosses through `python -m "
-            f"moleculediffusiontransformer_tpu export-torch --checkpoint "
-            f"{path} --out model.npz`")
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(read_state_dict(path), strict=True)
     return model, path
 
 

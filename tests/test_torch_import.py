@@ -61,6 +61,9 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.design",
     "moleculediffusiontransformer_tpu_torch.design.valence",
     "moleculediffusiontransformer_tpu_torch.design.inverse_design",
+    "moleculediffusiontransformer_tpu_torch.design.export",
+    "moleculediffusiontransformer_tpu_torch.design.serve",
+    "moleculediffusiontransformer_tpu_torch.design.http_serve",
     "moleculediffusiontransformer_tpu_torch.core",
     "moleculediffusiontransformer_tpu_torch.core.config",
     "moleculediffusiontransformer_tpu_torch.core.utils",
@@ -142,7 +145,10 @@ def test_entry_points_default_to_the_card():
     Internaldim decoder put the model on the card unless the caller names a
     device: with no device
     argument they ask for "cuda" (which raises on a host without one), never
-    the CPU."""
+    the CPU.  So do the serving entry points: ``export_*`` and
+    ``ArtifactServer`` export and serve on the card unless ``device``
+    names another, as do the ``export``, ``export-torch``, ``inspect`` and
+    ``serve`` subcommands."""
     from moleculediffusiontransformer_tpu_torch.models import (audio,
                                                                transformers)
 
@@ -184,6 +190,29 @@ def test_entry_points_default_to_the_card():
             with pytest.raises((RuntimeError, AssertionError)):
                 build()
         assert next(build(device="cpu").parameters()).device.type == "cpu"
+
+    import inspect
+
+    from moleculediffusiontransformer_tpu_torch import cli
+    from moleculediffusiontransformer_tpu_torch.design import export as dx
+    from moleculediffusiontransformer_tpu_torch.design.serve import \
+        ArtifactServer
+    exports = (dx.export_sampler, dx.export_inpainter, dx.export_generator,
+               dx.export_encoder)
+    for entry in (*exports, ArtifactServer):
+        assert inspect.signature(entry).parameters["device"].default == \
+            "cuda", entry
+    parser = cli.build_parser()
+    for argv in (["export", "--out", "a.pt2"],
+                 ["export-torch", "--checkpoint", "a.pt", "--out", "b.pt"],
+                 ["inspect", "a.pt2"], ["serve", "a.pt2"]):
+        assert parser.parse_args(argv).device == "cuda", argv
+    if not torch.cuda.is_available():
+        encoder = builds[3](device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            dx.export_encoder(encoder, batch=1, max_length=8)
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            ArtifactServer("no-such-artifact.pt2")
 
 
 def _smoke():
@@ -294,6 +323,35 @@ def test_chip_smoke_builds_the_audio_all_preset():
         jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
                                shapes)).items()}
     assert {k: tuple(v.shape) for k, v in a.state_dict().items()} == want
+
+
+def test_chip_smoke_builds_the_serving_programs(tmp_path, monkeypatch):
+    """Phase 30's export code (``serve_export`` over
+    ``serve_artifact_args``, through the CLI) builds the sampler, inpainter,
+    generator and encoder programs; here at the recipes' tiny preset on the
+    CPU, with a few steps and small batches."""
+    from moleculediffusiontransformer_tpu_torch.design import export as dx
+    smoke = _smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    smoke.SERVE_PRESET, smoke.NUM_STEPS, smoke.AR_TOKENS = "tiny", 2, 3
+    smoke.SERVE_BATCH = smoke.SERVE_INPAINT_BATCH = 2
+    smoke.SERVE_AR_BATCH = smoke.SERVE_ENCODER_BATCH = 2
+    exports = smoke.serve_artifact_args(22, 24)
+    want = {"sampler": "sampler", "inpainter": "inpainter",
+            "generator": "generator", "encoder": "encoder"}
+    for name, kind in want.items():
+        task, args = exports[name]
+        path = smoke.serve_export(torch.device("cpu"), str(tmp_path), name,
+                                  task, *args)
+        program, header = dx.load_bundle(path)
+        assert (header["kind"], header["device"], header["task"]) == (
+            kind, "cpu", task)
+        assert header["inputs"][0]["shape"][0] == 2
+        ops = {str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"}
+        assert ("mdt_torch.t1d_forward.default" in ops) == (
+            kind in ("sampler", "inpainter"))
+    assert exports["sampler_fp32"][1][-2:] == ("--dtype", "float32")
 
 
 def _run(code: str, env=None) -> subprocess.CompletedProcess:
