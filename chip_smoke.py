@@ -247,6 +247,24 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    ``/generate`` equal the direct call, ``/reload`` and ``/metrics``, and 64
    concurrent one-row ``/predict`` requests coalesced into fewer device
    calls, each equal to one direct call of all 64 rows.
+31. the audio assemblies and the graph analogs (bfloat16, seeded random
+   weights): ``AudioDiffusionUpsampler(1, factor=(2,))``,
+   ``AudioDiffusionAE(1)`` (decoded at its encoder's factor, 8,192),
+   ``AudioDiffusionVocoder(1)`` (trained through ``loss_from_wave``,
+   sampled from the (8, 1, 512, 128) STFT magnitude of a 2**15 wave),
+   ``AudioDiffusionUpphaser(1)`` and ``DiffusionAR1d`` at the waveform
+   widths in chunks of 8,192 on 8 waveforms of 2**15 samples; then
+   ``AnalogDiffusionSparse`` (pred_dim 3) and ``AnalogDiffusionFull``
+   (pred_dim 3 + 1,024) at their class defaults on 64 packed (1,024, 4 +
+   neighbours) tensors under 12 property scalars: for each its parameter
+   count, one warm-up and 2 timed Adam steps (seconds a step, peak memory;
+   K1 stash, K3, K4 launched exactly stacks x 3, K2 layers x 3), an 8-step
+   request with its sampler (v; the graph models' ADPM2 under CFG at 2.0;
+   seconds and rows a second; K1 launched exactly stacks x the denoise
+   evaluations counted at the UNet), K1 against its plain version at every
+   stack shape the model has; then each in float32 at batch 2, card
+   against CPU on the same draws: a denoise evaluation within 1e-4 and the
+   loss within 1e-4 relative, K1 launched exactly stacks x 2.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
@@ -255,7 +273,9 @@ served requests; K1 and the training kernels also with
 ``launches_cli_train``, those of
 phase 27's straight CLI train: its steps, its preflight pass and its
 held-out eval; the training kernels also with
-``launches_audio_all_train``, those of phase 28's training steps),
+``launches_audio_all_train``, those of phase 28's training steps; K1 with
+``launches_assemblies``, phase 31's requests, the training kernels with
+``launches_assemblies_train``, its steps),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -499,6 +519,18 @@ SERVE_BATCH, SERVE_INPAINT_BATCH, SERVE_AR_BATCH = 512, 64, 1024
 SERVE_ENCODER_BATCH, SERVE_PARITY_BATCH, SERVE_PARITY_STEPS = 1024, 8, 8
 SERVE_PREDICT_CLIENTS, SERVE_WINDOW_MS = 64, 200.0
 SERVE_PRESET = "notebook"
+# phase 31: the audio assemblies at their presets on 2**15-sample mono
+# waveforms, batch 8 (the AR model at the waveform widths in chunks of
+# 8,192 samples, patch 16 x 4*4*4*2*2*2: the least length its UNet divides,
+# four chunks a waveform), and the graph analogs at their class defaults
+# (channels 128, max_length 1,024, a 1,024-wide conditioning of 12
+# property scalars; Sparse predicting xyz, Full xyz and the 1,024-column
+# adjacency), batch 64; bf16, seeded random weights; requests of 8 sampler
+# steps (graph: CFG at scale 2.0); then float32 at batch 2, card against CPU
+ASM_SAMPLES, ASM_BATCH, ASM_STEPS, ASM_TRAIN_STEPS = 2 ** 15, 8, 8, 2
+ASM_AR_CHUNK = 16 * 4 * 4 * 4 * 2 * 2 * 2
+GRAPH_BATCH, GRAPH_COND_SCALE, GRAPH_LENGTH = 64, 2.0, 1024
+ASM_PARITY_BATCH, ASM_PARITY_TOL = 2, 1e-4
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -2816,11 +2848,13 @@ def loop_step_memory(dev):
                                     dtype=getattr(torch, dtype), device=dev)
         config = TrainConfig(batch_size=batch, epochs=1, print_loss_every=1,
                              accumulation_steps=micro)
-        estimate = trainer.preflight_memory_check(
-            model, trainer.TrainState.create(
-                model, trainer.make_optimizer(config)),
-            torch.as_tensor(data.y_train[:batch], device=dev),
-            torch.as_tensor(data.X_train[:batch], device=dev), micro)
+        # under cuDNN's deterministic algorithms, as the loop runs it
+        with trainer.deterministic_convs():
+            estimate = trainer.preflight_memory_check(
+                model, trainer.TrainState.create(
+                    model, trainer.make_optimizer(config)),
+                torch.as_tensor(data.y_train[:batch], device=dev),
+                torch.as_tensor(data.X_train[:batch], device=dev), micro)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2844,6 +2878,7 @@ def loop_step_memory(dev):
               card_share=peak / card,
               preflight_estimated_bytes=estimate["estimated_bytes"],
               preflight_peak_bytes=estimate["peak_bytes"],
+              preflight_over_peak=estimate["estimated_bytes"] / peak,
               losses=[r["loss"] for r in logged], gemm_tc_launches=products,
               want_gemm_tc_launches=want_products)
         if not all(math.isfinite(r["loss"]) for r in logged):
@@ -4332,6 +4367,376 @@ def serving_artifacts(dev, inv, tr):
     return served
 
 
+def _wave_loss_module(vocoder):
+    """``vocoder.loss_from_wave`` as a module whose call is ``(x, generator,
+    sigmas=, noise=)``, so that ``make_model1d_train_step`` trains the
+    vocoder on waves."""
+    import torch
+
+    class WaveLoss(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.vocoder = vocoder
+
+        def forward(self, x, generator=None, **kwargs):
+            return self.vocoder.loss_from_wave(x, generator, **kwargs)
+
+    return WaveLoss()
+
+
+def assembly_cases():
+    """Phase 31's models: name -> (build(device, dtype), kind).  The audio
+    kinds train on (b, 2**15, 1) waves through ``make_model1d_train_step``
+    (the vocoder through ``loss_from_wave``), the graph ones on (b, 12)
+    property scalars and packed (b, 1,024, 4 + neighbours) tensors through
+    ``make_diffusion_train_step``."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio, graph
+
+    def seeded(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def preset(fn, seed, **kw):
+        return lambda dev, dtype: fn(1, dtype=dtype, device=dev,
+                                     generator=seeded(seed), **kw)
+
+    def ar(dev, dtype):
+        return audio.build_model1d(
+            dev, seeded(45), audio.DiffusionAR1d, in_channels=1,
+            chunk_length=ASM_AR_CHUNK, context_channels=(1,), dtype=dtype,
+            **audio.get_default_model_kwargs())
+
+    def analog(cls, seed, pred_dim):
+        return lambda dev, dtype: graph.build_graph_model(
+            cls, dev, seeded(seed), pred_dim=pred_dim, dtype=dtype)
+
+    return {
+        "upsampler": (preset(audio.AudioDiffusionUpsampler, 41,
+                             factor=(2,)), "upsampler"),
+        "autoencoder": (preset(audio.AudioDiffusionAE, 42), "autoencoder"),
+        "vocoder": (preset(audio.AudioDiffusionVocoder, 43), "vocoder"),
+        "upphaser": (preset(audio.AudioDiffusionUpphaser, 44), "upphaser"),
+        "ar": (ar, "ar"),
+        "graph_sparse": (analog(graph.AnalogDiffusionSparse, 46, 3),
+                         "graph"),
+        "graph_full": (analog(graph.AnalogDiffusionFull, 47,
+                              3 + GRAPH_LENGTH), "graph"),
+    }
+
+
+def assembly_inputs(model, kind, batch, gen, dev):
+    """A batch for ``model``: waves in [-1, 1] (b, 2**15, 1); for the graph
+    models property scalars (b, 12) and a packed (b, 1,024, 4 + neighbour
+    columns) tensor."""
+    import torch
+    if kind != "graph":
+        return (torch.rand(batch, ASM_SAMPLES, 1, generator=gen,
+                           device=dev) * 2 - 1,)
+    seq = torch.rand(batch, 12, generator=gen, device=dev) * 2 - 1
+    cols = model.max_length if model.pred_dim > 3 else model.max_neighbors
+    packed = torch.randn(batch, GRAPH_LENGTH, 4 + cols, generator=gen,
+                         device=dev)
+    return seq, packed
+
+
+def assembly_request(model, kind, inputs, gen, num_steps=ASM_STEPS):
+    """The kind's sampler on ``inputs``: (output, denoise evaluations the
+    sampler makes, the output's shape, whether it is clamped to
+    [-1, 1])."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    from moleculediffusiontransformer_tpu_torch.models import \
+        qm_diffusion as qm
+    evals = num_steps - 1
+    if kind == "graph":
+        seq = inputs[0]
+        out = qm.sample(model, seq, gen, num_steps=num_steps,
+                        cond_scale=GRAPH_COND_SCALE)
+        return out, 2 * evals, (seq.shape[0], model.max_length,
+                                model.pred_dim), False
+    x = inputs[0]
+    shape = tuple(x.shape)
+    if kind == "upsampler":
+        out = audio.sample_upsampler(model, x[:, ::2], gen,
+                                     num_steps=num_steps)
+    elif kind == "upphaser":
+        out = audio.sample_upsampler(model, x, gen, factor=1,
+                                     num_steps=num_steps)
+    elif kind == "autoencoder":
+        with torch.no_grad():
+            latent = model.encode(x)
+        out = audio.decode_ae(
+            model, latent, gen,
+            downsample_factor=model.encoder.downsample_factor,
+            num_steps=num_steps)
+    elif kind == "vocoder":
+        magnitude, _ = model.stft.encode(x)
+        out = audio.sample_vocoder(model, magnitude, gen,
+                                   num_steps=num_steps)
+        return out, evals, shape, False
+    else:                                  # ar: chunk after chunk
+        out = audio.sample_ar(model, torch.randn(
+            shape, generator=gen, device=x.device), gen,
+            num_steps=num_steps)
+        evals *= shape[1] // model.chunk_length
+    return out, evals, shape, True
+
+
+def assembly_train_step(model, kind):
+    """``step(inputs, gen) -> loss``: one Adam step (2e-4, clip 0.5) with
+    its own optimizer state."""
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    if kind == "graph":
+        step = trainer.make_diffusion_train_step(model, opt)
+        return lambda inputs, gen: step(state, *inputs, gen)
+    if kind == "vocoder":
+        step = trainer.make_model1d_train_step(_wave_loss_module(model), opt)
+    else:
+        step = trainer.make_model1d_train_step(model, opt)
+    return lambda inputs, gen: step(state, inputs[0], gen)
+
+
+def assembly_stack_kernels(model, run):
+    """K1 against its plain version at each stack shape of ``model`` (on
+    the activations it gets in ``run()``, bf16), within KERNEL_TOL; one
+    stack of each (L, C, layers, context) shape.  Launches here are not the
+    main path's.  Returns the shapes and the largest error."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    shapes, worst = [], 0.0
+    for mod, (x, c) in stack_inputs(model, run).items():
+        geom = mod._geometry()
+        key = [x.shape[1], x.shape[2], geom["num_layers"],
+               None if c is None else c.shape[1]]
+        if key in shapes:
+            continue
+        kp = mod.kernel_params()
+        with torch.no_grad():
+            err = _rel_err(tf.transformer1d_forward(kp, x, c, **geom),
+                           tf.transformer1d_reference(kp, x, c, **geom))
+        shapes.append(key)
+        worst = max(worst, err)
+        if not err <= KERNEL_TOL["bfloat16"]:
+            raise AssertionError(f"K1 at (L, C, layers, context) {key}: "
+                                 f"{err} from the plain version")
+    return shapes, worst
+
+
+def assembly_eval_run(model, kind, inputs, gen):
+    """One denoise evaluation of ``model`` at a mid sigma (the sampler's
+    closure), for ``stack_inputs``."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    dev = inputs[0].device
+    if kind == "graph":
+        seq = inputs[0]
+        emb = model.embed_conditioning(seq)
+        x = torch.randn(seq.shape[0], model.max_length, model.pred_dim,
+                        generator=gen, device=dev)
+        sig = torch.full((seq.shape[0],), 0.5, device=dev)
+        return lambda: model.denoise(x, sig, emb, GRAPH_COND_SCALE)
+    x = inputs[0]
+    sig = torch.full((x.shape[0],), 0.5, device=dev)
+    if kind == "vocoder":
+        mag, _ = model.stft.encode(x)
+        flat = audio._spectrogram_1d(mag)
+        return lambda: model.denoise_vocoder(torch.randn_like(flat), sig,
+                                             flat)
+    if kind == "autoencoder":
+        return lambda: model.denoise_latent(x, sig, model.encode(x))
+    if kind == "ar":
+        chunk = x[:, :model.chunk_length]
+        return lambda: model.denoise_chunk(chunk, sig, chunk)
+    return lambda: model.denoise_upsample(x, sig, x)
+
+
+def assembly_parity_calls(model, kind, inputs, draws):
+    """(denoised, loss) of ``model`` on ``inputs`` with every draw handed
+    in: one denoise evaluation and the training loss, no grad."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    sig, noise = draws["sigmas"], draws["noise"]
+    with torch.no_grad():
+        if kind == "graph":
+            seq, packed = inputs
+            emb = model.embed_conditioning(seq)
+            den = model.denoise(draws["x"], sig, emb, GRAPH_COND_SCALE)
+            loss = model(seq, packed, sigmas=sig, noise=noise)
+            return den, loss
+        x = inputs[0]
+        if kind == "vocoder":
+            mag, phase = model.stft.encode(x)
+            flat = audio._spectrogram_1d(mag)
+            den = model.denoise_vocoder(draws["x"], sig, flat)
+            return den, model(mag, phase, sigmas=sig, noise=noise)
+        if kind == "autoencoder":
+            den = model.denoise_latent(x, sig, model.encode(x))
+            return den, model(x, sigmas=sig, noise=noise)
+        if kind == "ar":
+            chunk = x[:, :model.chunk_length]
+            den = model.denoise_chunk(chunk, sig, draws["x"])
+            return den, model(x, chunk_index=1, dropped=draws["dropped"],
+                              sigmas=sig, noise=noise)
+        index = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+        den = model.denoise_upsample(x, sig, draws["x"])
+        if kind == "upphaser":
+            return den, model(x, phase=draws["phase"], factor_index=index,
+                              sigmas=sig, noise=noise)
+        return den, model(x, factor_index=index, sigmas=sig, noise=noise)
+
+
+def assembly_draws(model, kind, inputs, gen):
+    """Every draw of ``assembly_parity_calls``, on the CPU: the sigmas (b,),
+    the loss's noise (shaped like its target), a denoise input ``x`` (the
+    AR model's: its condition), the AR dropout and the upphaser's phase."""
+    import math as m
+    import torch
+    b = inputs[0].shape[0]
+    if kind == "graph":
+        target = model.pack_target(inputs[1])
+        return dict(sigmas=model.sigma_distribution(b, gen),
+                    noise=torch.randn(target.shape, generator=gen),
+                    x=torch.randn(target.shape, generator=gen) * 0.5)
+    x = inputs[0]
+    out = dict(sigmas=torch.rand(b, generator=gen))
+    if kind == "vocoder":
+        mag, _ = model.stft.encode(x)
+        out["noise"] = torch.randn(b, mag.shape[-1], mag.shape[2],
+                                   generator=gen)
+        out["x"] = torch.randn(out["noise"].shape, generator=gen)
+    elif kind == "ar":
+        out["noise"] = torch.randn(b, model.chunk_length, 1, generator=gen)
+        out["x"] = torch.rand(b, model.chunk_length, 1, generator=gen) - 0.5
+        out["dropped"] = torch.tensor([False, True])
+    else:
+        out["noise"] = torch.randn(x.shape, generator=gen)
+        out["x"] = torch.rand(x.shape, generator=gen) * 2 - 1
+    if kind == "upphaser":
+        _, phase = model.stft.encode(x)
+        out["phase"] = (torch.rand(phase.shape, generator=gen) - 0.5) \
+            * 2 * m.pi
+    return out
+
+
+def assemblies_fp32_vs_cpu(dev, cases):
+    """Phase 31: each model in float32 at batch 2, card against CPU on the
+    same weights, inputs and draws: a denoise evaluation within
+    ASM_PARITY_TOL and the training loss within ASM_PARITY_TOL relative;
+    on the card K1 launched exactly stacks x 2 (the evaluation and the
+    loss's forward) and nothing else."""
+    import torch
+    cpu = torch.device("cpu")
+    for name, (build, kind) in cases.items():
+        model = build(cpu, torch.float32).eval()
+        g = torch.Generator().manual_seed(48)
+        inputs = assembly_inputs(model, kind, ASM_PARITY_BATCH, g, cpu)
+        draws = assembly_draws(model, kind, inputs, g)
+        stacks, _ = audio_stacks(model)
+        results = []
+        for m, d in ((copy.deepcopy(model).to(dev), dev), (model, cpu)):
+            reset_counts()
+            den, loss = assembly_parity_calls(
+                m, kind, [t.to(d) for t in inputs],
+                {k: v.to(d) for k, v in draws.items()})
+            launched = counts()
+            results.append((den.cpu(), loss.item(), launched))
+            del m
+        (card_den, card_loss, launched), (cpu_den, cpu_loss, _) = results
+        den_err = _abs_err(card_den, cpu_den)
+        loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        phase("assembly_fp32_vs_cpu", model=name, batch=ASM_PARITY_BATCH,
+              denoise_max_abs_err=den_err, loss=card_loss,
+              plain_loss=cpu_loss, loss_rel_err=loss_err, launches=launched,
+              tol=ASM_PARITY_TOL)
+        check_launches(f"{name} fp32", launched,
+                       loop_want(stacks, 0, 0, 2))
+        if not (den_err <= ASM_PARITY_TOL and loss_err <= ASM_PARITY_TOL):
+            raise AssertionError(f"{name} fp32 card vs CPU: denoise "
+                                 f"{den_err}, loss {loss_err}")
+        del model
+        torch.cuda.empty_cache()
+
+
+def audio_assemblies(dev):
+    """Phase 31: the audio assemblies and the graph analogs (see the
+    docstring).  Returns the K1 launches of their requests and the
+    training kernels' of their steps, summed over the models."""
+    import torch
+    t0 = time.perf_counter()
+    cases = assembly_cases()
+    served, trained = {}, {}
+    for name, (build, kind) in cases.items():
+        model = build(dev, torch.bfloat16)
+        stacks, layers = audio_stacks(model)
+        batch = GRAPH_BATCH if kind == "graph" else ASM_BATCH
+        gen = torch.Generator(device=dev).manual_seed(49)
+        inputs = assembly_inputs(model, kind, batch, gen, dev)
+        phase("assembly_model", model=name, dtype="bfloat16",
+              parameters=sum(p.numel() for p in model.parameters()),
+              stacks=stacks, layers=layers,
+              inputs=[list(t.shape) for t in inputs])
+        # training: one warm-up and ASM_TRAIN_STEPS timed steps
+        step = assembly_train_step(model.train(), kind)
+        reset_counts()
+        first, first_seconds = timed(lambda: step(inputs, gen).item())
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds = timed(lambda: [step(inputs, gen).item()
+                                         for _ in range(ASM_TRAIN_STEPS)])
+        launched = counts()
+        per_step = seconds / ASM_TRAIN_STEPS
+        phase("assembly_train", model=name, batch=batch,
+              steps=1 + ASM_TRAIN_STEPS, first_step_seconds=first_seconds,
+              seconds_per_step=per_step, rows_per_s=batch / per_step,
+              losses=[first] + losses,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              launches=launched)
+        if not all(map(math.isfinite, [first] + losses)):
+            raise AssertionError(f"{name}: losses {[first] + losses}")
+        check_launches(f"{name} training", launched,
+                       loop_want(stacks, layers, 1 + ASM_TRAIN_STEPS, 0))
+        for k, v in launched.items():
+            trained[k] = trained.get(k, 0) + v
+        del step
+        model.eval()
+        # a request, after a 2-step one that loads the card's kernels for
+        # its shapes: its sampler's evaluations counted at the UNet
+        assembly_request(model, kind, inputs, gen, num_steps=2)
+        calls, handle = count_calls(model.unet)
+        reset_counts()
+        (out, evals, shape, clamped), seconds = timed(
+            lambda: assembly_request(model, kind, inputs, gen))
+        handle.remove()
+        launched = counts()
+        finite = bool(torch.isfinite(out).all())
+        phase("assembly_request", model=name, batch=batch,
+              num_steps=ASM_STEPS, evals=len(calls), seconds=seconds,
+              rows_per_s=batch / seconds, shape=list(out.shape),
+              finite=finite, launches=launched)
+        if tuple(out.shape) != shape or not finite or (
+                clamped and out.abs().max() > 1):
+            raise AssertionError(f"{name}: output {tuple(out.shape)} "
+                                 f"(expected {shape}), finite {finite}")
+        if len(calls) != evals:
+            raise AssertionError(f"{name}: {len(calls)} evaluations, "
+                                 f"expected {evals}")
+        check_launches(f"{name} request", launched,
+                       loop_want(stacks, 0, 0, evals))
+        for k, v in launched.items():
+            served[k] = served.get(k, 0) + v
+        shapes, worst = assembly_stack_kernels(
+            model, assembly_eval_run(model, kind, inputs, gen))
+        phase("assembly_stack_kernels", model=name, shapes=shapes,
+              rel_err=worst, tol=KERNEL_TOL["bfloat16"])
+        del model, inputs, out
+        torch.cuda.empty_cache()
+    assemblies_fp32_vs_cpu(dev, cases)
+    phase("assemblies_phase_seconds", seconds=time.perf_counter() - t0)
+    return served, trained
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4642,6 +5047,9 @@ def main() -> int:
     # 30. serving: the artifacts, both tiers, the HTTP front end
     served = serving_artifacts(dev, inv, tr)
 
+    # 31. the audio assemblies and the graph analogs
+    asm_served, asm_trained = audio_assemblies(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -4664,6 +5072,7 @@ def main() -> int:
         "products": TC_PRODUCTS,
         "launches_cli_train": loop_launches["LAUNCHES"],
         "launches_served": served["LAUNCHES"],
+        "launches_assemblies": asm_served["LAUNCHES"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -4683,7 +5092,8 @@ def main() -> int:
                         **train_kernels[key], "library_ms": None,
                         "products": TC_PRODUCTS,
                         "launches_cli_train": loop_launches[count],
-                        "launches_audio_all_train": audio_launches[count]})
+                        "launches_audio_all_train": audio_launches[count],
+                        "launches_assemblies_train": asm_trained[count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({

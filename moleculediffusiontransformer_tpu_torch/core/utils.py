@@ -1,10 +1,12 @@
 """Small helpers of the port (counterpart of `core/utils.py`).
 
-Only ``count_parameters`` is ported: the reference's prefix-routed kwargs
-helpers configure modules the port builds from explicit arguments.
+Only ``count_parameters`` and ``closest_power_2`` are ported: the
+reference's prefix-routed kwargs helpers configure modules the port builds
+from explicit arguments.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterable, Union
 
 import torch
@@ -23,3 +25,12 @@ def count_parameters(params: Union[torch.nn.Module, Iterable[torch.Tensor]],
         print(f"Total parameters: {total} trainable parameters: {total}")
         print("-" * 100)
     return total
+
+
+def closest_power_2(x: float) -> int:
+    """Nearest power of two to ``x`` (reference `utils.py:58-62`); a tie
+    goes to the smaller."""
+    exponent = math.log2(x)
+    candidates = (math.floor(exponent), math.ceil(exponent))
+    exponent_closest = min(candidates, key=lambda z: abs(x - 2 ** z))
+    return 2 ** int(exponent_closest)

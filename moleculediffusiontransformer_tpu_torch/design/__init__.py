@@ -1,6 +1,7 @@
 """Inverse-design pipeline of the port: generate -> decode -> validate ->
-novelty -> re-score with a forward model; and serving: exported artifacts
-(``export``), ``ArtifactServer`` and its HTTP front end."""
+novelty -> re-score with a forward model; serving: exported artifacts
+(``export``), ``ArtifactServer`` and its HTTP front end; and the optional
+plots and molecule drawings (``plots``)."""
 from .inverse_design import (HAS_RDKIT, canonicalize, decode_one_hot,
                              evaluate_generated,
                              generate_from_conditioning,
@@ -14,3 +15,6 @@ from .export import (export_encoder, export_generator, export_inpainter,
                      save_artifact, variables_skeleton)
 from .serve import ArtifactServer
 from .http_serve import ServingError, make_httpd
+from .plots import (draw_and_save, draw_and_save_set, joint_plot,
+                    plot_loss_curve, plot_results_as_barchart,
+                    view_difference)

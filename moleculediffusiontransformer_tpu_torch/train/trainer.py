@@ -105,25 +105,76 @@ class ClipAdam:
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                state: AdamState) -> None:
         """Clip ``grads`` by their global norm, then one Adam step on
-        ``params`` and ``state`` (in place)."""
+        ``params`` and ``state`` (in place; ``grads`` stay as they are).
+
+        The moments are updated in place and the step runs over chunks of
+        at most ``UPDATE_CHUNK`` elements, so that its temporaries (the
+        clipped grads, one scratch list and the update) are at most
+        ``scratch_bytes(params)``, not a copy of the optimizer state.  Every
+        element sees the same float32 operations in the same order as
+        optax's ``mu = g (1 - b1) + mu b1``, ``nu = g g (1 - b2) + nu b2``,
+        ``p += step (mu / bc1) / (sqrt(nu / bc2) + eps)``."""
         norm = torch.stack([(g * g).sum() for g in grads]).sum().sqrt()
-        if not bool(norm < self.max_norm):
-            grads = [(g / norm) * self.max_norm for g in grads]
+        clip = not bool(norm < self.max_norm)
         step_size = -self.lr(state.count)
         count = state.count + 1
         # optax computes 1 - decay**count in float32
         bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
-        mu = torch._foreach_mul(grads, 1 - B1)
-        torch._foreach_add_(mu, torch._foreach_mul(state.mu, B1))
-        nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2)
-        torch._foreach_add_(nu, torch._foreach_mul(state.nu, B2))
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-        torch._foreach_add_(denom, EPS)
-        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        torch._foreach_mul_(updates, step_size)
-        torch._foreach_add_(params, updates)
-        state.mu, state.nu, state.count = mu, nu, count
+        for rows in _chunks(params):
+            p = [params[i] for i in rows]
+            g = [grads[i] for i in rows]
+            mu = [state.mu[i] for i in rows]
+            nu = [state.nu[i] for i in rows]
+            if clip:
+                g = [x / norm for x in g]
+                torch._foreach_mul_(g, self.max_norm)
+            # addition commutes bit for bit: mu b1 + g (1 - b1) is optax's
+            torch._foreach_mul_(mu, B1)
+            scratch = torch._foreach_mul(g, 1 - B1)
+            torch._foreach_add_(mu, scratch)
+            torch._foreach_mul_(nu, B2)
+            torch._foreach_copy_(scratch, g)
+            torch._foreach_mul_(scratch, g)
+            torch._foreach_mul_(scratch, 1 - B2)
+            torch._foreach_add_(nu, scratch)
+            torch._foreach_copy_(scratch, nu)          # the denominator
+            torch._foreach_div_(scratch, bc2)
+            torch._foreach_sqrt_(scratch)
+            torch._foreach_add_(scratch, EPS)
+            updates = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(updates, scratch)
+            torch._foreach_mul_(updates, step_size)
+            torch._foreach_add_(p, updates)
+            del scratch, updates, g
+        state.count = count
+
+    @staticmethod
+    def scratch_bytes(params: List[torch.Tensor]) -> int:
+        """The most bytes ``update`` holds beside the parameters, the grads
+        and the moments: three float32 copies of its largest chunk (the
+        clipped grads, the scratch list and the update)."""
+        return 3 * 4 * max((sum(params[i].numel() for i in rows)
+                            for rows in _chunks(params)), default=0)
+
+
+# the most elements ``ClipAdam.update`` takes in one chunk (a tensor larger
+# than this is a chunk of its own): 64 MB of float32
+UPDATE_CHUNK = 2 ** 24
+
+
+def _chunks(params: List[torch.Tensor]) -> List[List[int]]:
+    """Consecutive index runs of ``params`` of at most ``UPDATE_CHUNK``
+    elements each (one tensor at least)."""
+    out: List[List[int]] = []
+    size = UPDATE_CHUNK
+    for i, p in enumerate(params):
+        if not out or size + p.numel() > UPDATE_CHUNK:
+            out.append([])
+            size = 0
+        out[-1].append(i)
+        size += p.numel()
+    return out
 
 
 def make_optimizer(config) -> ClipAdam:
@@ -373,17 +424,22 @@ def preflight_memory_check(model: nn.Module, state: TrainState,
     """Run one micro-batch's forward and backward (draws from a throwaway
     generator) and check that the step fits the card's memory.
 
-    The peak of that pass (``torch.cuda.max_memory_allocated``, the
-    parameters and the optimizer state included) plus the optimizer state's
-    bytes again (the update builds the new moments beside the old) is held
-    against the card's memory (``torch.cuda.mem_get_info``); above
-    ``margin`` of it this raises ``RuntimeError`` before the first step.
-    The pass's grads are dropped: the parameters, the optimizer state and
-    the step stay as they were.  On the CPU the pass runs and the check only
-    reports.  Returns the estimate as a dict."""
+    The step's peak is estimated as the larger of two readings
+    (``torch.cuda.max_memory_allocated`` and ``memory_allocated``, the
+    parameters and the optimizer state included): the pass's peak, plus
+    the float32 grads the later micro-batches' passes find held when there
+    are several; and what the pass leaves allocated (its grads on
+    ``.grad``) plus what ``ClipAdam.update`` allocates beside it
+    (``ClipAdam.scratch_bytes``; the moments are updated in place).  Above
+    ``margin`` of the card's memory (``torch.cuda.mem_get_info``) this
+    raises ``RuntimeError`` before the first step.  The pass's grads are
+    dropped: the parameters, the optimizer state and the step stay as they
+    were.  On the CPU the pass runs and the check only reports.  Returns the
+    estimate as a dict."""
     params = list(model.parameters())
     device = target.device
-    mb = conditioning.shape[0] // _accumulation_steps(accumulation_steps)
+    A = _accumulation_steps(accumulation_steps)
+    mb = conditioning.shape[0] // A
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.synchronize(device)
@@ -394,6 +450,9 @@ def preflight_memory_check(model: nn.Module, state: TrainState,
     try:
         model(conditioning[:mb], target[:mb],
               torch.Generator(device=device).manual_seed(0)).backward()
+        if on_card:
+            torch.cuda.synchronize(device)
+            held = torch.cuda.memory_allocated(device)
     finally:
         for p, g in zip(params, saved):
             p.grad = g
@@ -401,12 +460,12 @@ def preflight_memory_check(model: nn.Module, state: TrainState,
     if not on_card:
         return info
     peak = torch.cuda.max_memory_allocated(device)
-    moments = sum(t.numel() * t.element_size()
-                  for t in state.opt_state.mu + state.opt_state.nu)
+    grads = sum(4 * p.numel() for p in params)
+    scratch = ClipAdam.scratch_bytes(params)
     limit = torch.cuda.mem_get_info(device)[1]
-    total = peak + moments
-    info.update(estimated_bytes=total, peak_bytes=peak,
-                optimizer_bytes=moments, bytes_limit=limit)
+    total = max(peak + (grads if A > 1 else 0), held + scratch)
+    info.update(estimated_bytes=total, peak_bytes=peak, held_bytes=held,
+                grad_bytes=grads, update_bytes=scratch, bytes_limit=limit)
     if total > margin * limit:
         info["ok"] = False
         raise RuntimeError(

@@ -73,7 +73,17 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.train.recipes",
     "moleculediffusiontransformer_tpu_torch.cli",
     "moleculediffusiontransformer_tpu_torch.__main__",
+    "moleculediffusiontransformer_tpu_torch.nn",
+    "moleculediffusiontransformer_tpu_torch.nn.dsp",
+    "moleculediffusiontransformer_tpu_torch.nn.stft",
+    "moleculediffusiontransformer_tpu_torch.nn.autoencoder",
+    "moleculediffusiontransformer_tpu_torch.nn.text",
+    "moleculediffusiontransformer_tpu_torch.models",
+    "moleculediffusiontransformer_tpu_torch.models.graph",
+    "moleculediffusiontransformer_tpu_torch.design.plots",
 ]
+# entry points outside the package, imported by path
+PORT_SCRIPTS = ["examples/audio_diffusion_torch.py"]
 
 
 @pytest.fixture(scope="module")
@@ -142,20 +152,23 @@ def test_entry_points_default_to_the_card():
     """``from_config``, the ``Model1d`` factories (the "all"/vk and "ncca"
     types too), the AR transformer, the forward encoder,
     ``from_encoder_config``, both GPTs, the continuous decoder and the
-    Internaldim decoder put the model on the card unless the caller names a
-    device: with no device
+    Internaldim decoder, the audio assemblies' presets (and
+    ``build_model1d`` of the AR model), ``build_graph_model`` and the models
+    of ``examples/audio_diffusion_torch.py`` put the model on the card
+    unless the caller names a device: with no device
     argument they ask for "cuda" (which raises on a host without one), never
     the CPU.  So do the serving entry points: ``export_*`` and
     ``ArtifactServer`` export and serve on the card unless ``device``
     names another, as do the ``export``, ``export-torch``, ``inspect`` and
     ``serve`` subcommands."""
-    from moleculediffusiontransformer_tpu_torch.models import (audio,
+    from moleculediffusiontransformer_tpu_torch.models import (audio, graph,
                                                                transformers)
 
     tiny = dict(in_channels=2, channels=16, patch_size=2, multipliers=(1, 2),
                 factors=(2,), num_blocks=(1,), attentions=(0, 1),
                 attention_heads=2, attention_features=8,
                 attention_multiplier=2, resnet_groups=4)
+    tiny_1 = {k: v for k, v in tiny.items() if k != "in_channels"}
     builds = [lambda **kw: tqm.from_config(
                   tqm.QMDiffusionForward, forward_diffusion_qm9(), **kw),
               lambda **kw: audio.AudioDiffusionModel(**tiny, **kw),
@@ -182,7 +195,31 @@ def test_entry_points_default_to_the_card():
                   text_embed_dim=16, **kw),
               lambda **kw: transformers.MoleculeTransformerSequenceInternaldim(
                   dim=16, depth=1, heads=2, dim_head=8, logits_dim=24,
-                  text_embed_dim=16, **kw)]
+                  text_embed_dim=16, **kw),
+              lambda **kw: audio.AudioDiffusionUpsampler(1, **tiny_1, **kw),
+              lambda **kw: audio.AudioDiffusionAE(
+                  1, **tiny_1, encoder_channels=8, encoder_patch_size=2,
+                  encoder_multipliers=(1, 2), encoder_factors=(2,),
+                  encoder_num_blocks=(1,), encoder_out_channels=8,
+                  context_channels=(0, 8), **kw),
+              lambda **kw: audio.AudioDiffusionVocoder(1, **tiny_1, **kw),
+              lambda **kw: audio.AudioDiffusionUpphaser(1, **tiny_1, **kw),
+              lambda **kw: audio.build_model1d(
+                  cls=audio.DiffusionAR1d, chunk_length=8, in_channels=1,
+                  context_channels=(1,), **tiny_1, **kw),
+              lambda **kw: graph.build_graph_model(
+                  graph.AnalogDiffusionSparse, max_length=16, channels=16,
+                  pred_dim=3, text_embed_dim=8, embed_dim_position=8,
+                  multipliers=(1, 2), factors=(2,), num_blocks=(1,),
+                  attention_heads=2, attention_features=8, **kw),
+              lambda **kw: graph.build_graph_model(
+                  graph.AnalogDiffusionFull, max_length=16, channels=16,
+                  pred_dim=19, text_embed_dim=8, embed_dim_position=8,
+                  multipliers=(1, 2), factors=(2,), num_blocks=(1,),
+                  attention_heads=2, attention_features=8, **kw)]
+    example = _example()
+    builds += [lambda b=b, **kw: b(False, **kw)[0]
+               for b in example.BUILDERS.values()]
     for build in builds:
         if torch.cuda.is_available():
             assert next(build().parameters()).device.type == "cuda"
@@ -213,6 +250,15 @@ def test_entry_points_default_to_the_card():
             dx.export_encoder(encoder, batch=1, max_length=8)
         with pytest.raises(RuntimeError, match="no CUDA"):
             ArtifactServer("no-such-artifact.pt2")
+
+
+def _example():
+    spec = importlib.util.spec_from_file_location(
+        "audio_diffusion_torch",
+        os.path.join(ROOT, "examples", "audio_diffusion_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
 
 
 def _smoke():
@@ -360,8 +406,19 @@ def _run(code: str, env=None) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
+    """Every port module, every name the port's ``nn`` exports (imported on
+    first use) and the port's example scripts import none of jax, flax or
+    the JAX package."""
+    code = ("import sys, importlib.util\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
+            + "import moleculediffusiontransformer_tpu_torch.nn as n\n"
+              "[getattr(n, name) for name in n.__all__]\n"
+            + "".join(
+                f"spec = importlib.util.spec_from_file_location('s{i}', "
+                f"{os.path.join(ROOT, path)!r})\n"
+                f"spec.loader.exec_module("
+                f"importlib.util.module_from_spec(spec))\n"
+                for i, path in enumerate(PORT_SCRIPTS))
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack', "
               "'moleculediffusiontransformer_tpu'))\n"
@@ -393,3 +450,73 @@ def test_port_imports_without_cuda_toolchain(tmp_path):
     proc = _run(code, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("libtransformer1d_fwd_")
+
+
+def test_chip_smoke_runs_the_assemblies_phase(monkeypatch):
+    """Phase 31's code (``audio_assemblies``) on the CPU, with its seven
+    models at tiny widths in float32: every step, request, K1 comparison and
+    card-against-CPU pair runs, and each launch count is held against the
+    expected one (on the CPU no kernel launches, so the held counts are
+    recorded rather than compared)."""
+    from moleculediffusiontransformer_tpu_torch.models import audio, graph
+    smoke = _smoke()
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    held = []
+    monkeypatch.setattr(smoke, "check_launches",
+                        lambda what, got, want: held.append((what, want)))
+    smoke.ASM_SAMPLES, smoke.ASM_BATCH, smoke.ASM_AR_CHUNK = 256, 2, 64
+    smoke.GRAPH_BATCH, smoke.GRAPH_LENGTH = 2, 16
+    tiny = dict(channels=16, patch_size=2, multipliers=(1, 2), factors=(2,),
+                num_blocks=(1,), attentions=(0, 1), attention_heads=2,
+                attention_features=8, attention_multiplier=2,
+                resnet_groups=4, dtype=torch.float32)
+    g = dict(max_length=16, channels=16, text_embed_dim=8,
+             embed_dim_position=8, multipliers=(1, 2), factors=(2,),
+             num_blocks=(1,), attention_heads=2, attention_features=8,
+             dtype=torch.float32)
+
+    def seeded(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def build(cls, seed, **kw):
+        kw = {"in_channels": 1, **kw}
+        return lambda dev, dtype: audio.build_model1d(dev, seeded(seed), cls,
+                                                      **tiny, **kw)
+
+    cases = {
+        "upsampler": (build(audio.DiffusionUpsampler1d, 1, factor=(2,),
+                            context_channels=(1,)), "upsampler"),
+        "autoencoder": (build(
+            audio.DiffusionAE1d, 2, encoder_channels=8, encoder_patch_size=2,
+            encoder_multipliers=(1, 2), encoder_factors=(2,),
+            encoder_num_blocks=(1,), encoder_out_channels=8,
+            context_channels=(0, 8)), "autoencoder"),
+        "vocoder": (build(audio.DiffusionVocoder1d, 3, in_channels=16,
+                          context_channels=(16,), stft_num_fft=31,
+                          stft_hop_length=8), "vocoder"),
+        "upphaser": (build(audio.DiffusionUpphaser1d, 4, factor=(1,),
+                           context_channels=(1,), stft_num_fft=15,
+                           stft_hop_length=4), "upphaser"),
+        "ar": (build(audio.DiffusionAR1d, 5, chunk_length=64,
+                     context_channels=(1,)), "ar"),
+        "graph_sparse": (lambda dev, dtype: graph.build_graph_model(
+            graph.AnalogDiffusionSparse, dev, seeded(6), pred_dim=3, **g),
+            "graph"),
+        "graph_full": (lambda dev, dtype: graph.build_graph_model(
+            graph.AnalogDiffusionFull, dev, seeded(7), pred_dim=19, **g),
+            "graph")}
+    monkeypatch.setattr(smoke, "assembly_cases", lambda: cases)
+    served, trained = smoke.audio_assemblies(torch.device("cpu"))
+    assert len(held) == 3 * len(cases)
+    want = {what: w for what, w in held}
+    # one stack a tiny waveform UNet, three a graph one; 3 steps each;
+    # the AR request samples 4 chunks of 7 evaluations
+    assert want["upsampler training"]["STASH_LAUNCHES"] == 3
+    assert want["graph_full training"]["LAYER_BWD_LAUNCHES"] == 9
+    assert want["ar request"]["LAUNCHES"] == 4 * (smoke.ASM_STEPS - 1)
+    assert want["graph_sparse request"]["LAUNCHES"] == \
+        3 * 2 * (smoke.ASM_STEPS - 1)
+    assert want["vocoder fp32"]["LAUNCHES"] == 2
+    assert not any(served.values()) and not any(trained.values())

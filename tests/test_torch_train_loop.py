@@ -260,3 +260,56 @@ def test_profiling_hooks(tmp_path):
     assert (timer.steps, timer.samples) == (2, 8)
     assert timer.samples_per_sec > 0
     assert profiling.StepTimer.sync(torch.ones(3)) == 3.0
+
+
+def _list_update(opt, params, grads, state):
+    """``ClipAdam.update`` as it was written before its moments were
+    updated in place: every moment, denominator and update a new list."""
+    B1, B2, EPS = trainer.B1, trainer.B2, trainer.EPS
+    norm = torch.stack([(g * g).sum() for g in grads]).sum().sqrt()
+    if not bool(norm < opt.max_norm):
+        grads = [(g / norm) * opt.max_norm for g in grads]
+    step_size = -opt.lr(state.count)
+    count = state.count + 1
+    bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
+    mu = torch._foreach_mul(grads, 1 - B1)
+    torch._foreach_add_(mu, torch._foreach_mul(state.mu, B1))
+    nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - B2)
+    torch._foreach_add_(nu, torch._foreach_mul(state.nu, B2))
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+    torch._foreach_add_(denom, EPS)
+    updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+    torch._foreach_mul_(updates, step_size)
+    torch._foreach_add_(params, updates)
+    state.mu, state.nu, state.count = mu, nu, count
+
+
+@pytest.mark.parametrize("chunk", [7, 2 ** 24])
+def test_in_place_update_is_bitwise_the_list_update(monkeypatch, chunk):
+    """Three steps of ``ClipAdam.update`` (moments in place, in chunks of
+    ``chunk`` elements) against the same steps written with new lists, on
+    the same params and grads: the params and both moments equal bit for
+    bit, the grads left as they were, the clip taken in steps 1 and 3 and
+    not in step 2; ``scratch_bytes`` is three copies of the largest
+    chunk."""
+    monkeypatch.setattr(trainer, "UPDATE_CHUNK", chunk)
+    gen = torch.Generator().manual_seed(11)
+    shapes = [(3, 4), (5,), (2, 3, 2), (1,), (6, 2)]
+    params = [torch.randn(s, generator=gen) for s in shapes]
+    opt = trainer.ClipAdam(learning_rate=trainer.warmup_cosine_schedule(
+        0.0, 1e-2, 1, 10), max_norm=1.0)
+    ref_params = [p.clone() for p in params]
+    state, ref_state = opt.init(params), opt.init(ref_params)
+    for scale in (3.0, 0.01, 5.0):
+        grads = [torch.randn(s, generator=gen) * scale for s in shapes]
+        kept = [g.clone() for g in grads]
+        opt.update(params, grads, state)
+        _list_update(opt, ref_params, [g.clone() for g in grads], ref_state)
+        for a, b in zip([*params, *state.mu, *state.nu],
+                        [*ref_params, *ref_state.mu, *ref_state.nu]):
+            assert torch.equal(a, b)
+        assert all(torch.equal(g, k) for g, k in zip(grads, kept))
+    assert state.count == ref_state.count == 3
+    largest = 12 if chunk == 7 else sum(map(np.prod, shapes))
+    assert trainer.ClipAdam.scratch_bytes(params) == 3 * 4 * largest

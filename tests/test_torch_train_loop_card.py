@@ -1,6 +1,7 @@
 """The training loop's card-only paths: ``preflight_memory_check`` against
 the card's memory (it raises above its margin and leaves the state as it
-was), a checkpoint saved on the CPU restored onto the card, a resumed
+was; its estimate is at least the first step's peak and within 20% of
+it), a checkpoint saved on the CPU restored onto the card, a resumed
 ``train_diffusion`` equal bit for bit to an uninterrupted one with the stack
 kernels and cuDNN's deterministic algorithms, and ``prefetch_to_device``'s
 side-stream copies equal to the host batches.  Marked ``cuda_hw``: every
@@ -56,14 +57,40 @@ def test_preflight_on_the_card(cuda, data):
     before = [p.detach().clone() for p in model.parameters()]
     info = trainer.preflight_memory_check(model, state, cond, target, 2)
     assert info["ok"] and info["bytes_limit"] == torch.cuda.mem_get_info()[1]
-    assert info["estimated_bytes"] == (info["peak_bytes"]
-                                       + info["optimizer_bytes"])
+    assert info["estimated_bytes"] == max(
+        info["peak_bytes"] + info["grad_bytes"],
+        info["held_bytes"] + info["update_bytes"])
     with pytest.raises(RuntimeError, match="preflight"):
         trainer.preflight_memory_check(model, state, cond, target,
                                        margin=-1.0)
     assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
     assert all(p.grad is None for p in model.parameters())
     assert state.step == 0 and state.opt_state.count == 0
+
+
+@pytest.mark.parametrize("micro", [1, 4])
+def test_preflight_estimate_holds_the_first_step(cuda, data, micro):
+    """The 91M inverse preset in float32 at 1 x 512 and 4 x 128: the
+    preflight's estimate is at least the first step's measured peak
+    (``torch.cuda.max_memory_allocated``) and within 20% of it."""
+    batch = 512
+    model = recipes.build_model("inverse_diffusion", data.vocab_size,
+                                "notebook", device=cuda, seed=0)
+    opt = trainer.make_optimizer(TrainConfig())
+    state = trainer.TrainState.create(model, opt)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cond = torch.rand(batch, 12, generator=gen, device=cuda) * 2 - 1
+    ids = torch.randint(0, data.vocab_size, (batch, 32), generator=gen,
+                        device=cuda)
+    target = torch.nn.functional.one_hot(ids, data.vocab_size).float()
+    info = trainer.preflight_memory_check(model, state, cond, target, micro)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.make_diffusion_train_step(model, opt, micro)(state, cond, target,
+                                                         gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert peak <= info["estimated_bytes"] <= 1.2 * peak, (peak, info)
 
 
 def test_restore_lands_on_the_models_device(cuda, tmp_path, data):
