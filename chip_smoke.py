@@ -265,6 +265,27 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    stack shape the model has; then each in float32 at batch 2, card
    against CPU on the same draws: a denoise evaluation within 1e-4 and the
    loss within 1e-4 relative, K1 launched exactly stacks x 2.
+32. the data-parallel layer (``parallel/``): two spawned ranks of a gloo
+   group on the one card (NCCL refuses a card twice) probe which
+   collectives gloo takes on CUDA tensors; train the 91M in bf16 at a
+   global batch of 1,024 (512 a rank; one warm-up and 2 steps), the
+   parameters bitwise equal across ranks after every step, K1 stash, K3,
+   K4 launched exactly stacks x 3 and K2 layers x 3 a rank, the first loss
+   within 2e-2 of one card's on the same batch and draws, seconds a step,
+   each rank's peak memory and the grads' all-reduce alone (gloo stages
+   through the host: no figure of NVLink); float32 at a global batch of 8,
+   2 steps within 1e-4 of one card (loss, parameters, grads); serve
+   ``generate_from_conditioning(mesh=)``, a 64-step CFG (2.0) request of
+   512 in bf16 (K1 exactly 9 x 126 a rank, within 2e-2 of one card) and
+   one of 8 in float32 (within 1e-4), and the sampler exported with
+   ``mesh=`` on the graph tier of both ranks (each capture holding its
+   share's 1,134 K1 launches) against one card on the server's draws; then
+   the CLI under ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1`` (NCCL) with phase 27's first run's arguments, its
+   losses and launches held against that run's; then FSDP2 over a group of
+   one (NCCL), 3 steps in bf16 at 512 and in float32 at 8 against the
+   unsharded model (within 2e-2 and 1e-4), the kernels' cached weights
+   equal to the gathered ones at every stack call.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
@@ -275,7 +296,9 @@ phase 27's straight CLI train: its steps, its preflight pass and its
 held-out eval; the training kernels also with
 ``launches_audio_all_train``, those of phase 28's training steps; K1 with
 ``launches_assemblies``, phase 31's requests, the training kernels with
-``launches_assemblies_train``, its steps),
+``launches_assemblies_train``, its steps; K1 with ``launches_parallel``,
+a rank's share of phase 32's mesh request, the training kernels with
+``launches_parallel``, a rank's data-parallel steps),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -531,6 +554,29 @@ ASM_SAMPLES, ASM_BATCH, ASM_STEPS, ASM_TRAIN_STEPS = 2 ** 15, 8, 8, 2
 ASM_AR_CHUNK = 16 * 4 * 4 * 4 * 2 * 2 * 2
 GRAPH_BATCH, GRAPH_COND_SCALE, GRAPH_LENGTH = 64, 2.0, 1024
 ASM_PARITY_BATCH, ASM_PARITY_TOL = 2, 1e-4
+# phase 32: the data-parallel layer on the one card.  Two spawned ranks of a
+# gloo group (NCCL refuses a card twice): the 91M in bf16 at a global batch
+# of 1,024 (512 a rank), one warm-up and DP_STEPS steps; float32 at a global
+# batch of 8, PARALLEL_FP32_STEPS steps against one card at lr
+# PARALLEL_FP32_LR (Adam moves a parameter ~lr a step whatever its grad, so
+# a grad near 0 whose last bits differ flips it by 2 lr: the 1e-4 band
+# needs 2 lr well below it); a 64-step CFG request of 512 over both ranks,
+# live and from the sampler exported with mesh=, and a float32 one of 8 at
+# PARALLEL_FP32_SERVE_STEPS steps.  Then, through NCCL at one rank, the CLI
+# under torchrun (phase 27's first run again) and FSDP: FSDP_STEPS steps in
+# bf16 at FSDP_BATCH and in float32 at 8 against the unsharded model
+PARALLEL_RANKS, PARALLEL_TIMEOUT = 2, 300
+DP_BATCH, DP_STEPS = 1024, 2
+PARALLEL_FP32_BATCH, PARALLEL_FP32_STEPS, PARALLEL_FP32_LR = 8, 2, 1e-6
+PARALLEL_FP32_TOL = 1e-4
+PARALLEL_SERVE_BATCH, PARALLEL_FP32_SERVE_STEPS = 512, 8
+FSDP_BATCH, FSDP_STEPS = 512, 3
+PARALLEL_DTYPE = "bfloat16"     # the training and serving runs' dtype
+# what the two ranks ask of gloo on the card's tensors (DP and serving the
+# first two, FSDP the tensor forms)
+PARALLEL_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                        "reduce_scatter_tensor")
+SERVING_FLAG = "serving"        # written by rank 0 when the ranks serve
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -1184,15 +1230,17 @@ def train_steps(model, cond, target, gen, steps):
     return losses, seconds, torch.cuda.max_memory_allocated()
 
 
-def inverse_batch(batch, gen, dev):
-    """Property targets (b, 12) and one-hot SMILES tracks (b, 32, 22)."""
+def inverse_batch(batch, gen, dev, preset=None):
+    """Property targets (b, 12) and one-hot SMILES tracks (b, 32, 22), or
+    (b, max_length, pred_dim) of another ``preset``."""
     import torch
     import torch.nn.functional as F
+    preset = preset or FLAGSHIP
     cond = torch.rand(batch, 12, generator=gen, device=dev) * 2 - 1
-    tokens = torch.randint(0, FLAGSHIP["pred_dim"],
-                           (batch, FLAGSHIP["max_length"]), generator=gen,
+    tokens = torch.randint(0, preset["pred_dim"],
+                           (batch, preset["max_length"]), generator=gen,
                            device=dev)
-    return cond, F.one_hot(tokens, FLAGSHIP["pred_dim"]).float()
+    return cond, F.one_hot(tokens, preset["pred_dim"]).float()
 
 
 def forward_batch(batch, gen, dev):
@@ -2749,7 +2797,9 @@ def loop_train_and_resume(tmp):
     CLI (float32, the recipes' default) for 2 epochs into D1, for 1 into
     D2 and resumed there for 1 more; every launch counted; then ``eval``,
     ``sample`` and ``inpaint`` from D1's latest checkpoint.  Returns the
-    straight run's launches."""
+    straight run's launches and the first run's arguments (without its
+    directory), losses and launches (phase 32 runs it again under
+    ``torchrun``)."""
     from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
         latest_checkpoint
     from moleculediffusiontransformer_tpu_torch.train import recipes
@@ -2819,7 +2869,9 @@ def loop_train_and_resume(tmp):
                 s.startswith(LOOP_DRAFT[:len(LOOP_FIXED)]) for s in smiles):
             raise AssertionError(f"inpaint lost the fixed positions: "
                                  f"{smiles}")
-    return launches["straight"]
+    first = {"argv": base + ["--epochs", "1"],
+             "losses": runs["first"]["losses"], "launches": launches["first"]}
+    return launches["straight"], first
 
 
 def loop_step_memory(dev):
@@ -3088,18 +3140,19 @@ def loop_loader_ab(dev, data):
 def train_loop(dev):
     """Phase 27: the training loop, checkpoints and resume, the task
     recipes and the CLI.  Returns the launches of the straight CLI train of
-    the 91M model (its steps and its held-out eval)."""
+    the 91M model (its steps and its held-out eval) and the record of its
+    first one-epoch run (``loop_train_and_resume``)."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launched = loop_train_and_resume(tmp)
+        launched, first = loop_train_and_resume(tmp)
         data = loop_step_memory(dev)
         loop_determinism(dev, data)
         loop_other_tasks(tmp)
     loop_fp32_vs_cpu(dev, data)
     loop_loader_ab(dev, data)
     phase("train_loop_phase_seconds", seconds=time.perf_counter() - t0)
-    return launched
+    return launched, first
 
 
 def count_calls(module):
@@ -4737,6 +4790,708 @@ def audio_assemblies(dev):
     return served, trained
 
 
+# --------------------------------------------------------------------------
+# phase 32: the data-parallel layer
+# --------------------------------------------------------------------------
+
+def preset_stacks(preset) -> tuple:
+    """The Transformer1d stacks of a QM preset, their layers and the
+    preset's parameters (a model on the meta device)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        QMDiffusion
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    with torch.device("meta"):
+        model = QMDiffusion(**preset)
+    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
+    return (len(stacks), sum(m.num_layers for m in stacks),
+            sum(p.numel() for p in model.parameters()))
+
+
+def parallel_config(dev, inv) -> dict:
+    """What the ranks of phase 32 run, as arguments: a spawned rank imports
+    this script afresh, so it reads nothing of this process's globals."""
+    return {"root": ROOT, "device": dev.type, "ranks": PARALLEL_RANKS,
+            "timeout": PARALLEL_TIMEOUT, "flagship": FLAGSHIP,
+            "dp_batch": DP_BATCH, "dp_steps": DP_STEPS,
+            "fp32_batch": PARALLEL_FP32_BATCH,
+            "fp32_steps": PARALLEL_FP32_STEPS, "fp32_lr": PARALLEL_FP32_LR,
+            "serve_batch": PARALLEL_SERVE_BATCH, "serve_steps": NUM_STEPS,
+            "fp32_serve_steps": PARALLEL_FP32_SERVE_STEPS,
+            "cond_scale": COND_SCALE, "dtype": PARALLEL_DTYPE,
+            "tokenizer": inv.tokenizer.state_dict()}
+
+
+def gloo_probe(dev) -> dict:
+    """Which collectives the group's backend takes on tensors on ``dev``:
+    "takes", or the refusal it raised (a refusal comes before any traffic,
+    on every rank alike)."""
+    import torch
+    import torch.distributed as dist
+    n, t = dist.get_world_size(), torch.ones(4, device=dev)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(n)], t),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty_like(t), [t.clone() for _ in range(n)]),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * n, device=dev), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(4 * n, device=dev))}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            out[name] = "takes"
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            out[name] = f"refuses ({type(e).__name__}: {str(e)[:100]})"
+    return out
+
+
+def seeded_qm(preset, dtype, dev, seed):
+    """A QM model of ``preset`` built on ``dev`` and seeded there (phase 32:
+    every model of a comparison is seeded alike)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        QMDiffusion
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    with torch.device(dev):
+        model = QMDiffusion(**preset, dtype=dtype)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(seed))
+    return model.to(dev)
+
+
+def watch_kernel_weights(model) -> list:
+    """Forward hooks on every ``Transformer1d`` of ``model`` that record,
+    at each call, the parameters whose cached kernel weights differ from
+    the weights the stack holds then (FSDP2's free-and-gather cycle could
+    hide a change from a cache keyed on storage and version)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    stale = []
+
+    def check(m, args, out):
+        cached, casts = m.kernel_params(), m.kernel_casts()
+        stale.extend(n for n, p in m.named_parameters()
+                     if not torch.equal(cached[n], casts.get(n, p).detach()))
+
+    for m in model.modules():
+        if isinstance(m, Transformer1d):
+            m.register_forward_hook(check)
+    return stale
+
+
+def flat_params(model):
+    import torch
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def same_on_every_rank(mesh, model) -> bool:
+    """Rank 0's parameters broadcast and held against each rank's, bit for
+    bit; the verdict of every rank, agreed."""
+    import torch
+    import torch.distributed as dist
+    mine = flat_params(model)
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0)
+    ok = torch.tensor([float(torch.equal(mine, theirs))], device=mine.device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(dev, reset: bool = False) -> int:
+    import torch
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def dp_train(mesh, dev, cfg) -> dict:
+    """The 91M in ``dtype`` at the global batch ``dp_batch`` (this rank's rows
+    of it): rank 0's one-card first step on the whole batch and its draws,
+    then one warm-up and ``dp_steps`` data-parallel steps, the parameters
+    held across ranks after each; the kernels' launches, seconds a step,
+    peak memory and the grads' all-reduce alone."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.parallel import (
+        all_reduce_mean, replicate, shard_batch)
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    rank = mesh.get_local_rank()
+    model = seeded_qm(cfg["flagship"], getattr(torch, cfg["dtype"]), dev,
+                      0).train()
+    cond, target = inverse_batch(
+        cfg["dp_batch"], torch.Generator(device=dev).manual_seed(3), dev,
+        cfg["flagship"])
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    ref_loss = None
+    if rank == 0:
+        ref = copy.deepcopy(model)
+        ref_loss = trainer.make_diffusion_train_step(ref, opt)(
+            trainer.TrainState.create(ref, opt), cond, target,
+            trainer.step_generator(0, 0, dev)).item()
+        del ref
+        empty_cache(dev)
+    replicate(mesh, model)
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_diffusion_train_step(model, opt, mesh=mesh)
+    c, t = shard_batch(mesh, (cond, target))
+    del cond, target
+    reset_counts()
+    _peak(dev, reset=True)
+    losses, seconds, same = [], [], []
+    for i in range(1 + cfg["dp_steps"]):
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(step(state, c, t,
+                           trainer.step_generator(0, i, dev)).item())
+        seconds.append(time.perf_counter() - t0)
+        same.append(same_on_every_rank(mesh, model))
+    launched, peak = counts(), _peak(dev)
+    grads = [p.grad for p in model.parameters()]
+    _sync(dev)
+    t0 = time.perf_counter()
+    all_reduce_mean(mesh, grads)
+    _sync(dev)
+    return {"losses": losses, "ref_loss": ref_loss, "seconds": seconds,
+            "same": same, "launched": launched, "peak": peak,
+            "allreduce_seconds": time.perf_counter() - t0,
+            "grad_bytes": sum(4 * g.numel() for g in grads)}
+
+
+def fsdp_train(mesh, dev, cfg) -> dict:
+    """FSDP2 over the two ranks through gloo (which takes all_gather and
+    reduce_scatter on CUDA tensors, staged through the host: phase 32's
+    probe): ``dp_train``'s model, batch and draws, sharded, one warm-up and
+    ``dp_steps`` steps; the stacks' cached kernel weights watched; the
+    losses, launches, peak memory and the elements this rank holds."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.parallel import (
+        shard_batch, shard_state_fsdp)
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    model = seeded_qm(cfg["flagship"], getattr(torch, cfg["dtype"]), dev,
+                      0).train()
+    cond, target = inverse_batch(
+        cfg["dp_batch"], torch.Generator(device=dev).manual_seed(3), dev,
+        cfg["flagship"])
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    shard_state_fsdp(model, state, mesh)
+    stale = watch_kernel_weights(model)
+    step = trainer.make_diffusion_train_step(model, opt, mesh=mesh)
+    c, t = shard_batch(mesh, (cond, target))
+    del cond, target
+    reset_counts()
+    _peak(dev, reset=True)
+    losses = [step(state, c, t, trainer.step_generator(0, i, dev)).item()
+              for i in range(1 + cfg["dp_steps"])]
+    held = sum(x.numel() for x in trainer._local(
+        [*model.parameters(), *state.opt_state.mu, *state.opt_state.nu]))
+    return {"losses": losses, "stale": stale, "launched": counts(),
+            "peak": _peak(dev), "held_elements": held}
+
+
+def dp_fp32(mesh, dev, cfg) -> dict:
+    """Float32 at the global batch ``fp32_batch``: ``fp32_steps`` one-card
+    steps on rank 0 and as many data-parallel ones; rank 0 holds the losses,
+    the parameters and the last grads against each other."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.parallel import (
+        replicate, shard_batch)
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    rank = mesh.get_local_rank()
+    model = seeded_qm(cfg["flagship"], torch.float32, dev, 0).train()
+    cond, target = inverse_batch(
+        cfg["fp32_batch"], torch.Generator(device=dev).manual_seed(4), dev,
+        cfg["flagship"])
+    opt = trainer.make_optimizer(trainer.OptimizerConfig(
+        learning_rate=cfg["fp32_lr"]))
+
+    def run(m, mesh_, c, t):
+        state = trainer.TrainState.create(m, opt)
+        step = trainer.make_diffusion_train_step(m, opt, mesh=mesh_)
+        return [step(state, c, t, trainer.step_generator(0, i, dev)).item()
+                for i in range(cfg["fp32_steps"])]
+
+    ref = None
+    if rank == 0:
+        ref = copy.deepcopy(model)
+        ref_losses = run(ref, None, cond, target)
+    replicate(mesh, model)
+    losses = run(model, mesh, *shard_batch(mesh, (cond, target)))
+    out = {"losses": losses}
+    if rank == 0:
+        out.update(ref_losses=ref_losses,
+                   loss_rel_err=max(abs(a - b) / abs(b)
+                                    for a, b in zip(losses, ref_losses)),
+                   params_max_abs_err=float(
+                       (flat_params(model) - flat_params(ref)).abs().max()),
+                   grads_rel_err=max(
+                       _rel_err(p.grad, q.grad) for p, q in zip(
+                           model.parameters(), ref.parameters())))
+    return out
+
+
+def parallel_serving(mesh, dev, cfg, tmp) -> dict:
+    """Serving over the two ranks: ``generate_from_conditioning(mesh=)`` of
+    ``serve_batch`` molecules (in ``dtype``, ``serve_steps`` steps under
+    CFG) and of ``fp32_batch`` in float32, each held on rank 0 against the
+    one-card
+    call; then the sampler exported with ``mesh=`` (rank 0 exports), served
+    by both ranks on its graph tier, held on rank 0 against the one-card
+    sample on the server's own draws (which phase 30 holds bit for bit
+    against a one-card artifact)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from moleculediffusiontransformer_tpu_torch import design
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import (
+        checkpoint_state, save_checkpoint)
+    from moleculediffusiontransformer_tpu_torch.data.tokenizer import \
+        CharTokenizer
+    from moleculediffusiontransformer_tpu_torch.design import export as dx
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        sample
+    rank = mesh.get_local_rank()
+    if rank == 0:                 # phase 32 starts the CLI under torchrun
+        open(os.path.join(tmp, SERVING_FLAG), "w").close()
+    tok = CharTokenizer.from_state_dict(cfg["tokenizer"])
+    preset = dict(cfg["flagship"], pred_dim=tok.vocab_size)
+    batch, steps, scale = (cfg["serve_batch"], cfg["serve_steps"],
+                           cfg["cond_scale"])
+    out = {}
+    for name, dtype, b, n_steps in (
+            ("request", getattr(torch, cfg["dtype"]), batch, steps),
+            ("request_fp32", torch.float32, cfg["fp32_batch"],
+             cfg["fp32_serve_steps"])):
+        model = seeded_qm(preset, dtype, dev, 22).eval()
+        props = (torch.rand(b, 12, generator=torch.Generator().manual_seed(5))
+                 * 2 - 1).numpy()
+
+        def request(mesh_):
+            return design.generate_from_conditioning(
+                model, props, tok, torch.Generator(device=dev).manual_seed(7),
+                cond_scale=scale, timesteps=n_steps, mesh=mesh_)
+
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        rep = request(mesh)
+        _sync(dev)
+        record = {"batch": b, "steps": n_steps,
+                  "seconds": time.perf_counter() - t0,
+                  "launched": counts(), "rows": len(rep["smiles"]),
+                  "finite": bool(np.isfinite(rep["raw_samples"]).all())}
+        if rank == 0:
+            want = torch.from_numpy(request(None)["raw_samples"])
+            record["rel_err"] = _rel_err(
+                torch.from_numpy(rep["raw_samples"]), want)
+        out[name] = record
+        if name == "request_fp32":
+            break
+        path, ck = os.path.join(tmp, "mesh.pt2"), os.path.join(tmp, "ck.pt")
+        if rank == 0:
+            t0 = time.perf_counter()
+            dx.save_artifact(dx.export_sampler(
+                model, batch=batch, num_steps=steps, cond_scale=scale,
+                mesh=mesh, device=dev.type), path)
+            save_checkpoint(ck, checkpoint_state(model))
+            out["export_seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        server = design.ArtifactServer(path, ck, device=dev.type, mesh=mesh)
+        load = time.perf_counter() - t0
+        _sync(dev)
+        t0 = time.perf_counter()
+        served = server.call(props, seed=9)
+        _sync(dev)
+        record = {"tier": server.tier, "exec_error": server.exec_error,
+                  "load_seconds": load, "seconds": time.perf_counter() - t0,
+                  "captured": server.launches,
+                  "finite": bool(torch.isfinite(served).all())}
+        if rank == 0:
+            gen = torch.Generator(device=dev).manual_seed(9)
+            shape = (batch, preset["max_length"], preset["pred_dim"])
+            noise = torch.empty(shape, device=dev).normal_(generator=gen)
+            step_noise = torch.empty((steps - 1, *shape),
+                                     device=dev).normal_(generator=gen)
+            with torch.no_grad():
+                want = sample(model, torch.from_numpy(props).to(dev),
+                              num_steps=steps, cond_scale=scale, noise=noise,
+                              step_noise=step_noise)
+            record["rel_err"] = _rel_err(served.float(), want)
+        out["served"] = record
+        del server, model
+        empty_cache(dev)
+    return out
+
+
+def empty_cache(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def parallel_rank(rank, tmp, cfg) -> None:
+    """One rank of phase 32 (a spawned process): join the gloo group (two
+    ranks on one card, which NCCL refuses), probe it, train and serve; the
+    results go to ``tmp/rank{rank}.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, cfg["root"])
+    from moleculediffusiontransformer_tpu_torch.parallel import (
+        distributed_init, make_mesh)
+    from moleculediffusiontransformer_tpu_torch.parallel.mesh import \
+        mesh_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores (on the CPU, one thread each: the
+    # rehearsal's models are tiny and spinning threads starve the peer)
+    torch.set_num_threads(1 if cfg["device"] == "cpu" else max(
+        1, (os.cpu_count() or 1) // cfg["ranks"]))
+    distributed_init(f"file://{os.path.join(tmp, 'rendezvous')}",
+                     cfg["ranks"], rank, backend="gloo",
+                     device=cfg["device"],
+                     timeout=datetime.timedelta(seconds=cfg["timeout"]))
+    try:
+        mesh = make_mesh(device=cfg["device"])
+        dev = mesh_device(mesh)
+        out = {"probe": gloo_probe(dev), "seconds": {}}
+        for name, body in (("dp", dp_train), ("fsdp", fsdp_train),
+                           ("dp_fp32", dp_fp32)):
+            t0 = time.perf_counter()
+            out[name] = body(mesh, dev, cfg)
+            out["seconds"][name] = time.perf_counter() - t0
+            empty_cache(dev)
+        t0 = time.perf_counter()
+        out["serve"] = parallel_serving(mesh, dev, cfg, tmp)
+        out["seconds"]["serve"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+class Ranks:
+    """``parallel_rank`` on ``cfg["ranks"]`` spawned processes, started at
+    once; ``wait_for(name)`` waits until rank 0 has written ``tmp/name``
+    (or every rank has ended), ``results()`` for their results.  Both stop
+    at ``cfg["timeout"]`` from the start; ``stop()`` ends every process
+    still alive."""
+
+    def __init__(self, cfg, tmp):
+        import torch.multiprocessing as mp
+        self.cfg, self.tmp = cfg, tmp
+        self.deadline = time.monotonic() + cfg["timeout"]
+        self.ctx = mp.start_processes(parallel_rank, args=(tmp, cfg),
+                                      nprocs=cfg["ranks"], join=False,
+                                      start_method="spawn")
+
+    def _joined(self, timeout: float) -> bool:
+        if time.monotonic() > self.deadline:
+            raise AssertionError(f"phase 32's ranks ran past "
+                                 f"{self.cfg['timeout']} s")
+        return self.ctx.join(timeout=timeout)
+
+    def wait_for(self, name: str) -> None:
+        while not os.path.exists(os.path.join(self.tmp, name)):
+            if self._joined(0.5):
+                return
+
+    def results(self) -> list:
+        import torch
+        while not self._joined(1):
+            pass
+        return [torch.load(os.path.join(self.tmp, f"rank{r}.pt"),
+                           weights_only=False)
+                for r in range(self.cfg["ranks"])]
+
+    def stop(self) -> None:
+        for p in self.ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+def start_cli_under_torchrun(dev, tmp, reference):
+    """Start ``python -m torch.distributed.run --standalone --nproc-per-node
+    1 -m moleculediffusiontransformer_tpu_torch train`` with phase 27's
+    first run's arguments: the CLI joins a one-rank group (NCCL on the card)
+    and trains through the data-parallel step.  TF32 is off in it
+    (``NVIDIA_TF32_OVERRIDE=0``), as in this process, where phase 27 ran.
+    Its output goes to files; ``finish_cli_under_torchrun`` waits."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m",
+           "moleculediffusiontransformer_tpu_torch", *reference["argv"],
+           "--device", dev.type, "--checkpoint-dir", os.path.join(tmp, "cli")]
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, os.environ.get("PYTHONPATH", "")]))
+    out = open(os.path.join(tmp, "cli.out"), "w+")
+    err = open(os.path.join(tmp, "cli.err"), "w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err)
+    return proc, out, err, time.perf_counter()
+
+
+def finish_cli_under_torchrun(dev, started, reference) -> dict:
+    """Wait for the CLI under ``torchrun`` (stopped at PARALLEL_TIMEOUT);
+    its losses and launches against phase 27's first run's."""
+    proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=PARALLEL_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    text, errors = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train exited {proc.returncode}:\n"
+                             f"{errors[-4000:]}")
+    payload = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    want = reference["launches"]
+    launched = {k: v for k, v in payload["launches"].items() if k in want}
+    record = {"seconds": seconds, "world_size": payload["world_size"],
+              "losses": payload["losses"],
+              "reference_losses": reference["losses"],
+              "bitwise": payload["losses"] == reference["losses"],
+              "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                  payload["losses"], reference["losses"])),
+              "launches": launched}
+    phase("parallel_cli_torchrun", backend="nccl" if dev.type == "cuda"
+          else "gloo", note="beside the ranks' serving and the one-rank "
+                            "FSDP", **record)
+    if payload["world_size"] != 1 or len(payload["losses"]) != len(
+            reference["losses"]):
+        raise AssertionError(f"torchrun train: {record}")
+    if not record["loss_rel_err"] <= PARALLEL_FP32_TOL:
+        raise AssertionError(f"torchrun train's losses differ from the "
+                             f"one-card loop's: {record}")
+    check_launches("torchrun train", launched,
+                   {k: v for k, v in want.items() if k in launched})
+    return launched
+
+
+def fsdp_one_rank(dev, stacks, layers) -> dict:
+    """FSDP over a group of one (NCCL on the card): the 91M sharded with
+    FSDP2, ``FSDP_STEPS`` steps against as many unsharded ones on the same
+    batch and draws, in bf16 at ``FSDP_BATCH`` and float32 at
+    ``PARALLEL_FP32_BATCH``; the kernel weight caches never stale; each
+    one's peak memory.  Returns the bf16 run's launches."""
+    import torch
+    import torch.distributed as dist
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
+        checkpoint_state
+    from moleculediffusiontransformer_tpu_torch.parallel import (
+        distributed_init, make_mesh, shard_state_fsdp)
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    distributed_init(device=dev.type)
+    launched = None
+    try:
+        mesh = make_mesh(device=dev.type)
+        for dtype, batch, lr, tol in (
+                (PARALLEL_DTYPE, FSDP_BATCH, 2e-4, KERNEL_TOL[PARALLEL_DTYPE]),
+                ("float32", PARALLEL_FP32_BATCH, PARALLEL_FP32_LR,
+                 PARALLEL_FP32_TOL)):
+            dtype = getattr(torch, dtype)
+            model = seeded_qm(FLAGSHIP, dtype, dev, 0).train()
+            plain = copy.deepcopy(model)
+            cond, target = inverse_batch(batch, torch.Generator(
+                device=dev).manual_seed(6), dev)
+            opt = trainer.make_optimizer(trainer.OptimizerConfig(
+                learning_rate=lr))
+
+            def run(m, mesh_):
+                state = trainer.TrainState.create(m, opt)
+                if mesh_ is not None:
+                    shard_state_fsdp(m, state, mesh_)
+                step = trainer.make_diffusion_train_step(m, opt, mesh=mesh_)
+                _peak(dev, reset=True)
+                losses = [step(state, cond, target,
+                               trainer.step_generator(0, i, dev)).item()
+                          for i in range(FSDP_STEPS)]
+                return losses, _peak(dev)
+
+            plain_losses, plain_peak = run(plain, None)
+            stale = watch_kernel_weights(model)
+            reset_counts()
+            losses, peak = run(model, mesh)
+            counted = counts()
+            whole = checkpoint_state(model)["model"]
+            err = max(float((whole[k] - v).abs().max())
+                      for k, v in plain.state_dict().items())
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, plain_losses))
+            phase("parallel_fsdp", ranks=1, backend=dist.get_backend(),
+                  dtype=str(dtype).split(".")[1], batch=batch,
+                  steps=FSDP_STEPS, lr=lr, losses=losses,
+                  plain_losses=plain_losses, loss_rel_err=loss_err,
+                  params_max_abs_err=err, tol=tol,
+                  stale_kernel_weights=stale,
+                  peak_bytes=peak, plain_peak_bytes=plain_peak,
+                  launches=counted)
+            if stale or not loss_err <= tol or not err <= tol:
+                raise AssertionError(f"FSDP ({dtype}) against the unsharded "
+                                     f"steps: losses {loss_err}, parameters "
+                                     f"{err}, stale {stale[:5]}")
+            if launched is None:
+                launched = counted
+                check_launches("FSDP training", counted, loop_want(
+                    stacks, layers, FSDP_STEPS, 0))
+            del model, plain
+            empty_cache(dev)
+    finally:
+        dist.destroy_process_group()
+    return launched
+
+
+def parallel_layer(dev, inv, loop_first) -> dict:
+    """Phase 32 (see the docstring).  Returns the launches of a rank's
+    data-parallel steps and of its share of the serving request."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    stacks, layers, parameters = preset_stacks(FLAGSHIP)
+    empty_cache(dev)
+    cfg = parallel_config(dev, inv)
+    with tempfile.TemporaryDirectory() as tmp:
+        group = Ranks(cfg, tmp)
+        try:
+            # when the ranks have trained and begin to serve, the CLI under
+            # torchrun and the one-rank FSDP runs start beside them: their
+            # numbers are losses, launches and each process's own peak
+            # memory; the serving's seconds are taken beside them
+            group.wait_for(SERVING_FLAG)
+            started = start_cli_under_torchrun(dev, tmp, loop_first)
+            try:
+                fsdp = fsdp_one_rank(dev, stacks, layers)
+                ranks = group.results()
+            finally:
+                cli = finish_cli_under_torchrun(dev, started, loop_first)
+        finally:
+            group.stop()
+    probe = ranks[0]["probe"]
+    phase("parallel_probe", torch=torch.__version__, backend="gloo",
+          device=dev.type, collectives=probe,
+          choice="two ranks on the one card through gloo (NCCL refuses a "
+                 "card twice): data parallelism, FSDP and serving; NCCL at "
+                 "world size 1: FSDP and the CLI under torchrun",
+          seconds=[r["seconds"] for r in ranks])
+    refused = [k for k in PARALLEL_COLLECTIVES if probe[k] != "takes"]
+    if refused:
+        raise AssertionError(f"gloo refuses {refused} on {dev.type} "
+                             f"tensors: {probe}")
+    want = loop_want(stacks, layers, 1 + DP_STEPS, 0)
+    for rank, r in enumerate(ranks):
+        dp = r["dp"]
+        per_step = statistics.median(dp["seconds"][1:])
+        phase("parallel_dp", rank=rank, ranks=PARALLEL_RANKS,
+              backend="gloo", dtype=PARALLEL_DTYPE, global_batch=DP_BATCH,
+              rank_batch=DP_BATCH // PARALLEL_RANKS, steps=1 + DP_STEPS,
+              losses=dp["losses"], one_card_first_loss=dp["ref_loss"],
+              seconds=dp["seconds"], seconds_per_step=per_step,
+              samples_per_s=DP_BATCH / per_step,
+              params_same_bits=dp["same"], peak_bytes=dp["peak"],
+              allreduce_seconds=dp["allreduce_seconds"],
+              allreduce_bytes=dp["grad_bytes"],
+              note="gloo stages CUDA tensors through the host: the "
+                   "all-reduce's seconds are no figure of NVLink",
+              launches=dp["launched"])
+        if not all(dp["same"]):
+            raise AssertionError(f"rank {rank}: the parameters differ "
+                                 f"between ranks: {dp['same']}")
+        if not all(map(math.isfinite, dp["losses"])):
+            raise AssertionError(f"DP losses {dp['losses']}")
+        check_launches(f"DP training (rank {rank})", dp["launched"], want)
+    dp0 = ranks[0]["dp"]
+    first_err = abs(dp0["losses"][0] - dp0["ref_loss"]) / abs(
+        dp0["ref_loss"])
+    f32 = ranks[0]["dp_fp32"]
+    phase("parallel_dp_first_step", loss_rel_err=first_err,
+          tol=KERNEL_TOL[PARALLEL_DTYPE])
+    phase("parallel_dp_fp32", global_batch=PARALLEL_FP32_BATCH,
+          steps=PARALLEL_FP32_STEPS, lr=PARALLEL_FP32_LR,
+          tol=PARALLEL_FP32_TOL, **f32)
+    if not first_err <= KERNEL_TOL[PARALLEL_DTYPE]:
+        raise AssertionError(f"DP's first loss against one card's: "
+                             f"{first_err}")
+    if not (f32["loss_rel_err"] <= PARALLEL_FP32_TOL
+            and f32["params_max_abs_err"] <= PARALLEL_FP32_TOL
+            and f32["grads_rel_err"] <= PARALLEL_FP32_TOL):
+        raise AssertionError(f"float32 DP against one card: {f32}")
+    served = {}
+    for rank, r in enumerate(ranks):
+        sv = r["serve"]
+        phase("parallel_serve", rank=rank, ranks=PARALLEL_RANKS,
+              backend="gloo", cond_scale=COND_SCALE,
+              note="beside the CLI under torchrun and the one-rank FSDP",
+              **sv)
+        for name, tol in (("request", KERNEL_TOL[PARALLEL_DTYPE]),
+                          ("request_fp32", PARALLEL_FP32_TOL)):
+            rec = sv[name]
+            if not rec["finite"] or rec["rows"] != rec["batch"]:
+                raise AssertionError(f"rank {rank} {name} request: {rec}")
+            if rank == 0 and not rec["rel_err"] <= tol:
+                raise AssertionError(f"{name} request over the mesh against "
+                                     f"one card: {rec['rel_err']}")
+        evals = 2 * (NUM_STEPS - 1)
+        check_launches(f"mesh request (rank {rank})",
+                       sv["request"]["launched"],
+                       loop_want(stacks, 0, 0, evals))
+        srv = sv["served"]
+        if srv["tier"] != "graph" and dev.type == "cuda":
+            raise AssertionError(f"rank {rank}: the mesh artifact served on "
+                                 f"{srv['tier']}: {srv['exec_error']}")
+        if not srv["finite"] or (rank == 0 and not srv["rel_err"]
+                                 <= KERNEL_TOL[PARALLEL_DTYPE]):
+            raise AssertionError(f"rank {rank}: served {srv}")
+        if dev.type == "cuda" and srv["captured"].get(
+                "LAUNCHES") != stacks * evals:
+            raise AssertionError(f"rank {rank}: the graph captured "
+                                 f"{srv['captured']}")
+        if rank == 0:
+            served = sv["request"]["launched"]
+    for rank, r in enumerate(ranks):
+        f2 = r["fsdp"]
+        err = max(abs(a - b) / abs(b)
+                  for a, b in zip(f2["losses"], r["dp"]["losses"]))
+        phase("parallel_fsdp", rank=rank, ranks=PARALLEL_RANKS,
+              backend="gloo", dtype=PARALLEL_DTYPE, global_batch=DP_BATCH,
+              steps=1 + DP_STEPS, losses=f2["losses"],
+              dp_losses=r["dp"]["losses"], loss_rel_err=err,
+              tol=KERNEL_TOL[PARALLEL_DTYPE],
+              stale_kernel_weights=f2["stale"], peak_bytes=f2["peak"],
+              dp_peak_bytes=r["dp"]["peak"],
+              held_share=f2["held_elements"] / (3 * parameters),
+              launches=f2["launched"])
+        if f2["stale"] or not err <= KERNEL_TOL[PARALLEL_DTYPE]:
+            raise AssertionError(f"rank {rank}: two-rank FSDP against DP: "
+                                 f"{err}, stale {f2['stale'][:5]}")
+        check_launches(f"FSDP training (rank {rank})", f2["launched"], want)
+    seconds = time.perf_counter() - t0
+    phase("parallel_phase_seconds", seconds=seconds)
+    return {"train": dp0["launched"], "serve": served, "fsdp": fsdp,
+            "cli": cli}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -5036,7 +5791,7 @@ def main() -> int:
     design_fp32_vs_cpu(dev, inv)
 
     # 27. the training loop, checkpoints and resume, the recipes, the CLI
-    loop_launches = train_loop(dev)
+    loop_launches, loop_first = train_loop(dev)
 
     # 28. the diffusion options on the audio preset
     audio_launches = audio_options(dev)
@@ -5049,6 +5804,9 @@ def main() -> int:
 
     # 31. the audio assemblies and the graph analogs
     asm_served, asm_trained = audio_assemblies(dev)
+
+    # 32. the data-parallel layer: two ranks through gloo, then NCCL at one
+    parallel = parallel_layer(dev, inv, loop_first)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
@@ -5073,6 +5831,7 @@ def main() -> int:
         "launches_cli_train": loop_launches["LAUNCHES"],
         "launches_served": served["LAUNCHES"],
         "launches_assemblies": asm_served["LAUNCHES"],
+        "launches_parallel": parallel["serve"]["LAUNCHES"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -5093,7 +5852,8 @@ def main() -> int:
                         "products": TC_PRODUCTS,
                         "launches_cli_train": loop_launches[count],
                         "launches_audio_all_train": audio_launches[count],
-                        "launches_assemblies_train": asm_trained[count]})
+                        "launches_assemblies_train": asm_trained[count],
+                        "launches_parallel": parallel["train"][count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({

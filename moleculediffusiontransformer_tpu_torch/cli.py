@@ -34,6 +34,12 @@ JSON printed carries the JAX CLI's keys.  ``export`` exports on the device it
 runs on, where the artifact must be served (``--device cuda`` exports for
 the card).
 
+``train`` under ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m moleculediffusiontransformer_tpu_torch train ...``)
+joins the process group and trains the diffusion tasks data-parallel over
+every rank, as the JAX CLI trains over every local chip; rank 0 saves,
+evaluates and prints.
+
 Dataset flags: ``--csv qm9_.csv`` for the reference set (reference
 README.md:30), a synthetic valence-correct stand-in otherwise.  Reference
 flows: training `generative.py:1090-1180`, sampling
@@ -45,12 +51,14 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import os
 import shutil
 import subprocess
 import sys
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -170,35 +178,66 @@ def cmd_info(args) -> Dict:
     })
 
 
+def _launches() -> Dict[str, int]:
+    """The launch counters of the kernels on the training path."""
+    from .ops import resnet_fusion as rf
+    from .ops import transformer_fusion as tf
+    names = ("LAUNCHES", "STASH_LAUNCHES", "UNIFORM_LAUNCHES",
+             "CONV_OUT_BWD_LAUNCHES", "LAYER_BWD_LAUNCHES",
+             "CONV_IN_GN_BWD_LAUNCHES")
+    return {**{n: getattr(tf, n) for n in names},
+            "RESNET_LAUNCHES": rf.RESNET_LAUNCHES}
+
+
 def cmd_train(args) -> Dict:
+    """Train on this process's card or, under ``torchrun``, join the
+    process group (NCCL; gloo with ``--device cpu``) and train
+    data-parallel over every rank: each rank takes its rows of every
+    global batch of ``--batch-size``, and rank 0 saves, evaluates and
+    prints."""
     from .core.checkpoint import checkpoint_state, save_checkpoint
     from .core.config import TrainConfig
+    from .parallel import distributed_init
     from .train import recipes
     device = _device(args)
-    data = _dataset(args, recipes.data_mode(args.task))
-    model = _build(args, args.task, data, device)
-    config = TrainConfig(learning_rate=args.learning_rate,
-                         batch_size=args.batch_size, epochs=args.epochs,
-                         seed=args.seed,
-                         accumulation_steps=args.accumulation_steps,
-                         print_loss_every=args.print_loss_every)
-    state, logger = recipes.train_task(args.task, model, data, config,
-                                       checkpoint_dir=args.checkpoint_dir,
-                                       resume=args.resume)
-    if args.out:
-        save_checkpoint(args.out, checkpoint_state(model))
-        print(f"saved {args.out}", file=sys.stderr)
-    metrics = recipes.eval_task(
-        args.task, model, data, _generator(args, device),
-        timesteps=args.timesteps, num_rescore=args.num_eval,
-        num_generate=args.num_eval)
-    return _emit({"task": args.task, "preset": args.preset,
-                  "epochs": args.epochs,
-                  **{k: v for k, v in metrics.items()
-                     if k != "sample_smiles"},
-                  "step": state.step,
-                  "losses": [r["loss"] for r in logger.history
-                             if "loss" in r]})
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        distributed_init(device=device.type)
+    try:
+        before = _launches()
+        data = _dataset(args, recipes.data_mode(args.task))
+        model = _build(args, args.task, data, device)
+        config = TrainConfig(learning_rate=args.learning_rate,
+                             batch_size=args.batch_size, epochs=args.epochs,
+                             seed=args.seed,
+                             accumulation_steps=args.accumulation_steps,
+                             print_loss_every=args.print_loss_every)
+        state, logger = recipes.train_task(
+            args.task, model, data, config,
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return {}
+        if args.out:
+            save_checkpoint(args.out, checkpoint_state(model))
+            print(f"saved {args.out}", file=sys.stderr)
+        metrics = recipes.eval_task(
+            args.task, model, data, _generator(args, device),
+            timesteps=args.timesteps, num_rescore=args.num_eval,
+            num_generate=args.num_eval)
+        after = _launches()
+        return _emit({"task": args.task, "preset": args.preset,
+                      "epochs": args.epochs,
+                      **{k: v for k, v in metrics.items()
+                         if k != "sample_smiles"},
+                      "step": state.step,
+                      "losses": [r["loss"] for r in logger.history
+                                 if "loss" in r],
+                      "world_size": world,
+                      "launches": {k: after[k] - before[k] for k in after}})
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def cmd_eval(args) -> Dict:

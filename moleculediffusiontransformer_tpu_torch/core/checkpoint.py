@@ -9,7 +9,10 @@ schedule's position), ``TrainState.step`` and ``TrainState.epoch`` (the
 epochs completed), so resume is exact and its epochs keep their labels.
 Step checkpoints are ``step_{N}.pt`` under a directory.
 
-A restore lands on the model's device, whatever device saved the file.  The
+A restore lands on the model's device, whatever device saved the file.  A
+model trained with FSDP (``parallel/fsdp.py``) is saved whole: its shards
+and its moments' are gathered (a collective, on every rank), so the file is
+the same however the model was trained and loads into any of them.  The
 JAX package's second tier, ``core/checkpoint_orbax.py``, is JAX-only and
 has no counterpart.
 """
@@ -25,16 +28,24 @@ import torch
 FORMAT = "moleculediffusiontransformer_tpu_torch.checkpoint/1"
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a sharded tensor's full value (gathered: a collective)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def checkpoint_state(model: torch.nn.Module, state: Any = None) -> Dict:
     """What a checkpoint holds: the model's ``state_dict()`` and, when a
     ``train.trainer.TrainState`` is given, its Adam moments keyed by
-    parameter name, their count, the step and the epochs completed."""
-    out: Dict[str, Any] = {"format": FORMAT, "model": model.state_dict()}
+    parameter name, their count, the step and the epochs completed; sharded
+    tensors whole (every rank of their mesh calls this)."""
+    out: Dict[str, Any] = {"format": FORMAT, "model": {
+        k: _whole(v) for k, v in model.state_dict().items()}}
     if state is not None:
         names = [n for n, _ in model.named_parameters()]
         adam = state.opt_state
-        out["adam"] = {"mu": dict(zip(names, adam.mu)),
-                       "nu": dict(zip(names, adam.nu)),
+        out["adam"] = {"mu": dict(zip(names, map(_whole, adam.mu))),
+                       "nu": dict(zip(names, map(_whole, adam.nu))),
                        "count": int(adam.count)}
         out["step"] = int(state.step)
         out["epoch"] = int(state.epoch)

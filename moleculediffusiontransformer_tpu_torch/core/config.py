@@ -17,10 +17,11 @@ Preset provenance:
   * ``inverse_transformer_qm9``— `Inverse_Transformer.ipynb` cell 46.
   * ``forward_transformer_qm9``— `Forward_Transformer.ipynb` cell 57.
 
-``TrainConfig`` keeps every field of the original, including the ones the
-port does not serve yet: ``checkpoint_backend="orbax"`` (JAX-only, refused
-by ``train.trainer.train_diffusion``) and ``param_sharding="fsdp"`` /
-``fsdp_min_elements`` (sharding over several cards, not ported yet).
+``TrainConfig`` keeps every field of the original.  ``param_sharding=
+"fsdp"`` and ``fsdp_min_elements`` shard the model and the Adam moments
+over the ranks of a process group (``parallel/fsdp.py``);
+``checkpoint_backend="orbax"`` is JAX-only and refused by
+``train.trainer.train_diffusion``.
 """
 from __future__ import annotations
 
@@ -149,10 +150,10 @@ class TrainConfig:
     # ``step_{N}.pt``) or "orbax" (JAX-only: refused by the port).
     checkpoint_backend: str = "msgpack"
     # Param/optimizer placement: "replicated" or "fsdp" (params and Adam
-    # moments sharded over several cards: refused by the port until its
-    # parallel layer exists).
+    # moments sharded over the ranks of the process group, FSDP2,
+    # parallel/fsdp.py).
     param_sharding: str = "replicated"
-    # FSDP only: leaves smaller than this stay replicated.
+    # FSDP only: parameters smaller than this stay whole on every rank.
     fsdp_min_elements: int = 16384
     # Learning-rate schedule: "constant" (reference parity — the notebooks
     # train fixed-LR Adam, `generative.py:1130-1134`) or "cosine"

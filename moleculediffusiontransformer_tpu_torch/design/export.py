@@ -63,8 +63,13 @@ An artifact runs on the device type it was exported on (the program asserts
 its tensors' device): every ``export_*`` takes ``device``, the card by
 default, where the model must be -- the counterpart of JAX's
 ``platforms``.  Randomness is not inside the
-program: the server draws it.  ``mesh=`` (the JAX package's batch-parallel
-export) raises: serving across cards is ROADMAP.md item A9.
+program: the server draws it.
+
+``export_sampler(mesh=)`` is the batch-parallel export (JAX's ``mesh=``):
+the program is one rank's share, ``batch / n`` rows of an n-rank data
+mesh, and the header records n and the global batch; ``ArtifactServer``
+loads it only with a mesh of that size, and each rank serves its rows of
+every request.  The other exporters have no mesh in JAX either.
 """
 from __future__ import annotations
 
@@ -239,8 +244,9 @@ class _Encode(nn.Module):
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise ValueError("mesh= is not offered by the port: serving across "
-                         "cards is ROADMAP.md item A9")
+        raise ValueError("mesh= is offered by export_sampler only: the JAX "
+                         "package has no batch-parallel inpainter, "
+                         "generator or encoder either")
 
 
 def _export_device(model: nn.Module, device) -> torch.device:
@@ -290,6 +296,8 @@ def _n_cond(model: nn.Module, num_conditioning: Optional[int],
 def _export_denoise(model, device, kind: str, batch: int, cond_scale: float,
                     n_cond: int, settings: Dict[str, Any],
                     inputs: List[Dict[str, Any]]) -> Artifact:
+    """The denoise program at ``batch`` rows (a rank's share of the request
+    under a mesh), ``inputs`` the request's."""
     device = _export_device(model, device)
     shape = (batch, model.max_length, model.pred_dim)
     programs = {}
@@ -320,13 +328,23 @@ def export_sampler(model: nn.Module, *, batch: int, num_steps: int = 100,
     the header -- the live ``models.qm_diffusion.sample``.  The request is
     ``sequences`` (batch, num_conditioning) float32 property scalars
     (default: the model's ``context_embedding_max_length``); the server
-    returns (batch, max_length, pred_dim) float32."""
-    _no_mesh(mesh)
+    returns (batch, max_length, pred_dim) float32.
+
+    ``mesh`` (a data mesh of n ranks, ``parallel.make_mesh``): the program
+    is one rank's share of the request, ``batch / n`` rows, and the header
+    records n and ``batch``; ``batch`` must divide the mesh, as in JAX."""
     n_cond = _n_cond(model, num_conditioning, "context_embedding_max_length")
     settings = dict(name="adpm2", num_steps=num_steps, clamp=clamp,
                     sigma_min=sigma_min, sigma_max=sigma_max, rho=rho)
-    return _export_denoise(model, device, "sampler", batch, cond_scale, n_cond,
-                           settings, [_spec((batch, n_cond), "float32")])
+    ranks = 1 if mesh is None else mesh.size()
+    if batch % ranks:
+        raise ValueError(f"batch {batch} must divide the {ranks}-rank mesh")
+    art = _export_denoise(model, device, "sampler", batch // ranks,
+                          cond_scale, n_cond, settings,
+                          [_spec((batch, n_cond), "float32")])
+    if mesh is not None:
+        art.header["mesh"] = {"size": ranks, "batch": batch}
+    return art
 
 
 def export_inpainter(model: nn.Module, *, batch: int, num_steps: int = 100,

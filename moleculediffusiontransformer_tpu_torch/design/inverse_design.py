@@ -10,9 +10,11 @@ package's own draws: torch cannot reproduce threefry.  The models carry
 their weights, so no function takes a ``variables`` argument.
 
 Validity is RDKit's parse where RDKit imports, else the port's own copy of
-the valence-aware checker (``design/valence.py``).  Not ported: the JAX
-function's ``mesh`` (parallel serving) and ``plots``.  Serving is
-``design/export.py``, ``design/serve.py`` and ``design/http_serve.py``.
+the valence-aware checker (``design/valence.py``).  ``generate_from_
+conditioning(mesh=)`` serves a request batch-parallel over the ranks of a
+data mesh (``parallel/``).  Serving is ``design/export.py``,
+``design/serve.py`` and ``design/http_serve.py``; the plots are
+``design/plots.py``.
 """
 from __future__ import annotations
 
@@ -147,20 +149,67 @@ def generate_from_conditioning(
         scaler: Optional[MinMaxScaler] = None,
         training_smiles: Sequence[str] = (), cond_scale: float = 7.5,
         timesteps: int = 100, noise: Optional[torch.Tensor] = None,
-        step_noise: Optional[torch.Tensor] = None) -> Dict:
+        step_noise: Optional[torch.Tensor] = None, mesh=None) -> Dict:
     """Single-shot inverse design from a property vector (reference
     `generative.py:1662-1738`): scale -> sample -> argmax -> decode ->
     validity/novelty.  ``properties`` (b, 12) in physical units when
     ``scaler`` is given, else already scaled.  The report holds ``smiles``
     and ``raw_samples`` (b, L, vocab) beside ``evaluate_generated``'s
-    counts."""
+    counts.
+
+    ``mesh`` (``parallel.make_mesh``; every rank calls with the same
+    request, model and seed): the batch, padded to a multiple of the mesh
+    size by repeating its first row, is sampled batch-parallel.  Every rank
+    draws the padded batch's start noise and every step's noise from
+    ``generator`` as one card would (or takes ``noise`` and ``step_noise``
+    given for the padded batch), samples its own rows, and the rows are
+    gathered so that every rank returns the whole report.  An even batch
+    gives the single-card result; a padded one is another draw, as in
+    JAX."""
     from ..models.qm_diffusion import sample
-    props = _scaled(properties, scaler, _device(model))
-    out = sample(model, props, generator, num_steps=timesteps,
-                 cond_scale=cond_scale, noise=noise, step_noise=step_noise)
+    device = _device(model)
+    if mesh is None:
+        out = sample(model, _scaled(properties, scaler, device), generator,
+                     num_steps=timesteps, cond_scale=cond_scale, noise=noise,
+                     step_noise=step_noise)
+    else:
+        out = _sample_on_mesh(model, properties, scaler, generator, mesh,
+                              timesteps, cond_scale, noise, step_noise)
     report = _report(decode_one_hot(out, tokenizer), training_smiles)
     report["raw_samples"] = out.cpu().numpy()
     return report
+
+
+def _sample_on_mesh(model, properties, scaler, generator, mesh,
+                    timesteps: int, cond_scale: float,
+                    noise: Optional[torch.Tensor],
+                    step_noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """``models.qm_diffusion.sample`` of the (b, 12) request batch-parallel
+    over ``mesh`` (``generate_from_conditioning``); the (b, L, vocab)
+    samples on every rank."""
+    from ..models.qm_diffusion import sample
+    from ..parallel import mesh as pmesh
+    device = _device(model)
+    n = len(properties)
+    props = _scaled(pmesh.pad_to_multiple(np.asarray(properties),
+                                          mesh.size()), scaler, device)
+    b = props.shape[0]
+    if (noise is None) != (step_noise is None):
+        raise ValueError("over a mesh, hand in both noise and step_noise "
+                         "or neither")
+    if noise is None:
+        if generator is None:
+            raise ValueError("sample needs a generator or explicit noise")
+        shape = (b, model.max_length, model.pred_dim)
+        noise = torch.randn(shape, generator=generator, device=device)
+        step_noise = torch.stack([
+            torch.randn(shape, generator=generator, device=device)
+            for _ in range(timesteps - 1)])
+    rows = pmesh.local_rows(mesh, b)
+    local = sample(model, props[rows], num_steps=timesteps,
+                   cond_scale=cond_scale, noise=noise[rows],
+                   step_noise=step_noise[:, rows])
+    return pmesh.gather_rows(mesh, local, b)[:n]
 
 
 def inpaint_from_draft_and_conditioning(

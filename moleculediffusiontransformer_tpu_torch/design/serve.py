@@ -45,6 +45,14 @@ kernels; ``tier`` names the one that answers:
   launches), and ``served`` counts the requests each tier answered.
 - ``"eager"``: the program run call by call (on the CPU always; on the
   card where the capture failed, its error kept in ``exec_error``).
+
+A sampler exported with ``mesh=`` (its program one rank's share of the
+request) is served by every rank of a data mesh of its size
+(``ArtifactServer(..., mesh=)``; every rank calls with the same request
+and seed): each rank draws the whole request's draws from the seed, as one
+card would, runs its rows through the program (the graph tier captures its
+share), and the rows are gathered so that every rank returns the whole
+output.
 """
 from __future__ import annotations
 
@@ -61,6 +69,10 @@ from ..diffusion.schedules import karras_schedule
 from ..nn.transformer_blocks import decode_loop
 from ..ops import resnet_fusion, transformer_fusion  # their operators
 from .export import InputSpec, program_inputs, read_artifact
+
+# the axis along which a draw holds the request's rows, where not the first
+# (a mesh serves only the sampler)
+_DRAW_BATCH_AXIS = {"step_noise": 1}
 
 _COUNTERS = ((transformer_fusion, "LAUNCHES"),
              (transformer_fusion, "UNIFORM_LAUNCHES"),
@@ -83,10 +95,11 @@ class ArtifactServer:
     ``checkpoint``: restored into the program's variables; omitted ->
     seeded random-normal placeholders (smoke mode, clearly not a trained
     model).  ``startup`` holds the seconds of the load and of the
-    capture."""
+    capture.  ``mesh``: the data mesh that serves an artifact exported
+    with one, of the size it records (and only such an artifact)."""
 
     def __init__(self, artifact_path: str, checkpoint: Optional[str] = None,
-                 *, seed: int = 0, device="cuda"):
+                 *, seed: int = 0, device="cuda", mesh=None):
         t0 = time.perf_counter()
         self.device = serving_device(device)
         art = read_artifact(artifact_path)
@@ -102,6 +115,18 @@ class ArtifactServer:
         self.specs: Tuple[InputSpec, ...] = tuple(
             InputSpec(tuple(s["shape"]), s["dtype"])
             for s in header.pop("inputs"))
+        ranks = header.pop("mesh", {"size": 1})["size"]
+        if ranks != (1 if mesh is None else mesh.size()):
+            raise ValueError(
+                f"{artifact_path} holds one rank's share of a {ranks}-rank "
+                f"mesh and is served by a mesh of that size"
+                if ranks > 1 else f"{artifact_path} was exported for one "
+                f"card: serve it without a mesh")
+        self.mesh = mesh
+        self._rows = slice(None)
+        if mesh is not None:
+            from ..parallel.mesh import local_rows
+            self._rows = local_rows(mesh, self.batch)
         self.tokenizer = self.scaler = None
         self.training_smiles: List[str] = header.pop("training_smiles", [])
         if "tokenizer" in header:
@@ -230,8 +255,15 @@ class ArtifactServer:
             elif tuple(t.shape) != shape:
                 raise ValueError(f"{name} must be {shape}, got "
                                  f"{tuple(t.shape)}")
-            out[name] = t.to(self.device, torch.float32)
+            out[name] = self._mine(t.to(self.device, torch.float32),
+                                   _DRAW_BATCH_AXIS.get(name, 0))
         return out
+
+    def _mine(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's rows of a request tensor (all of it off a mesh)."""
+        if self.mesh is None:
+            return t
+        return t[(slice(None),) * axis + (self._rows,)].contiguous()
 
     # -------------------------------------------------------- a request --
 
@@ -289,9 +321,11 @@ class ArtifactServer:
         of each program on a side stream: it loads the kernel libraries and
         sets their attributes, and makes the libraries' handles and
         workspaces, none of which a capture may do."""
-        inputs = [torch.zeros(s.shape, dtype=s.torch_dtype,
-                              device=self.device) for s in self.specs]
-        draws = {k: torch.zeros(v, device=self.device)
+        inputs = [self._mine(torch.zeros(s.shape, dtype=s.torch_dtype,
+                                         device=self.device))
+                  for s in self.specs]
+        draws = {k: self._mine(torch.zeros(v, device=self.device),
+                               _DRAW_BATCH_AXIS.get(k, 0))
                  for k, v in self._draw_shapes().items()}
         if self.kind == "generator":
             inputs[1].fill_(1)
@@ -319,7 +353,8 @@ class ArtifactServer:
         tensors): the request's draws come from ``seed`` (0 when None)
         unless handed in by name.  ``eager=True`` runs this request on the
         eager tier even where a graph was captured (to compare the tiers).
-        Returns a tensor on the serving device."""
+        Returns a tensor on the serving device (over a mesh, every rank's
+        rows gathered on every rank)."""
         if len(inputs) != len(self.specs):
             raise ValueError(f"a {self.kind} artifact takes "
                              f"{len(self.specs)} inputs, got {len(inputs)}")
@@ -332,12 +367,12 @@ class ArtifactServer:
             if tuple(t.shape) != spec.shape:
                 raise ValueError(f"input of shape {tuple(t.shape)}, the "
                                  f"artifact takes {spec.shape}")
-            tensors.append(t.to(self.device, spec.torch_dtype))
+            tensors.append(self._mine(t.to(self.device, spec.torch_dtype)))
         drawn = self._draws(seed, draws)
         with torch.no_grad():
             if self._graph is None or eager:
                 self.served["eager"] += 1
-                return self._request(tensors, drawn)
+                return self._gather(self._request(tensors, drawn))
             static_inputs, static_draws, out = self._static
             for dst, src in zip(static_inputs, tensors):
                 dst.copy_(src)
@@ -345,7 +380,13 @@ class ArtifactServer:
                 dst.copy_(drawn[name])
             self._graph.replay()
             self.served["graph"] += 1
-            return out.clone()
+            return self._gather(out.clone())
+
+    def _gather(self, out: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return out
+        from ..parallel.mesh import gather_rows
+        return gather_rows(self.mesh, out, self.batch)
 
     def call_padded(self, *arrays, seed: Optional[int] = None,
                     **draws: torch.Tensor) -> np.ndarray:

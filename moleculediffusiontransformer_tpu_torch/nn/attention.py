@@ -275,6 +275,12 @@ class Transformer1d(nn.Module):
             self._stack_params = (key, cast)
         return self._stack_params[1]
 
+    def drop_kernel_cache(self) -> None:
+        """Forget the cached kernel parameters: the next call rebuilds
+        them (FSDP2 refills a parameter's storage without a sign the key
+        sees, ``parallel/fsdp.py``)."""
+        self._stack_params = None
+
     def kernel_casts(self) -> Dict[str, torch.Tensor]:
         """The parameters of ``kernel_params`` that are not in their kernel
         dtype already (float32 vectors, compute-dtype matrices), cast."""

@@ -5,10 +5,15 @@ Each library is compiled with ``nvcc`` for Hopper (``sm_90a``) into
 name carries a hash of the sources and flags, so an edited source builds a
 new library and a stale one is never loaded.  The libraries have a plain C
 interface and are loaded with ``ctypes``; they link only the CUDA runtime.
+Processes that build the same library at once (the ranks of a
+``torchrun`` on a fresh tree) take turns on a file lock beside it: one
+compiles, the others find the library when their turn comes.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -16,7 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -50,6 +55,18 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _locked(out: Path) -> Iterator[None]:
+    """Hold the lock of the library ``out`` (released when the process
+    ends, however it ends)."""
+    with open(out.with_suffix(".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(source: str) -> Tuple[Path, float]:
     """Compile ``csrc/<source>`` unless its library exists; returns the
     library path and the seconds spent compiling (0.0 when it existed).
@@ -58,6 +75,13 @@ def build(source: str) -> Tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _locked(out):
+        if out.exists():            # built by another process meanwhile
+            return out, 0.0
+        return out, _compile(source, out)
+
+
+def _compile(source: str, out: Path) -> float:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp_out = Path(tmp) / out.name
@@ -69,7 +93,7 @@ def build(source: str) -> Tuple[Path, float]:
                 f"nvcc failed ({proc.returncode}) building {source}:\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp_out, out)   # atomic: a reader never sees half a file
-    return out, time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -188,6 +188,10 @@ class WeightCache:
         # run's ``kernel_tensors`` as the program's inputs, made once per load
         self.given: Optional[Dict[str, torch.Tensor]] = None
 
+    def drop(self) -> None:
+        """Forget the cached weights: the next ``get`` rebuilds them."""
+        self._key = None
+
     def get(self, blocks: Sequence[ResnetBlock1d],
             dtype: torch.dtype) -> List[List[torch.Tensor]]:
         if self.given is not None:      # traced by ``design.export``

@@ -168,7 +168,7 @@ def train_task(task: str, model: torch.nn.Module, data, config,
     from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
                                    restore_checkpoint, save_step_checkpoint)
     from ..data.qm9 import batch_iterator
-    from .trainer import (MetricsLogger, TrainState, check_single_card,
+    from .trainer import (MetricsLogger, TrainState, check_checkpoint_backend,
                           make_encoder_train_step, make_optimizer,
                           make_transformer_train_step, step_generator,
                           train_diffusion)
@@ -194,7 +194,12 @@ def train_task(task: str, model: torch.nn.Module, data, config,
     if task not in ("inverse_transformer", "forward_transformer"):
         raise ValueError(f"unknown task: {task!r} (expected one of {TASKS})")
 
-    check_single_card(config)
+    check_checkpoint_backend(config)
+    if config.param_sharding != "replicated" or (
+            torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise ValueError(f"the {task} task trains on one card, as in the JAX "
+                         f"package: run it in one process, unsharded")
     logger = logger or MetricsLogger()
     encoder = task == "forward_transformer"
     device = next(model.parameters()).device

@@ -20,8 +20,12 @@ float32 grads summed by autograd and divided by A, one clip and one Adam
 update.  The draws of step N come from a generator seeded from
 (``TrainConfig.seed``, N) alone (``step_generator``), so a resumed run
 draws what an uninterrupted one draws, as JAX folds the step into its key.
-Not ported yet: ``mesh`` and ``param_sharding="fsdp"`` (the parallel layer,
-ROADMAP.md item A9) and the Orbax checkpoint tier (JAX-only).
+
+Over a mesh (``parallel/``: one process a card), each rank runs the step on
+its rows of the global batch and the grads are averaged over the ranks
+before the clip, so the parameters stay the same on every rank; under
+``param_sharding="fsdp"`` each rank holds a shard of the parameters and of
+the moments.  The Orbax checkpoint tier is JAX-only.
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
                                restore_checkpoint, save_step_checkpoint)
 from ..core.config import TrainConfig
 from ..data.prefetch import ThreadedLoader, prefetch_to_device, to_device
+from ..parallel import mesh as pmesh
+from ..parallel.fsdp import gathered, shard_state_fsdp
 
 Schedule = Callable[[int], float]
 # optax.adam's defaults, which the JAX package trains with
@@ -91,6 +97,8 @@ class ClipAdam:
     max_norm: float
 
     def init(self, params: List[torch.Tensor]) -> AdamState:
+        """Zero moments shaped and placed as ``params`` (a sharded
+        parameter's are sharded with it)."""
         return AdamState(mu=[torch.zeros_like(p, dtype=torch.float32)
                              for p in params],
                          nu=[torch.zeros_like(p, dtype=torch.float32)
@@ -113,8 +121,15 @@ class ClipAdam:
         ``scratch_bytes(params)``, not a copy of the optimizer state.  Every
         element sees the same float32 operations in the same order as
         optax's ``mu = g (1 - b1) + mu b1``, ``nu = g g (1 - b2) + nu b2``,
-        ``p += step (mu / bc1) / (sqrt(nu / bc2) + eps)``."""
-        norm = torch.stack([(g * g).sum() for g in grads]).sum().sqrt()
+        ``p += step (mu / bc1) / (sqrt(nu / bc2) + eps)``.
+
+        Sharded parameters (FSDP, ``DTensor``s, their grads and moments
+        sharded alike) are updated through their local shards; the sum of
+        squares of the shards is all-reduced over their mesh before the
+        square root, so every rank clips by the same global norm."""
+        norm = _global_norm(grads)
+        params, grads = _local(params), _local(grads)
+        mus, nus = _local(state.mu), _local(state.nu)
         clip = not bool(norm < self.max_norm)
         step_size = -self.lr(state.count)
         count = state.count + 1
@@ -124,8 +139,8 @@ class ClipAdam:
         for rows in _chunks(params):
             p = [params[i] for i in rows]
             g = [grads[i] for i in rows]
-            mu = [state.mu[i] for i in rows]
-            nu = [state.nu[i] for i in rows]
+            mu = [mus[i] for i in rows]
+            nu = [nus[i] for i in rows]
             if clip:
                 g = [x / norm for x in g]
                 torch._foreach_mul_(g, self.max_norm)
@@ -154,8 +169,38 @@ class ClipAdam:
         """The most bytes ``update`` holds beside the parameters, the grads
         and the moments: three float32 copies of its largest chunk (the
         clipped grads, the scratch list and the update)."""
+        params = _local(params)
         return 3 * 4 * max((sum(params[i].numel() for i in rows)
                             for rows in _chunks(params)), default=0)
+
+
+def _local(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor, or a sharded one's local shard (in place: a view)."""
+    from torch.distributed.tensor import DTensor
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+
+
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The float32 global norm of ``grads``: of the whole grads as they
+    are; with sharded ones, their shards' sum of squares all-reduced over
+    their mesh, plus the whole (and replicated) grads' once."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def is_sharded(g) -> bool:
+        return isinstance(g, DTensor) and any(
+            isinstance(p, Shard) for p in g.placements)
+
+    if not any(map(is_sharded, grads)):
+        return torch.stack([(g * g).sum() for g in _local(grads)]).sum(
+            ).sqrt()
+    sharded = [g for g in grads if is_sharded(g)]
+    sq = torch.stack([(g * g).sum() for g in _local(sharded)]).sum()
+    torch.distributed.all_reduce(sq,
+                                 group=sharded[0].device_mesh.get_group())
+    whole = _local([g for g in grads if not is_sharded(g)])
+    if whole:
+        sq = sq + torch.stack([(g * g).sum() for g in whole]).sum()
+    return sq.sqrt()
 
 
 # the most elements ``ClipAdam.update`` takes in one chunk (a tensor larger
@@ -215,12 +260,14 @@ class TrainState:
 def _accumulated_step(params: List[torch.Tensor], optimizer: ClipAdam,
                       state: TrainState, A: int, batch: int,
                       device: torch.device,
-                      loss_of: Callable[[slice], torch.Tensor]
-                      ) -> torch.Tensor:
+                      loss_of: Callable[[slice], torch.Tensor],
+                      mesh=None) -> torch.Tensor:
     """One optimizer step over ``A`` micro-batches: ``loss_of(rows)`` is the
     loss of one micro-batch; the float32 grads are summed by autograd,
     divided by A, clipped and applied once, and stay on ``.grad``.  Returns
-    the mean loss."""
+    the mean loss.  Over a ``mesh`` the grads that FSDP has not
+    reduce-scattered already (all of them under plain data parallelism) and
+    the loss are averaged over its ranks before the clip."""
     if batch % A:
         raise ValueError(f"batch {batch} does not split into {A} "
                          f"micro-batches")
@@ -236,9 +283,14 @@ def _accumulated_step(params: List[torch.Tensor], optimizer: ClipAdam,
         # a parameter the loss does not reach (the CFG null table at
         # embedding scale 1) has a zero gradient, as under jax.grad
         p.grad = (torch.zeros_like(p) if p.grad is None else p.grad / A)
+    loss = loss_sum / A
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor
+        pmesh.all_reduce_mean(mesh, [loss, *(
+            p.grad for p in params if not isinstance(p.grad, DTensor))])
     optimizer.update(params, [p.grad for p in params], state.opt_state)
     state.step += 1
-    return loss_sum / A
+    return loss
 
 
 def _accumulation_steps(accumulation_steps: int) -> int:
@@ -252,9 +304,26 @@ def _part(t: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
     return None if t is None else t[rows]
 
 
+def global_draws(model: nn.Module, target: torch.Tensor, batch: int,
+                 accumulation_steps: int, generator: torch.Generator
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sigmas (batch,) and noise (batch, *target.shape[1:]) that the
+    single-card step draws from ``generator`` for a batch of ``batch`` rows
+    in ``accumulation_steps`` micro-batches: each micro-batch's sigmas,
+    then its noise, in row order."""
+    mb = batch // accumulation_steps
+    sigmas, noise = [], []
+    for _ in range(accumulation_steps):
+        sigmas.append(model.sigma_distribution(mb, generator, target.device))
+        noise.append(torch.randn((mb, *target.shape[1:]),
+                                 generator=generator, device=target.device,
+                                 dtype=torch.float32))
+    return torch.cat(sigmas), torch.cat(noise)
+
+
 def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
                               accumulation_steps: int = 1,
-                              remat: bool = False) -> Callable:
+                              remat: bool = False, mesh=None) -> Callable:
     """``step(state, conditioning, target, generator=None, *, sigmas=None,
     noise=None) -> loss`` for the QM diffusion models, whose call is
     ``(conditioning, target, generator, sigmas=, noise=) -> loss``.
@@ -271,7 +340,18 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward instead of kept, for about one more forward.
     The draws are taken before the checkpointed region, in the order the
-    loss takes them, so the step equals the one without remat."""
+    loss takes them, so the step equals the one without remat.
+
+    ``mesh`` (``parallel.make_mesh``): data parallelism over its ranks.
+    ``conditioning``, ``target`` and handed-in draws are this rank's rows of
+    the global batch (``parallel.shard_batch``); a ``generator`` (seeded
+    alike on every rank) draws the global batch's sigmas and noise as the
+    single-card step would (``global_draws``) and the rank takes its rows,
+    so the step equals the single-card step on the global batch up to the
+    order of the sums.  The grads are averaged over the ranks after the
+    micro-batches' backward (``parallel.mesh.all_reduce_mean``, a few flat
+    buckets) and every rank runs the same update.  The returned loss is the
+    global mean."""
     A = _accumulation_steps(accumulation_steps)
     params = list(model.parameters())
 
@@ -294,10 +374,19 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
                    generator: Optional[torch.Generator] = None, *,
                    sigmas: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = conditioning.shape[0]
+        if mesh is not None and (sigmas is None) != (noise is None):
+            raise ValueError("over a mesh, hand in both sigmas and noise or "
+                             "neither")
+        if mesh is not None and sigmas is None and generator is not None:
+            rows = pmesh.local_rows(mesh, b * mesh.size())
+            sigmas, noise = (t[rows] for t in global_draws(
+                model, target, b * mesh.size(), A, generator))
         return _accumulated_step(
-            params, optimizer, state, A, conditioning.shape[0], target.device,
+            params, optimizer, state, A, b, target.device,
             lambda rows: loss_of(conditioning[rows], target[rows], generator,
-                                 _part(sigmas, rows), _part(noise, rows)))
+                                 _part(sigmas, rows), _part(noise, rows)),
+            mesh)
 
     return train_step
 
@@ -513,20 +602,30 @@ def deterministic_convs():
         torch.backends.cudnn.deterministic = previous
 
 
-def check_single_card(config, mesh=None) -> None:
-    """Refuse what the port cannot run yet: a mesh or FSDP (ROADMAP.md item
-    A9, the parallel layer) and the Orbax checkpoint tier (JAX-only)."""
-    if mesh is not None:
-        raise ValueError("training over a mesh is not ported yet: it waits "
-                         "for the parallel layer (ROADMAP.md, item A9)")
-    if config.param_sharding != "replicated":
-        raise ValueError(f"param_sharding={config.param_sharding!r} is not "
-                         f"ported yet: FSDP waits for the parallel layer "
-                         f"(ROADMAP.md, item A9)")
+def check_checkpoint_backend(config) -> None:
+    """Refuse the Orbax checkpoint tier: it is JAX-only, and the port
+    writes its own single-file checkpoints (``core/checkpoint.py``)."""
     if config.checkpoint_backend != "msgpack":
         raise ValueError(f"checkpoint_backend={config.checkpoint_backend!r}"
                          f": Orbax is JAX-only; the port writes its own "
                          f"single-file checkpoints (core/checkpoint.py)")
+
+
+def training_mesh(config, mesh, device: torch.device):
+    """The mesh ``train_diffusion`` trains over: ``mesh`` when given, else
+    the mesh over every rank of the process group when this process has
+    joined one (``torchrun``; a group of one rank runs the same collectives
+    over itself), else None (one card, no collective)."""
+    if config.param_sharding not in ("replicated", "fsdp"):
+        raise ValueError(f"unknown param_sharding "
+                         f"{config.param_sharding!r}")
+    if mesh is None and torch.distributed.is_initialized():
+        mesh = pmesh.make_mesh(device=device.type)
+    if config.param_sharding == "fsdp" and mesh is None:
+        raise ValueError("param_sharding='fsdp' shards over a process group:"
+                         " join one first (parallel.distributed_init) or "
+                         "pass mesh=")
+    return mesh
 
 
 def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
@@ -561,22 +660,61 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
     ``draws(N)`` -> (sigmas (b,), noise (b, L, C)) when given (the JAX
     package's own draws, in a test).  The loop runs under
     ``deterministic_convs``, so that on the card, as on the CPU, a resumed
-    run equals an uninterrupted one.  Returns the state and the logger."""
-    check_single_card(config, mesh)
+    run equals an uninterrupted one.  Returns the state and the logger.
+
+    Data parallelism (``training_mesh``): with ``mesh``, or by default over
+    every rank of the process group this process has joined, every
+    rank iterates the same global batches and trains on its rows of each
+    (``data_iter_fn`` and ``config.seed`` alike on every rank); rank 0's
+    parameters are broadcast first, and ``draws(N)`` gives the global
+    batch's.  The logged loss is the global mean.  Rank 0 logs, evaluates
+    and saves while the others wait at a barrier; the checkpoint is one
+    file holding the full state, whichever way it was trained, and resume
+    restores it on every rank before the sharding.  Under
+    ``param_sharding="fsdp"`` the model and the moments are sharded over
+    the mesh (``parallel.shard_state_fsdp``), a save gathers them, and
+    every rank runs ``eval_fn`` on the gathered parameters (a collective),
+    rank 0 logging it."""
+    check_checkpoint_backend(config)
     logger = logger or MetricsLogger()
     device = next(model.parameters()).device
+    mesh = training_mesh(config, mesh, device)
+    fsdp = config.param_sharding == "fsdp"
+    first = pmesh.is_first_rank(mesh)
     optimizer = make_optimizer(config)
     state = TrainState.create(model, optimizer)
     if resume and checkpoint_dir:
         ckpt = latest_checkpoint(checkpoint_dir)
         if ckpt:
             restore_checkpoint(ckpt, model, state)
+    if mesh is not None:
+        pmesh.replicate(mesh, model)
+    if fsdp:
+        shard_state_fsdp(model, state, mesh,
+                         min_elements=config.fsdp_min_elements)
     train_step = make_diffusion_train_step(model, optimizer,
-                                           config.accumulation_steps)
+                                           config.accumulation_steps,
+                                           mesh=mesh)
+    ranks = 1 if mesh is None else mesh.size()
 
     def save() -> None:
-        save_step_checkpoint(checkpoint_dir, checkpoint_state(model, state),
-                             state.step)
+        full = checkpoint_state(model, state)    # gathers the FSDP shards
+        if first:
+            save_step_checkpoint(checkpoint_dir, full, state.step)
+        if mesh is not None:
+            pmesh.barrier(mesh)
+
+    def evaluate(step: int, epoch: int, **extra) -> None:
+        if first or fsdp:
+            with gathered(model):
+                metrics = eval_fn(state)
+            if first:
+                logger.log(step=step, epoch=epoch, **extra, **metrics)
+        if mesh is not None:
+            pmesh.barrier(mesh)
+
+    def mine(t):
+        return t if mesh is None else t[pmesh.local_rows(mesh, len(t))]
 
     loader = ThreadedLoader(data_iter_fn) if config.prefetch > 0 else None
 
@@ -584,7 +722,7 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
         def host_batches():
             for X, y in (data_iter_fn() if loader is None
                          else loader.epoch()):
-                yield (y, X) if not swap_xy else (X, y)
+                yield tuple(map(mine, (y, X) if not swap_xy else (X, y)))
 
         if loader is None:
             for batch in host_batches():
@@ -609,12 +747,12 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
                         gen = step_generator(config.seed, state.step, device)
                         loss = train_step(state, cond, target, gen)
                     else:
-                        sigmas, noise = draws(state.step)
+                        sigmas, noise = map(mine, draws(state.step))
                         loss = train_step(state, cond, target,
                                           sigmas=sigmas.to(device),
                                           noise=noise.to(device))
-                    samples_seen += cond.shape[0]
-                    if state.step % config.print_loss_every == 0:
+                    samples_seen += cond.shape[0] * ranks
+                    if first and state.step % config.print_loss_every == 0:
                         elapsed = time.time() - t0
                         logger.log(step=state.step, epoch=epoch,
                                    loss=float(loss),
@@ -626,14 +764,12 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
                     if (config.eval_every_steps
                             and state.step % config.eval_every_steps == 0):
                         if eval_fn is not None:
-                            logger.log(step=state.step, epoch=epoch,
-                                       in_epoch=True, **eval_fn(state))
+                            evaluate(state.step, epoch, in_epoch=True)
                         if checkpoint_dir:
                             save()
                 state.epoch += 1
                 if eval_fn is not None:
-                    logger.log(step=state.step, epoch=epoch,
-                               **eval_fn(state))
+                    evaluate(state.step, epoch)
                 if checkpoint_dir and (
                         state.epoch % config.checkpoint_every_epochs == 0
                         or i == config.epochs - 1):

@@ -81,9 +81,15 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.models",
     "moleculediffusiontransformer_tpu_torch.models.graph",
     "moleculediffusiontransformer_tpu_torch.design.plots",
+    "moleculediffusiontransformer_tpu_torch.parallel",
+    "moleculediffusiontransformer_tpu_torch.parallel.mesh",
+    "moleculediffusiontransformer_tpu_torch.parallel.multihost",
+    "moleculediffusiontransformer_tpu_torch.parallel.fsdp",
 ]
-# entry points outside the package, imported by path
-PORT_SCRIPTS = ["examples/audio_diffusion_torch.py"]
+# entry points outside the package, and the ranks' module of the parallel
+# tests (each rank a fresh interpreter), imported by path
+PORT_SCRIPTS = ["examples/audio_diffusion_torch.py",
+                "tests/torch_parallel_workers.py"]
 
 
 @pytest.fixture(scope="module")
@@ -160,7 +166,9 @@ def test_entry_points_default_to_the_card():
     the CPU.  So do the serving entry points: ``export_*`` and
     ``ArtifactServer`` export and serve on the card unless ``device``
     names another, as do the ``export``, ``export-torch``, ``inspect`` and
-    ``serve`` subcommands."""
+    ``serve`` subcommands, and the parallel layer: ``make_mesh`` and
+    ``distributed_init`` (NCCL, each rank bound to its card) unless
+    ``device="cpu"`` asks for gloo on the CPU."""
     from moleculediffusiontransformer_tpu_torch.models import (audio, graph,
                                                                transformers)
 
@@ -234,9 +242,11 @@ def test_entry_points_default_to_the_card():
     from moleculediffusiontransformer_tpu_torch.design import export as dx
     from moleculediffusiontransformer_tpu_torch.design.serve import \
         ArtifactServer
+    from moleculediffusiontransformer_tpu_torch import parallel
     exports = (dx.export_sampler, dx.export_inpainter, dx.export_generator,
                dx.export_encoder)
-    for entry in (*exports, ArtifactServer):
+    for entry in (*exports, ArtifactServer, parallel.make_mesh,
+                  parallel.distributed_init):
         assert inspect.signature(entry).parameters["device"].default == \
             "cuda", entry
     parser = cli.build_parser()
@@ -250,6 +260,9 @@ def test_entry_points_default_to_the_card():
             dx.export_encoder(encoder, batch=1, max_length=8)
         with pytest.raises(RuntimeError, match="no CUDA"):
             ArtifactServer("no-such-artifact.pt2")
+        for entry in (parallel.make_mesh, parallel.distributed_init):
+            with pytest.raises(RuntimeError, match="no CUDA"):
+                entry()
 
 
 def _example():
@@ -520,3 +533,51 @@ def test_chip_smoke_runs_the_assemblies_phase(monkeypatch):
         3 * 2 * (smoke.ASM_STEPS - 1)
     assert want["vocoder fp32"]["LAUNCHES"] == 2
     assert not any(served.values()) and not any(trained.values())
+
+
+def test_chip_smoke_runs_the_parallel_phase(monkeypatch, tmp_path):
+    """Phase 32's code (``parallel_layer``) on the CPU through gloo at tiny
+    widths in float32: two spawned ranks train, are held across ranks and
+    against one process, serve live and from the mesh artifact; the CLI
+    runs under ``torchrun`` against an in-process run of the same
+    arguments; FSDP runs over a group of one.  On the CPU no kernel
+    launches, so the held counts are recorded rather than compared."""
+    import sys as _sys
+    smoke = _smoke()
+    # a spawned rank unpickles its function by module name
+    monkeypatch.setitem(_sys.modules, "chip_smoke", smoke)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    held = []
+    monkeypatch.setattr(smoke, "check_launches",
+                        lambda what, got, want: held.append((what, want)))
+    monkeypatch.setattr(smoke, "FLAGSHIP", dict(
+        SMALL, pred_dim=22, context_embedding_max_length=12))
+    for name, value in (("DP_BATCH", 8), ("PARALLEL_FP32_BATCH", 4),
+                        ("PARALLEL_SERVE_BATCH", 4), ("NUM_STEPS", 4),
+                        ("PARALLEL_FP32_SERVE_STEPS", 3), ("FSDP_BATCH", 4),
+                        ("DESIGN_SMILES", 64), ("PARALLEL_TIMEOUT", 120),
+                        ("PARALLEL_DTYPE", "float32")):
+        monkeypatch.setattr(smoke, name, value)
+    inv, _ = smoke.design_data()
+    argv = ["train", "--task", "inverse_diffusion", "--preset", "tiny",
+            "--device", "cpu", "--rows", "64", "--batch-size", "16",
+            "--epochs", "1", "--print-loss-every", "1", "--timesteps", "2",
+            "--num-eval", "2", "--checkpoint-dir", str(tmp_path / "ref")]
+    out, _, launched, _ = smoke.cli_run(argv)
+    reference = {"argv": argv[:-2], "losses": out["losses"],
+                 "launches": launched}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)          # the CLI's child runs beside it
+    try:
+        got = smoke.parallel_layer(torch.device("cpu"), inv, reference)
+    finally:
+        torch.set_num_threads(threads)
+    want = dict(held)
+    stacks, layers, _ = smoke.preset_stacks(smoke.FLAGSHIP)
+    assert want["DP training (rank 0)"]["STASH_LAUNCHES"] == stacks * 3
+    assert want["DP training (rank 1)"]["LAYER_BWD_LAUNCHES"] == layers * 3
+    assert want["mesh request (rank 0)"]["LAUNCHES"] == stacks * 2 * 3
+    assert want["FSDP training"]["CONV_IN_GN_BWD_LAUNCHES"] == stacks * 3
+    assert want["FSDP training (rank 1)"]["STASH_LAUNCHES"] == stacks * 3
+    assert "torchrun train" in want
+    assert not any(got["train"].values()) and not any(got["serve"].values())

@@ -491,8 +491,11 @@ def test_operators_in_the_program_and_their_fakes(qm):
 
 
 def test_mesh_and_another_device_are_refused(qm):
-    with pytest.raises(ValueError, match="A9"):
-        dx.export_sampler(qm["port"], batch=2, mesh=object(), device=CPU)
+    """A mesh is the sampler's only (as in JAX; the mesh sampler is
+    ``tests/test_torch_parallel.py``'s), and an artifact is exported on
+    the device the model is on."""
+    with pytest.raises(ValueError, match="export_sampler only"):
+        dx.export_inpainter(qm["port"], batch=2, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="serves on"):
         dx.export_encoder(qm["port"], batch=2, device="meta")
 

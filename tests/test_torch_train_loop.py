@@ -227,15 +227,17 @@ def test_loaders_yield_the_plain_batches(data):
 
 
 @pytest.mark.parametrize("change, match", [
-    ({"param_sharding": "fsdp"}, "A9"),
+    ({"param_sharding": "fsdp"}, "process group"),
     ({"checkpoint_backend": "orbax"}, "Orbax is JAX-only"),
-    ({}, "A9")])
+    ({"param_sharding": "zero3"}, "unknown param_sharding")])
 def test_refuses_mesh_fsdp_and_orbax(data, change, match):
+    """What the loop still refuses: FSDP with no process group (no mesh to
+    shard over), the JAX-only Orbax tier, a sharding it does not know.
+    Training over a mesh is ``tests/test_torch_parallel.py``'s."""
     config = dataclasses.replace(TrainConfig(), **change)
-    mesh = None if change else object()
     with pytest.raises(ValueError, match=match):
         trainer.train_diffusion(_tiny(data.vocab_size), _epoch(data, 0),
-                                config, mesh=mesh)
+                                config)
 
 
 def test_profiling_hooks(tmp_path):
