@@ -557,17 +557,20 @@ ASM_PARITY_BATCH, ASM_PARITY_TOL = 2, 1e-4
 # phase 32: the data-parallel layer on the one card.  Two spawned ranks of a
 # gloo group (NCCL refuses a card twice): the 91M in bf16 at a global batch
 # of 1,024 (512 a rank), one warm-up and DP_STEPS steps; float32 at a global
-# batch of 8, PARALLEL_FP32_STEPS steps against one card at lr
-# PARALLEL_FP32_LR (Adam moves a parameter ~lr a step whatever its grad, so
-# a grad near 0 whose last bits differ flips it by 2 lr: the 1e-4 band
-# needs 2 lr well below it); a 64-step CFG request of 512 over both ranks,
+# batch of 8, PARALLEL_FP32_STEPS steps against one card, taken with plain
+# SGD at PARALLEL_FP32_LR (Adam moves a parameter ~lr sign(g) a step, so a
+# grad near 0 whose last bits differ flips it by 2 lr, and no band on its
+# parameters can both hold and see the update; SGD moves them in proportion
+# to the grads, past the 1e-4 band, and the check fails unless they moved
+# ten times past it); a 64-step CFG request of 512 over both ranks,
 # live and from the sampler exported with mesh=, and a float32 one of 8 at
 # PARALLEL_FP32_SERVE_STEPS steps.  Then, through NCCL at one rank, the CLI
 # under torchrun (phase 27's first run again) and FSDP: FSDP_STEPS steps in
-# bf16 at FSDP_BATCH and in float32 at 8 against the unsharded model
+# bf16 at FSDP_BATCH (Adam) and in float32 at 8 (SGD, as above) against
+# the unsharded model
 PARALLEL_RANKS, PARALLEL_TIMEOUT = 2, 300
 DP_BATCH, DP_STEPS = 1024, 2
-PARALLEL_FP32_BATCH, PARALLEL_FP32_STEPS, PARALLEL_FP32_LR = 8, 2, 1e-6
+PARALLEL_FP32_BATCH, PARALLEL_FP32_STEPS, PARALLEL_FP32_LR = 8, 2, 0.1
 PARALLEL_FP32_TOL = 1e-4
 PARALLEL_SERVE_BATCH, PARALLEL_FP32_SERVE_STEPS = 512, 8
 FSDP_BATCH, FSDP_STEPS = 512, 3
@@ -576,7 +579,7 @@ PARALLEL_DTYPE = "bfloat16"     # the training and serving runs' dtype
 # first two, FSDP the tensor forms)
 PARALLEL_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
                         "reduce_scatter_tensor")
-SERVING_FLAG = "serving"        # written by rank 0 when the ranks serve
+SERVING_FLAG = "serving"   # written by rank 0 after the live mesh request
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -5003,10 +5006,36 @@ def fsdp_train(mesh, dev, cfg) -> dict:
             "peak": _peak(dev), "held_elements": held}
 
 
+class SGD:
+    """Plain SGD, ``p -= lr g``, for the float32 checks: it moves each
+    parameter in proportion to its grad, so a band on the parameters sees
+    the update (see PARALLEL_FP32_LR)."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params):
+        return None
+
+    def update(self, params, grads, state) -> None:
+        import torch
+        from moleculediffusiontransformer_tpu_torch.train import trainer
+        with torch.no_grad():
+            torch._foreach_add_(trainer._local(params),
+                                trainer._local(grads), alpha=-self.lr)
+
+
+def moved(model, before) -> float:
+    """The most any parameter of ``model`` moved from the flat ``before``:
+    what a step that left out the update would miss by."""
+    return float((flat_params(model) - before).abs().max())
+
+
 def dp_fp32(mesh, dev, cfg) -> dict:
     """Float32 at the global batch ``fp32_batch``: ``fp32_steps`` one-card
-    steps on rank 0 and as many data-parallel ones; rank 0 holds the losses,
-    the parameters and the last grads against each other."""
+    steps on rank 0 and as many data-parallel ones, with SGD; rank 0 holds
+    the losses, the parameters and the last grads against each other, and
+    measures how far the one-card steps moved the parameters."""
     import torch
     from moleculediffusiontransformer_tpu_torch.parallel import (
         replicate, shard_batch)
@@ -5016,8 +5045,7 @@ def dp_fp32(mesh, dev, cfg) -> dict:
     cond, target = inverse_batch(
         cfg["fp32_batch"], torch.Generator(device=dev).manual_seed(4), dev,
         cfg["flagship"])
-    opt = trainer.make_optimizer(trainer.OptimizerConfig(
-        learning_rate=cfg["fp32_lr"]))
+    opt = SGD(cfg["fp32_lr"])
 
     def run(m, mesh_, c, t):
         state = trainer.TrainState.create(m, opt)
@@ -5028,7 +5056,10 @@ def dp_fp32(mesh, dev, cfg) -> dict:
     ref = None
     if rank == 0:
         ref = copy.deepcopy(model)
+        before = flat_params(ref)
         ref_losses = run(ref, None, cond, target)
+        params_moved = moved(ref, before)
+        del before
     replicate(mesh, model)
     losses = run(model, mesh, *shard_batch(mesh, (cond, target)))
     out = {"losses": losses}
@@ -5038,6 +5069,7 @@ def dp_fp32(mesh, dev, cfg) -> dict:
                                     for a, b in zip(losses, ref_losses)),
                    params_max_abs_err=float(
                        (flat_params(model) - flat_params(ref)).abs().max()),
+                   params_moved=params_moved,
                    grads_rel_err=max(
                        _rel_err(p.grad, q.grad) for p, q in zip(
                            model.parameters(), ref.parameters())))
@@ -5065,8 +5097,6 @@ def parallel_serving(mesh, dev, cfg, tmp) -> dict:
     from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
         sample
     rank = mesh.get_local_rank()
-    if rank == 0:                 # phase 32 starts the CLI under torchrun
-        open(os.path.join(tmp, SERVING_FLAG), "w").close()
     tok = CharTokenizer.from_state_dict(cfg["tokenizer"])
     preset = dict(cfg["flagship"], pred_dim=tok.vocab_size)
     batch, steps, scale = (cfg["serve_batch"], cfg["serve_steps"],
@@ -5094,6 +5124,10 @@ def parallel_serving(mesh, dev, cfg, tmp) -> dict:
                   "seconds": time.perf_counter() - t0,
                   "launched": counts(), "rows": len(rep["smiles"]),
                   "finite": bool(np.isfinite(rep["raw_samples"]).all())}
+        if rank == 0 and name == "request":
+            # the live request was timed alone: phase 32 now starts the
+            # CLI under torchrun and the one-rank FSDP beside what follows
+            open(os.path.join(tmp, SERVING_FLAG), "w").close()
         if rank == 0:
             want = torch.from_numpy(request(None)["raw_samples"])
             record["rel_err"] = _rel_err(
@@ -5240,6 +5274,8 @@ def start_cli_under_torchrun(dev, tmp, reference):
     env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
                PYTHONPATH=os.pathsep.join(
                    [ROOT, os.environ.get("PYTHONPATH", "")]))
+    if dev.type == "cpu":     # the rehearsal's tiny model, beside the ranks
+        env["OMP_NUM_THREADS"] = "1"
     out = open(os.path.join(tmp, "cli.out"), "w+")
     err = open(os.path.join(tmp, "cli.err"), "w+")
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err)
@@ -5292,9 +5328,11 @@ def finish_cli_under_torchrun(dev, started, reference) -> dict:
 def fsdp_one_rank(dev, stacks, layers) -> dict:
     """FSDP over a group of one (NCCL on the card): the 91M sharded with
     FSDP2, ``FSDP_STEPS`` steps against as many unsharded ones on the same
-    batch and draws, in bf16 at ``FSDP_BATCH`` and float32 at
-    ``PARALLEL_FP32_BATCH``; the kernel weight caches never stale; each
-    one's peak memory.  Returns the bf16 run's launches."""
+    batch and draws, in bf16 at ``FSDP_BATCH`` (Adam) and float32 at
+    ``PARALLEL_FP32_BATCH`` (SGD, whose update the float32 band sees: the
+    steps must move the parameters ten times past it); the kernel weight
+    caches never stale; each one's peak memory.  Returns the bf16 run's
+    launches."""
     import torch
     import torch.distributed as dist
     from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
@@ -5306,22 +5344,24 @@ def fsdp_one_rank(dev, stacks, layers) -> dict:
     launched = None
     try:
         mesh = make_mesh(device=dev.type)
-        for dtype, batch, lr, tol in (
-                (PARALLEL_DTYPE, FSDP_BATCH, 2e-4, KERNEL_TOL[PARALLEL_DTYPE]),
+        for dtype, batch, lr, tol, sgd in (
+                (PARALLEL_DTYPE, FSDP_BATCH, 2e-4, KERNEL_TOL[PARALLEL_DTYPE],
+                 False),
                 ("float32", PARALLEL_FP32_BATCH, PARALLEL_FP32_LR,
-                 PARALLEL_FP32_TOL)):
+                 PARALLEL_FP32_TOL, True)):
+            cond, target = inverse_batch(batch, torch.Generator(
+                device=dev).manual_seed(6), dev)
+            opt = SGD(lr) if sgd else trainer.make_optimizer(
+                trainer.OptimizerConfig(learning_rate=lr))
             dtype = getattr(torch, dtype)
             model = seeded_qm(FLAGSHIP, dtype, dev, 0).train()
             plain = copy.deepcopy(model)
-            cond, target = inverse_batch(batch, torch.Generator(
-                device=dev).manual_seed(6), dev)
-            opt = trainer.make_optimizer(trainer.OptimizerConfig(
-                learning_rate=lr))
+            before = flat_params(plain)
 
             def run(m, mesh_):
                 state = trainer.TrainState.create(m, opt)
                 if mesh_ is not None:
-                    shard_state_fsdp(m, state, mesh_)
+                    shard_state_fsdp(m, None if sgd else state, mesh_)
                 step = trainer.make_diffusion_train_step(m, opt, mesh=mesh_)
                 _peak(dev, reset=True)
                 losses = [step(state, cond, target,
@@ -5330,6 +5370,8 @@ def fsdp_one_rank(dev, stacks, layers) -> dict:
                 return losses, _peak(dev)
 
             plain_losses, plain_peak = run(plain, None)
+            params_moved = moved(plain, before)
+            del before
             stale = watch_kernel_weights(model)
             reset_counts()
             losses, peak = run(model, mesh)
@@ -5343,14 +5385,17 @@ def fsdp_one_rank(dev, stacks, layers) -> dict:
                   dtype=str(dtype).split(".")[1], batch=batch,
                   steps=FSDP_STEPS, lr=lr, losses=losses,
                   plain_losses=plain_losses, loss_rel_err=loss_err,
-                  params_max_abs_err=err, tol=tol,
+                  params_max_abs_err=err, params_moved=params_moved,
+                  optimizer="sgd" if sgd else "adam", tol=tol,
                   stale_kernel_weights=stale,
                   peak_bytes=peak, plain_peak_bytes=plain_peak,
                   launches=counted)
-            if stale or not loss_err <= tol or not err <= tol:
+            if stale or not loss_err <= tol or not err <= tol or (
+                    sgd and not params_moved >= 10 * tol):
                 raise AssertionError(f"FSDP ({dtype}) against the unsharded "
                                      f"steps: losses {loss_err}, parameters "
-                                     f"{err}, stale {stale[:5]}")
+                                     f"{err} (moved {params_moved}), stale "
+                                     f"{stale[:5]}")
             if launched is None:
                 launched = counted
                 check_launches("FSDP training", counted, loop_want(
@@ -5375,10 +5420,11 @@ def parallel_layer(dev, inv, loop_first) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         group = Ranks(cfg, tmp)
         try:
-            # when the ranks have trained and begin to serve, the CLI under
-            # torchrun and the one-rank FSDP runs start beside them: their
-            # numbers are losses, launches and each process's own peak
-            # memory; the serving's seconds are taken beside them
+            # when the ranks have trained and timed the live mesh request,
+            # the CLI under torchrun and the one-rank FSDP runs start beside
+            # them: their numbers are losses, launches and each process's
+            # own peak memory; the served artifact's seconds are taken
+            # beside them
             group.wait_for(SERVING_FLAG)
             started = start_cli_under_torchrun(dev, tmp, loop_first)
             try:
@@ -5435,6 +5481,7 @@ def parallel_layer(dev, inv, loop_first) -> dict:
                              f"{first_err}")
     if not (f32["loss_rel_err"] <= PARALLEL_FP32_TOL
             and f32["params_max_abs_err"] <= PARALLEL_FP32_TOL
+            and f32["params_moved"] >= 10 * PARALLEL_FP32_TOL
             and f32["grads_rel_err"] <= PARALLEL_FP32_TOL):
         raise AssertionError(f"float32 DP against one card: {f32}")
     served = {}
@@ -5442,8 +5489,9 @@ def parallel_layer(dev, inv, loop_first) -> dict:
         sv = r["serve"]
         phase("parallel_serve", rank=rank, ranks=PARALLEL_RANKS,
               backend="gloo", cond_scale=COND_SCALE,
-              note="beside the CLI under torchrun and the one-rank FSDP",
-              **sv)
+              note="the live request timed alone; the float32 one and the "
+                   "served artifact beside the CLI under torchrun and the "
+                   "one-rank FSDP", **sv)
         for name, tol in (("request", KERNEL_TOL[PARALLEL_DTYPE]),
                           ("request_fp32", PARALLEL_FP32_TOL)):
             rec = sv[name]

@@ -197,12 +197,14 @@ def cmd_train(args) -> Dict:
     prints."""
     from .core.checkpoint import checkpoint_state, save_checkpoint
     from .core.config import TrainConfig
-    from .parallel import distributed_init
+    from .parallel import distributed_init, make_mesh
     from .train import recipes
     device = _device(args)
     joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    mesh = None
     if joined:
         distributed_init(device=device.type)
+        mesh = make_mesh(device=device.type)
     try:
         before = _launches()
         data = _dataset(args, recipes.data_mode(args.task))
@@ -214,9 +216,9 @@ def cmd_train(args) -> Dict:
                              print_loss_every=args.print_loss_every)
         state, logger = recipes.train_task(
             args.task, model, data, config,
-            checkpoint_dir=args.checkpoint_dir, resume=args.resume)
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if dist.is_initialized() and dist.get_rank() != 0:
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+            mesh=mesh)
+        if mesh is not None and mesh.get_local_rank() != 0:
             return {}
         if args.out:
             save_checkpoint(args.out, checkpoint_state(model))
@@ -233,7 +235,7 @@ def cmd_train(args) -> Dict:
                       "step": state.step,
                       "losses": [r["loss"] for r in logger.history
                                  if "loss" in r],
-                      "world_size": world,
+                      "world_size": 1 if mesh is None else mesh.size(),
                       "launches": {k: after[k] - before[k] for k in after}})
     finally:
         if joined:

@@ -162,54 +162,24 @@ def generate_from_conditioning(
     size by repeating its first row, is sampled batch-parallel.  Every rank
     draws the padded batch's start noise and every step's noise from
     ``generator`` as one card would (or takes ``noise`` and ``step_noise``
-    given for the padded batch), samples its own rows, and the rows are
-    gathered so that every rank returns the whole report.  An even batch
-    gives the single-card result; a padded one is another draw, as in
-    JAX."""
+    given for the padded batch), samples its own rows (``sample(rows=)``),
+    and the rows are gathered so that every rank returns the whole
+    report.  An even batch gives the single-card result; a padded one is
+    another draw, as in JAX."""
     from ..models.qm_diffusion import sample
-    device = _device(model)
-    if mesh is None:
-        out = sample(model, _scaled(properties, scaler, device), generator,
-                     num_steps=timesteps, cond_scale=cond_scale, noise=noise,
-                     step_noise=step_noise)
-    else:
-        out = _sample_on_mesh(model, properties, scaler, generator, mesh,
-                              timesteps, cond_scale, noise, step_noise)
+    from ..parallel import mesh as pmesh
+    props, rows = properties, None
+    if mesh is not None:
+        props = pmesh.pad_to_multiple(np.asarray(properties), mesh.size())
+        rows = pmesh.local_rows(mesh, len(props))
+    out = sample(model, _scaled(props, scaler, _device(model)), generator,
+                 num_steps=timesteps, cond_scale=cond_scale, noise=noise,
+                 step_noise=step_noise, rows=rows)
+    if mesh is not None:
+        out = pmesh.gather_rows(mesh, out, len(props))[:len(properties)]
     report = _report(decode_one_hot(out, tokenizer), training_smiles)
     report["raw_samples"] = out.cpu().numpy()
     return report
-
-
-def _sample_on_mesh(model, properties, scaler, generator, mesh,
-                    timesteps: int, cond_scale: float,
-                    noise: Optional[torch.Tensor],
-                    step_noise: Optional[torch.Tensor]) -> torch.Tensor:
-    """``models.qm_diffusion.sample`` of the (b, 12) request batch-parallel
-    over ``mesh`` (``generate_from_conditioning``); the (b, L, vocab)
-    samples on every rank."""
-    from ..models.qm_diffusion import sample
-    from ..parallel import mesh as pmesh
-    device = _device(model)
-    n = len(properties)
-    props = _scaled(pmesh.pad_to_multiple(np.asarray(properties),
-                                          mesh.size()), scaler, device)
-    b = props.shape[0]
-    if (noise is None) != (step_noise is None):
-        raise ValueError("over a mesh, hand in both noise and step_noise "
-                         "or neither")
-    if noise is None:
-        if generator is None:
-            raise ValueError("sample needs a generator or explicit noise")
-        shape = (b, model.max_length, model.pred_dim)
-        noise = torch.randn(shape, generator=generator, device=device)
-        step_noise = torch.stack([
-            torch.randn(shape, generator=generator, device=device)
-            for _ in range(timesteps - 1)])
-    rows = pmesh.local_rows(mesh, b)
-    local = sample(model, props[rows], num_steps=timesteps,
-                   cond_scale=cond_scale, noise=noise[rows],
-                   step_noise=step_noise[:, rows])
-    return pmesh.gather_rows(mesh, local, b)[:n]
 
 
 def inpaint_from_draft_and_conditioning(

@@ -70,10 +70,6 @@ from ..nn.transformer_blocks import decode_loop
 from ..ops import resnet_fusion, transformer_fusion  # their operators
 from .export import InputSpec, program_inputs, read_artifact
 
-# the axis along which a draw holds the request's rows, where not the first
-# (a mesh serves only the sampler)
-_DRAW_BATCH_AXIS = {"step_noise": 1}
-
 _COUNTERS = ((transformer_fusion, "LAUNCHES"),
              (transformer_fusion, "UNIFORM_LAUNCHES"),
              (resnet_fusion, "RESNET_LAUNCHES"))
@@ -256,13 +252,15 @@ class ArtifactServer:
                 raise ValueError(f"{name} must be {shape}, got "
                                  f"{tuple(t.shape)}")
             out[name] = self._mine(t.to(self.device, torch.float32),
-                                   _DRAW_BATCH_AXIS.get(name, 0))
+                                   draw=True)
         return out
 
-    def _mine(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
-        """This rank's rows of a request tensor (all of it off a mesh)."""
+    def _mine(self, t: torch.Tensor, draw: bool = False) -> torch.Tensor:
+        """This rank's rows of a request tensor (all of it off a mesh); a
+        ``draw`` ends with a sample's (b, *shape), after its step axes."""
         if self.mesh is None:
             return t
+        axis = t.dim() - 1 - len(self.meta["shape"]) if draw else 0
         return t[(slice(None),) * axis + (self._rows,)].contiguous()
 
     # -------------------------------------------------------- a request --
@@ -325,7 +323,7 @@ class ArtifactServer:
                                          device=self.device))
                   for s in self.specs]
         draws = {k: self._mine(torch.zeros(v, device=self.device),
-                               _DRAW_BATCH_AXIS.get(k, 0))
+                               draw=True)
                  for k, v in self._draw_shapes().items()}
         if self.kind == "generator":
             inputs[1].fill_(1)

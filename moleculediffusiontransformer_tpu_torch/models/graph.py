@@ -61,6 +61,9 @@ class AnalogDiffusionSparse(QMDiffusionBase):
                             self.max_length)
         return torch.cat([xyz, neigh], dim=-1)
 
+    def diffusion_target(self, output: torch.Tensor) -> torch.Tensor:
+        return self.pack_target(output)
+
     def forward(self, sequences: torch.Tensor, output: torch.Tensor,
                 generator: Optional[torch.Generator] = None, *,
                 sigmas: Optional[torch.Tensor] = None,

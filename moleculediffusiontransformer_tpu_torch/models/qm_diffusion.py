@@ -97,6 +97,11 @@ class QMDiffusionBase(nn.Module):
                 [x, pe], dim=-1)
         return x
 
+    def diffusion_target(self, output: torch.Tensor) -> torch.Tensor:
+        """What the loss of ``output`` diffuses, and what its noise is
+        shaped like."""
+        return output
+
     def forward(self, sequences: torch.Tensor, output: torch.Tensor,
                 generator: Optional[torch.Generator] = None, *,
                 sigmas: Optional[torch.Tensor] = None,
@@ -194,20 +199,31 @@ def sample(model: QMDiffusionBase, sequences: torch.Tensor,
            num_steps: int = 100, cond_scale: float = 1.0, clamp: bool = False,
            sigma_min: float = 1e-3, sigma_max: float = 9.0, rho: float = 3.0,
            noise: Optional[torch.Tensor] = None,
-           step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+           step_noise: Optional[torch.Tensor] = None,
+           rows: Optional[slice] = None) -> torch.Tensor:
     """ADPM2 (rho 1) sampling over a Karras(sigma_min, sigma_max, rho)
     schedule — the serving path.  ``sequences`` (b, 12) on the model's
     device; returns (b, max_length, pred_dim) float32, channels-last.
 
     The initial ``noise`` (b, max_length, pred_dim) and the per-step
     ``step_noise`` (num_steps - 1, b, max_length, pred_dim) are drawn from
-    ``generator`` (on the model's device) unless given."""
+    ``generator`` (on the model's device) unless given.  ``rows``: sample
+    only those rows of the batch, on the whole batch's draws (a rank's
+    share of a request over a data mesh): the same rows as the whole call
+    gives, up to the order of the sums."""
     device = sequences.device
     shape = (sequences.shape[0], model.max_length, model.pred_dim)
     if noise is None:
         if generator is None:
             raise ValueError("sample needs a generator or explicit noise")
         noise = torch.randn(shape, generator=generator, device=device)
+    if rows is not None:
+        if step_noise is None:      # drawn as the sampler draws each step's
+            step_noise = torch.stack([
+                torch.randn(shape, generator=generator, device=device)
+                for _ in range(num_steps - 1)] or [noise[:0]])
+        sequences, noise, step_noise = (sequences[rows], noise[rows],
+                                        step_noise[:, rows])
     emb = model.embed_conditioning(sequences)
     sigmas = karras_schedule(num_steps, sigma_min, sigma_max, rho)
 

@@ -29,20 +29,18 @@ BUCKET_ELEMENTS = 2 ** 24
 
 def make_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
               device: str = "cuda"):
-    """A 1-D data mesh over the first ``num_devices`` ranks of the process
-    group (all of them by default), on the card unless ``device="cpu"``.
-    Joins a group of one first when this process has none
-    (``distributed_init``); every rank of the group calls it."""
-    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    """The 1-D data mesh over every rank of the process group, on the card
+    unless ``device="cpu"``; ``num_devices``, where given, must be the
+    group's size (one process a card: the mesh is the group).  Joins a
+    group of one first when this process has none (``distributed_init``);
+    every rank of the group calls it."""
+    from torch.distributed.device_mesh import init_device_mesh
     distributed_init(device=device)
     world = dist.get_world_size()
-    n = world if num_devices is None else num_devices
-    if not 1 <= n <= world:
-        raise ValueError(f"num_devices {num_devices}: the group has {world} "
-                         f"ranks")
-    if n == world:
-        return init_device_mesh(device, (n,), mesh_dim_names=(axis_name,))
-    return DeviceMesh(device, torch.arange(n), mesh_dim_names=(axis_name,))
+    if num_devices not in (None, world):
+        raise ValueError(f"num_devices {num_devices}: the mesh is the "
+                         f"process group, of {world} ranks")
+    return init_device_mesh(device, (world,), mesh_dim_names=(axis_name,))
 
 
 def mesh_device(mesh) -> torch.device:
@@ -52,7 +50,7 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def batch_sharding(mesh, axis_name: str = "data") -> list:
+def batch_sharding(mesh) -> list:
     """The placement of a batch: its leading axis sharded over the mesh."""
     from torch.distributed.tensor import Shard
     return [Shard(0)]
@@ -74,7 +72,7 @@ def local_rows(mesh, batch: int) -> slice:
     return slice(rank * per, (rank + 1) * per)
 
 
-def shard_batch(mesh, batch: Any, axis_name: str = "data") -> Any:
+def shard_batch(mesh, batch: Any) -> Any:
     """This rank's rows of a global host batch (a tensor or array, or a
     tuple, list or dict of them), as tensors on its device."""
     device = mesh_device(mesh)

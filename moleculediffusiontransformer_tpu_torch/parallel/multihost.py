@@ -170,8 +170,8 @@ def place_global(mesh, tree: Any, specs: Any, axis_name: str = "data"
 def replicate_global(mesh, tree: Any) -> Any:
     """Host values every process holds in full (parameters, a seed's
     draws), replicated over the mesh: each process contributes its copy."""
-    from torch.distributed.tensor import Replicate
-    return place_global(mesh, tree, [Replicate()])
+    from .mesh import replicated
+    return place_global(mesh, tree, replicated(mesh))
 
 
 def _is_spec(s) -> bool:

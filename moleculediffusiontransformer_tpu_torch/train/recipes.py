@@ -160,11 +160,13 @@ def _pad_props(y: np.ndarray, length: int) -> np.ndarray:
 
 def train_task(task: str, model: torch.nn.Module, data, config,
                checkpoint_dir: Optional[str] = None, resume: bool = False,
-               logger=None):
+               logger=None, mesh=None):
     """Train ``model`` in place on a prepared-QM9 split with the task's
     reference semantics; returns ``(TrainState, MetricsLogger)``.  Each
     epoch walks the training split in the order of a fresh
-    ``RandomState(config.seed)``, as in the JAX package."""
+    ``RandomState(config.seed)``, as in the JAX package.  The diffusion
+    tasks train over ``mesh`` when given (``train_diffusion``); the
+    transformer tasks on one card."""
     from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
                                    restore_checkpoint, save_step_checkpoint)
     from ..data.qm9 import batch_iterator
@@ -186,11 +188,11 @@ def train_task(task: str, model: torch.nn.Module, data, config,
 
         return train_diffusion(model, make_iter, config, swap_xy=True,
                                checkpoint_dir=checkpoint_dir, resume=resume,
-                               logger=logger)
+                               logger=logger, mesh=mesh)
     if task == "inverse_diffusion":
         return train_diffusion(model, epoch_batches, config,
                                checkpoint_dir=checkpoint_dir, resume=resume,
-                               logger=logger)
+                               logger=logger, mesh=mesh)
     if task not in ("inverse_transformer", "forward_transformer"):
         raise ValueError(f"unknown task: {task!r} (expected one of {TASKS})")
 

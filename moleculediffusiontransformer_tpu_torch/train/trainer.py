@@ -305,17 +305,19 @@ def _part(t: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
 
 
 def global_draws(model: nn.Module, target: torch.Tensor, batch: int,
-                 accumulation_steps: int, generator: torch.Generator
+                 accumulation_steps: int, generator: Optional[torch.Generator]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sigmas (batch,) and noise (batch, *target.shape[1:]) that the
-    single-card step draws from ``generator`` for a batch of ``batch`` rows
-    in ``accumulation_steps`` micro-batches: each micro-batch's sigmas,
-    then its noise, in row order."""
+    """The sigmas (batch,) and noise (batch, ...) of a step over a batch of
+    ``batch`` rows in ``accumulation_steps`` micro-batches, drawn from
+    ``generator`` in the order the model's loss draws them: each
+    micro-batch's sigmas, then its noise, shaped like the rows of what the
+    loss diffuses (``model.diffusion_target(target)``)."""
     mb = batch // accumulation_steps
+    row = model.diffusion_target(target[:1]).shape[1:]
     sigmas, noise = [], []
     for _ in range(accumulation_steps):
         sigmas.append(model.sigma_distribution(mb, generator, target.device))
-        noise.append(torch.randn((mb, *target.shape[1:]),
+        noise.append(torch.randn((mb, *row),
                                  generator=generator, device=target.device,
                                  dtype=torch.float32))
     return torch.cat(sigmas), torch.cat(noise)
@@ -329,43 +331,34 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
     ``(conditioning, target, generator, sigmas=, noise=) -> loss``.
 
     The batch is split into ``accumulation_steps`` = A micro-batches, run
-    one after another; each draws its own sigmas and noise from
-    ``generator``, or takes its slice of ``sigmas`` (b,) and ``noise`` (like
-    ``target``) when they are handed in.  The float32 grads are summed over
-    the micro-batches and divided by A, then clipped and applied once; they
+    one after another; their sigmas (b,) and noise (shaped like
+    ``model.diffusion_target(target)``) are handed in, or drawn from
+    ``generator`` before the first (``global_draws``: each micro-batch's
+    sigmas, then its noise, as the model's loss would draw them).  The float32 grads are summed over the
+    micro-batches and divided by A, then clipped and applied once; they
     stay on the parameters' ``.grad`` after the step.  Returns the mean loss
     of the micro-batches (a float32 tensor on the model's device).
 
     ``remat=True`` runs each micro-batch's loss under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward instead of kept, for about one more forward.
-    The draws are taken before the checkpointed region, in the order the
-    loss takes them, so the step equals the one without remat.
 
     ``mesh`` (``parallel.make_mesh``): data parallelism over its ranks.
     ``conditioning``, ``target`` and handed-in draws are this rank's rows of
     the global batch (``parallel.shard_batch``); a ``generator`` (seeded
-    alike on every rank) draws the global batch's sigmas and noise as the
-    single-card step would (``global_draws``) and the rank takes its rows,
-    so the step equals the single-card step on the global batch up to the
-    order of the sums.  The grads are averaged over the ranks after the
-    micro-batches' backward (``parallel.mesh.all_reduce_mean``, a few flat
-    buckets) and every rank runs the same update.  The returned loss is the
-    global mean."""
+    alike on every rank) draws the global batch's sigmas and noise, as one
+    card would, and the rank takes its rows, so the step equals the
+    single-card step on the global batch up to the order of the sums.  The
+    grads are averaged over the ranks after the micro-batches' backward
+    (``parallel.mesh.all_reduce_mean``, a few flat buckets) and every rank
+    runs the same update.  The returned loss is the global mean."""
     A = _accumulation_steps(accumulation_steps)
     params = list(model.parameters())
 
-    def loss_of(c: torch.Tensor, t: torch.Tensor,
-                generator: Optional[torch.Generator],
-                sigmas: Optional[torch.Tensor],
-                noise: Optional[torch.Tensor]) -> torch.Tensor:
+    def loss_of(c: torch.Tensor, t: torch.Tensor, sigmas: torch.Tensor,
+                noise: torch.Tensor) -> torch.Tensor:
         if not remat:
-            return model(c, t, generator, sigmas=sigmas, noise=noise)
-        if sigmas is None:
-            sigmas = model.sigma_distribution(t.shape[0], generator, t.device)
-        if noise is None:
-            noise = torch.randn(t.shape, generator=generator, device=t.device,
-                                dtype=torch.float32)
+            return model(c, t, sigmas=sigmas, noise=noise)
         return checkpoint(model, c, t, sigmas=sigmas, noise=noise,
                           use_reentrant=False)
 
@@ -375,17 +368,18 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
                    sigmas: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         b = conditioning.shape[0]
-        if mesh is not None and (sigmas is None) != (noise is None):
-            raise ValueError("over a mesh, hand in both sigmas and noise or "
-                             "neither")
-        if mesh is not None and sigmas is None and generator is not None:
-            rows = pmesh.local_rows(mesh, b * mesh.size())
+        if (sigmas is None) != (noise is None):
+            raise ValueError("hand in both sigmas and noise or neither")
+        if sigmas is None:
+            ranks = 1 if mesh is None else mesh.size()
+            rows = (slice(None) if mesh is None
+                    else pmesh.local_rows(mesh, b * ranks))
             sigmas, noise = (t[rows] for t in global_draws(
-                model, target, b * mesh.size(), A, generator))
+                model, target, b * ranks, A, generator))
         return _accumulated_step(
             params, optimizer, state, A, b, target.device,
-            lambda rows: loss_of(conditioning[rows], target[rows], generator,
-                                 _part(sigmas, rows), _part(noise, rows)),
+            lambda rows: loss_of(conditioning[rows], target[rows],
+                                 sigmas[rows], noise[rows]),
             mesh)
 
     return train_step
@@ -614,12 +608,14 @@ def check_checkpoint_backend(config) -> None:
 def training_mesh(config, mesh, device: torch.device):
     """The mesh ``train_diffusion`` trains over: ``mesh`` when given, else
     the mesh over every rank of the process group when this process has
-    joined one (``torchrun``; a group of one rank runs the same collectives
-    over itself), else None (one card, no collective)."""
+    joined one of more than one rank (``torchrun``), or of one under FSDP;
+    else None (one card, no collective)."""
     if config.param_sharding not in ("replicated", "fsdp"):
         raise ValueError(f"unknown param_sharding "
                          f"{config.param_sharding!r}")
-    if mesh is None and torch.distributed.is_initialized():
+    dist = torch.distributed
+    if mesh is None and dist.is_initialized() and (
+            dist.get_world_size() > 1 or config.param_sharding == "fsdp"):
         mesh = pmesh.make_mesh(device=device.type)
     if config.param_sharding == "fsdp" and mesh is None:
         raise ValueError("param_sharding='fsdp' shards over a process group:"
@@ -663,7 +659,8 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
     run equals an uninterrupted one.  Returns the state and the logger.
 
     Data parallelism (``training_mesh``): with ``mesh``, or by default over
-    every rank of the process group this process has joined, every
+    every rank of the process group this process has joined (of more than
+    one rank, or of any size under FSDP), every
     rank iterates the same global batches and trains on its rows of each
     (``data_iter_fn`` and ``config.seed`` alike on every rank); rank 0's
     parameters are broadcast first, and ``draws(N)`` gives the global

@@ -6,18 +6,23 @@ The ranks run their bodies in two groups of one spawn each (``steps`` and
 ``paths``), so that the file costs two interpreters a rank, not one a test.
 
 Bands.  Data parallelism changes only the order of the sums: the step's
-loss within rtol 1e-5; grads and parameters within 1e-5 of each tensor's
-scale (its largest magnitude).  The parameters move by Adam's ~lr * sign(g)
-a step, and a grad near 0 whose last bits differ can flip an element by 2
-lr, so the parameter comparisons run at lr 1e-6 (JAX's own DP test uses SGD
-for the same reason).  Against JAX: PERF.md's training band (loss 1e-4,
+loss within rtol 1e-5; grads, Adam's moments and parameters within 1e-5 of
+each tensor's scale (its largest magnitude).  Adam moves a parameter by
+~lr * sign(g) a step, and a grad near 0 whose last bits differ flips an
+element by 2 lr, so no band on Adam's parameters can see its update: the
+runs that hold parameters take plain SGD (``W.SGD``, as JAX's own DP test
+does) at ``SGD_LR``, where two steps move them far past every band (each
+such test checks that a step without the update would fail it), and the
+runs on ``ClipAdam`` hold its moments, which take the clipped grads with
+no sign in between.  Against JAX: PERF.md's training band (loss 1e-4,
 grads and parameters rtol 1e-4 / atol 1e-5).  FSDP against DP: float32 as
-DP; bfloat16 losses within 1e-4 relative, since FSDP's backward adds some
-grads in another order (last-bit differences that flip a few bf16 casts of
-the next step's weights), and every stack's cached kernel weights equal
-its weights at every call (a stale cache, which FSDP's free-and-gather
-cycle could hide from a key on storage and version, would break this at
-the second step)."""
+DP; bfloat16 the losses alone (see ``test_fsdp_equals_dp``), over SGD
+steps that change the weights' bf16 casts, and every stack's cached
+kernel weights held equal to its weights at every call (a stale cache,
+which FSDP's free-and-gather cycle could hide from a key on storage and
+version).  On the CPU that cache does not stale even without the drop
+before each FSDP forward; the card's check is ``chip_smoke.py``'s phase
+32."""
 import os
 import threading
 
@@ -26,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from moleculediffusiontransformer_tpu.core.config import \
     TrainConfig as JaxTrainConfig
@@ -57,7 +63,7 @@ SMALL = dict(max_length=32, channels=32, pred_dim=8, text_embed_dim=16,
              pre_transformer=1)
 BATCH = 8
 LR = 1e-6
-JAX_LR = 5e-6            # 2 lr stays within the JAX band's atol
+SGD_LR = 0.1
 MIN_ELEMENTS = 64
 STEPS = 4                # sampling steps of the serving checks
 TOL = 1e-5
@@ -153,14 +159,14 @@ def _step_calls(qm) -> dict:
     the DP step on JAX's draws, FSDP against DP, the global norm over
     shards and the multi-host helpers."""
     base = (SMALL, _arrays(qm["sd"]), qm["cond"], qm["target"])
-    draws, no_clip = qm["draws"], dict(lr=LR, clip=1e9)
+    draws = qm["draws"]
     calls = {
         "dp1": ("run_steps", (*base, None), dict(lr=LR, seed=5)),
         "dp2": ("run_steps", (*base, None),
                 dict(lr=LR, seed=5, accumulation=2)),
         "jax": ("run_steps", (*base, [_jax_draws(i)
                                       for i in range(JAX_STEPS)]),
-                dict(lr=JAX_LR)),
+                dict(sgd=SGD_LR)),
         "helpers": ("multihost_helpers",
                     (np.arange(24, dtype=np.float32).reshape(4, 6),), {}),
         "norm": ("global_norm", (_arrays(qm["sd"]),), {}),
@@ -169,7 +175,7 @@ def _step_calls(qm) -> dict:
         for fsdp in (False, True):
             calls[f"{'fsdp' if fsdp else 'dp'}_{dtype}"] = (
                 "run_steps", (*base, draws),
-                dict(fsdp=fsdp, dtype=dtype, **no_clip))
+                dict(fsdp=fsdp, dtype=dtype, sgd=SGD_LR))
     for fsdp in (False, True):      # with the clip (0.5) and accumulation
         calls[f"{'fsdp' if fsdp else 'dp'}_accumulated"] = (
             "run_steps", (*base, draws),
@@ -203,12 +209,22 @@ def spawned(qm, tokenizer, tmp_path_factory):
             "props": props}
 
 
+def _keep_grads():
+    """An optax stage that passes the grads on and keeps them as its
+    state: the step's grads, read after it."""
+    import optax
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
 @pytest.fixture(scope="module")
 def jax_run(qm, spawned):
-    """The JAX package's ``make_diffusion_train_step`` on one device: its
-    losses and the parameters after ``JAX_STEPS`` steps (the port's state
-    dict)."""
-    tx = jtrainer.make_optimizer(JaxTrainConfig(learning_rate=JAX_LR))
+    """The JAX package's ``make_diffusion_train_step`` on one device, with
+    SGD: its losses, the last step's grads and the parameters after
+    ``JAX_STEPS`` steps (the port's state dicts)."""
+    import optax
+    tx = optax.chain(_keep_grads(), optax.sgd(SGD_LR))
     state = jtrainer.TrainState.create(qm["params"], tx)
     step = jtrainer.make_diffusion_train_step(qm["jm"], tx, donate=False)
     key = jax.random.PRNGKey(JAX_KEY)
@@ -217,7 +233,16 @@ def jax_run(qm, spawned):
     for _ in range(JAX_STEPS):
         state, loss = step(state, cond, target, key)
         losses.append(float(loss))
-    return losses, state_dict_from_jax_params(state.params)
+    return (losses, state_dict_from_jax_params(state.opt_state[0]),
+            state_dict_from_jax_params(state.params))
+
+
+def _moved(after: dict, before: dict, rtol: float, atol: float) -> int:
+    """How many tensors of ``after`` lie outside the band around
+    ``before``: a step that left the parameters as they were would pass a
+    band that none of them leaves."""
+    return sum(not np.allclose(after[k], np.asarray(before[k]), rtol=rtol,
+                               atol=atol) for k in after)
 
 
 @pytest.fixture(scope="module")
@@ -233,16 +258,22 @@ def steps(spawned):
     return spawned["steps"].results()
 
 
-def test_dp_train_step_matches_jax(jax_run, singles, steps):
+def test_dp_train_step_matches_jax(qm, jax_run, steps):
     """The two-rank step on JAX's draws against the JAX package's
-    single-device ``make_diffusion_train_step`` on the same weights: the
-    losses and the parameters after 2 steps."""
-    losses, params = jax_run
+    single-device ``make_diffusion_train_step`` on the same weights, both
+    with SGD: the losses, the grads of the second step (all-reduced, at the
+    weights the first step left) and the parameters after 2 steps, which
+    most tensors move past the band."""
+    losses, grads, params = jax_run
     got = steps[0]["jax"]
     np.testing.assert_allclose(got["losses"], losses, atol=1e-4)
+    for name, want in grads.items():
+        np.testing.assert_allclose(got["grads"][name], want.numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
     for name, want in params.items():
         np.testing.assert_allclose(got["params"][name], want.numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
+    assert _moved(got["params"], qm["sd"], 1e-4, 1e-5) > len(params) // 2
 
 
 @pytest.mark.parametrize("accumulation", [1, 2])
@@ -250,24 +281,29 @@ def test_dp_train_step_on_mesh(singles, steps, accumulation):
     """Two ranks, each on its 4 rows, equal one process on the 8 (the JAX
     test of the same name): each rank draws the global batch's sigmas and
     noise from the step's generator, as the one process does, and takes
-    its rows.  Loss, grads and parameters after 2 steps; the parameters
-    are the same bits on both ranks."""
+    its rows.  Loss, grads, Adam's moments and parameters after 2 steps;
+    the parameters are the same bits on both ranks."""
     got = [r[f"dp{accumulation}"] for r in steps]
     want = singles[accumulation]
     np.testing.assert_allclose(got[0]["losses"], want["losses"], rtol=TOL)
     assert got[0]["losses"] == got[1]["losses"]
-    _within(got[0]["grads"], want["grads"])
+    for k in ("grads", "mu", "nu"):
+        _within(got[0][k], want[k])
     _within_params(got[0]["params"], want["params"])
     for k in want["params"]:
         assert np.array_equal(got[0]["params"][k], got[1]["params"][k]), k
 
 
 def test_multihost_helpers(steps):
+    """The multi-host helpers at two ranks, the global mesh (the group's,
+    whole: a mesh over part of it is refused) and the placements."""
     full = np.arange(24, dtype=np.float32).reshape(4, 6)
     for rank, r in enumerate(steps):
         h = r["helpers"]
         assert h["local"] == 2 and h["count"] == 2
         assert "not divisible" in h["odd"]
+        assert h["global"] == (2, ("data",)) and "2 ranks" in h["part"]
+        assert h["placements"] == ([Shard(0)], [Replicate()])
         np.testing.assert_array_equal(h["shard"], full[2 * rank:2 * rank + 2])
         np.testing.assert_array_equal(h["a_local"],
                                       full[:, 3 * rank:3 * rank + 3])
@@ -309,35 +345,48 @@ def test_fsdp_state_is_sharded(qm, steps):
     parameters below ``min_elements`` (and those without an even dim) are
     the only ones held whole."""
     total = 3 * sum(v.numel() for v in qm["sd"].values())
-    held = [r["fsdp_torch.float32"]["held"] for r in steps]
+    held = [r["fsdp_accumulated"]["held"] for r in steps]
     assert sum(held) >= total
     assert all(h <= 0.52 * total for h in held), (held, total)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fsdp_equals_dp(steps, dtype):
-    """Three steps with FSDP against three with DP (no clip: its norm
-    sums in another order); the kernel weight caches never stale."""
+def test_fsdp_equals_dp(qm, steps, dtype):
+    """Three SGD steps with FSDP against three with DP; the kernel weight
+    caches never stale.  Float32: the losses, the last grads and the
+    parameters, which the steps move past the band.  Bfloat16: the losses
+    (the first within 1e-5, the others within 1e-4 relative: one step's
+    bf16 grads differ by up to ~1% of their scale between FSDP and DP, as
+    between DP and one process, so the weights the next steps see differ
+    too), on weights whose bf16 casts the steps change."""
     for r in steps:
         fsdp, dp = r[f"fsdp_torch.{dtype}"], r[f"dp_torch.{dtype}"]
         assert fsdp["stale"] == [] and dp["stale"] == []
         if dtype == "float32":
             np.testing.assert_allclose(fsdp["losses"], dp["losses"],
                                        rtol=TOL)
-            _within_params(fsdp["params"], dp["params"])
             _within(fsdp["grads"], dp["grads"])
+            _within(fsdp["params"], dp["params"])
+            assert _moved(dp["params"], qm["sd"], TOL, 0.0) > len(
+                qm["sd"]) // 2
         else:
+            assert abs(fsdp["losses"][0] - dp["losses"][0]) <= TOL * abs(
+                dp["losses"][0])
             np.testing.assert_allclose(fsdp["losses"], dp["losses"],
                                        rtol=1e-4)
+            assert _moved(dp["params"], qm["sd"], 1e-2, 0.0) > len(
+                qm["sd"]) // 2
 
 
 def test_fsdp_composes_with_accumulation(steps):
     """FSDP at 2 micro-batches with the clip at 0.5 (the norm's squares
-    all-reduced over the shards) against DP at 2."""
+    all-reduced over the shards) against DP at 2: the losses, the grads and
+    Adam's moments (the clipped grads) after 2 steps."""
     fsdp, dp = (steps[0][f"{k}_accumulated"] for k in ("fsdp", "dp"))
     np.testing.assert_allclose(fsdp["losses"], dp["losses"], rtol=TOL)
     _within_params(fsdp["params"], dp["params"])
-    _within(fsdp["grads"], dp["grads"])
+    for k in ("grads", "mu", "nu"):
+        _within(fsdp[k], dp[k])
 
 
 def test_global_norm_over_shards(qm, steps):
@@ -371,7 +420,7 @@ def test_train_diffusion_over_the_group(qm, paths, tmp_path, sharding):
     two ranks (replicated or FSDP): rank 0 logs the global losses and the
     evals of one process's run, the other rank nothing, and the last
     checkpoint (one file, the full state) loads into a one-process model
-    with the one-process run's parameters."""
+    with the one-process run's parameters, and holds its Adam moments."""
     results, _ = paths
     want_log, model = _single_loop(qm, tmp_path)
     logs = results[0][f"loop_{sharding}"]["logs"]
@@ -389,7 +438,11 @@ def test_train_diffusion_over_the_group(qm, paths, tmp_path, sharding):
     _within_params({k: v.numpy() for k, v in one.state_dict().items()},
             {k: v.detach().numpy() for k, v in model.state_dict().items()})
     assert ckpt["step"] == 4 and ckpt["epoch"] == 2
-    assert set(ckpt["adam"]["mu"]) == set(qm["sd"])
+    want = load_checkpoint(os.path.join(tmp_path, "step_4.pt"))["adam"]
+    for m in ("mu", "nu"):
+        assert set(ckpt["adam"][m]) == set(qm["sd"])
+        _within({k: v.numpy() for k, v in ckpt["adam"][m].items()},
+                {k: v.numpy() for k, v in want[m].items()})
 
 
 @pytest.mark.parametrize("sharding", ["replicated", "fsdp"])
@@ -417,6 +470,21 @@ def test_train_diffusion_fsdp_needs_a_group(qm):
     with pytest.raises(ValueError, match="Orbax"):
         trainer.train_diffusion(model, lambda: iter(_batches(qm)),
                                 TrainConfig(checkpoint_backend="orbax"))
+
+
+def test_a_group_of_one_trains_without_collectives(monkeypatch):
+    """In a process that has joined a group of one (a lone ``torchrun``
+    rank, or ``make_mesh`` called once), ``train_diffusion`` trains on one
+    card unless FSDP or a mesh is asked for."""
+    from moleculediffusiontransformer_tpu_torch.parallel import mesh as pm
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 1)
+    monkeypatch.setattr(pm, "make_mesh", lambda device: ("mesh", device))
+    cpu = torch.device("cpu")
+    assert trainer.training_mesh(TrainConfig(), None, cpu) is None
+    assert trainer.training_mesh(TrainConfig(), "given", cpu) == "given"
+    assert trainer.training_mesh(TrainConfig(param_sharding="fsdp"), None,
+                                 cpu) == ("mesh", "cpu")
 
 
 def _serving_model(tokenizer):

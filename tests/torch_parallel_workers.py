@@ -89,34 +89,56 @@ def qm_model(preset: dict, state_dict, dtype=torch.float32):
 
 # ------------------------------------------------------------ the steps --
 
+class SGD:
+    """Plain SGD, ``p -= lr g`` (the update JAX's own DP test takes): its
+    update moves a parameter in proportion to its grad, so a band on the
+    parameters sees the update where Adam's ``~lr sign(g)`` would flip
+    with a grad's last bits."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params):
+        return None
+
+    @torch.no_grad()
+    def update(self, params, grads, state) -> None:
+        from moleculediffusiontransformer_tpu_torch.train import trainer
+        torch._foreach_add_(trainer._local(params), trainer._local(grads),
+                            alpha=-self.lr)
+
+
 def run_steps(mesh, preset, state_dict, cond, target, draws, *,
               accumulation=1, seed=None, fsdp=False, dtype=torch.float32,
-              lr=2e-4, clip=0.5):
+              lr=2e-4, clip=0.5, sgd=None):
     """Steps of ``make_diffusion_train_step`` over ``mesh`` (or on one
     process when ``mesh`` is None) on the global batch ``cond``, ``target``:
     step i takes ``draws[i]`` (the global sigmas and noise, this rank's rows
-    handed in) or, with ``seed``, a generator seeded ``seed + i``.  Returns
-    the losses, the final parameters (whole) and, under FSDP, the elements
-    of the parameters and moments this rank holds."""
+    handed in) or, with ``seed``, a generator seeded ``seed + i``.  The
+    optimizer is ``ClipAdam`` (``lr``, ``clip``), or ``SGD(sgd)``.  Returns
+    the losses, the final parameters, the last step's grads and Adam's
+    moments (whole) and, under FSDP, the elements of the parameters and
+    moments this rank holds."""
     from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
         checkpoint_state
     from moleculediffusiontransformer_tpu_torch.parallel import (
         replicate, shard_batch, shard_state_fsdp)
     from moleculediffusiontransformer_tpu_torch.train import trainer
     model = qm_model(preset, state_dict, dtype)
-    opt = trainer.make_optimizer(trainer.OptimizerConfig(
-        learning_rate=lr, grad_clip_norm=clip))
+    opt = SGD(sgd) if sgd else trainer.make_optimizer(
+        trainer.OptimizerConfig(learning_rate=lr, grad_clip_norm=clip))
     state = trainer.TrainState.create(model, opt)
     out = {"stale": _stale_kernel_params(model)}
     if mesh is not None:
         replicate(mesh, model)
         if fsdp:
-            out["specs"] = shard_state_fsdp(model, state, mesh,
+            adam = None if sgd else state
+            out["specs"] = shard_state_fsdp(model, adam, mesh,
                                             min_elements=64)[1]
-            local = trainer._local
-            out["held"] = sum(t.numel() for t in local(
-                [*model.parameters(), *state.opt_state.mu,
-                 *state.opt_state.nu]))
+            moments = [] if sgd else [*state.opt_state.mu,
+                                      *state.opt_state.nu]
+            out["held"] = sum(t.numel() for t in trainer._local(
+                [*model.parameters(), *moments]))
     step = trainer.make_diffusion_train_step(model, opt, accumulation,
                                              mesh=mesh)
 
@@ -135,8 +157,13 @@ def run_steps(mesh, preset, state_dict, cond, target, draws, *,
         losses.append(loss.item())
     out["losses"] = losses
     out["params"] = _numpy(checkpoint_state(model)["model"])
+    names = [n for n, _ in model.named_parameters()]
     out["grads"] = _numpy({n: whole(p.grad)
                            for n, p in model.named_parameters()})
+    if not sgd:
+        for m in ("mu", "nu"):
+            out[m] = _numpy({n: whole(x) for n, x in zip(
+                names, getattr(state.opt_state, m))})
     return out
 
 
@@ -189,8 +216,17 @@ def multihost_helpers(mesh, full: np.ndarray):
     placed = parallel.place_global(mesh, {"a": full, "b": full},
                                    {"a": (None, "data"), "b": ()})
     repl = parallel.replicate_global(mesh, [full])
+    whole = parallel.make_global_mesh(device="cpu")
+    try:
+        parallel.make_mesh(num_devices=1, device="cpu")
+        part = None
+    except ValueError as e:
+        part = str(e)
     return {"local": local, "odd": odd, "count":
             parallel.mesh_process_count(mesh),
+            "global": (whole.size(), whole.mesh_dim_names), "part": part,
+            "placements": (parallel.batch_sharding(mesh),
+                           parallel.replicated(mesh)),
             "shard": got.numpy(), "a_local": placed["a"].to_local().numpy(),
             "a_full": placed["a"].full_tensor().numpy(),
             "b_local": placed["b"].to_local().numpy(),
