@@ -286,6 +286,24 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    one (NCCL), 3 steps in bf16 at 512 and in float32 at 8 against the
    unsharded model (within 2e-2 and 1e-4), the kernels' cached weights
    equal to the gathered ones at every stack call.
+33. the other axes of ``parallel/`` on two spawned ranks of a gloo group on
+   the card: a pair of processes of its own probes what gloo takes on CUDA
+   tensors of send/recv (``batch_isend_irecv``) and ``all_to_all_single``,
+   and the helpers of ``parallel/collectives.py`` must stage through the
+   host exactly what it refuses; then tensor parallelism (the 91M, data 1 x
+   model 2, bf16 at a global batch of 512: K1 stash, K3, K4 a stack a step
+   and K2 a layer a step on the gathered weights, exactly), sequence
+   parallelism (the long Model1d at 2 x 2**17 samples: K5, K6, K7 exactly a
+   streaming layer a step at n 2,048 and m 4,096), pipeline parallelism
+   (the AR transformer in 2 stages of 6 layers, 4 micro-batches of 512 x 64
+   tokens) and expert parallelism (the MoE GPT at 64 x 32 tokens, 4 of 8
+   experts a rank, aux loss 1e-2): each 2 steps and a third with its
+   collectives timed (seconds a step, the collectives' share, each rank's
+   peak memory, the staged calls, the launches), the replicated parameters
+   bitwise equal across the ranks after every step; then each in float32
+   at batch 8 (the long model at 1 x 2**16) with SGD against one card:
+   loss, parameters and grads within 1e-4, the parameters moved at least
+   ten times past it (ep with its dropped tokens counted).
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
@@ -298,7 +316,9 @@ held-out eval; the training kernels also with
 ``launches_assemblies``, phase 31's requests, the training kernels with
 ``launches_assemblies_train``, its steps; K1 with ``launches_parallel``,
 a rank's share of phase 32's mesh request, the training kernels with
-``launches_parallel``, a rank's data-parallel steps),
+``launches_parallel``, a rank's data-parallel steps; the training kernels
+and the streaming-attention kernels with ``launches_parallel_axes``, a
+rank's tensor- and sequence-parallel steps of phase 33),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -580,6 +600,25 @@ PARALLEL_DTYPE = "bfloat16"     # the training and serving runs' dtype
 PARALLEL_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
                         "reduce_scatter_tensor")
 SERVING_FLAG = "serving"   # written by rank 0 after the live mesh request
+
+# phase 33: the other axes of parallel/ on the one card, two spawned ranks of
+# a gloo group: tensor parallelism (the 91M at data 1 x model 2, bf16 at a
+# global batch of TP_BATCH), sequence parallelism (the long Model1d at
+# SP_BATCH x SP_SAMPLES, attention at 4,096 tokens, 2,048 a rank), pipeline
+# parallelism (the AR transformer in 2 stages of 6 layers, PP_MICRO
+# micro-batches of AR_TRAIN_BATCH x 64 tokens) and expert parallelism (the
+# MoE GPT at GPT_MOE_BATCH x 32 tokens, 4 of its 8 experts a rank): each
+# AXES_STEPS steps and a third with its collectives timed, then float32 at
+# AXES_FP32_BATCH (the long model at 1 x SP_FP32_SAMPLES) with SGD against
+# one card, within PARALLEL_FP32_TOL, the steps moving the parameters ten
+# times past it.  A pair of processes of its own probes what gloo takes on
+# CUDA tensors of send/recv and all_to_all_single (a refused send/recv
+# breaks its pair's connections)
+AXES_TIMEOUT, AXES_STEPS, AXES_FP32_STEPS = 420, 2, 2
+TP_BATCH, AXES_FP32_BATCH = 512, 8
+SP_SAMPLES, SP_BATCH, SP_FP32_SAMPLES = 2 ** 17, 2, 2 ** 16
+PP_MICRO = 4
+AXES_TARGET_SECONDS = 120
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -5540,6 +5579,618 @@ def parallel_layer(dev, inv, loop_first) -> dict:
             "cli": cli}
 
 
+# ------------------------------------------------------------- phase 33 --
+
+def axes_config(dev) -> dict:
+    """What the ranks of phase 33 run, as arguments (a spawned rank reads
+    nothing of this process's globals)."""
+    return {"root": ROOT, "device": dev.type, "ranks": PARALLEL_RANKS,
+            "timeout": AXES_TIMEOUT, "steps": AXES_STEPS,
+            "fp32_steps": AXES_FP32_STEPS, "fp32_batch": AXES_FP32_BATCH,
+            "lr": PARALLEL_FP32_LR, "flagship": FLAGSHIP,
+            "tp_batch": TP_BATCH, "long": LONG, "sp_samples": SP_SAMPLES,
+            "sp_batch": SP_BATCH, "sp_fp32_samples": SP_FP32_SAMPLES,
+            "ar": AR_PRESET, "ar_batch": AR_TRAIN_BATCH,
+            "ar_tokens": AR_TRAIN_TOKENS, "pp_micro": PP_MICRO,
+            "gpt": dict(GPT_PRESET, **GPT_MOE), "gpt_batch": GPT_MOE_BATCH,
+            "gpt_tokens": GPT_TRAIN_TOKENS, "gpt_aux": GPT_MOE_AUX,
+            "dtype": PARALLEL_DTYPE}
+
+
+def axes_probe(rank, tmp, cfg) -> None:
+    """One of a pair probing what gloo does with ``cfg["collective"]``
+    (all_to_all_single, or send/recv through batch_isend_irecv) on tensors
+    of the rank's device: "takes" where the right values arrive, else what
+    it raised.  A refused send/recv may also end the process (gloo throws
+    from its own thread): ``axes_probes`` reads that as a refusal."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, cfg["root"])
+    from moleculediffusiontransformer_tpu_torch.parallel import \
+        distributed_init
+    name = cfg["collective"]
+    distributed_init(f"file://{os.path.join(tmp, name + '_rendezvous')}", 2,
+                     rank, backend="gloo", device=cfg["device"],
+                     timeout=datetime.timedelta(seconds=30))
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if cfg["device"] == "cuda" else torch.device("cpu"))
+    x = torch.arange(4, device=dev, dtype=torch.float32) + 10 * rank
+    got = torch.zeros(4, device=dev)
+    if name == "all_to_all_single":
+        want = torch.tensor([0., 1., 10., 11.] if rank == 0
+                            else [2., 3., 12., 13.])
+    else:
+        want = torch.arange(4.0) + 10 * (1 - rank)
+    try:
+        if name == "all_to_all_single":
+            dist.all_to_all_single(got, x)
+        else:
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, 1 - rank),
+                    dist.P2POp(dist.irecv, got, 1 - rank)]):
+                work.wait()
+        out = ("takes" if torch.equal(got.cpu(), want)
+               else f"wrong values {got.tolist()}")
+    except RuntimeError as e:
+        out = f"refuses (RuntimeError: {str(e)[:120]})"
+    torch.save(out, os.path.join(tmp, f"{name}{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def axes_probes(tmp, cfg) -> dict:
+    """Each probed collective on a pair of processes of its own, side by
+    side: rank 0's answer, or the signal a rank ended with."""
+    import torch.multiprocessing as mp
+    ctxs = {name: mp.start_processes(
+        axes_probe, args=(tmp, dict(cfg, collective=name)), nprocs=2,
+        join=False, start_method="spawn")
+        for name in ("all_to_all_single", "send_recv")}
+    out = {}
+    for name, ctx in ctxs.items():
+        try:
+            out[name] = _joined(ctx, 2, tmp, dict(cfg, timeout=90), name)[0]
+        except mp.ProcessExitedException as e:
+            out[name] = f"refuses (a rank ended: {e})"
+    return out
+
+
+def whole_params_same(model) -> bool:
+    """The parameters every rank holds whole (not a sharded ``DTensor``),
+    bit for bit the same on every rank; the verdict of every rank."""
+    import torch
+    import torch.distributed as dist
+    from moleculediffusiontransformer_tpu_torch.parallel import tp
+    mine = torch.cat([tp.full(p).detach().reshape(-1)
+                      for p in model.parameters()
+                      if tp.sharding(p) is None])
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0)
+    ok = torch.tensor([float(torch.equal(mine, theirs))], device=mine.device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def whole_state(model, grads: bool = False) -> dict:
+    """The model's parameters (or grads) by name, each whole (a collective
+    for the sharded ones: every rank calls it); a pipelined model's under
+    its unpipelined names."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.parallel import pp, tp
+
+    def get(p):
+        # the port's gather (dist.all_gather_into_tensor), not
+        # DTensor.full_tensor: the functional collectives under it crash
+        # in gloo on CUDA tensors (torch 2.11)
+        with torch.no_grad():
+            t = tp.full(p).detach()
+            if grads:
+                t = torch.zeros_like(t) if p.grad is None else tp.full(
+                    p.grad).detach()
+        return t
+
+    out = {n: get(p) for n, p in model.named_parameters()}
+    if "stacked_layers" in model._modules:
+        stacked = {n[len("stacked_layers."):].replace("/", "."): v
+                   for n, v in out.items() if n.startswith("stacked_layers.")}
+        out = pp.unstack_layer_params(stacked, {
+            n: v for n, v in out.items()
+            if not n.startswith("stacked_layers.")})
+    return out
+
+
+def axes_steps(dev, step, state, args, gen_of, steps, model) -> dict:
+    """``steps`` steps, then one more with the collectives timed: the
+    losses, seconds a step (the last untimed one), the collectives'
+    seconds and share of the timed step, the peak memory, the staged
+    calls, the launches, and the replicated parameters' agreement."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.parallel import collectives
+    reset_counts()
+    collectives.STAGED.clear()
+    _peak(dev, reset=True)
+    losses, seconds, same = [], [], []
+    for i in range(steps + 1):
+        _sync(dev)
+        t0 = time.perf_counter()
+        if i < steps:
+            losses.append(step(state, *args, gen_of(i)).item())
+        else:
+            with collectives.timing() as spent:
+                losses.append(step(state, *args, gen_of(i)).item())
+        _sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        same.append(whole_params_same(model))
+    spent = dict(spent)
+    return {"losses": losses, "seconds": seconds,
+            "seconds_per_step": seconds[steps - 1],
+            "collective_seconds": spent,
+            "collective_share": sum(spent.values()) / seconds[-1],
+            "peak_bytes": _peak(dev), "staged": dict(collectives.STAGED),
+            "launched": counts(), "same": same,
+            "finite": all(map(math.isfinite, losses))}
+
+
+def axes_fp32(dev, rank, build, shard, make_step, args, gen_of, steps, lr):
+    """Float32: ``steps`` SGD steps of the model ``build()`` makes on one
+    card (rank 0, a copy) and over the mesh (``shard`` places it, in
+    place; ``make_step(model, opt, parallel)``); rank 0 holds the losses,
+    the parameters and the last grads against each other, the grads
+    against their largest magnitude, and measures how far the one-card
+    steps moved the parameters."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    model = build()
+    opt = SGD(lr)
+
+    def run(m, parallel):
+        state = trainer.TrainState.create(m, opt)
+        step = make_step(m, opt, parallel)
+        return [step(state, *args, gen_of(i)).item() for i in range(steps)]
+
+    out = {}
+    if rank == 0:
+        ref = copy.deepcopy(model)
+        before = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        ref_losses = run(ref, False)
+        ref_params, ref_grads = whole_state(ref), whole_state(ref, True)
+        moved_by = max(float((ref_params[n] - before[n]).abs().max())
+                       for n in before)
+        del before, ref
+    shard(model)
+    losses = run(model, True)
+    params, grads = whole_state(model), whole_state(model, True)
+    if rank == 0:
+        scale = max(float(g.abs().max()) for g in ref_grads.values())
+        out.update(
+            ref_losses=ref_losses, losses=losses,
+            loss_rel_err=max(abs(a - b) / abs(b)
+                             for a, b in zip(losses, ref_losses)),
+            params_max_abs_err=max(float((params[n] - ref_params[n]).abs(
+                ).max()) for n in ref_params),
+            params_moved=moved_by,
+            grads_rel_err=max(float((grads[n] - ref_grads[n]).abs().max())
+                              for n in ref_grads) / scale,
+            grads_tensor_rel_err=max(_rel_err(grads[n], ref_grads[n], 1e-30)
+                                     for n in ref_grads))
+    return out
+
+
+@contextlib.contextmanager
+def watch_stack_weights():
+    """Every call of the stack dispatch (``transformer1d``) in the block
+    holds its kernel weights against its parameters as the call gathered
+    them, cast: the names that differ, collected (a gathered weight is a
+    fresh buffer that a cache keyed on storage could mistake)."""
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    stale, dispatch = [], tf.transformer1d
+
+    def watched(kparams, params, *args, **kwargs):
+        for n, p in params.items():
+            want = p.detach().to(kparams[n].dtype)
+            if not kparams[n].equal(want):
+                stale.append(n)
+        return dispatch(kparams, params, *args, **kwargs)
+
+    tf.transformer1d = watched
+    try:
+        yield stale
+    finally:
+        tf.transformer1d = dispatch
+
+
+def tp_axis(dev, cfg) -> dict:
+    """Tensor parallelism: the 91M in ``dtype`` at ``tp_batch`` (every
+    model rank the whole batch: data 1), its weights sharded over 'model';
+    then float32 against one card."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch import parallel
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    mesh = parallel.make_mesh_2d(1, cfg["ranks"], device=dev.type)
+    rank = mesh.get_local_rank("model")
+    model = seeded_qm(cfg["flagship"], getattr(torch, cfg["dtype"]), dev,
+                      0).train()
+    specs = parallel.shard_params_tp(model, mesh)
+    sharded = [p for n, p in model.named_parameters() if specs[n]]
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_diffusion_train_step(model, opt, mesh=mesh)
+    args = inverse_batch(cfg["tp_batch"], torch.Generator(
+        device=dev).manual_seed(3), dev, cfg["flagship"])
+    with watch_stack_weights() as stale:
+        out = axes_steps(dev, step, state, args,
+                         lambda i: trainer.step_generator(0, i, dev),
+                         cfg["steps"], model)
+    out.update(held_share=sum(p.to_local().numel() for p in sharded)
+               / sum(p.numel() for p in sharded),
+               sharded_leaves=len(sharded), stale_kernel_weights=stale)
+    del model, state, step, args
+    empty_cache(dev)
+    cond, target = inverse_batch(cfg["fp32_batch"], torch.Generator(
+        device=dev).manual_seed(4), dev, cfg["flagship"])
+    out["fp32"] = axes_fp32(
+        dev, rank, lambda: seeded_qm(cfg["flagship"], torch.float32, dev,
+                                     0).train(),
+        lambda m: parallel.shard_params_tp(m, mesh),
+        lambda m, o, par: trainer.make_diffusion_train_step(
+            m, o, mesh=mesh if par else None),
+        (cond, target), lambda i: trainer.step_generator(0, i, dev),
+        cfg["fp32_steps"], cfg["lr"])
+    return out
+
+
+def sp_axis(dev, cfg) -> dict:
+    """Sequence parallelism: the long Model1d in ``dtype`` at ``sp_batch``
+    x ``sp_samples``, each rank its half of the length; then float32 at
+    1 x ``sp_fp32_samples`` against one card."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch import parallel
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    mesh = parallel.make_mesh_sp(1, cfg["ranks"], device=dev.type)
+    rank = mesh.get_local_rank("seq")
+
+    def build(dtype):
+        return audio.build_model1d(
+            device=dev, generator=torch.Generator().manual_seed(7),
+            dtype=dtype, **cfg["long"]).train()
+
+    def waves(batch, samples, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand(batch, samples, cfg["long"]["in_channels"],
+                          generator=gen, device=dev) * 2 - 1
+
+    model = build(getattr(torch, cfg["dtype"]))
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_model1d_train_step(model, opt, mesh=mesh)
+    seen = []
+    for m in model.modules():
+        if isinstance(m, Transformer1d):
+            m.register_forward_pre_hook(
+                lambda mod, a: seen.append((mod.num_layers, a[0].shape[1])))
+    x = parallel.shard_seq(mesh, waves(cfg["sp_batch"], cfg["sp_samples"],
+                                       9))
+    out = axes_steps(dev, step, state, (x,),
+                     lambda i: trainer.step_generator(0, i, dev),
+                     cfg["steps"], model)
+    steps = cfg["steps"] + 1
+    out["stacks"] = [(layers, tokens) for layers, tokens in seen[:len(
+        seen) // steps]]
+    out["local_length"] = x.shape[1]
+    del model, state, step, x
+    empty_cache(dev)
+    x = waves(1, cfg["sp_fp32_samples"], 10)
+    out["fp32"] = axes_fp32(
+        dev, rank, lambda: build(torch.float32),
+        lambda m: None,
+        lambda m, o, par: _sp_step(m, o, mesh if par else None),
+        (x,), lambda i: trainer.step_generator(0, i, dev),
+        cfg["fp32_steps"], cfg["lr"])
+    return out
+
+
+def _sp_step(model, opt, mesh):
+    """The Model1d step, over ``mesh`` on this rank's slice of x."""
+    from moleculediffusiontransformer_tpu_torch import parallel
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    step = trainer.make_model1d_train_step(model, opt, mesh=mesh)
+    if mesh is None:
+        return step
+    return lambda state, x, gen: step(state, parallel.shard_seq(mesh, x),
+                                      gen)
+
+
+def pp_axis(dev, cfg) -> dict:
+    """Pipeline parallelism: the AR transformer in ``dtype``, its 12 layers
+    in 2 stages, ``pp_micro`` micro-batches of ``ar_batch`` x
+    ``ar_tokens``; then float32 at ``fp32_batch`` against the sequential
+    trunk on one card."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch import parallel
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        MoleculeTransformerSequence
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    mesh = parallel.make_mesh_pp(1, cfg["ranks"], device=dev.type)
+    rank = mesh.get_local_rank("stage")
+
+    def build(dtype):
+        return MoleculeTransformerSequence(
+            device=dev, dtype=dtype, generator=torch.Generator().manual_seed(
+                13), **cfg["ar"])
+
+    def batch(b, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        props = torch.rand(b, 12, generator=gen, device=dev) * 2 - 1
+        ids = torch.randint(0, cfg["ar"]["logits_dim"], (b, cfg["ar_tokens"]),
+                            generator=gen, device=dev)
+        return props, ids
+
+    model = build(getattr(torch, cfg["dtype"]))
+    parallel.shard_model_pp(model, mesh)
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    step = trainer.make_transformer_train_step(model, opt, mesh=mesh,
+                                               n_micro=cfg["pp_micro"])
+    out = axes_steps(dev, step, state, batch(cfg["ar_batch"], 11),
+                     lambda i: trainer.step_generator(0, i, dev),
+                     cfg["steps"], model)
+    out["local_layers"] = next(iter(model.stacked_layers.local().values())
+                               ).shape[0]
+    del model, state, step
+    empty_cache(dev)
+    props, ids = batch(cfg["fp32_batch"], 12)
+    keep = torch.rand(cfg["fp32_batch"], generator=torch.Generator(
+        ).manual_seed(14)).to(dev) >= 0.25
+    out["fp32"] = axes_fp32(
+        dev, rank, lambda: build(torch.float32),
+        lambda m: parallel.shard_model_pp(m, mesh),
+        lambda m, o, par: (lambda st, p, i, gen: trainer.
+                           make_transformer_train_step(
+                               m, o, mesh=mesh if par else None,
+                               n_micro=cfg["pp_micro"] if par else 1)(
+                               st, p, i, keep=keep)),
+        (props, ids), lambda i: None, cfg["fp32_steps"], cfg["lr"])
+    return out
+
+
+def ep_axis(dev, cfg) -> dict:
+    """Expert parallelism: the MoE GPT in ``dtype`` at ``gpt_batch`` x
+    ``gpt_tokens``, half its experts a rank, the aux loss at ``gpt_aux``;
+    then float32 at ``fp32_batch`` against one card, the dropped tokens
+    counted."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch import parallel
+    from moleculediffusiontransformer_tpu_torch.models.transformers import \
+        MoleculeTransformerGPT
+    from moleculediffusiontransformer_tpu_torch.nn.moe import MoEFeedForward
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    mesh = parallel.make_mesh_ep(1, cfg["ranks"], device=dev.type)
+    rank = mesh.get_local_rank("expert")
+    experts = cfg["gpt"]["ff_num_experts"]
+
+    def build(dtype):
+        return MoleculeTransformerGPT(
+            device=dev, dtype=dtype, generator=torch.Generator().manual_seed(
+                41), **cfg["gpt"])
+
+    def ids(b, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, cfg["gpt"]["logits_dim"],
+                             (b, cfg["gpt_tokens"]), generator=gen,
+                             device=dev)
+
+    def make_step(m, o, par):
+        step = trainer.make_gpt_train_step(
+            m, o, aux_loss_weight=cfg["gpt_aux"], mesh=mesh if par else None)
+        return lambda st, i, gen: step(st, i)
+
+    def dropped(m):
+        return sum(x.dropped.item() for x in m.modules()
+                   if isinstance(x, MoEFeedForward))
+
+    model = build(getattr(torch, cfg["dtype"]))
+    parallel.shard_params_ep(mesh, model, experts)
+    opt = trainer.make_optimizer(trainer.OptimizerConfig())
+    state = trainer.TrainState.create(model, opt)
+    out = axes_steps(dev, make_step(model, opt, True), state,
+                     (ids(cfg["gpt_batch"], 15),), lambda i: None,
+                     cfg["steps"], model)
+    out["dropped"] = dropped(model)
+    out["experts_held"] = next(
+        m for m in model.modules() if isinstance(m, MoEFeedForward)
+    ).w_in.to_local().shape[0]
+    del model, state
+    empty_cache(dev)
+    built = []
+    out["fp32"] = axes_fp32(
+        dev, rank, lambda: built.append(build(torch.float32)) or built[-1],
+        lambda m: parallel.shard_params_ep(mesh, m, experts),
+        make_step, (ids(cfg["fp32_batch"], 16),), lambda i: None,
+        cfg["fp32_steps"], cfg["lr"])
+    out["fp32"]["dropped"] = dropped(built[-1])
+    return out
+
+
+def axes_rank(rank, tmp, cfg) -> None:
+    """One rank of phase 33 (a spawned process): join the gloo group, then
+    tp, sp, pp and ep in turn; the results go to ``tmp/axes{rank}.pt``.  A
+    crash prints the rank's Python stack (``faulthandler``)."""
+    import datetime
+    import faulthandler
+    faulthandler.enable()
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, cfg["root"])
+    from moleculediffusiontransformer_tpu_torch.parallel import \
+        distributed_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1 if cfg["device"] == "cpu" else max(
+        1, (os.cpu_count() or 1) // cfg["ranks"]))
+    distributed_init(f"file://{os.path.join(tmp, 'rendezvous')}",
+                     cfg["ranks"], rank, backend="gloo",
+                     device=cfg["device"],
+                     timeout=datetime.timedelta(seconds=cfg["timeout"]))
+    try:
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if cfg["device"] == "cuda" else torch.device("cpu"))
+        out = {"seconds": {}}
+        for name, body in (("tp", tp_axis), ("sp", sp_axis),
+                           ("pp", pp_axis), ("ep", ep_axis)):
+            print(f"phase 33 rank {rank}: {name}", file=sys.stderr,
+                  flush=True)
+            t0 = time.perf_counter()
+            out[name] = body(dev, cfg)
+            out["seconds"][name] = time.perf_counter() - t0
+            empty_cache(dev)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"axes{rank}.pt"))
+
+
+def spawn_ranks(fn, n, tmp, cfg, name):
+    """``fn(rank, tmp, cfg)`` on ``n`` spawned processes; waits (stopping
+    them at ``cfg["timeout"]``) and returns each rank's ``tmp/{name}{rank}.pt``.
+    """
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(tmp, cfg), nprocs=n, join=False,
+                             start_method="spawn")
+    return ctx, lambda: _joined(ctx, n, tmp, cfg, name)
+
+
+def _joined(ctx, n, tmp, cfg, name):
+    import torch
+    deadline = time.monotonic() + cfg["timeout"]
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 33's {name} ranks ran past "
+                                     f"{cfg['timeout']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return [torch.load(os.path.join(tmp, f"{name}{r}.pt"),
+                       weights_only=False) for r in range(n)]
+
+
+# the kernels each mode's steps launch, a rank: tensor parallelism runs the
+# stacks' training kernels, sequence parallelism the streaming ones
+AXES_KERNELS = {"tp": ("STASH_LAUNCHES", "CONV_OUT_BWD_LAUNCHES",
+                       "LAYER_BWD_LAUNCHES", "CONV_IN_GN_BWD_LAUNCHES"),
+                "sp": ("FLASH_FWD_LAUNCHES", "FLASH_DQ_LAUNCHES",
+                       "FLASH_DKV_LAUNCHES")}
+
+
+def axes_want(mode, r, steps, stacks, layers) -> dict:
+    """The launches a rank of ``mode`` must count over ``steps`` steps:
+    every count 0 but its kernels'.  tp: K1 stash, K3, K4 a stack a step,
+    K2 a layer a step; sp: K5, K6, K7 a streaming layer a step (a layer
+    whose whole sequence takes the streaming route, at n = its tokens /
+    ranks and m = its tokens), K1 stash, K3, K4 a stack a step where a
+    level fuses (at most 64 tokens), K2 a layer."""
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        flash_attention as fa
+    want = {k: 0 for k in r["launched"]}
+    if mode == "tp":
+        want.update(loop_want(stacks, layers, steps, 0))
+    elif mode == "sp":
+        import torch
+        ranks, dtype = PARALLEL_RANKS, getattr(torch, PARALLEL_DTYPE)
+        # the pre-hooks saw each stack's local length; its route is the
+        # whole sequence's, its queries this rank's
+        streams = sum(n for n, tokens in r["stacks"]
+                      if tokens >= fa.LONG_SEQ_THRESHOLD and fa.flash_takes(
+                          tokens, tokens * ranks,
+                          LONG["attention_features"], dtype))
+        fused = [(n, tokens) for n, tokens in r["stacks"]
+                 if tokens * ranks <= 64]
+        want.update(loop_want(len(fused), sum(n for n, _ in fused), steps,
+                              0))
+        for k in AXES_KERNELS["sp"]:
+            want[k] = streams * steps
+    return want
+
+
+def parallel_axes(dev) -> dict:
+    """Phase 33 (see the docstring).  Returns the launches a rank of tp and
+    of sp counted (the kernels line's ``launches_parallel_axes``)."""
+    import tempfile
+
+    from moleculediffusiontransformer_tpu_torch.parallel import collectives
+    t0 = time.perf_counter()
+    stacks, layers, _ = preset_stacks(FLAGSHIP)
+    empty_cache(dev)
+    cfg = axes_config(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx, wait = spawn_ranks(axes_rank, PARALLEL_RANKS, tmp, cfg, "axes")
+        try:
+            probe = axes_probes(tmp, cfg)
+            ranks = wait()
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+    staged = sorted(collectives.GLOO_STAGED)
+    phase("parallel_axes_probe", backend="gloo", device=dev.type,
+          collectives=probe, staged=staged,
+          note="each collective on a pair of its own: a refused send/recv "
+               "breaks its connections or ends its process")
+    refused = sorted(k.replace("_single", "") for k, v in probe.items()
+                     if v != "takes")
+    if dev.type == "cuda" and refused != staged:
+        raise AssertionError(f"gloo refuses {refused} on CUDA tensors; the "
+                             f"helpers stage {staged}")
+    steps = AXES_STEPS + 1
+    launched = {}
+    for mode, what in (("tp", "the 91M, data 1 x model 2"),
+                       ("sp", f"the long Model1d, {SP_BATCH} x {SP_SAMPLES}"),
+                       ("pp", f"the AR transformer, {PP_MICRO} "
+                              f"micro-batches"),
+                       ("ep", "the MoE GPT, data 1 x expert 2")):
+        for rank, r in enumerate(ranks):
+            rec = {k: v for k, v in r[mode].items() if k != "fp32"}
+            phase(f"parallel_{mode}", rank=rank, ranks=PARALLEL_RANKS,
+                  what=what, backend="gloo", dtype=PARALLEL_DTYPE,
+                  steps=steps, seconds_total=r["seconds"][mode], **rec)
+            if not rec["finite"] or not all(rec["same"]) or rec.get(
+                    "stale_kernel_weights"):
+                raise AssertionError(f"{mode} rank {rank}: losses "
+                                     f"{rec['losses']}, replicated "
+                                     f"parameters the same {rec['same']}, "
+                                     f"stale kernel weights "
+                                     f"{rec.get('stale_kernel_weights')}")
+            # send/recv (the halos and the pipeline's hops) is what gloo
+            # refuses on the card's tensors; nothing else is staged
+            staged_calls = dev.type == "cuda" and mode in ("sp", "pp")
+            if set(rec["staged"]) - {"send_recv"} or bool(
+                    rec["staged"].get("send_recv")) != staged_calls:
+                raise AssertionError(f"{mode} rank {rank}: staged "
+                                     f"{rec['staged']}")
+            check_launches(f"{mode} (rank {rank})", rec["launched"],
+                           axes_want(mode, rec, steps, stacks, layers))
+        f32 = ranks[0][mode]["fp32"]
+        phase(f"parallel_{mode}_fp32", batch=AXES_FP32_BATCH,
+              steps=AXES_FP32_STEPS, lr=PARALLEL_FP32_LR,
+              tol=PARALLEL_FP32_TOL, **f32)
+        if not (f32["loss_rel_err"] <= PARALLEL_FP32_TOL
+                and f32["params_max_abs_err"] <= PARALLEL_FP32_TOL
+                and f32["grads_rel_err"] <= PARALLEL_FP32_TOL
+                and f32["params_moved"] >= 10 * PARALLEL_FP32_TOL):
+            raise AssertionError(f"float32 {mode} against one card: {f32}")
+        launched[mode] = ranks[0][mode]["launched"]
+    seconds = time.perf_counter() - t0
+    phase("parallel_axes_phase_seconds", seconds=seconds,
+          target=AXES_TARGET_SECONDS)
+    return launched
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -5856,6 +6507,9 @@ def main() -> int:
     # 32. the data-parallel layer: two ranks through gloo, then NCCL at one
     parallel = parallel_layer(dev, inv, loop_first)
 
+    # 33. the other axes: tensor, sequence, pipeline and expert parallelism
+    axes = parallel_axes(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -5901,7 +6555,8 @@ def main() -> int:
                         "launches_cli_train": loop_launches[count],
                         "launches_audio_all_train": audio_launches[count],
                         "launches_assemblies_train": asm_trained[count],
-                        "launches_parallel": parallel["train"][count]})
+                        "launches_parallel": parallel["train"][count],
+                        "launches_parallel_axes": axes["tp"][count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({
@@ -5932,17 +6587,18 @@ def main() -> int:
     # K5's launches from the 2**17-sample requests of phase 17, K6's and
     # K7's from the batch-2 training steps of phase 18
     jax_flash = "moleculediffusiontransformer_tpu/ops/flash_attention.py"
-    for key, name, source, line, launched in (
+    for key, name, source, line, count, launched in (
             ("fwd", "flash_attention_fwd", fa.SOURCE, 89,
-             long_served["FLASH_FWD_LAUNCHES"]),
+             "FLASH_FWD_LAUNCHES", long_served["FLASH_FWD_LAUNCHES"]),
             ("dq", "flash_attention_bwd_dq", fa.BWD_SOURCE, 185,
-             long_trained["FLASH_DQ_LAUNCHES"]),
+             "FLASH_DQ_LAUNCHES", long_trained["FLASH_DQ_LAUNCHES"]),
             ("dkv", "flash_attention_bwd_dkv", fa.BWD_SOURCE, 220,
-             long_trained["FLASH_DKV_LAUNCHES"])):
+             "FLASH_DKV_LAUNCHES", long_trained["FLASH_DKV_LAUNCHES"])):
         kernels.append({"name": name, "route": "cuda",
                         "source": csrc + source,
                         "replaces": f"{jax_flash}:{line}",
-                        "launches": launched, **flash[key]})
+                        "launches": launched, **flash[key],
+                        "launches_parallel_axes": axes["sp"][count]})
     # the resident-KV attention kernels: bf16 at the AR transformer's decode
     # shapes from phase 21 (K9 at m 65, K10 at m 13).  No model path launches
     # them in either package: their launches are those of the call of the

@@ -10,8 +10,8 @@ torch cannot reproduce the JAX package's threefry keys."""
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -48,7 +48,19 @@ def clip(x: torch.Tensor, dynamic_threshold: float = 0.0) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Objective:
+    """``seq_axis``: set by ``parallel.sp.set_sequence_axis`` where x holds
+    this rank's slice of the length; the loss's means then span the whole
+    length (``parallel.sp.mean``)."""
     alias: str = ""
+    seq_axis: Any = field(default=None, compare=False, repr=False)
+
+    def mean(self, t: torch.Tensor, dims=None) -> torch.Tensor:
+        """``t.mean(dims)`` (every dim when None), over the whole length
+        under sequence parallelism."""
+        if self.seq_axis is not None:
+            from ..parallel import sp
+            return sp.mean(t, self.seq_axis, dims)
+        return t.mean() if dims is None else t.mean(dim=dims)
 
     def denoise(self, net: NetFn, x_noisy: torch.Tensor,
                 sigmas: torch.Tensor, **cond) -> torch.Tensor:
@@ -98,7 +110,7 @@ class VDiffusion(Objective):
         x_noisy = x * alpha + noise * beta
         x_target = noise * alpha - x * beta
         x_denoised = self.denoise(net, x_noisy, sigmas, **cond)
-        return ((x_denoised - x_target) ** 2).mean()
+        return self.mean((x_denoised - x_target) ** 2)
 
 
 @dataclass(frozen=True)
@@ -134,7 +146,7 @@ class KDiffusion(Objective):
         estimate of ``x + sigma * noise`` against ``x``; float32 scalar."""
         x_noisy = x + sigmas.reshape(-1, 1, 1) * noise
         x_denoised = self.denoise(net, x_noisy, sigmas, **cond)
-        losses = ((x_denoised - x) ** 2).mean(dim=tuple(range(1, x.dim())))
+        losses = self.mean((x_denoised - x) ** 2, tuple(range(1, x.dim())))
         return (losses * self.loss_weight(sigmas)).mean()
 
 
@@ -176,7 +188,7 @@ class VKDiffusion(Objective):
         c_skip, c_out, c_in = self.get_scale_weights(sigmas)
         x_pred = net(c_in * x_noisy, self.sigma_to_t(sigmas), **cond)
         v_target = (x - c_skip * x_noisy) / (c_out + 1e-7)
-        return ((x_pred - v_target) ** 2).mean()
+        return self.mean((x_pred - v_target) ** 2)
 
 
 def make_objective(alias: str, *, sigma_data: float = 0.1,

@@ -34,10 +34,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..ops import flash_attention as fa
 from ..ops import transformer_fusion as tf
-from .primitives import Conv1d, Dense, Embed, GroupNorm, LayerNorm
+from .primitives import Conv1d, Dense, Embed, GroupNorm, LayerNorm, whole
 
 
 def relative_position_bucket(relative_position: np.ndarray, num_buckets: int,
@@ -59,12 +60,12 @@ def relative_position_bucket(relative_position: np.ndarray, num_buckets: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _buckets(num_queries: int, num_keys: int, num_buckets: int,
+def _buckets(num_queries: int, num_keys: int, q_start: int, num_buckets: int,
              max_distance: int) -> np.ndarray:
-    """The (i, j) buckets of queries at positions j - i .. j - 1 against
-    keys at 0 .. j - 1."""
+    """The (i, j) buckets of queries at positions q_start .. q_start + i - 1
+    against keys at 0 .. j - 1."""
     i, j = num_queries, num_keys
-    q_pos = np.arange(j - i, j, dtype=np.int64)
+    q_pos = np.arange(q_start, q_start + i, dtype=np.int64)
     k_pos = np.arange(j, dtype=np.int64)
     return relative_position_bucket(k_pos[None, :] - q_pos[:, None],
                                     num_buckets, max_distance)
@@ -73,17 +74,22 @@ def _buckets(num_queries: int, num_keys: int, num_buckets: int,
 class RelativePositionBias(nn.Module):
     """T5-style bucketed relative bias: a float32 (num_buckets, heads) table
     ``relative_attention_bias``; ``forward(i, j)`` is the (1, h, i, j) bias
-    of i queries at the last positions of j keys."""
+    of i queries at the last positions of j keys, ``forward(i, j, q_start)``
+    that of i queries from position ``q_start`` on (a rank's slice of the
+    queries under sequence parallelism)."""
 
     def __init__(self, num_buckets: int, max_distance: int, num_heads: int):
         super().__init__()
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.relative_attention_bias = Embed(num_buckets, num_heads)
 
-    def forward(self, num_queries: int, num_keys: int) -> torch.Tensor:
-        table = self.relative_attention_bias.weight
+    def forward(self, num_queries: int, num_keys: int,
+                q_start: Optional[int] = None) -> torch.Tensor:
+        table = whole(self.relative_attention_bias.weight)
+        if q_start is None:
+            q_start = num_keys - num_queries
         buckets = torch.from_numpy(_buckets(
-            num_queries, num_keys, self.num_buckets,
+            num_queries, num_keys, q_start, self.num_buckets,
             self.max_distance)).to(table.device)
         return table.float()[buckets].permute(2, 0, 1)[None]
 
@@ -118,7 +124,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 class AttentionBase(nn.Module):
     """Multi-head SDPA core + output projection; with ``use_rel_pos`` the
-    relative bias ``rel_pos`` joins the float32 scores before the scale."""
+    relative bias ``rel_pos`` joins the float32 scores before the scale
+    (the queries at the last positions of the keys, or from ``q_start``
+    on)."""
 
     def __init__(self, features: int, head_features: int, num_heads: int,
                  use_rel_pos: bool = False,
@@ -133,8 +141,8 @@ class AttentionBase(nn.Module):
                         if use_rel_pos else None)
         self.to_out = Dense(head_features * num_heads, features, dtype=dtype)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_start: Optional[int] = None) -> torch.Tensor:
         b, n, _ = q.shape
         h, d = self.num_heads, self.head_features
 
@@ -146,7 +154,7 @@ class AttentionBase(nn.Module):
             out = sdpa(q, k, v, d ** -0.5, self.dtype)
         else:
             sim = torch.matmul(q.float(), k.float().transpose(-1, -2))
-            sim = (sim + self.rel_pos(n, k.shape[2])) * (d ** -0.5)
+            sim = (sim + self.rel_pos(n, k.shape[2], q_start)) * (d ** -0.5)
             attn = torch.softmax(sim, dim=-1)
             out = torch.matmul(attn.to(self.dtype), v.to(self.dtype))
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))
@@ -154,7 +162,12 @@ class AttentionBase(nn.Module):
 
 class Attention(nn.Module):
     """Pre-LN attention with a fused KV projection; cross-attention when
-    ``context_features`` is set."""
+    ``context_features`` is set.  With ``seq_axis`` set (a length that is
+    sharded, ``parallel/sp.py``) the queries stay local: self-attention
+    gathers K/V along the length, and a relative bias puts the queries at
+    this rank's positions of the whole sequence."""
+
+    seq_axis = None
 
     def __init__(self, features: int, head_features: int, num_heads: int,
                  context_features: Optional[int] = None,
@@ -181,8 +194,19 @@ class Attention(nn.Module):
             "You must provide a context when using context_features"
         context = context if context is not None else x
         q = self.to_q(self.norm(x))
-        k, v = self.to_kv(self.norm_context(context)).chunk(2, dim=-1)
-        return self.attention(q, k, v)
+        kv = self.to_kv(self.norm_context(context))
+        q_start = None
+        seq = self.seq_axis
+        if seq is not None:
+            if not self.context_features:
+                from ..parallel import sp
+                kv = sp.gather_length(kv, seq)
+            # the whole sequence's queries end at the last key, as one
+            # process's do
+            n = q.shape[1]
+            q_start = kv.shape[1] - n * seq.size + n * seq.rank
+        k, v = kv.chunk(2, dim=-1)
+        return self.attention(q, k, v, q_start)
 
 
 class TransformerBlock(nn.Module):
@@ -217,7 +241,15 @@ class Transformer1d(nn.Module):
 
     ``disable_fusion`` pins this instance to the module composition (the JAX
     module's field of the same name); so does ``use_rel_pos``, which the
-    stack kernel does not take."""
+    stack kernel does not take.
+
+    Over a mesh: with its weights tensor-parallel shards, the kernel route
+    takes them gathered whole (``parallel.tp.full``) and cast afresh each
+    call; with ``seq_axis`` set (``parallel/sp.py``), the kernel route
+    gathers x along the length, runs the whole sequence and keeps this
+    rank's rows, and the composition runs on the slice."""
+
+    seq_axis = None
 
     def __init__(self, num_layers: int, channels: int, num_heads: int,
                  head_features: int, multiplier: int,
@@ -281,11 +313,13 @@ class Transformer1d(nn.Module):
         sees, ``parallel/fsdp.py``)."""
         self._stack_params = None
 
-    def kernel_casts(self) -> Dict[str, torch.Tensor]:
-        """The parameters of ``kernel_params`` that are not in their kernel
-        dtype already (float32 vectors, compute-dtype matrices), cast."""
+    def kernel_casts(self, params: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """The parameters of ``kernel_params`` (or of ``params``) that are
+        not in their kernel dtype already (float32 vectors, compute-dtype
+        matrices), cast."""
         out = {}
-        for name, p in self.named_parameters():
+        for name, p in (params or dict(self.named_parameters())).items():
             want = torch.float32 if p.dim() == 1 else self.dtype
             if p.dtype != want:
                 out[name] = p.to(want)
@@ -300,10 +334,22 @@ class Transformer1d(nn.Module):
         assert not (has_cross and context is None), \
             "You must provide a context when using context_features"
         ctx = context if has_cross else None
+        seq = self.seq_axis
+        # the route is the whole sequence's
+        whole_x = x if seq is None else x.new_empty(
+            (x.shape[0], x.shape[1] * seq.size, *x.shape[2:]), device="meta")
         if self.disable_fusion or not tf.stack_kernel_takes(
-                x, ctx, channels=self.channels, dtype=self.dtype,
+                whole_x, ctx, channels=self.channels, dtype=self.dtype,
                 head_dim=self.head_features, use_rel_pos=self.use_rel_pos):
             return self._compose(x, context)
+        if seq is not None:
+            from ..parallel import sp
+            return sp.own_rows(self._kernel_route(
+                sp.gather_length(x, seq), ctx), seq)
+        return self._kernel_route(x, ctx)
+
+    def _kernel_route(self, x: torch.Tensor,
+                      ctx: Optional[torch.Tensor]) -> torch.Tensor:
         # the kernel reads dense (b, L, C) rows; a conv's channels-last
         # output is a transposed view
         x = x.contiguous()
@@ -322,9 +368,19 @@ class Transformer1d(nn.Module):
 
     def _stack(self, x: torch.Tensor,
                ctx: Optional[torch.Tensor]) -> torch.Tensor:
-        return tf.transformer1d(self.kernel_params(),
-                                dict(self.named_parameters()), x, ctx,
-                                **self._geometry())
+        params = dict(self.named_parameters())
+        if any(isinstance(p, DTensor) for p in params.values()):
+            # tensor parallelism: the kernels take whole weights, gathered
+            # into fresh buffers a storage-keyed cache could mistake
+            self.drop_kernel_cache()
+            params = {n: whole(p) for n, p in params.items()}
+            with torch.no_grad():
+                casts = self.kernel_casts(params)
+            kparams = {n: casts.get(n, p).detach()
+                       for n, p in params.items()}
+        else:
+            kparams = self.kernel_params()
+        return tf.transformer1d(kparams, params, x, ctx, **self._geometry())
 
     def _null_half(self, x: torch.Tensor,
                    table: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .primitives import Dense, Embed
+from .primitives import Dense, Embed, whole
 
 
 def sinusoidal_embedding(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -68,7 +68,7 @@ class FixedEmbedding(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         batch, length = x.shape[0], x.shape[1]
         assert length <= self.max_length, "sequence length > max_length"
-        emb = self.embedding.weight[:length].to(self.embedding.dtype)
+        emb = whole(self.embedding.weight)[:length].to(self.embedding.dtype)
         return emb[None].expand(batch, length, emb.shape[-1])
 
 

@@ -8,6 +8,12 @@ for embedding tables); ``dtype`` is the compute dtype, to which inputs and
 weights are cast at use, as the JAX modules do.  Norm statistics are always
 float32.
 
+Over a mesh (``parallel/``): a parameter that tensor parallelism shards is a
+``DTensor`` shard, and a product on it runs as ``parallel.tp.product``; a
+module whose ``seq_axis`` is set (sequence parallelism, ``parallel/sp.py``)
+holds its rows' slice of the length, and a conv with a window across it or a
+norm over it runs as ``parallel.sp`` has it.  Both are imported on first use.
+
 Init matches torch's defaults (and the JAX package's): U(-1/sqrt(fan_in),
 1/sqrt(fan_in)) for linear/conv weights and biases, N(0, 1) for embedding
 tables.  Every module's ``reset_parameters`` takes an optional
@@ -22,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +44,14 @@ def _uniform_(t: torch.Tensor, bound: float,
               generator: Optional[torch.Generator]) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
+
+
+def whole(p: torch.Tensor) -> torch.Tensor:
+    """``p``, or the whole tensor of a tensor-parallel shard."""
+    if isinstance(p, DTensor):
+        from ..parallel import tp
+        return tp.full(p)
+    return p
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -70,6 +85,9 @@ class Dense(nn.Module):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.weight, DTensor):
+            from ..parallel import tp
+            return tp.product(self, x, F.linear)
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
@@ -79,6 +97,8 @@ class Dense(nn.Module):
 class Conv1d(nn.Module):
     """1-D convolution over (b, L, C) with torch padding semantics;
     ``weight`` (out, in, k)."""
+
+    seq_axis = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
@@ -97,6 +117,14 @@ class Conv1d(nn.Module):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq_axis is not None and self.kernel_size + self.stride > 2:
+            from ..parallel import sp
+            return sp.conv1d(self, x)
+        if isinstance(self.weight, DTensor):
+            from ..parallel import tp
+            return tp.product(self, x, lambda xx, w: F.conv1d(
+                xx.transpose(1, 2), w, stride=self.stride,
+                padding=self.padding).transpose(1, 2))
         y = F.conv1d(x.to(self.dtype).transpose(1, 2),
                      self.weight.to(self.dtype), self.bias.to(self.dtype),
                      stride=self.stride, padding=self.padding)
@@ -106,6 +134,8 @@ class Conv1d(nn.Module):
 class ConvTranspose1d(nn.Module):
     """Transposed 1-D convolution matching torch ``ConvTranspose1d``;
     ``weight`` (in, out, k) — the JAX ``tkernel`` in torch layout."""
+
+    seq_axis = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
@@ -126,6 +156,15 @@ class ConvTranspose1d(nn.Module):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq_axis is not None:
+            from ..parallel import sp
+            return sp.conv_transpose1d(self, x)
+        if isinstance(self.weight, DTensor):
+            from ..parallel import tp
+            return tp.product(self, x, lambda xx, w: F.conv_transpose1d(
+                xx.transpose(1, 2), w, stride=self.stride,
+                padding=self.padding,
+                output_padding=self.output_padding).transpose(1, 2))
         y = F.conv_transpose1d(x.to(self.dtype).transpose(1, 2),
                                self.weight.to(self.dtype),
                                self.bias.to(self.dtype), stride=self.stride,
@@ -135,13 +174,19 @@ class ConvTranspose1d(nn.Module):
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int, eps: float) -> torch.Tensor:
+               num_groups: int, eps: float, seq_axis=None) -> torch.Tensor:
     """Channels-last GroupNorm in float32 (biased variance, contiguous
-    channel groups); returns float32."""
+    channel groups); returns float32.  With ``seq_axis`` (a
+    ``parallel.collectives.Axis``: x holds this rank's slice of the length)
+    each statistic is the sum of the ranks' sums, in two passes as here."""
     b, length, c = x.shape
     xf = x.float().reshape(b, length, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    if seq_axis is None:
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    else:
+        from ..parallel import sp
+        mean, var = sp.group_stats(xf, seq_axis)
     xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, length, c)
     return xn * weight.float() + bias.float()
 
@@ -159,6 +204,8 @@ class GroupNorm(nn.Module):
     """Group normalization over (b, L, C), fp32 stats, torch-exact
     (default eps 1e-5; Transformer1d uses 1e-6)."""
 
+    seq_axis = None
+
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -175,7 +222,7 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups,
-                          self.eps).to(self.dtype)
+                          self.eps, self.seq_axis).to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -212,7 +259,7 @@ class Embed(nn.Module):
             self.weight.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids].to(self.dtype)
+        return whole(self.weight)[ids].to(self.dtype)
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:

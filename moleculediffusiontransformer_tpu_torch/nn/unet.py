@@ -24,6 +24,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..ops import resnet_fusion as rf
 from ..ops import transformer_fusion as tf
@@ -57,6 +58,13 @@ def _resnet_run(mod: nn.Module, x: torch.Tensor,
     if skips is not None:
         skip_list = [skips.pop() for _ in blocks]
     if rf.resnet_fusion_enabled() and rf.fusable(x, blocks, mod.num_groups):
+        if any(isinstance(p, DTensor) or getattr(m, "seq_axis", None)
+               for blk in blocks for m in blk.modules()
+               for p in m.parameters(recurse=False)):
+            # the kernel takes whole weights and a whole sequence
+            raise ValueError("the resnet-run kernel (enable_resnet_fusion) "
+                             "does not run under tensor or sequence "
+                             "parallelism: switch it off")
         # the kernel reads dense (b, L, C) rows; a conv's channels-last
         # output is a transposed view
         return rf.resnet_stack(

@@ -43,6 +43,19 @@ def make_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
     return init_device_mesh(device, (world,), mesh_dim_names=(axis_name,))
 
 
+def mesh_2d(data: int, other: int, names: tuple, device: str = "cuda"):
+    """A 2-D mesh ``names`` of ``data`` x ``other`` ranks over the process
+    group (joined first as ``make_mesh`` does), row-major: the ranks of one
+    ``other`` group are consecutive.  Every rank calls it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    distributed_init(device=device)
+    world = dist.get_world_size()
+    if data * other != world:
+        raise ValueError(f"a {data} x {other} mesh over a group of {world} "
+                         f"ranks")
+    return init_device_mesh(device, (data, other), mesh_dim_names=names)
+
+
 def mesh_device(mesh) -> torch.device:
     """This rank's device on ``mesh``: its card, or the CPU."""
     if mesh.device_type == "cuda":

@@ -47,6 +47,7 @@ from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
 from ..core.config import TrainConfig
 from ..data.prefetch import ThreadedLoader, prefetch_to_device, to_device
 from ..parallel import mesh as pmesh
+from ..parallel.collectives import sync_grads
 from ..parallel.fsdp import gathered, shard_state_fsdp
 
 Schedule = Callable[[int], float]
@@ -182,22 +183,30 @@ def _local(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
 
 def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """The float32 global norm of ``grads``: of the whole grads as they
-    are; with sharded ones, their shards' sum of squares all-reduced over
-    their mesh, plus the whole (and replicated) grads' once."""
+    are; with sharded ones, each group's shards' sum of squares all-reduced
+    over the mesh dims they are sharded along, plus the whole (and
+    replicated) grads' once."""
     from torch.distributed.tensor import DTensor, Shard
 
-    def is_sharded(g) -> bool:
-        return isinstance(g, DTensor) and any(
-            isinstance(p, Shard) for p in g.placements)
+    def shard_dims(g) -> tuple:
+        return tuple(i for i, p in enumerate(g.placements)
+                     if isinstance(p, Shard)) if isinstance(g, DTensor) else ()
 
-    if not any(map(is_sharded, grads)):
+    if not any(map(shard_dims, grads)):
         return torch.stack([(g * g).sum() for g in _local(grads)]).sum(
             ).sqrt()
-    sharded = [g for g in grads if is_sharded(g)]
-    sq = torch.stack([(g * g).sum() for g in _local(sharded)]).sum()
-    torch.distributed.all_reduce(sq,
-                                 group=sharded[0].device_mesh.get_group())
-    whole = _local([g for g in grads if not is_sharded(g)])
+    groups: Dict[Any, List[torch.Tensor]] = {}
+    for g in grads:
+        if shard_dims(g):
+            groups.setdefault((g.device_mesh, shard_dims(g)), []).append(
+                g.to_local())
+    sq = None
+    for (mesh, dims), shards in groups.items():
+        part = torch.stack([(g * g).sum() for g in shards]).sum()
+        for d in dims:
+            torch.distributed.all_reduce(part, group=mesh.get_group(d))
+        sq = part if sq is None else sq + part
+    whole = _local([g for g in grads if not shard_dims(g)])
     if whole:
         sq = sq + torch.stack([(g * g).sum() for g in whole]).sum()
     return sq.sqrt()
@@ -261,13 +270,15 @@ def _accumulated_step(params: List[torch.Tensor], optimizer: ClipAdam,
                       state: TrainState, A: int, batch: int,
                       device: torch.device,
                       loss_of: Callable[[slice], torch.Tensor],
-                      mesh=None) -> torch.Tensor:
+                      mesh=None, partial: bool = False) -> torch.Tensor:
     """One optimizer step over ``A`` micro-batches: ``loss_of(rows)`` is the
     loss of one micro-batch; the float32 grads are summed by autograd,
     divided by A, clipped and applied once, and stay on ``.grad``.  Returns
-    the mean loss.  Over a ``mesh`` the grads that FSDP has not
+    the mean loss.  Over a 1-D ``mesh`` the grads that FSDP has not
     reduce-scattered already (all of them under plain data parallelism) and
-    the loss are averaged over its ranks before the clip."""
+    the loss are averaged over its ranks before the clip; over a 2-D one
+    as ``parallel.collectives.sync_grads`` has it (``partial``: sequence
+    parallelism)."""
     if batch % A:
         raise ValueError(f"batch {batch} does not split into {A} "
                          f"micro-batches")
@@ -284,7 +295,9 @@ def _accumulated_step(params: List[torch.Tensor], optimizer: ClipAdam,
         # embedding scale 1) has a zero gradient, as under jax.grad
         p.grad = (torch.zeros_like(p) if p.grad is None else p.grad / A)
     loss = loss_sum / A
-    if mesh is not None:
+    if mesh is not None and mesh.ndim > 1:
+        sync_grads(mesh, [p.grad for p in params], loss, partial=partial)
+    elif mesh is not None:
         from torch.distributed.tensor import DTensor
         pmesh.all_reduce_mean(mesh, [loss, *(
             p.grad for p in params if not isinstance(p.grad, DTensor))])
@@ -305,15 +318,21 @@ def _part(t: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
 
 
 def global_draws(model: nn.Module, target: torch.Tensor, batch: int,
-                 accumulation_steps: int, generator: Optional[torch.Generator]
+                 accumulation_steps: int, generator: Optional[torch.Generator],
+                 length: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sigmas (batch,) and noise (batch, ...) of a step over a batch of
     ``batch`` rows in ``accumulation_steps`` micro-batches, drawn from
     ``generator`` in the order the model's loss draws them: each
     micro-batch's sigmas, then its noise, shaped like the rows of what the
-    loss diffuses (``model.diffusion_target(target)``)."""
+    loss diffuses (``model.diffusion_target(target)``, or ``target`` for a
+    model without one), ``length`` long where given (the whole length of
+    which ``target`` holds a slice)."""
     mb = batch // accumulation_steps
-    row = model.diffusion_target(target[:1]).shape[1:]
+    diffused = getattr(model, "diffusion_target", lambda t: t)
+    row = tuple(diffused(target[:1]).shape[1:])
+    if length is not None:
+        row = (length, *row[1:])
     sigmas, noise = [], []
     for _ in range(accumulation_steps):
         sigmas.append(model.sigma_distribution(mb, generator, target.device))
@@ -321,6 +340,54 @@ def global_draws(model: nn.Module, target: torch.Tensor, batch: int,
                                  generator=generator, device=target.device,
                                  dtype=torch.float32))
     return torch.cat(sigmas), torch.cat(noise)
+
+
+def _data_mesh(mesh):
+    """The mesh's data axis (the mesh itself when it is 1-D)."""
+    return mesh if mesh is None or mesh.ndim == 1 else mesh["data"]
+
+
+def _sequence_axis(model: nn.Module, mesh):
+    """The mode of a 2-D mesh, from its names: over a ('data', 'seq') mesh
+    (``parallel.make_mesh_sp``) the model runs sequence-parallel, and this
+    is the axis, set on the model (``parallel.sp.set_sequence_axis``); over
+    a ('data', 'model') mesh (``parallel.make_mesh_2d``) it runs
+    tensor-parallel and must hold its shards (``parallel.shard_params_tp``).
+    None but for the sequence mesh."""
+    from ..parallel import sp, tp
+    if mesh is None or mesh.ndim == 1:
+        return None
+    other, sharded = mesh.mesh_dim_names[1], tp.is_sharded(model)
+    if other == sp.SEQ_AXIS:
+        if sharded:
+            raise ValueError("a ('data', 'seq') mesh runs sequence "
+                             "parallelism: the model must hold whole "
+                             "weights, not tensor-parallel shards")
+        return sp.sequence_axis(model) or sp.set_sequence_axis(model, mesh)
+    if other == "model" and not sharded:
+        raise ValueError("a ('data', 'model') mesh runs tensor parallelism: "
+                         "shard the model over it first "
+                         "(parallel.shard_params_tp); for sequence "
+                         "parallelism make the mesh with "
+                         "parallel.make_mesh_sp")
+    return None
+
+
+def _step_draws(model: nn.Module, target: torch.Tensor, b: int, A: int,
+                generator, mesh, seq) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's block of the global batch's draws: its rows over the
+    data axis and, under sequence parallelism, its slice of the length."""
+    data = _data_mesh(mesh)
+    ranks = 1 if data is None else data.size()
+    length = None if seq is None else target.shape[1] * seq.size
+    sigmas, noise = global_draws(model, target, b * ranks, A, generator,
+                                 length)
+    if data is not None:
+        rows = pmesh.local_rows(data, b * ranks)
+        sigmas, noise = sigmas[rows], noise[rows]
+    if seq is not None:
+        noise = noise.narrow(1, seq.rank * target.shape[1], target.shape[1])
+    return sigmas, noise
 
 
 def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
@@ -351,9 +418,18 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
     single-card step on the global batch up to the order of the sums.  The
     grads are averaged over the ranks after the micro-batches' backward
     (``parallel.mesh.all_reduce_mean``, a few flat buckets) and every rank
-    runs the same update.  The returned loss is the global mean."""
+    runs the same update.  The returned loss is the global mean.
+
+    A 2-D ``("data", "model")`` mesh (``parallel.make_mesh_2d``): tensor
+    parallelism, the model's weights sharded over 'model' first
+    (``parallel.shard_params_tp``: each model rank takes the same rows).
+    A 2-D ``("data", "seq")`` mesh (``parallel.make_mesh_sp``): sequence
+    parallelism (``parallel/sp.py``: ``target`` and handed-in noise are
+    this rank's (rows, length) block, ``parallel.shard_batch_sp``, and the
+    drawn noise is cut so)."""
     A = _accumulation_steps(accumulation_steps)
     params = list(model.parameters())
+    seq = _sequence_axis(model, mesh)
 
     def loss_of(c: torch.Tensor, t: torch.Tensor, sigmas: torch.Tensor,
                 noise: torch.Tensor) -> torch.Tensor:
@@ -371,30 +447,39 @@ def make_diffusion_train_step(model: nn.Module, optimizer: ClipAdam,
         if (sigmas is None) != (noise is None):
             raise ValueError("hand in both sigmas and noise or neither")
         if sigmas is None:
-            ranks = 1 if mesh is None else mesh.size()
-            rows = (slice(None) if mesh is None
-                    else pmesh.local_rows(mesh, b * ranks))
-            sigmas, noise = (t[rows] for t in global_draws(
-                model, target, b * ranks, A, generator))
+            sigmas, noise = _step_draws(model, target, b, A, generator,
+                                        mesh, seq)
         return _accumulated_step(
             params, optimizer, state, A, b, target.device,
             lambda rows: loss_of(conditioning[rows], target[rows],
                                  sigmas[rows], noise[rows]),
-            mesh)
+            mesh, partial=seq is not None)
 
     return train_step
 
 
 def make_model1d_train_step(model: nn.Module, optimizer: ClipAdam,
-                            accumulation_steps: int = 1) -> Callable:
+                            accumulation_steps: int = 1,
+                            mesh=None) -> Callable:
     """``step(state, x, generator=None, *, sigmas=None, noise=None,
     **net_kwargs) -> loss`` for the ``Model1d`` family, whose loss takes
     only the data x (b, L, C): ``model(x, generator, sigmas=, noise=,
     **net_kwargs)``.  Micro-batches, draws, grads and the update are those
     of ``make_diffusion_train_step``; a tensor among ``net_kwargs`` whose
-    first dimension is the batch (``embedding``) is split with x."""
+    first dimension is the batch (``embedding``) is split with x.
+
+    ``mesh``: data parallelism over a 1-D mesh (x this rank's rows), or
+    sequence parallelism over a 2-D ``("data", "seq")`` one
+    (``parallel.make_mesh_sp``; x this rank's (rows, length) block,
+    ``parallel.shard_seq``); over either the draws are
+    the global batch's, each rank keeping its block.  Under sequence
+    parallelism the UNet must draw nothing itself (``unet_type`` "base")."""
     A = _accumulation_steps(accumulation_steps)
     params = list(model.parameters())
+    seq = _sequence_axis(model, mesh)
+    if seq is not None and getattr(model, "unet_type", "base") != "base":
+        raise ValueError(f"sequence parallelism takes a 'base' UNet, not "
+                         f"{model.unet_type!r}, which draws inside")
 
     def train_step(state: TrainState, x: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
@@ -402,6 +487,8 @@ def make_model1d_train_step(model: nn.Module, optimizer: ClipAdam,
                    noise: Optional[torch.Tensor] = None,
                    **net_kwargs) -> torch.Tensor:
         b = x.shape[0]
+        if mesh is not None and sigmas is None and noise is None:
+            sigmas, noise = _step_draws(model, x, b, A, generator, mesh, seq)
 
         def loss_of(rows: slice) -> torch.Tensor:
             kw = {k: (v[rows] if isinstance(v, torch.Tensor) and v.dim()
@@ -411,36 +498,52 @@ def make_model1d_train_step(model: nn.Module, optimizer: ClipAdam,
                          noise=_part(noise, rows), **kw)
 
         return _accumulated_step(params, optimizer, state, A, b, x.device,
-                                 loss_of)
+                                 loss_of, mesh, partial=seq is not None)
 
     return train_step
 
 
-def make_transformer_train_step(model: nn.Module,
-                                optimizer: ClipAdam) -> Callable:
+def make_transformer_train_step(model: nn.Module, optimizer: ClipAdam,
+                                mesh=None, n_micro: int = 1) -> Callable:
     """``step(state, props, ids, generator=None, *, keep=None) -> loss`` for
     the AR transformer decoders: the next-token cross entropy of
     ``model(props, ids, return_loss=True)`` with the model's conditioning
     dropout, one clip and one Adam update, no accumulation.  The dropout's
     keep mask (b,) is drawn from ``generator`` or handed in.  The float32
     grads stay on the parameters' ``.grad``; returns the loss (a float32
-    tensor on the model's device)."""
+    tensor on the model's device).
+
+    ``mesh``: a ``("data", "stage")`` mesh (``parallel.make_mesh_pp``) over
+    which the model was pipelined (``parallel.shard_model_pp``): the loss
+    is ``parallel.pipeline_forward``'s in ``n_micro`` micro-batches, on this
+    rank's rows over 'data' (``keep`` too), and the grads are averaged over
+    'data'."""
     params = list(model.parameters())
+
+    def loss_of(props, ids, generator, keep):
+        if mesh is None:
+            return model(props, ids, return_loss=True, generator=generator,
+                         keep=keep)
+        from ..parallel.pp import pipeline_forward
+        return pipeline_forward(model, props, ids, mesh=mesh,
+                                n_micro=n_micro, return_loss=True,
+                                cond_drop_prob=model.cond_drop_prob,
+                                keep=keep, generator=generator)
 
     def train_step(state: TrainState, props: torch.Tensor, ids: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         return _accumulated_step(
             params, optimizer, state, 1, props.shape[0], ids.device,
-            lambda rows: model(props, ids, return_loss=True,
-                               generator=generator, keep=keep))
+            lambda rows: loss_of(props, ids, generator, keep), mesh)
 
     return train_step
 
 
 def make_gpt_train_step(model: nn.Module, optimizer: ClipAdam,
                         aux_loss_weight: float = 0.0,
-                        ignore_padding_zeros: bool = False) -> Callable:
+                        ignore_padding_zeros: bool = False,
+                        mesh=None) -> Callable:
     """``step(state, ids) -> loss`` for the unconditional GPT decoders: the
     next-token cross entropy of ``model(ids, return_loss=True)`` (the label
     0 skipped with ``ignore_padding_zeros``), one clip and one Adam update,
@@ -449,7 +552,13 @@ def make_gpt_train_step(model: nn.Module, optimizer: ClipAdam,
     (``model.moe_aux_losses()``; Switch Transformer's recipe, typically
     1e-2), which a dense model does not have.  The float32 grads stay on
     the parameters' ``.grad``; returns the loss (a float32 tensor on the
-    model's device)."""
+    model's device).
+
+    ``mesh``: a ``("data", "expert")`` mesh (``parallel.make_mesh_ep``)
+    whose experts the model shards (``parallel.shard_params_ep``): ``ids``
+    are this rank's rows over 'data' (``parallel.shard_batch_ep``), the MoE
+    layers keep the global batch's capacity and aux loss, and the grads are
+    averaged over 'data'."""
     params = list(model.parameters())
 
     def loss_of(ids: torch.Tensor) -> torch.Tensor:
@@ -463,7 +572,7 @@ def make_gpt_train_step(model: nn.Module, optimizer: ClipAdam,
 
     def train_step(state: TrainState, ids: torch.Tensor) -> torch.Tensor:
         return _accumulated_step(params, optimizer, state, 1, ids.shape[0],
-                                 ids.device, lambda rows: loss_of(ids))
+                                 ids.device, lambda rows: loss_of(ids), mesh)
 
     return train_step
 

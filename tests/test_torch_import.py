@@ -85,11 +85,18 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.parallel.mesh",
     "moleculediffusiontransformer_tpu_torch.parallel.multihost",
     "moleculediffusiontransformer_tpu_torch.parallel.fsdp",
+    "moleculediffusiontransformer_tpu_torch.parallel.collectives",
+    "moleculediffusiontransformer_tpu_torch.parallel.tp",
+    "moleculediffusiontransformer_tpu_torch.parallel.sp",
+    "moleculediffusiontransformer_tpu_torch.parallel.pp",
+    "moleculediffusiontransformer_tpu_torch.parallel.ep",
 ]
 # entry points outside the package, and the ranks' module of the parallel
 # tests (each rank a fresh interpreter), imported by path
 PORT_SCRIPTS = ["examples/audio_diffusion_torch.py",
-                "tests/torch_parallel_workers.py"]
+                "tests/torch_parallel_workers.py",
+                "tests/torch_parallel_axes_workers.py",
+                "tools/check_torch_parallel_ab.py"]
 
 
 @pytest.fixture(scope="module")
@@ -166,9 +173,11 @@ def test_entry_points_default_to_the_card():
     the CPU.  So do the serving entry points: ``export_*`` and
     ``ArtifactServer`` export and serve on the card unless ``device``
     names another, as do the ``export``, ``export-torch``, ``inspect`` and
-    ``serve`` subcommands, and the parallel layer: ``make_mesh`` and
-    ``distributed_init`` (NCCL, each rank bound to its card) unless
-    ``device="cpu"`` asks for gloo on the CPU."""
+    ``serve`` subcommands, and the parallel layer: ``make_mesh``, the 2-D
+    meshes of its other axes (``make_mesh_2d``, ``make_mesh_sp``,
+    ``make_mesh_ep``, ``make_mesh_pp``) and ``distributed_init`` (NCCL,
+    each rank bound to its card) unless ``device="cpu"`` asks for gloo on
+    the CPU."""
     from moleculediffusiontransformer_tpu_torch.models import (audio, graph,
                                                                transformers)
 
@@ -245,8 +254,10 @@ def test_entry_points_default_to_the_card():
     from moleculediffusiontransformer_tpu_torch import parallel
     exports = (dx.export_sampler, dx.export_inpainter, dx.export_generator,
                dx.export_encoder)
+    meshes_2d = (parallel.make_mesh_2d, parallel.make_mesh_sp,
+                 parallel.make_mesh_ep, parallel.make_mesh_pp)
     for entry in (*exports, ArtifactServer, parallel.make_mesh,
-                  parallel.distributed_init):
+                  parallel.distributed_init, *meshes_2d):
         assert inspect.signature(entry).parameters["device"].default == \
             "cuda", entry
     parser = cli.build_parser()
@@ -263,6 +274,9 @@ def test_entry_points_default_to_the_card():
         for entry in (parallel.make_mesh, parallel.distributed_init):
             with pytest.raises(RuntimeError, match="no CUDA"):
                 entry()
+        for entry in meshes_2d:
+            with pytest.raises(RuntimeError, match="no CUDA"):
+                entry(1, 1)
 
 
 def _example():
