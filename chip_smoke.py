@@ -239,10 +239,11 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    kernel nodes (read through libcuda) of K1's GroupNorm kernel and K8's
    SiLU kernel, each launched once a call, equal to those launch counts; a
    traced replay of the sampler, the generator and the encoder (device
-   ms, the device's busy share of the traced request,
-   the stack kernels seen running in it, the largest kernels); then
-   ``make_httpd`` on
-   localhost:
+   ms, the device's busy share of the traced request, the stack kernels
+   seen running in it, the largest kernels), read from the profiler's
+   kineto events, the encoder's reading held to ``prof.events()``'s on the
+   same trace (the same device spans, names, times and window); then
+   ``make_httpd`` on localhost:
    ``/healthz`` names the graph tier, ``/sample``, ``/inpaint``,
    ``/generate`` equal the direct call, ``/reload`` and ``/metrics``, and 64
    concurrent one-row ``/predict`` requests coalesced into fewer device
@@ -304,6 +305,20 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    at batch 8 (the long model at 1 x 2**16) with SGD against one card:
    loss, parameters and grads within 1e-4, the parameters moved at least
    ten times past it (ep with its dropped tokens counted).
+34. the quality tools: ``tools/quality_convergence_torch.py`` in this
+   process on its synthetic corpus of 2,048 rows in chunks of one epoch
+   (float32, Adam 2e-4, clip 0.5, evals of 8 generations of 64 steps): the
+   forward transformer one epoch (launching nothing), the 91M at the
+   notebook preset one epoch, its last curve line dropped as a kill between
+   checkpoint and curve would, then resumed to 2 epochs: the checkpoint's
+   epoch evaluated again, the next chunk labelled 2 and seeded 1 from the
+   checkpoint, ``summary.json`` keeping both tasks, ``best.pt`` the best
+   epoch's; K1 stash, K3, K4 launched exactly stacks x micro-batches (the
+   steps' and each run's preflight pass), K2 layers x as many, K1 stacks x
+   the evals' evaluations; then ``best.pt`` swapped into phase 30's 91M
+   sampler (``reload_checkpoint``, no new export) and a request of 512
+   held-out targets served on its graph tier against the live sampler of
+   the same weights and draws, within 2e-2 of scale.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
@@ -318,7 +333,8 @@ held-out eval; the training kernels also with
 a rank's share of phase 32's mesh request, the training kernels with
 ``launches_parallel``, a rank's data-parallel steps; the training kernels
 and the streaming-attention kernels with ``launches_parallel_axes``, a
-rank's tensor- and sequence-parallel steps of phase 33),
+rank's tensor- and sequence-parallel steps of phase 33; K1 and the training
+kernels with ``launches_quality``, phase 34's two runs of the 91M),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -329,6 +345,7 @@ its operations over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -619,6 +636,16 @@ TP_BATCH, AXES_FP32_BATCH = 512, 8
 SP_SAMPLES, SP_BATCH, SP_FP32_SAMPLES = 2 ** 17, 2, 2 ** 16
 PP_MICRO = 4
 AXES_TARGET_SECONDS = 120
+
+# phase 34: the quality tools (tools/quality_convergence_torch.py) in this
+# process on the 91M at the notebook preset (float32, the tool's only
+# dtype), on the tool's synthetic corpus of QUALITY_ROWS rows, in chunks of
+# one epoch, each chunk evaluated on QUALITY_GENERATE generations of
+# NUM_STEPS steps; first the forward transformer one epoch (no kernel: the
+# merged summary), then the 91M one epoch, its last curve line dropped as a
+# kill between checkpoint and curve would, and resumed to 2 epochs; its
+# best.pt served by phase 30's sampler after reload_checkpoint
+QUALITY_ROWS, QUALITY_GENERATE, QUALITY_PRESET = 2048, 8, "notebook"
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -4102,16 +4129,84 @@ def serve_compare(what, server, live_fn, inputs, draws, tol, want,
     return graph, seconds
 
 
-def replay_trace(what, server, inputs):
+def trace_events(prof):
+    """(name, on the card, start us, end us) of every event a finished
+    ``torch.profiler`` window recorded, read from its kineto results as they
+    come, without building ``prof.events()``'s function-event tree; times
+    from the window's start in whole nanoseconds, as ``prof.events()``
+    takes them."""
+    from torch.autograd import DeviceType
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()
+    for e in results.events():
+        yield (e.name(), e.device_type() == DeviceType.CUDA,
+               (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3)
+
+
+def function_events(prof):
+    """The same tuples from ``prof.events()``, the profiler's function-event
+    list (slow on a long trace: it builds the event tree)."""
+    from torch.autograd import DeviceType
+    for e in prof.events():
+        yield (e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
+               e.time_range.end)
+
+
+def device_spans(events):
+    """The traced request's window, the host's ``served_request`` range
+    that starts first (the longest of those that start together, as
+    ``prof.events()`` sorts them), and the device's spans, (start, end,
+    name) sorted, the range's own mark on the device timeline left out."""
+    windows, spans = [], []
+    for name, on_card, a, b in events:
+        if name == "served_request":
+            if not on_card:
+                windows.append((a, -b))
+        elif on_card:
+            spans.append((a, b, name))
+    a, b = min(windows)
+    return (a, -b), sorted(spans)
+
+
+def hold_trace_reading(what, prof, events):
+    """The device spans and the window read from the kineto events
+    (``trace_events``) against those read from ``prof.events()`` on the
+    same trace: the same spans, names and times, and the same window."""
+    t0 = time.perf_counter()
+    window, spans = device_spans(function_events(prof))
+    got_window, got_spans = device_spans(events)
+    names = collections.Counter(n for _, _, n in spans)
+    got_names = collections.Counter(n for _, _, n in got_spans)
+    worst = max([abs(x - y) for s, g in zip(spans, got_spans)
+                 for x, y in zip(s[:2], g[:2])]
+                + [abs(x - y) for x, y in zip(window, got_window)])
+    record = {"spans": len(spans), "got_spans": len(got_spans),
+              "device_ms": sum(b - a for a, b, _ in spans) / 1e3,
+              "got_device_ms": sum(b - a for a, b, _ in got_spans) / 1e3,
+              "window_ms": (window[1] - window[0]) / 1e3,
+              "got_window_ms": (got_window[1] - got_window[0]) / 1e3,
+              "max_abs_us": worst,
+              "only_in_events": dict(names - got_names),
+              "only_in_kineto": dict(got_names - names)}
+    phase("serve_trace_reading", what=what, **record,
+          seconds=time.perf_counter() - t0)
+    if (names != got_names or worst > 1e-3
+            or [n for _, _, n in spans] != [n for _, _, n in got_spans]):
+        raise AssertionError(f"{what}: the kineto events' device spans "
+                             f"differ from prof.events()': {record}")
+
+
+def replay_trace(what, server, inputs, hold_reading=False):
     """A graph replay under ``torch.profiler``: the device's kernels and
     copies in it (device ms, and the busy ms: the union of their intervals),
     the host launches, the busy share (busy ms over the traced request's
     own milliseconds, from the same trace), the stack kernels and
     ``GRAPH_KERNELS`` seen running in it (the profiler may lose records of
     a long graph: the graph's own nodes are counted by
-    ``graph_kernel_nodes``) and the largest kernels by device ms."""
+    ``graph_kernel_nodes``) and the largest kernels by device ms; the
+    seconds of the traced call and of reading its events.  With
+    ``hold_reading`` the reading is held to ``prof.events()``'s."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     pattern = stack_kernel_pattern()
     named = {k: graph_kernel_pattern(k) for k in GRAPH_KERNELS}
@@ -4122,32 +4217,27 @@ def replay_trace(what, server, inputs):
         with record_function("served_request"):
             server.call(*inputs, seed=1)
             torch.cuda.synchronize()
-    events = prof.events()
-    request = next(e for e in events if e.name == "served_request"
-                   and e.device_type == DeviceType.CPU)
-    spans, launches, graph_launches, stack = [], 0, 0, {}
+    traced_s = time.perf_counter() - t0
+    events = list(trace_events(prof))
+    request, spans = device_spans(events)
+    launches = sum(name in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                   for name, _, _, _ in events)
+    graph_launches = sum(name == "cudaGraphLaunch"
+                         for name, _, _, _ in events)
+    stack, by_name = {}, {}
     seen = {k: 0 for k in GRAPH_KERNELS}
-    by_name = {}
-    for evt in events:
-        if evt.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
-            launches += 1
-        if evt.name == "cudaGraphLaunch":
-            graph_launches += 1
-        if evt.device_type != DeviceType.CUDA or evt.name == request.name:
-            continue        # the range's own mark on the device timeline
-        spans.append((evt.time_range.start, evt.time_range.end))
-        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + (
-            evt.time_range.end - evt.time_range.start)
-        if pattern.match(evt.name):
-            stack[evt.name[:60]] = stack.get(evt.name[:60], 0) + 1
+    for a, b, name in spans:
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a)
+        if pattern.match(name):
+            stack[name[:60]] = stack.get(name[:60], 0) + 1
         for k, pat in named.items():
-            seen[k] += bool(pat.search(evt.name))
+            seen[k] += bool(pat.search(name))
     busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
+    for a, b, _ in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    window = request.time_range.end - request.time_range.start
-    out = {"device_ms": sum(b - a for a, b in spans) / 1e3,
+    window = request[1] - request[0]
+    out = {"device_ms": sum(b - a for a, b, _ in spans) / 1e3,
            "busy_ms": busy / 1e3, "traced_request_ms": window / 1e3,
            "busy_share": busy / window, "untraced_ms": untraced * 1e3,
            "kernel_launches": launches, "graph_launches": graph_launches,
@@ -4158,8 +4248,11 @@ def replay_trace(what, server, inputs):
                for k, counters in GRAPH_KERNELS.items()},
            "top_kernels_ms": [[k, v / 1e3] for k, v in sorted(
                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    if hold_reading:
+        hold_trace_reading(what, prof, events)
     phase("serve_replay_trace", what=what,
-          seconds=time.perf_counter() - t0, **out)
+          seconds=time.perf_counter() - t0, traced_seconds=traced_s,
+          events=len(events), **out)
     return out
 
 
@@ -4289,7 +4382,8 @@ def serve_http(servers, inv, tr, ck_b, ck_a):
 def serving_artifacts(dev, inv, tr):
     """Phase 30: export, load and serve the four artifact kinds on the card
     against the live path, time the tiers, and drive the HTTP routes.
-    Returns the K1, uniform_ctx and K8 launches of the served requests."""
+    Returns the K1, uniform_ctx and K8 launches of the served requests and
+    the 91M sampler's server (phase 34 serves a trained checkpoint on it)."""
     import tempfile
 
     import numpy as np
@@ -4443,7 +4537,8 @@ def serving_artifacts(dev, inv, tr):
         _, enc_times = serve_compare(
             "encoder bf16 1024", encoder, lambda: enc_live(enc_ids),
             (enc_ids,), {}, KERNEL_TOL["bfloat16"], {})
-        enc_trace = replay_trace("encoder bf16 1024", encoder, (enc_ids,))
+        enc_trace = replay_trace("encoder bf16 1024", encoder, (enc_ids,),
+                                 hold_reading=True)
 
     serve_http((sampler, inpainter, generator, encoder), inv, tr, ck_b, ck_a)
     served = launches_served((sampler, sampler_on, sampler32, inpainter,
@@ -4459,7 +4554,7 @@ def serving_artifacts(dev, inv, tr):
           busy_share={"sampler": sampler_trace["busy_share"],
                       "generator": ar_trace["busy_share"],
                       "encoder": enc_trace["busy_share"]})
-    return served
+    return served, sampler
 
 
 def _wave_loss_module(vocoder):
@@ -6191,6 +6286,162 @@ def parallel_axes(dev) -> dict:
           target=AXES_TARGET_SECONDS)
     return launched
 
+# ------------------------------------------------------------- phase 34 --
+
+def quality_argv(dev, out, tasks, epochs):
+    """Phase 34's arguments of ``tools/quality_convergence_torch.py``:
+    ``tasks`` for ``epochs`` epochs in chunks of one, into ``out``."""
+    return ["--rows", str(QUALITY_ROWS), "--preset", QUALITY_PRESET,
+            "--tasks", tasks, "--chunk-epochs", "1",
+            "--max-epochs", str(epochs), "--timesteps", str(NUM_STEPS),
+            "--num-generate", str(QUALITY_GENERATE),
+            "--num-rescore", str(QUALITY_GENERATE), "--out", out,
+            "--device", dev.type]
+
+
+def quality_run(tool, argv):
+    """The tool's ``main(argv)`` in this process: (its summary, the lines it
+    printed, host seconds, kernel launches), the counts set to 0 just
+    before and read just after."""
+    import io
+
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        summary = tool.main(argv)
+    torch.cuda.synchronize()
+    return summary, printed.getvalue(), time.perf_counter() - t0, counts()
+
+
+def read_curve(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def quality_tools(dev, sampler):
+    """Phase 34: the quality tool on the 91M at full width, killed between
+    its checkpoint and its curve line and resumed, every launch counted, and
+    its ``best.pt`` served by phase 30's ``sampler`` (bf16, batch 512) after
+    ``reload_checkpoint``, against the live sampler on the same draws.
+    Returns the launches of the 91M's two runs."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
+        latest_checkpoint
+    from moleculediffusiontransformer_tpu_torch.data.qm9 import (
+        prepare_qm9, synthetic_qm9)
+    from moleculediffusiontransformer_tpu_torch.design import (
+        decode_one_hot, evaluate_generated)
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        sample
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    t_phase = time.perf_counter()
+    tools = os.path.join(ROOT, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import quality_convergence_torch as tool
+    task = "inverse_diffusion"
+    data = prepare_qm9(*synthetic_qm9(QUALITY_ROWS, seed=0,
+                                      chemically_valid=True), mode=task)
+    if sampler.meta["shape"][1] != data.vocab_size:
+        raise AssertionError(f"phase 30's sampler has {sampler.meta['shape']}"
+                             f" channels, the tool's corpus "
+                             f"{data.vocab_size}")
+    _, stacks, layers = task_stacks(task)
+    micro = tool.TASK_PLAN[task][2]
+    evals = 2 * (NUM_STEPS - 1)
+    # the runs' step checkpoints (~1.1 GB each, with Adam's moments) go
+    # with the directory once best.pt is served
+    with tempfile.TemporaryDirectory(prefix="quality_", dir=os.path.join(
+            ROOT, "moleculediffusiontransformer_tpu_torch", "_build")) as root:
+        out = os.path.join(root, "q")
+        ckpt_dir = os.path.join(out, "ckpts", task)
+        curve_path = os.path.join(out, task + ".jsonl")
+
+        # the forward transformer first (no kernel on its path), then the
+        # 91M one epoch: the summary must keep both
+        runs = {}
+        _, _, runs["forward_transformer"], got = quality_run(
+            tool, quality_argv(dev, out, "forward_transformer", 1))
+        check_launches("quality tool, forward transformer", got,
+                       {k: 0 for k in got})
+        _, _, runs["first"], first = quality_run(
+            tool, quality_argv(dev, out, task, 1))
+        steps = int(re.search(r"step_(\d+)\.pt$",
+                              latest_checkpoint(ckpt_dir)).group(1))
+        check_launches("quality tool, 91M epoch 1", first,
+                       loop_want(stacks, layers, micro * steps + 1, evals))
+        # a kill after the checkpoint and before the curve line
+        curve = read_curve(curve_path)
+        dropped = curve.pop()
+        with open(curve_path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in curve)
+        summary, printed, runs["resumed"], resumed = quality_run(
+            tool, quality_argv(dev, out, task, 2))
+        # the checkpoint's epoch 1 evaluated again, then one chunk and its eval
+        check_launches("quality tool, 91M resumed", resumed,
+                       loop_want(stacks, layers, micro * steps + 1, 2 * evals))
+        curve = read_curve(curve_path)
+        labels = [r["epoch"] for r in curve]
+        seeds = [int(x) for x in re.findall(r"seed (\d+)\)", printed)]
+        best = os.path.join(ckpt_dir, "best.pt")
+        ends = {"latest": tool.checkpoint_epoch(latest_checkpoint(ckpt_dir)),
+                "best": tool.checkpoint_epoch(best)}
+        metric = tool.TASK_PLAN[task][0]
+        keys = ("validity_fraction", "novelty_fraction", "num_valid")
+        record = {"labels": labels, "seeds": seeds, "checkpoint_epochs": ends,
+                  "orphan_train_s": curve[0]["train_s"],
+                  "orphan_equals_dropped": all(curve[0][k] == dropped[k]
+                                               for k in keys),
+                  "best_epoch": curve[-1]["best_epoch"],
+                  "summary_tasks": sorted(summary["tasks"]),
+                  metric: [r[metric] for r in curve]}
+        if (labels != [1, 2] or seeds != [1] or ends["latest"] != 2
+                or curve[0]["train_s"] is not None
+                or ends["best"] != curve[-1]["best_epoch"]
+                or record["summary_tasks"] != sorted(
+                    ["forward_transformer", task])):
+            raise AssertionError(f"the quality tool's resume: {record}")
+
+        # best.pt served: phase 30's artifact, its weights swapped in
+        t0 = time.perf_counter()
+        sampler.reload_checkpoint(best)
+        reload_s = time.perf_counter() - t0
+        live = serve_model(dev, task, data.vocab_size, 0, torch.bfloat16)
+        recipes.load_params(best, task, live)
+        gen = torch.Generator(device=dev).manual_seed(34)
+        props = torch.as_tensor(np.resize(
+            np.asarray(data.y_test, np.float32),
+            (SERVE_BATCH, data.y_test.shape[1])), device=dev)
+        track = (SERVE_BATCH, *sampler.meta["shape"])
+        draws = dict(noise=torch.randn(track, generator=gen, device=dev),
+                     step_noise=torch.randn((NUM_STEPS - 1, *track),
+                                            generator=gen, device=dev))
+        with torch.no_grad():
+            served, _ = serve_compare(
+                "sampler bf16 512, the quality tool's best.pt", sampler,
+                lambda: sample(live, props, num_steps=NUM_STEPS,
+                               cond_scale=COND_SCALE, **draws), (props,),
+                draws, KERNEL_TOL["bfloat16"],
+                {"LAUNCHES": STACKS_PER_EVAL * evals}, eager=False)
+        rep = evaluate_generated(decode_one_hot(served, data.tokenizer),
+                                 data.smiles)
+        launches = {k: first[k] + resumed[k] for k in first}
+        phase("quality_tools", task=task, rows=QUALITY_ROWS,
+              preset=QUALITY_PRESET, steps_an_epoch=steps, run_seconds=runs,
+              launches=launches, reload_seconds=reload_s,
+              served_validity=rep["validity_fraction"],
+              served_novelty=rep["novelty_fraction"], **record,
+              seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -6499,7 +6750,7 @@ def main() -> int:
     gpt_family(dev)
 
     # 30. serving: the artifacts, both tiers, the HTTP front end
-    served = serving_artifacts(dev, inv, tr)
+    served, sampler = serving_artifacts(dev, inv, tr)
 
     # 31. the audio assemblies and the graph analogs
     asm_served, asm_trained = audio_assemblies(dev)
@@ -6509,6 +6760,10 @@ def main() -> int:
 
     # 33. the other axes: tensor, sequence, pipeline and expert parallelism
     axes = parallel_axes(dev)
+
+    # 34. the quality tools on the 91M, its best checkpoint served
+    quality = quality_tools(dev, sampler)
+    del sampler
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
@@ -6534,6 +6789,7 @@ def main() -> int:
         "launches_served": served["LAUNCHES"],
         "launches_assemblies": asm_served["LAUNCHES"],
         "launches_parallel": parallel["serve"]["LAUNCHES"],
+        "launches_quality": quality["LAUNCHES"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -6556,7 +6812,8 @@ def main() -> int:
                         "launches_audio_all_train": audio_launches[count],
                         "launches_assemblies_train": asm_trained[count],
                         "launches_parallel": parallel["train"][count],
-                        "launches_parallel_axes": axes["tp"][count]})
+                        "launches_parallel_axes": axes["tp"][count],
+                        "launches_quality": quality[count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({

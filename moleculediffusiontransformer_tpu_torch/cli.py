@@ -335,11 +335,27 @@ DIFFUSION_TASKS = ("inverse_diffusion", "forward_diffusion")
 
 
 def cmd_export(args) -> Dict:
-    """A serving artifact of the task's model (``design/export.py``)."""
+    """A serving artifact of the task's model (``design/export.py``).
+    ``--fused`` exports with both kernel switches on (``ops.kernel_switches``)
+    and ``--mesh-devices N`` one rank's share of the batch-parallel sampler
+    over an N-rank data mesh, the process group (run under ``torchrun``;
+    rank 0 writes)."""
+    import contextlib
     import os
 
+    import torch.distributed as dist
+
     from .design import export as dexport
+    from .ops import kernel_switches
     from .train import recipes
+    if (args.fused or args.mesh_devices) and args.task not in DIFFUSION_TASKS:
+        raise SystemExit("--fused/--mesh-devices apply to the diffusion "
+                         "tasks only")
+    if args.inpaint and args.task not in DIFFUSION_TASKS:
+        raise SystemExit("--inpaint applies to the diffusion tasks only")
+    if args.inpaint and args.mesh_devices:
+        raise SystemExit("--mesh-devices applies to the sampler only: the "
+                         "inpainter has no mesh (as in JAX)")
     device = _device(args)
     bundle = {}
     vocab = args.vocab
@@ -357,34 +373,55 @@ def cmd_export(args) -> Dict:
     if args.checkpoint:
         recipes.load_params(args.checkpoint, args.task, model)
     model.eval()
-    if args.inpaint and args.task not in DIFFUSION_TASKS:
-        raise SystemExit("--inpaint applies to the diffusion tasks only")
-    if args.inpaint:
-        art = dexport.export_inpainter(
-            model, batch=args.batch, num_steps=args.timesteps,
-            num_resamples=args.resamples, cond_scale=args.cond_scale,
-            device=device)
-    elif args.task in DIFFUSION_TASKS:
-        art = dexport.export_sampler(model, batch=args.batch,
-                                     num_steps=args.timesteps,
-                                     cond_scale=args.cond_scale,
-                                     device=device)
-    elif args.task == "inverse_transformer":
-        art = dexport.export_generator(model, batch=args.batch,
-                                       tokens_to_generate=args.tokens,
-                                       cond_scale=args.cond_scale,
-                                       device=device)
-    else:
-        art = dexport.export_encoder(model, batch=args.batch,
-                                     max_length=args.max_length,
-                                     device=device)
-    dexport.save_artifact(art, args.out, extra={"task": args.task}, **bundle)
+    mesh, joined = None, False
+    if args.mesh_devices:
+        from .parallel import make_mesh
+        joined = not dist.is_initialized()
+        try:
+            mesh = make_mesh(args.mesh_devices, device=device.type)
+        except ValueError as e:
+            if joined and dist.is_initialized():
+                dist.destroy_process_group()
+            raise SystemExit(f"{e}: run the export under torchrun "
+                             f"--nproc-per-node {args.mesh_devices}")
+    try:
+        with (kernel_switches(True) if args.fused
+              else contextlib.nullcontext()):
+            if args.inpaint:
+                art = dexport.export_inpainter(
+                    model, batch=args.batch, num_steps=args.timesteps,
+                    num_resamples=args.resamples, cond_scale=args.cond_scale,
+                    device=device)
+            elif args.task in DIFFUSION_TASKS:
+                art = dexport.export_sampler(
+                    model, batch=args.batch, num_steps=args.timesteps,
+                    cond_scale=args.cond_scale, mesh=mesh, device=device)
+            elif args.task == "inverse_transformer":
+                art = dexport.export_generator(
+                    model, batch=args.batch, tokens_to_generate=args.tokens,
+                    cond_scale=args.cond_scale, device=device)
+            else:
+                art = dexport.export_encoder(model, batch=args.batch,
+                                             max_length=args.max_length,
+                                             device=device)
+        if mesh is None or mesh.get_local_rank() == 0:
+            dexport.save_artifact(
+                art, args.out, extra={"task": args.task, "fused": args.fused},
+                **bundle)
+        if mesh is not None:
+            dist.barrier()
+    finally:
+        if joined:
+            dist.destroy_process_group()
     size = os.path.getsize(args.out)
     print(f"wrote {args.out} ({size / 1e6:.2f} MB"
+          f"{', fused' if args.fused else ''}"
+          f"{f', mesh of {args.mesh_devices}' if mesh is not None else ''}"
           f"{', vocab+scaler embedded' if bundle else ''})", file=sys.stderr)
     return _emit({"artifact": args.out, "kind": art.header["kind"],
                   "task": args.task, "device": art.header["device"],
-                  "bytes": size, "bundled": bool(bundle)})
+                  "bytes": size, "bundled": bool(bundle),
+                  "fused": args.fused, "mesh_devices": args.mesh_devices})
 
 
 def cmd_export_torch(args) -> Dict:
@@ -603,6 +640,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="export the RePaint inpainter instead of the "
                    "sampler (diffusion tasks; serve via --http POST "
                    "/inpaint)")
+    x.add_argument("--fused", action="store_true",
+                   help="export with both kernel switches on: the "
+                   "resnet-run kernel (K8) and the shared-KV null half "
+                   "(diffusion tasks)")
+    x.add_argument("--mesh-devices", type=int, default=0,
+                   help="export one rank's share of the batch-parallel "
+                   "sampler over an N-rank data mesh (run under torchrun "
+                   "with N processes; rank 0 writes)")
     x.add_argument("--out", required=True)
     x.add_argument("--checkpoint", default=None)
     x.add_argument("--vocab", type=int, default=None)

@@ -96,7 +96,14 @@ PORT_MODULES = [
 PORT_SCRIPTS = ["examples/audio_diffusion_torch.py",
                 "tests/torch_parallel_workers.py",
                 "tests/torch_parallel_axes_workers.py",
-                "tools/check_torch_parallel_ab.py"]
+                "tools/check_torch_parallel_ab.py",
+                "tools/quality_convergence_torch.py",
+                "tools/eval_converged_torch.py",
+                "tools/reproduce_baseline_torch.py",
+                "tools/import_torch_checkpoint_torch.py",
+                "tools/export_serving_artifact_torch.py",
+                "tools/bench_serving_torch.py",
+                "tools/check_torch_trace_reading.py"]
 
 
 @pytest.fixture(scope="module")
