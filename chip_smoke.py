@@ -319,6 +319,27 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    sampler (``reload_checkpoint``, no new export) and a request of 512
    held-out targets served on its graph tier against the live sampler of
    the same weights and draws, within 2e-2 of scale.
+35. the examples and the notebooks, each example's ``main(argv)`` in this
+   process on the card: ``examples/{inverse,forward}_diffusion_torch.py``
+   at the 91M and 18M presets and ``examples/{inverse,forward}_
+   transformer_torch.py`` at theirs, float32, one epoch of two steps at
+   batch 256 on 600 synthetic rows with each one's eval (4 and 16 samples
+   at 32 steps, 4 generations, 60 predictions) and checkpoint: K1 stash,
+   K3, K4 launched exactly stacks x 3 micro-batches (the preflight pass
+   counts as one), K2 layers x 3, K1 stacks x 62 evaluations, the
+   transformers nothing; ``simple_models_torch.py --full`` (seven families,
+   each differentiated and sampled), its QMDiffusion at the bench geometry
+   (channels 64, max_length 64, pred_dim 16; its stacks at L 16 and 4), the
+   launches of its and the graph analog's training and of its 64-step
+   sample exact; that sample at batch 4 again on the module composition on
+   the same draws, within 1e-4, and K1 alone against its plain version on
+   the longest stack's input (L 16, C 128);
+   ``serve_artifact_torch.py`` on phase 30's 91M sampler file with the
+   inverse example's checkpoint, on its graph tier, 1,134 K1 launches
+   captured and as many kernel nodes in the graph, every row decoded;
+   ``audio_diffusion_torch.py`` at its tiny sizes; the code cells of
+   ``notebooks/Quickstart_torch.ipynb`` in order.  Phase 30's directory
+   goes after this phase, whether or not the phases before it passed.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
@@ -334,7 +355,8 @@ a rank's share of phase 32's mesh request, the training kernels with
 ``launches_parallel``, a rank's data-parallel steps; the training kernels
 and the streaming-attention kernels with ``launches_parallel_axes``, a
 rank's tensor- and sequence-parallel steps of phase 33; K1 and the training
-kernels with ``launches_quality``, phase 34's two runs of the 91M),
+kernels with ``launches_quality``, phase 34's two runs of the 91M, and with
+``launches_examples``, phase 35's runs),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -351,9 +373,11 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -646,6 +670,19 @@ AXES_TARGET_SECONDS = 120
 # kill between checkpoint and curve would, and resumed to 2 epochs; its
 # best.pt served by phase 30's sampler after reload_checkpoint
 QUALITY_ROWS, QUALITY_GENERATE, QUALITY_PRESET = 2048, 8, "notebook"
+
+# phase 35: the port's examples and notebooks, each example's main(argv) in
+# this process on the card: the four task examples at their notebook presets
+# (not --tiny) for one epoch on EXAMPLES_ROWS synthetic rows (540 train: two
+# steps at the examples' default batch of 256, float32) with each one's
+# eval and checkpoint;
+# the tour of simple_models_torch.py at --full (its QMDiffusion the bench
+# geometry: its 64-step float32 sample held against the module composition
+# on the same draws, within SAMPLE_TOL); phase 30's 91M sampler file served
+# by serve_artifact_torch.py with the inverse example's checkpoint; the
+# audio tour at its tiny sizes; the Quickstart notebook's code cells
+EXAMPLES_ROWS, EXAMPLES_BATCH, EXAMPLES_TARGET_SECONDS = 600, 256, 60
+EXAMPLES_TINY, EXAMPLES_FULL = False, True
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -2799,17 +2836,23 @@ def cli_run(argv):
     return out, seconds, counts(), tf.gemm_tc_launches() - products
 
 
+def model_stacks(model) -> tuple:
+    """The Transformer1d stacks of ``model`` and their layers (every stack
+    of the models the script counts takes the stack kernel)."""
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
+    return len(stacks), sum(m.num_layers for m in stacks)
+
+
 def task_stacks(task):
     """A task's notebook model on the meta device, with its Transformer1d
     stacks and their layers counted as phase 7 counts them."""
     import torch
-    from moleculediffusiontransformer_tpu_torch.nn.attention import \
-        Transformer1d
     from moleculediffusiontransformer_tpu_torch.train import recipes
     with torch.device("meta"):
         model = recipes.build_model(task, device="meta")
-    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
-    return model, len(stacks), sum(m.num_layers for m in stacks)
+    return (model, *model_stacks(model))
 
 
 def loop_want(stacks, layers, micro_batches, evals):
@@ -4052,14 +4095,16 @@ def graph_kernel_names(graph) -> list:
     return names
 
 
-def graph_kernel_nodes(what, server):
+def graph_kernel_nodes(what, server, replayed=False):
     """The kernel nodes of ``server``'s captured graph (kept:
     ``kept_graphs``) that run ``GRAPH_KERNELS``: each count must equal the
     launches the wrappers counted while capturing.  A replay runs every
     node of its graph, so a replay launches exactly those.  The graph is
-    instantiated here, before its first replay."""
+    instantiated here, before its first replay, unless it has ``replayed``
+    already (a replay instantiates a kept graph)."""
     names = graph_kernel_names(server._graph)
-    server._graph.instantiate()
+    if not replayed:
+        server._graph.instantiate()
     nodes, want = {}, {}
     for name, counters in GRAPH_KERNELS.items():
         pattern = graph_kernel_pattern(name)
@@ -4379,13 +4424,13 @@ def serve_http(servers, inv, tr, ck_b, ck_a):
         raise AssertionError(f"the HTTP routes: {checks}")
 
 
-def serving_artifacts(dev, inv, tr):
+def serving_artifacts(dev, inv, tr, tmp):
     """Phase 30: export, load and serve the four artifact kinds on the card
-    against the live path, time the tiers, and drive the HTTP routes.
-    Returns the K1, uniform_ctx and K8 launches of the served requests and
-    the 91M sampler's server (phase 34 serves a trained checkpoint on it)."""
-    import tempfile
-
+    against the live path, time the tiers, and drive the HTTP routes; the
+    artifacts and checkpoints go into the directory ``tmp``.  Returns the
+    K1, uniform_ctx and K8 launches of the served requests and the 91M
+    sampler's server (phase 34 serves a trained checkpoint on it, phase 35
+    its file, ``tmp``/sampler.pt2)."""
     import numpy as np
     import torch
     from moleculediffusiontransformer_tpu_torch.data.tokenizer import (
@@ -4395,8 +4440,6 @@ def serving_artifacts(dev, inv, tr):
     from moleculediffusiontransformer_tpu_torch.models.transformers import \
         generate_sequence
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="serve_", dir=os.path.join(
-        ROOT, "moleculediffusiontransformer_tpu_torch", "_build"))
     gen = torch.Generator(device=dev).manual_seed(30)
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -4937,13 +4980,9 @@ def preset_stacks(preset) -> tuple:
     import torch
     from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
         QMDiffusion
-    from moleculediffusiontransformer_tpu_torch.nn.attention import \
-        Transformer1d
     with torch.device("meta"):
         model = QMDiffusion(**preset)
-    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
-    return (len(stacks), sum(m.num_layers for m in stacks),
-            sum(p.numel() for p in model.parameters()))
+    return (*model_stacks(model), sum(p.numel() for p in model.parameters()))
 
 
 def parallel_config(dev, inv) -> dict:
@@ -6441,6 +6480,267 @@ def quality_tools(dev, sampler):
               seconds=time.perf_counter() - t_phase)
     return launches
 
+# ------------------------------------------------------------- phase 35 --
+
+def example_module(name):
+    """A module of ``examples/`` (the port's ``*_torch.py``), imported."""
+    import importlib
+    examples = os.path.join(ROOT, "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    return importlib.import_module(name)
+
+
+def meta_stacks(build, *args) -> tuple:
+    """``model_stacks`` of ``build(*args, "meta")``, built on the meta
+    device."""
+    import torch
+    with torch.device("meta"):
+        return model_stacks(build(*args, "meta"))
+
+
+def example_run(what, fn, want=None):
+    """``fn()`` (an example's ``main``) in this process, its printing kept
+    out of the output: (its result, host seconds, the launches), the counts
+    set to 0 just before and read just after; held to ``want`` when
+    given."""
+    import io
+
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        out = fn()
+    torch.cuda.synchronize()
+    seconds, got = time.perf_counter() - t0, counts()
+    if want is not None:
+        check_launches(what, got, want)
+    final = out if isinstance(out, dict) else {}
+    phase("example", example=what, seconds=seconds,
+          launches={k: v for k, v in got.items() if v},
+          final={k: v for k, v in final.items()
+                 if isinstance(v, (int, float))})
+    return out, seconds, got
+
+
+def example_data(rows, mode, max_length):
+    """The examples' synthetic stand-in of ``rows`` rows, prepared for
+    ``mode`` (90% of the rows train, 10% are held out)."""
+    from moleculediffusiontransformer_tpu_torch.data.qm9 import (
+        prepare_qm9, synthetic_qm9)
+    return prepare_qm9(*synthetic_qm9(rows, seed=0, chemically_valid=True),
+                       mode=mode, max_length=max_length)
+
+
+def bench_geometry_checks(dev, qm, seed):
+    """The tour's QMDiffusion (the bench geometry under ``--full``): its
+    sample again with every stack on its module composition
+    (``disable_fusion``) on the same draws (``seed``), within SAMPLE_TOL of
+    the tour's through the kernels; then K1 alone against its plain version
+    on the longest stack's input of that sample's first evaluation.  Runs
+    outside the counted windows."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models.qm_diffusion import \
+        sample
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    model, steps = qm["model"], qm["num_steps"]
+    stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
+    seen = {}
+
+    def keep_longest(mod, args, kwargs, out):
+        x = args[0]
+        if x.shape[1] > seen.get("length", 0):
+            ctx = args[1] if len(args) > 1 else kwargs.get("context")
+            seen.update(length=x.shape[1], module=mod, x=x.clone(),
+                        ctx=None if ctx is None else ctx.clone())
+
+    handles = [m.register_forward_hook(keep_longest, with_kwargs=True)
+               for m in stacks]
+    for m in stacks:
+        m.disable_fusion = True
+    try:
+        reset_counts()
+        plain, plain_s = timed(lambda: sample(
+            model, qm["sequences"], torch.Generator(device=dev).manual_seed(
+                seed), num_steps=steps, cond_scale=1.0))
+        check_no_launches("the bench geometry on its composition")
+    finally:
+        for m in stacks:
+            m.disable_fusion = False
+        for h in handles:
+            h.remove()
+    err = _abs_err(qm["out"], plain)
+    mod, x, ctx = seen["module"], seen["x"].contiguous(), seen["ctx"]
+    if not mod.context_features:
+        ctx = None
+    kp, kw = mod.kernel_params(), mod._geometry()
+    with torch.no_grad():
+        got = tf.transformer1d_forward(kp, x, ctx, **kw)
+        want = tf.transformer1d_reference(kp, x, ctx, **kw)
+    k1_err = _abs_err(got, want)
+    record = dict(batch=qm["sequences"].shape[0], steps=steps,
+                  sample_seconds=qm["sample_seconds"],
+                  plain_sample_seconds=plain_s, max_abs_err=err,
+                  tol=SAMPLE_TOL, k1_stack=list(x.shape),
+                  k1_context=None if ctx is None else list(ctx.shape),
+                  k1_max_abs_err=k1_err, k1_tol=KERNEL_TOL["float32"])
+    phase("bench_geometry_sample", **record)
+    if not (err <= SAMPLE_TOL and k1_err <= KERNEL_TOL["float32"]):
+        raise AssertionError(f"the bench geometry's sample: {record}")
+    return record
+
+
+def notebook_code(path, device) -> list:
+    """The code cells of a notebook, in order, its ``DEVICE`` line naming
+    ``device``."""
+    with open(path) as f:
+        cells = json.load(f)["cells"]
+    return ["".join(c["source"]).replace(
+        "torch.device('cuda')", f"torch.device('{device.type}')")
+        for c in cells if c["cell_type"] == "code"]
+
+
+def examples_and_notebooks(dev, sampler_path, scratch=None):
+    """Phase 35: every example of the port through its ``main(argv)`` on
+    ``dev`` at full width, the launches of the task examples and of the
+    tour's QMDiffusion held exactly; phase 30's sampler file served with the
+    inverse example's checkpoint; the Quickstart notebook's cells.  The
+    examples' checkpoints go into a temporary directory under ``scratch``
+    (``_build/`` by default), removed with the phase.  Returns the launches
+    of the phase's runs, summed."""
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
+        latest_checkpoint
+    t_phase = time.perf_counter()
+    launched = collections.Counter()
+    none = {k: 0 for k in counts()}
+    size = ["--tiny"] if EXAMPLES_TINY else []
+    scratch = scratch or os.path.join(
+        ROOT, "moleculediffusiontransformer_tpu_torch", "_build")
+    with tempfile.TemporaryDirectory(prefix="examples_", dir=scratch) as root:
+        def argv(name):
+            return ["--rows", str(EXAMPLES_ROWS), "--batch-size",
+                    str(EXAMPLES_BATCH), "--epochs", "1", "--device",
+                    dev.type, "--checkpoint-dir", os.path.join(root, name),
+                    *size]
+
+        # the four task examples: one epoch each, its eval after it
+        for name, mode, length, diffusion in (
+                ("inverse_diffusion", "inverse_diffusion", 32, True),
+                ("forward_diffusion", "forward_diffusion", 64, True),
+                ("inverse_transformer", "transformer", 64, False),
+                ("forward_transformer", "transformer", 64, False)):
+            example = example_module(name + "_torch")
+            data = example_data(EXAMPLES_ROWS, mode, length)
+            want = none
+            if diffusion:
+                args = (EXAMPLES_TINY,) if name == "forward_diffusion" else (
+                    data.vocab_size, EXAMPLES_TINY)
+                stacks, layers = meta_stacks(example.build_model, *args)
+                steps = len(data.X_train) // EXAMPLES_BATCH
+                want = loop_want(stacks, layers, steps + 1,
+                                 2 * (example.EVAL_STEPS - 1))
+            _, _, got = example_run(name, lambda: example.main(argv(name)),
+                                    want)
+            launched.update(got)
+
+        # the tour at the notebook sizes: its bench-geometry QMDiffusion and
+        # the graph analog train through K1 stash and K2-K4, the sample
+        # through K1
+        example = example_module("simple_models_torch")
+        tour, _, got = example_run("simple_models", lambda: example.main(
+            [*(["--full"] if EXAMPLES_FULL else []), "--device", dev.type]))
+        trained = [model_stacks(r["model"]) for r in tour.values()]
+        qm = tour["demo_qm_diffusion"]
+        want = loop_want(sum(s for s, _ in trained),
+                         sum(n for _, n in trained), 1, 0)
+        want["LAUNCHES"] = model_stacks(qm["model"])[0] * 2 * (
+            qm["num_steps"] - 1)
+        check_launches("simple_models", got, want)
+        launched.update(got)
+        bench = bench_geometry_checks(dev, qm, example.SAMPLE_SEED)
+        del tour, qm
+
+        # phase 30's 91M sampler, the inverse example's checkpoint swapped in
+        example = example_module("serve_artifact_torch")
+        ckpt = latest_checkpoint(os.path.join(root, "inverse_diffusion"))
+        with kept_graphs():
+            served, _, got = example_run(
+                "serve_artifact", lambda: example.main(
+                    [sampler_path, "--checkpoint", ckpt, "--rows",
+                     str(EXAMPLES_ROWS), "--device", dev.type]))
+        launched.update(got)
+        server = served["server"]
+        n = min(server.batch, len(example_data(
+            EXAMPLES_ROWS, "inverse_diffusion", 32).y_test))
+        stacks, _ = meta_stacks(example_module(
+            "inverse_diffusion_torch").build_model, server.meta["shape"][1],
+            EXAMPLES_TINY)
+        served_want = {"LAUNCHES": stacks * 2 * (
+            server.meta["sampler"]["num_steps"] - 1), "UNIFORM_LAUNCHES": 0,
+            "RESNET_LAUNCHES": 0}
+        if dev.type == "cuda":
+            if server.tier != "graph":
+                raise AssertionError(f"the served example: the graph tier "
+                                     f"did not capture: {server.exec_error}")
+            check_launches("the served example, captured", {
+                k: server.launches[k] for k in SERVED_COUNTS}, served_want)
+            graph_kernel_nodes("the served example", server, replayed=True)
+        smiles = served["smiles"]
+        if (len(smiles) != n or not all(isinstance(s, str) for s in smiles)
+                or not np.isfinite(served["validity_fraction"])):
+            raise AssertionError(f"the served example decoded {smiles[:4]}"
+                                 f" ({len(smiles)} of {n})")
+        serve_record = dict(tier=server.tier, rows=len(smiles),
+                            captured=served_want,
+                            validity=served["validity_fraction"],
+                            novelty=served["novelty_fraction"],
+                            startup=server.startup)
+        del served, server
+
+        # the audio tour at its tiny sizes (phase 31 runs its presets)
+        example = example_module("audio_diffusion_torch")
+        _, _, got = example_run("audio_diffusion", lambda: example.main(
+            ["--device", dev.type]))
+        launched.update(got)
+
+    # the Quickstart notebook, its code cells in order
+    ns = {}
+    path = os.path.join(ROOT, "notebooks", "Quickstart_torch.ipynb")
+    _, _, got = example_run("Quickstart", lambda: [
+        exec(compile(src, f"Quickstart cell {i}", "exec"), ns)
+        for i, src in enumerate(notebook_code(path, dev))])
+    launched.update(got)
+    report = ns["evaluate_generated"](ns["generated"], ns["data"].smiles)
+    del ns
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    phase("examples_and_notebooks", seconds=seconds,
+          target=EXAMPLES_TARGET_SECONDS, launches=dict(launched),
+          bench_geometry=bench, served=serve_record,
+          quickstart_validity=report["validity_fraction"])
+    return dict(launched)
+
+
+class PhaseClock:
+    """Host seconds of each numbered phase: ``start(n)`` prints the seconds
+    of the phase that ran since the last call and starts phase ``n``."""
+
+    def __init__(self, number):
+        self.number, self.t0 = number, time.perf_counter()
+
+    def start(self, number):
+        now = time.perf_counter()
+        phase("phase_seconds", number=self.number, seconds=now - self.t0)
+        self.number, self.t0 = number, now
+
 
 def main() -> int:
     t_script = time.perf_counter()
@@ -6472,6 +6772,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. device
+    clock = PhaseClock(1)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -6480,20 +6781,26 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
+    clock.start(2)
     # 2. build, every source at once (phases 5, 8, 14 and 20 report the
-    # others)
+    # others); each phase waits only for the libraries it calls, so the
+    # slowest nvcc runs on beside the first phases
     at = attention_ops()
     sources = (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE, fa.SOURCE, fa.BWD_SOURCE,
                at.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        builds = dict(zip(sources, pool.map(cuda_build.build, sources)))
-    path, seconds = builds[tf.SOURCE]
+    pool = ThreadPoolExecutor(len(sources))
+    builds = {source: pool.submit(cuda_build.build, source)
+              for source in sources}
+    pool.shutdown(wait=False)
+    path, seconds = builds[tf.SOURCE].result()
     phase("build", library=os.path.relpath(path, ROOT), seconds=seconds)
 
+    clock.start(3)
     # 3. kernel against its plain version
     worst, stack_ms, stack_card_ms, stack_plain_ms, stack_bound = \
         check_stacks(dev)
 
+    clock.start(4)
     # 4. the serving path, both switches at their default (off)
     if rf.resnet_fusion_enabled() or tf.cfg_null_half_active():
         raise AssertionError("a switch is on by default")
@@ -6545,26 +6852,32 @@ def main() -> int:
     if not sample_err <= SAMPLE_TOL:
         raise AssertionError(f"fp32 sample: kernel vs plain {sample_err}")
 
+    clock.start(5)
     # 5. build of the backward kernels (started in phase 2)
-    path, seconds = builds[tf.BWD_SOURCE]
+    path, seconds = builds[tf.BWD_SOURCE].result()
     phase("build_bwd", library=os.path.relpath(path, ROOT), seconds=seconds)
 
+    clock.start(6)
     # 6. the training kernels against their plain versions
     train_kernels = check_backward(dev)
 
+    clock.start(7)
     # 7. the training path
     train_launches = train_path(dev)
     fp32_step_vs_plain(dev)
 
+    clock.start(8)
     # 8. K8 against its plain version (built in phase 2)
-    path, seconds = builds[rf.SOURCE]
+    path, seconds = builds[rf.SOURCE].result()
     phase("build_resnet", library=os.path.relpath(path, ROOT),
           seconds=seconds)
     resnet = check_resnet(dev)
 
+    clock.start(9)
     # 9. the uniform-context stack kernel against its plain version
     uniform = check_uniform(dev)
 
+    clock.start(10)
     # 10. the 91M model serving with both switches on
     switches(True)
     served_on = serve(model, requests, gen, NUM_STEPS, COND_SCALE,
@@ -6580,6 +6893,7 @@ def main() -> int:
         raise AssertionError(f"fp32 sample, switches on: card vs CPU "
                              f"composition {on_err}")
 
+    clock.start(11)
     # 11. the 91M model training with K8 on
     train_model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
     init_parameters(train_model, torch.Generator().manual_seed(0))
@@ -6601,6 +6915,7 @@ def main() -> int:
         raise AssertionError(f"training with K8 on launched it "
                              f"{trained['RESNET_LAUNCHES']} times, < {want}")
 
+    clock.start(12)
     # 12. the 18M forward model, K8 on
     fmodel = QMDiffusionForward(**FORWARD, dtype=torch.bfloat16)
     init_parameters(fmodel, torch.Generator().manual_seed(5))
@@ -6641,6 +6956,7 @@ def main() -> int:
     fp32_step_vs_plain(dev, QMDiffusionForward, FORWARD, forward_batch,
                        card_switches=True, what="forward_fp32_step_vs_plain")
 
+    clock.start(13)
     # 13. switches on against off, in turns
     ab("inverse sampling, batch 512, mol/s",
        lambda: timed_request(model, requests[-1], gen, NUM_STEPS,
@@ -6658,16 +6974,19 @@ def main() -> int:
         step = trainer.make_diffusion_train_step(m, opt, MICRO_BATCHES)
         ab(what, lambda: timed_training(step, state, c, t, g))
 
+    clock.start(14)
     # 14. build of the streaming-attention kernels (started in phase 2)
     for source in (fa.SOURCE, fa.BWD_SOURCE):
-        path, seconds = builds[source]
+        path, seconds = builds[source].result()
         phase("build_flash", library=os.path.relpath(path, ROOT),
               seconds=seconds)
 
+    clock.start(15)
     # 15. K5, K6, K7 against their plain versions; 16. the crossover
     flash = check_flash(dev)
     check_crossover(dev)
 
+    clock.start(17)
     # 17. the long-sequence model serving, MDT_FLASH at its default (on)
     if not fa.flash_enabled():
         raise AssertionError("MDT_FLASH is off by default")
@@ -6683,6 +7002,7 @@ def main() -> int:
                              f"threshold {fa.LONG_SEQ_THRESHOLD}: "
                              f"{short_served}")
 
+    clock.start(18)
     # 18. the long-sequence model training
     long_train(dev, LONG_SAMPLES, LONG_BATCHES[0], steps=AB_TRAIN_STEPS)
     long_train(dev, LONG_SAMPLES, LONG_BATCHES[1], steps=AB_TRAIN_STEPS)
@@ -6709,61 +7029,92 @@ def main() -> int:
                  f"samples/s, peak bytes", flash_training)
     del ltrain, lx
 
+    clock.start(19)
     # 19. float32 parity of the long model, card against CPU
     long_fp32_vs_plain(dev)
 
+    clock.start(20)
     # 20. build of the resident-KV attention kernels (started in phase 2)
-    path, seconds = builds[at.SOURCE]
+    path, seconds = builds[at.SOURCE].result()
     phase("build_attention", library=os.path.relpath(path, ROOT),
           seconds=seconds)
 
+    clock.start(21)
     # 21. K9 and K10 against their plain version, then their main path
     attention = check_attention(dev)
     attention_launched = drive_attention_entry_points(dev)
 
+    clock.start(22)
     # 22. the inverse AR transformer serving
     ar_serve(dev)
     ar_fp32_request_vs_cpu(dev)
 
+    clock.start(23)
     # 23. the inverse AR transformer training
     ar_train(dev)
     ar_fp32_step_vs_cpu(dev)
 
+    clock.start(24)
     # 24. the forward transformer
     inv, tr = design_data()
     encoder = encoder_serve_and_train(dev, tr)
     encoder_fp32_vs_cpu(dev, tr)
 
+    clock.start(25)
     # 25. the inverse-design pipeline on the 91M model
     design_pipeline(dev, inv, tr, encoder)
 
+    clock.start(26)
     # 26. float32 parity of the pipeline, card against CPU
     design_fp32_vs_cpu(dev, inv)
 
+    clock.start(27)
     # 27. the training loop, checkpoints and resume, the recipes, the CLI
     loop_launches, loop_first = train_loop(dev)
 
+    clock.start(28)
     # 28. the diffusion options on the audio preset
     audio_launches = audio_options(dev)
 
+    clock.start(29)
     # 29. the GPT family
     gpt_family(dev)
 
-    # 30. serving: the artifacts, both tiers, the HTTP front end
-    served, sampler = serving_artifacts(dev, inv, tr)
+    clock.start(30)
+    # 30. serving: the artifacts, both tiers, the HTTP front end; its
+    # directory (the artifacts and 91M checkpoints) goes once phases 34 and
+    # 35 are done with the sampler, whether or not they pass
+    serve_dir = tempfile.mkdtemp(prefix="serve_", dir=os.path.join(
+        ROOT, "moleculediffusiontransformer_tpu_torch", "_build"))
+    try:
+        served, sampler = serving_artifacts(dev, inv, tr, serve_dir)
 
-    # 31. the audio assemblies and the graph analogs
-    asm_served, asm_trained = audio_assemblies(dev)
+        clock.start(31)
+        # 31. the audio assemblies and the graph analogs
+        asm_served, asm_trained = audio_assemblies(dev)
 
-    # 32. the data-parallel layer: two ranks through gloo, then NCCL at one
-    parallel = parallel_layer(dev, inv, loop_first)
+        clock.start(32)
+        # 32. the data-parallel layer: two ranks through gloo, then NCCL at
+        # one
+        parallel = parallel_layer(dev, inv, loop_first)
 
-    # 33. the other axes: tensor, sequence, pipeline and expert parallelism
-    axes = parallel_axes(dev)
+        clock.start(33)
+        # 33. the other axes: tensor, sequence, pipeline and expert
+        # parallelism
+        axes = parallel_axes(dev)
 
-    # 34. the quality tools on the 91M, its best checkpoint served
-    quality = quality_tools(dev, sampler)
-    del sampler
+        clock.start(34)
+        # 34. the quality tools on the 91M, its best checkpoint served
+        quality = quality_tools(dev, sampler)
+        del sampler
+
+        clock.start(35)
+        # 35. the examples and the notebooks at full width, phase 30's
+        # sampler file served with the inverse example's checkpoint
+        examples = examples_and_notebooks(
+            dev, os.path.join(serve_dir, "sampler.pt2"))
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
@@ -6790,6 +7141,7 @@ def main() -> int:
         "launches_assemblies": asm_served["LAUNCHES"],
         "launches_parallel": parallel["serve"]["LAUNCHES"],
         "launches_quality": quality["LAUNCHES"],
+        "launches_examples": examples["LAUNCHES"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -6813,7 +7165,8 @@ def main() -> int:
                         "launches_assemblies_train": asm_trained[count],
                         "launches_parallel": parallel["train"][count],
                         "launches_parallel_axes": axes["tp"][count],
-                        "launches_quality": quality[count]})
+                        "launches_quality": quality[count],
+                        "launches_examples": examples[count]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({
@@ -6873,6 +7226,7 @@ def main() -> int:
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its main "
                              f"path: {kernels}")
+    clock.start(None)
     phase("script_seconds", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -248,7 +248,7 @@ DEMOS = [demo_model, demo_upsampler, demo_autoencoder, demo_vocoder,
          demo_ar, demo_upphaser, demo_conditional]
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--full", action="store_true",
                     help="reference preset sizes (2**15-sample waveforms)")
@@ -256,7 +256,11 @@ def main(argv=None):
                     help="substring filter on demo names")
     ap.add_argument("--device", default="cuda",
                     help="where the models run (default: the card)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     for demo in DEMOS:
         if args.only and args.only not in demo.__name__:

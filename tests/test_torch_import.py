@@ -94,6 +94,14 @@ PORT_MODULES = [
 # entry points outside the package, and the ranks' module of the parallel
 # tests (each rank a fresh interpreter), imported by path
 PORT_SCRIPTS = ["examples/audio_diffusion_torch.py",
+                "examples/common_torch.py",
+                "examples/inverse_diffusion_torch.py",
+                "examples/forward_diffusion_torch.py",
+                "examples/inverse_transformer_torch.py",
+                "examples/forward_transformer_torch.py",
+                "examples/simple_models_torch.py",
+                "examples/serve_artifact_torch.py",
+                "tools/make_notebooks_torch.py",
                 "tests/torch_parallel_workers.py",
                 "tests/torch_parallel_axes_workers.py",
                 "tools/check_torch_parallel_ab.py",
@@ -175,7 +183,8 @@ def test_entry_points_default_to_the_card():
     Internaldim decoder, the audio assemblies' presets (and
     ``build_model1d`` of the AR model), ``build_graph_model`` and the models
     of ``examples/audio_diffusion_torch.py`` put the model on the card
-    unless the caller names a device: with no device
+    unless the caller names a device (and the other examples' ``main``
+    runs there unless ``--device`` names another): with no device
     argument they ask for "cuda" (which raises on a host without one), never
     the CPU.  So do the serving entry points: ``export_*`` and
     ``ArtifactServer`` export and serve on the card unless ``device``
@@ -263,6 +272,19 @@ def test_entry_points_default_to_the_card():
                dx.export_encoder)
     meshes_2d = (parallel.make_mesh_2d, parallel.make_mesh_sp,
                  parallel.make_mesh_ep, parallel.make_mesh_pp)
+    # the examples' main: without --device they ask for the card
+    examples = {name: _example(name) for name in (
+        "inverse_diffusion_torch", "forward_diffusion_torch",
+        "inverse_transformer_torch", "forward_transformer_torch",
+        "simple_models_torch", "serve_artifact_torch")}
+    example_argv = {"serve_artifact_torch": ["a.pt2"],
+                    "simple_models_torch": []}
+    for name, module in examples.items():
+        argv = example_argv.get(name, ["--tiny", "--rows", "64"])
+        assert module.build_parser().parse_args(argv).device == "cuda", name
+        if not torch.cuda.is_available():
+            with pytest.raises(SystemExit, match="no CUDA device"):
+                module.main(argv)
     for entry in (*exports, ArtifactServer, parallel.make_mesh,
                   parallel.distributed_init, *meshes_2d):
         assert inspect.signature(entry).parameters["device"].default == \
@@ -286,10 +308,9 @@ def test_entry_points_default_to_the_card():
                 entry(1, 1)
 
 
-def _example():
+def _example(name="audio_diffusion_torch"):
     spec = importlib.util.spec_from_file_location(
-        "audio_diffusion_torch",
-        os.path.join(ROOT, "examples", "audio_diffusion_torch.py"))
+        name, os.path.join(ROOT, "examples", name + ".py"))
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     return example
