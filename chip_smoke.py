@@ -187,7 +187,14 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    serving launches counted as the 91M's, the transformers launching
    nothing); two float32 ``train_diffusion`` steps of the 91M model at
    batch 8 on the same draws, card against CPU, the losses within 1e-4;
-   and seconds an epoch with ``prefetch`` 2 and 0 in turns;
+   and seconds an epoch with ``prefetch`` 2 and 0 in turns.  The straight
+   run's training again on the Orbax checkpoint tier
+   (``checkpoint_backend="orbax"``, ``core/checkpoint_orbax.py``) through
+   ``recipes.train_task`` at the CLI's arguments: 1 epoch, then 1 more
+   resumed, launches counted as above, the resumed run's last checkpoint
+   held to the straight run's as the single-file tier's is; a line of every
+   save of both tiers in those runs (the step stream's hold, seconds to
+   commit, bytes) and of each restore's seconds;
 28. the diffusion options on the audio preset
    (``AudioDiffusionConditional(768, 64, unet_type="all",
    diffusion_type="vk")``, 115M parameters at full width, bfloat16, seeded
@@ -286,7 +293,11 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    losses and launches held against that run's; then FSDP2 over a group of
    one (NCCL), 3 steps in bf16 at 512 and in float32 at 8 against the
    unsharded model (within 2e-2 and 1e-4), the kernels' cached weights
-   equal to the gathered ones at every stack call.
+   equal to the gathered ones at every stack call.  After the two ranks'
+   FSDP steps, each rank saves its shards on the Orbax tier in the
+   background, takes one more step while the write is in flight, and
+   restores into a freshly sharded model: every local shard bitwise the
+   saved one, no tensor gathered during the restore, each rank's bytes.
 33. the other axes of ``parallel/`` on two spawned ranks of a gloo group on
    the card: a pair of processes of its own probes what gloo takes on CUDA
    tensors of send/recv (``batch_isend_irecv``) and ``all_to_all_single``,
@@ -2874,15 +2885,20 @@ def check_launches(what, got, want):
 
 
 def resume_agreement(straight_path, resumed_path):
-    """Compare two checkpoints: how the parameters agree ('bitwise',
-    'within 1e-6 of scale' or None), and the largest difference over a
-    tensor's largest magnitude, with its tensor's name, among the
-    parameters and among Adam's moments."""
+    """Compare two checkpoint files (``checkpoint_agreement``)."""
     import torch
     from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
         load_checkpoint
-    a, b = (load_checkpoint(p, torch.device("cpu"))
-            for p in (straight_path, resumed_path))
+    return checkpoint_agreement(*(load_checkpoint(p, torch.device("cpu"))
+                                  for p in (straight_path, resumed_path)))
+
+
+def checkpoint_agreement(a, b):
+    """Compare two checkpoints' contents (``checkpoint_state``'s layout):
+    how the parameters agree ('bitwise', 'within 1e-6 of scale' or None),
+    and the largest difference over a tensor's largest magnitude, with its
+    tensor's name, among the parameters and among Adam's moments."""
+    import torch
     params = {k: (a["model"][k], b["model"][k]) for k in b["model"]}
     moments = {f"{m}.{k}": (a["adam"][m][k], b["adam"][m][k])
                for m in ("mu", "nu") for k in b["adam"][m]}
@@ -2904,12 +2920,13 @@ def resume_agreement(straight_path, resumed_path):
     return held, record
 
 
-def loop_train_and_resume(tmp):
+def loop_train_and_resume(tmp, dev):
     """Phase 27, steps 1 and 3: the 91M inverse model trained through the
     CLI (float32, the recipes' default) for 2 epochs into D1, for 1 into
     D2 and resumed there for 1 more; every launch counted; then ``eval``,
-    ``sample`` and ``inpaint`` from D1's latest checkpoint.  Returns the
-    straight run's launches and the first run's arguments (without its
+    ``sample`` and ``inpaint`` from D1's latest checkpoint; between them the
+    Orbax tier's runs (``loop_orbax_tier``).  Returns the straight run's
+    launches and the first run's arguments (without its
     directory), losses and launches (phase 32 runs it again under
     ``torchrun``)."""
     from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
@@ -2954,6 +2971,7 @@ def loop_train_and_resume(tmp):
     if held is None:
         raise AssertionError(f"the resumed run's parameters differ from "
                              f"the straight run's: {record}")
+    loop_orbax_tier(tmp, dev, straight_ckpt, runs["straight"]["losses"])
 
     use = ["--preset", "notebook", "--rows", str(LOOP_ROWS),
            "--checkpoint", straight_ckpt]
@@ -2984,6 +3002,139 @@ def loop_train_and_resume(tmp):
     first = {"argv": base + ["--epochs", "1"],
              "losses": runs["first"]["losses"], "launches": launches["first"]}
     return launches["straight"], first
+
+
+def loop_orbax_tier(tmp, dev, straight_ckpt, straight_losses):
+    """Phase 27, step 1b: the straight CLI run's training again on the Orbax
+    checkpoint tier (``TrainConfig.checkpoint_backend="orbax"``):
+    ``recipes.train_task``, the CLI's training call, on the CLI's data and
+    model at its arguments (float32), 1 epoch into D3 and 1 more resumed
+    there, every launch counted; the resumed run's last state (what its
+    last save wrote) held to the straight run's checkpoint as the
+    single-file tier's resumed one is."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint import (
+        checkpoint_state, load_checkpoint)
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint_orbax import \
+        OrbaxCheckpointer
+    from moleculediffusiontransformer_tpu_torch.core.config import \
+        TrainConfig
+    from moleculediffusiontransformer_tpu_torch.data.qm9 import (
+        prepare_qm9, synthetic_qm9)
+    from moleculediffusiontransformer_tpu_torch.train import recipes
+    task = "inverse_diffusion"
+    _, stacks, layers = task_stacks(task)
+    batch, micro = recipes.PRODUCTION_BATCHES[task]
+    data = prepare_qm9(*synthetic_qm9(LOOP_ROWS, seed=0,
+                                      chemically_valid=True), mode=task)
+    d3 = os.path.join(tmp, "d3")
+    losses = []
+    for name, resume in (("first", False), ("resumed", True)):
+        model = recipes.build_model(task, data.vocab_size, "notebook",
+                                    device=dev, seed=0)
+        config = TrainConfig(learning_rate=2e-4, batch_size=batch, epochs=1,
+                             seed=0, accumulation_steps=micro,
+                             print_loss_every=1, checkpoint_backend="orbax")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, logger = recipes.train_task(task, model, data, config,
+                                           checkpoint_dir=d3, resume=resume)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        run = [r["loss"] for r in logger.history if "loss" in r]
+        steps = len(run)
+        phase("loop_train_orbax", run=name, task=task, dtype="float32",
+              batch=batch, micro_batches=micro, steps=steps, at=state.step,
+              seconds=seconds, losses=run, launches=launched)
+        if not steps or not all(map(math.isfinite, run)):
+            raise AssertionError(f"orbax {name}: losses {run}")
+        check_launches(f"Orbax-tier train ({name})", launched,
+                       loop_want(stacks, layers, micro * steps + 1, 0))
+        losses += run
+    # the resumed run's last state (its last save's) on the card against
+    # the straight run's checkpoint loaded there
+    held, record = checkpoint_agreement(
+        load_checkpoint(straight_ckpt, dev), checkpoint_state(model, state))
+    phase("loop_resume_orbax", straight=os.path.basename(straight_ckpt),
+          committed=OrbaxCheckpointer(d3).all_steps(), held=held, **record,
+          losses_equal=losses == straight_losses)
+    if held is None:
+        raise AssertionError(f"the Orbax tier's resumed run differs from "
+                             f"the straight run: {record}")
+
+
+@contextlib.contextmanager
+def checkpoint_timings():
+    """Phase 27: the two checkpoint tiers' saves and restores inside
+    ``train_diffusion`` while the block runs.  A single-file save
+    (``save_step_checkpoint``, synchronous: the step stream waits for all
+    of it) timed between two synchronisations, with its file's bytes; every
+    ``OrbaxCheckpointer`` the loop makes kept (its ``saves``: the staging
+    copy's hold of the step stream from CUDA events, the seconds from
+    ``save`` to the commit, the bytes); each restore of either tier timed
+    to the synchronisation after it."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+    rec = {"single_file": [], "orbax": [], "restores": []}
+    names = ("save_step_checkpoint", "restore_checkpoint",
+             "restore_train_state", "OrbaxCheckpointer")
+    saved = {n: getattr(trainer, n) for n in names}
+
+    def save_step_checkpoint(directory, state, step, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = saved["save_step_checkpoint"](directory, state, step, *args,
+                                             **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec["single_file"].append({"step": step, "hold_ms": 1e3 * seconds,
+                                   "commit_seconds": seconds,
+                                   "bytes": os.path.getsize(path)})
+        return path
+
+    def timed(tier, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["restores"].append({"tier": tier,
+                                    "seconds": time.perf_counter() - t0})
+            return out
+        return call
+
+    class Kept(saved["OrbaxCheckpointer"]):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            rec["orbax"].append(self)
+
+    trainer.save_step_checkpoint = save_step_checkpoint
+    trainer.restore_checkpoint = timed("single_file",
+                                       saved["restore_checkpoint"])
+    trainer.restore_train_state = timed("orbax", saved["restore_train_state"])
+    trainer.OrbaxCheckpointer = Kept
+    try:
+        yield rec
+    finally:
+        for n, fn in saved.items():
+            setattr(trainer, n, fn)
+
+
+def report_checkpoint_tiers(rec) -> None:
+    """Phase 27: the line of the two tiers' saves and restores on the 91M
+    (``checkpoint_timings``)."""
+    orbax = [s for ck in rec["orbax"] for s in ck.saves]
+    phase("loop_checkpoint_tiers", single_file_saves=rec["single_file"],
+          orbax_saves=orbax, restores=rec["restores"],
+          note="hold_ms: the step stream held by a save (single-file: the "
+               "whole synchronous save on the host's clock; Orbax: the "
+               "staging copy into pinned host memory, CUDA events); the "
+               "Orbax write and commit run on the writer thread")
+    tiers = [r["tier"] for r in rec["restores"]]
+    if len(orbax) != 2 or len(rec["single_file"]) != 4 or sorted(
+            tiers) != ["orbax", "single_file"]:
+        raise AssertionError(f"checkpoint saves and restores: {rec}")
 
 
 def loop_step_memory(dev):
@@ -3257,7 +3408,9 @@ def train_loop(dev):
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launched, first = loop_train_and_resume(tmp)
+        with checkpoint_timings() as timings:
+            launched, first = loop_train_and_resume(tmp, dev)
+        report_checkpoint_tiers(timings)
         data = loop_step_memory(dev)
         loop_determinism(dev, data)
         loop_other_tasks(tmp)
@@ -5152,7 +5305,8 @@ def fsdp_train(mesh, dev, cfg) -> dict:
     reduce_scatter on CUDA tensors, staged through the host: phase 32's
     probe): ``dp_train``'s model, batch and draws, sharded, one warm-up and
     ``dp_steps`` steps; the stacks' cached kernel weights watched; the
-    losses, launches, peak memory and the elements this rank holds."""
+    losses, launches, peak memory and the elements this rank holds; then
+    the Orbax tier on the trained shards (``fsdp_orbax``)."""
     import torch
     from moleculediffusiontransformer_tpu_torch.parallel import (
         shard_batch, shard_state_fsdp)
@@ -5175,8 +5329,95 @@ def fsdp_train(mesh, dev, cfg) -> dict:
               for i in range(1 + cfg["dp_steps"])]
     held = sum(x.numel() for x in trainer._local(
         [*model.parameters(), *state.opt_state.mu, *state.opt_state.nu]))
-    return {"losses": losses, "stale": stale, "launched": counts(),
-            "peak": _peak(dev), "held_elements": held}
+    out = {"losses": losses, "stale": stale, "launched": counts(),
+           "peak": _peak(dev), "held_elements": held}
+    out["orbax"] = fsdp_orbax(mesh, dev, cfg, model, state, opt,
+                              lambda: step(state, c, t, trainer.step_generator(
+                                  0, state.step, dev)).item())
+    return out
+
+
+@contextlib.contextmanager
+def counted_gathers():
+    """The gathers of tensors made inside the block, by name: the calls of
+    ``torch.distributed``'s tensor gathers and of ``DTensor.full_tensor``
+    and ``redistribute`` (the object collectives that DCP plans with call
+    none of them through ``torch.distributed``'s names)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    calls = []
+    saved = [(owner, name, getattr(owner, name)) for owner, name in (
+        (dist, "all_gather"), (dist, "all_gather_into_tensor"),
+        (dist, "gather"), (DTensor, "full_tensor"),
+        (DTensor, "redistribute"))]
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def fsdp_orbax(mesh, dev, cfg, model, state, opt, step) -> dict:
+    """The Orbax checkpoint tier after ``fsdp_train``'s steps: each rank
+    saves its shards asynchronously and takes one more step (``step()``)
+    while the write is in flight, seeds and shards a fresh model and state
+    meanwhile, then restores into them, its gathers counted; every local shard
+    against the one saved, bit for bit.  The save's record (hold, seconds
+    to commit, bytes), whether the write was still in flight after the
+    step, the restore's seconds and gathers."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint_orbax import (
+        OrbaxCheckpointer, restore_train_state, shard_restore_target)
+    from moleculediffusiontransformer_tpu_torch.parallel import \
+        shard_state_fsdp
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+
+    def shards(m, st):
+        return [(x.to_local() if isinstance(x, DTensor) else x).detach()
+                for x in [*m.state_dict().values(), *st.opt_state.mu,
+                          *st.opt_state.nu]]
+
+    saved = [x.clone() for x in shards(model, state)]
+    ck = OrbaxCheckpointer(os.path.join(cfg["tmp"], "fsdp_orbax"))
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        ck.save(state.step, shard_restore_target(model, state))
+        save_return = time.perf_counter() - t0
+        loss = step()
+        in_flight = ck.latest_step() is None
+        fresh = seeded_qm(cfg["flagship"], getattr(torch, cfg["dtype"]), dev,
+                          1).train()
+        fstate = trainer.TrainState.create(fresh, opt)
+        shard_state_fsdp(fresh, fstate, mesh)
+        ck.wait_until_finished()
+        _sync(dev)
+        with counted_gathers() as gathers:
+            t0 = time.perf_counter()
+            restore_train_state(ck, fresh, fstate)
+            _sync(dev)
+            restore = time.perf_counter() - t0
+        restored = shards(fresh, fstate)
+        differ = sum(not torch.equal(a, b) for a, b in zip(restored, saved))
+        sharded = sum(isinstance(x, DTensor) for x in fresh.parameters())
+    finally:
+        ck.close()
+    return {"save": ck.saves[0], "save_return_seconds": save_return,
+            "step_loss_during_write": loss, "in_flight_after_step": in_flight,
+            "restore_seconds": restore, "gathers": gathers,
+            "tensors": len(saved), "differ": differ,
+            "sharded_parameters": sharded}
 
 
 class SGD:
@@ -5377,6 +5618,7 @@ def parallel_rank(rank, tmp, cfg) -> None:
     try:
         mesh = make_mesh(device=cfg["device"])
         dev = mesh_device(mesh)
+        cfg = dict(cfg, tmp=tmp)
         out = {"probe": gloo_probe(dev), "seconds": {}}
         for name, body in (("dp", dp_train), ("fsdp", fsdp_train),
                            ("dp_fp32", dp_fp32)):
@@ -5707,6 +5949,19 @@ def parallel_layer(dev, inv, loop_first) -> dict:
             raise AssertionError(f"rank {rank}: two-rank FSDP against DP: "
                                  f"{err}, stale {f2['stale'][:5]}")
         check_launches(f"FSDP training (rank {rank})", f2["launched"], want)
+        ob = f2["orbax"]
+        phase("parallel_fsdp_orbax", rank=rank, ranks=PARALLEL_RANKS,
+              backend="gloo", dtype=PARALLEL_DTYPE, **ob,
+              note="the save staged into pinned host memory and written by "
+                   "this rank on the writer thread (its own shards: "
+                   "save.rank_bytes of save.bytes), one step taken while "
+                   "the write was in flight, then restored into a fresh "
+                   "FSDP model; gathers: tensor gathers during the restore")
+        if ob["differ"] or ob["gathers"] or not ob["sharded_parameters"] or \
+                not 0 < ob["save"]["rank_bytes"] < ob["save"]["bytes"] or \
+                not math.isfinite(ob["step_loss_during_write"]):
+            raise AssertionError(f"rank {rank}: the Orbax tier under FSDP: "
+                                 f"{ob}")
     seconds = time.perf_counter() - t0
     phase("parallel_phase_seconds", seconds=seconds)
     return {"train": dp0["launched"], "serve": served, "fsdp": fsdp,

@@ -13,8 +13,9 @@ A restore lands on the model's device, whatever device saved the file.  A
 model trained with FSDP (``parallel/fsdp.py``) is saved whole: its shards
 and its moments' are gathered (a collective, on every rank), so the file is
 the same however the model was trained and loads into any of them.  The
-JAX package's second tier, ``core/checkpoint_orbax.py``, is JAX-only and
-has no counterpart.
+second tier, ``core/checkpoint_orbax.py`` (``TrainConfig.
+checkpoint_backend="orbax"``), holds the same state without the gather:
+each rank writes its own shards in the background.
 """
 from __future__ import annotations
 

@@ -20,8 +20,9 @@ Preset provenance:
 ``TrainConfig`` keeps every field of the original.  ``param_sharding=
 "fsdp"`` and ``fsdp_min_elements`` shard the model and the Adam moments
 over the ranks of a process group (``parallel/fsdp.py``);
-``checkpoint_backend="orbax"`` is JAX-only and refused by
-``train.trainer.train_diffusion``.
+``checkpoint_backend="orbax"`` makes ``train.trainer.train_diffusion``
+write the async, sharded tier (``core/checkpoint_orbax.py``, on
+``torch.distributed.checkpoint``) in place of the single-file one.
 """
 from __future__ import annotations
 
@@ -147,7 +148,8 @@ class TrainConfig:
     # the train step.  0 disables (synchronous feed).
     prefetch: int = 2
     # Checkpoint tier: "msgpack" (the port's single-file exact resume,
-    # ``step_{N}.pt``) or "orbax" (JAX-only: refused by the port).
+    # ``step_{N}.pt``, core/checkpoint.py) or "orbax" (async saves and
+    # sharded restores, a directory a step, core/checkpoint_orbax.py).
     checkpoint_backend: str = "msgpack"
     # Param/optimizer placement: "replicated" or "fsdp" (params and Adam
     # moments sharded over the ranks of the process group, FSDP2,

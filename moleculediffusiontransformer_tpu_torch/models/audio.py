@@ -53,7 +53,7 @@ from ..diffusion.schedules import make_schedule
 from ..nn.autoencoder import Encoder1d
 from ..nn.dsp import downsample, upsample
 from ..nn.embeddings import sinusoidal_embedding
-from ..nn.primitives import init_parameters
+from ..nn.primitives import init_parameters, seeded_build
 from ..nn.stft import STFT
 from ..nn.unet import XUNet1d
 
@@ -576,7 +576,8 @@ def build_model1d(device: Optional[Device] = None,
     ``device`` -- the card ("cuda") unless the caller names another, so a
     CPU run asks for ``device="cpu"`` -- its parameters drawn from
     ``generator`` (a CPU generator; torch's global RNG when None)."""
-    model = cls(**kwargs)
+    with seeded_build(generator):
+        model = cls(**kwargs)
     if generator is not None:
         init_parameters(model, generator)
     return model.to("cuda" if device is None else device)

@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..nn.primitives import init_parameters
+from ..nn.primitives import init_parameters, seeded_build
 from .qm_diffusion import QMDiffusionBase
 
 
@@ -102,7 +102,8 @@ def build_graph_model(cls: type, device=None,
     ``device`` -- the card ("cuda") unless the caller names another -- its
     parameters drawn from ``generator`` (a CPU generator; torch's global RNG
     when None)."""
-    model = cls(**kwargs)
+    with seeded_build(generator):
+        model = cls(**kwargs)
     if generator is not None:
         init_parameters(model, generator)
     return model.to("cuda" if device is None else device)

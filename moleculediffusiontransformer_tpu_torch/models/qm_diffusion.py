@@ -32,7 +32,7 @@ from ..diffusion.samplers import inpaint_adpm2
 from ..diffusion.samplers import sample as run_sampler
 from ..diffusion.schedules import karras_schedule
 from ..nn.embeddings import positional_encoding_1d
-from ..nn.primitives import Dense, gelu, init_parameters
+from ..nn.primitives import Dense, gelu, init_parameters, seeded_build
 from ..nn.unet import XUNet1d
 
 
@@ -174,20 +174,23 @@ def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
     the default raises and a CPU run asks for ``device="cpu"`` -- its
     parameters drawn from ``generator`` (a CPU generator; torch's global RNG
     when None)."""
-    model = cls(
-        max_length=config.max_length, channels=config.channels,
-        pred_dim=config.pred_dim, unet_type=config.unet_type,
-        pos_emb_fourier=config.pos_emb_fourier,
-        pos_emb_fourier_add=config.pos_emb_fourier_add,
-        text_embed_dim=config.text_embed_dim,
-        embed_dim_position=config.embed_dim_position,
-        context_embedding_max_length=config.context_embedding_max_length,
-        patch_size=config.patch_size, num_blocks=config.num_blocks,
-        attentions=config.attentions, pre_transformer=config.pre_transformer,
-        sigma_data=config.diffusion.sigma_data,
-        sigma_mean=config.diffusion.sigma_mean,
-        sigma_std=config.diffusion.sigma_std,
-        dynamic_threshold=config.diffusion.dynamic_threshold, dtype=dtype)
+    with seeded_build(generator):
+        model = cls(
+            max_length=config.max_length, channels=config.channels,
+            pred_dim=config.pred_dim, unet_type=config.unet_type,
+            pos_emb_fourier=config.pos_emb_fourier,
+            pos_emb_fourier_add=config.pos_emb_fourier_add,
+            text_embed_dim=config.text_embed_dim,
+            embed_dim_position=config.embed_dim_position,
+            context_embedding_max_length=config.context_embedding_max_length,
+            patch_size=config.patch_size, num_blocks=config.num_blocks,
+            attentions=config.attentions,
+            pre_transformer=config.pre_transformer,
+            sigma_data=config.diffusion.sigma_data,
+            sigma_mean=config.diffusion.sigma_mean,
+            sigma_std=config.diffusion.sigma_std,
+            dynamic_threshold=config.diffusion.dynamic_threshold,
+            dtype=dtype)
     if generator is not None:
         init_parameters(model, generator)
     return model.to("cuda" if device is None else device)

@@ -58,7 +58,7 @@ from torch import nn
 
 from ..nn.embeddings import positional_encoding_1d
 from ..nn.moe import MoEFeedForward
-from ..nn.primitives import Dense, Embed, gelu, init_parameters
+from ..nn.primitives import Dense, Embed, default_init, gelu, init_parameters
 from ..nn.transformer_blocks import (NEG_INF, AttentionQKV, FeedForwardCNN,
                                      LNGamma, MQAttention, decode_loop,
                                      feed_forward_parti, gumbel_sample,
@@ -539,7 +539,7 @@ class TorchMHA(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Dense(dim, dim, dtype=dtype)
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Xavier-uniform in-projection and a zero bias (torch's and JAX's

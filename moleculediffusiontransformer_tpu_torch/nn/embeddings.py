@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .primitives import Dense, Embed, whole
+from .primitives import Dense, Embed, default_init, whole
 
 
 def sinusoidal_embedding(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -34,7 +34,7 @@ class LearnedPositionalEmbedding(nn.Module):
         super().__init__()
         assert dim % 2 == 0
         self.weights = nn.Parameter(torch.empty(dim // 2))
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():

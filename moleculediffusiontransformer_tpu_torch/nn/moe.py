@@ -43,7 +43,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from .primitives import gelu
+from .primitives import default_init, gelu
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -76,7 +76,7 @@ class MoEFeedForward(nn.Module):
         # parallel.ep.set_data_axis: the data axis of a mesh, over which T,
         # the capacity, the priority and the aux loss are global
         self.data_axis = None
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in dim for the router

@@ -18,12 +18,16 @@ Init matches torch's defaults (and the JAX package's): U(-1/sqrt(fan_in),
 1/sqrt(fan_in)) for linear/conv weights and biases, N(0, 1) for embedding
 tables.  Every module's ``reset_parameters`` takes an optional
 ``torch.Generator``; :func:`init_parameters` re-initialises a whole tree from
-one.
+one.  A factory that seeds the model it builds builds it inside
+:func:`seeded_build`, so that its primitives skip the default draw the
+seeding overwrites.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +58,31 @@ def whole(p: torch.Tensor) -> torch.Tensor:
     return p
 
 
+_BUILD = threading.local()
+
+
+@contextlib.contextmanager
+def seeded_build(generator: Optional[torch.Generator]) -> Iterator[None]:
+    """The block builds a model that ``init_parameters(model, generator)``
+    seeds next.  With a generator, the primitives built in the block (in
+    this thread) skip their constructor's draw from torch's global RNG,
+    which the seeding overwrites in full: the model is initialised once,
+    to the same weights.  With None the default draw stays the init."""
+    previous = getattr(_BUILD, "skip_draw", False)
+    _BUILD.skip_draw = previous or generator is not None
+    try:
+        yield
+    finally:
+        _BUILD.skip_draw = previous
+
+
+def default_init(module: nn.Module) -> None:
+    """A primitive's init in its constructor: ``reset_parameters()`` from
+    torch's global RNG, unless built inside ``seeded_build``."""
+    if not getattr(_BUILD, "skip_draw", False):
+        module.reset_parameters()
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise every primitive in ``module`` from ``generator``, in
     module order (deterministic for a given seed and architecture)."""
@@ -76,7 +105,7 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features)) if bias
                      else None)
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         bound = 1.0 / math.sqrt(self.in_features)
@@ -109,7 +138,7 @@ class Conv1d(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         bound = 1.0 / math.sqrt(self.in_channels * self.kernel_size)
@@ -147,7 +176,7 @@ class ConvTranspose1d(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(in_channels, out_channels, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         # torch's fan_in for a (in, out, k) transposed-conv weight is out * k
@@ -252,7 +281,7 @@ class Embed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .primitives import Dense, LayerNorm, gelu
+from .primitives import Dense, LayerNorm, default_init, gelu
 
 NEG_INF = -torch.finfo(torch.float32).max
 
@@ -208,7 +208,7 @@ class _DepthwiseKernel(nn.Module):
         super().__init__()
         self.kernel_size = kernel_size
         self.weight = nn.Parameter(torch.empty(channels, 1, kernel_size))
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         bound = 1.0 / math.sqrt(self.kernel_size)
@@ -315,7 +315,7 @@ class RelPosBias2d(nn.Module):
         super().__init__()
         self.size = size
         self.pos_bias = nn.Parameter(torch.empty((2 * size - 1) ** 2, heads))
-        self.reset_parameters()
+        default_init(self)
         pos = np.stack(np.meshgrid(np.arange(size), np.arange(size),
                                    indexing="ij"), axis=-1).reshape(-1, 2)
         rel = pos[:, None] - pos[None, :] + size - 1
@@ -369,7 +369,7 @@ class MQAttention(nn.Module):
             nn.Identity(), Dense(heads * dim_head, dim, bias=False,
                                  dtype=dtype), LNGamma(dim, dtype=dtype))
         self.null_kv = nn.Parameter(torch.empty(dim_head))
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -573,7 +573,7 @@ class AttentionQKV(nn.Module):
                                         gnn_layers, have_skip=gnn_have_skip,
                                         dtype=dtype)
                         if gnn_layers > 0 else None)
-        self.reset_parameters()
+        default_init(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():

@@ -10,7 +10,10 @@ between steps every rank holds only its shard.  The Adam moments are
 allocated as the parameters' local shards (``DTensor``s placed as their
 parameters), so the state a rank holds drops about n-fold.
 ``train.trainer.ClipAdam.update`` works on the local shards and
-all-reduces the clip's sum of squares.
+all-reduces the clip's sum of squares.  A checkpoint of the single-file
+tier gathers the shards (``core/checkpoint.py``); one of the Orbax tier
+(``core/checkpoint_orbax.py``, JAX's sharded restore) has each rank write
+its own shards and restores into the shards of a model sharded first.
 
 Which dim is sharded is JAX's rule (``fsdp_specs``): the largest dim
 divisible by the mesh size, ties to the dim JAX's layout of the same

@@ -73,17 +73,18 @@ def build_model(task: str, vocab_size: Optional[int] = None,
     from ..models.transformers import (MoleculeTransformerSequence,
                                        MoleculeTransformerSequenceEncoder,
                                        from_encoder_config)
-    from ..nn.primitives import init_parameters
+    from ..nn.primitives import init_parameters, seeded_build
     if preset not in ("notebook", "tiny"):
         raise ValueError(f"unknown preset: {preset!r}")
     tiny = preset == "tiny"
     generator = torch.Generator().manual_seed(seed)
 
     def tiny_qm(cls, **kw):
-        model = cls(text_embed_dim=32, embed_dim_position=16,
-                    multipliers=(1, 2), factors=(4,), num_blocks=(2,),
-                    attentions=(1,), attention_heads=4,
-                    attention_features=32, dtype=dtype, **kw)
+        with seeded_build(generator):
+            model = cls(text_embed_dim=32, embed_dim_position=16,
+                        multipliers=(1, 2), factors=(4,), num_blocks=(2,),
+                        attentions=(1,), attention_heads=4,
+                        attention_features=32, dtype=dtype, **kw)
         init_parameters(model, generator)
         return model.to("cuda" if device is None else device)
 
@@ -165,15 +166,17 @@ def train_task(task: str, model: torch.nn.Module, data, config,
     reference semantics; returns ``(TrainState, MetricsLogger)``.  Each
     epoch walks the training split in the order of a fresh
     ``RandomState(config.seed)``, as in the JAX package.  The diffusion
-    tasks train over ``mesh`` when given (``train_diffusion``); the
-    transformer tasks on one card."""
+    tasks train over ``mesh`` when given (``train_diffusion``) and write
+    the checkpoint tier ``config.checkpoint_backend`` names; the
+    transformer tasks train on one card and write the single-file tier
+    (``core/checkpoint.py``) whatever ``checkpoint_backend`` says, as the
+    JAX package's do."""
     from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
                                    restore_checkpoint, save_step_checkpoint)
     from ..data.qm9 import batch_iterator
-    from .trainer import (MetricsLogger, TrainState, check_checkpoint_backend,
-                          make_encoder_train_step, make_optimizer,
-                          make_transformer_train_step, step_generator,
-                          train_diffusion)
+    from .trainer import (MetricsLogger, TrainState, make_encoder_train_step,
+                          make_optimizer, make_transformer_train_step,
+                          step_generator, train_diffusion)
 
     def epoch_batches():
         return batch_iterator(data.X_train, data.y_train, config.batch_size,
@@ -196,7 +199,6 @@ def train_task(task: str, model: torch.nn.Module, data, config,
     if task not in ("inverse_transformer", "forward_transformer"):
         raise ValueError(f"unknown task: {task!r} (expected one of {TASKS})")
 
-    check_checkpoint_backend(config)
     if config.param_sharding != "replicated" or (
             torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):

@@ -25,7 +25,10 @@ Over a mesh (``parallel/``: one process a card), each rank runs the step on
 its rows of the global batch and the grads are averaged over the ranks
 before the clip, so the parameters stay the same on every rank; under
 ``param_sharding="fsdp"`` each rank holds a shard of the parameters and of
-the moments.  The Orbax checkpoint tier is JAX-only.
+the moments.  ``train_diffusion`` writes either checkpoint tier
+(``TrainConfig.checkpoint_backend``): the single-file one
+(``core/checkpoint.py``) or the async, sharded one
+(``core/checkpoint_orbax.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.checkpoint import (checkpoint_state, latest_checkpoint,
                                restore_checkpoint, save_step_checkpoint)
+from ..core.checkpoint_orbax import (OrbaxCheckpointer, restore_train_state,
+                                     shard_restore_target)
 from ..core.config import TrainConfig
 from ..data.prefetch import ThreadedLoader, prefetch_to_device, to_device
 from ..parallel import mesh as pmesh
@@ -705,15 +710,6 @@ def deterministic_convs():
         torch.backends.cudnn.deterministic = previous
 
 
-def check_checkpoint_backend(config) -> None:
-    """Refuse the Orbax checkpoint tier: it is JAX-only, and the port
-    writes its own single-file checkpoints (``core/checkpoint.py``)."""
-    if config.checkpoint_backend != "msgpack":
-        raise ValueError(f"checkpoint_backend={config.checkpoint_backend!r}"
-                         f": Orbax is JAX-only; the port writes its own "
-                         f"single-file checkpoints (core/checkpoint.py)")
-
-
 def training_mesh(config, mesh, device: torch.device):
     """The mesh ``train_diffusion`` trains over: ``mesh`` when given, else
     the mesh over every rank of the process group when this process has
@@ -780,16 +776,29 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
     ``param_sharding="fsdp"`` the model and the moments are sharded over
     the mesh (``parallel.shard_state_fsdp``), a save gathers them, and
     every rank runs ``eval_fn`` on the gathered parameters (a collective),
-    rank 0 logging it."""
-    check_checkpoint_backend(config)
+    rank 0 logging it.
+
+    ``config.checkpoint_backend="orbax"`` (with ``checkpoint_dir``) takes
+    the other tier (``core/checkpoint_orbax.py``) at the same cadence: one
+    ``OrbaxCheckpointer`` for the run, each save staged to host memory and
+    written in the background while the next steps run, every rank writing
+    its own shards; resume shards first, then restores into the shards.
+    The checkpointer is closed when the loop ends or raises, so every
+    queued save has committed (or raised) when this returns."""
+    if config.checkpoint_backend not in ("msgpack", "orbax"):
+        raise ValueError(f"unknown checkpoint_backend "
+                         f"{config.checkpoint_backend!r}")
     logger = logger or MetricsLogger()
     device = next(model.parameters()).device
     mesh = training_mesh(config, mesh, device)
     fsdp = config.param_sharding == "fsdp"
     first = pmesh.is_first_rank(mesh)
     optimizer = make_optimizer(config)
+    orbax_ck = None
+    if checkpoint_dir and config.checkpoint_backend == "orbax":
+        orbax_ck = OrbaxCheckpointer(checkpoint_dir, async_save=True)
     state = TrainState.create(model, optimizer)
-    if resume and checkpoint_dir:
+    if resume and checkpoint_dir and orbax_ck is None:
         ckpt = latest_checkpoint(checkpoint_dir)
         if ckpt:
             restore_checkpoint(ckpt, model, state)
@@ -798,12 +807,19 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
     if fsdp:
         shard_state_fsdp(model, state, mesh,
                          min_elements=config.fsdp_min_elements)
+    if resume and orbax_ck is not None and orbax_ck.latest_step() is not None:
+        # sharded restore: each rank reads its own shards straight into
+        # them (no whole copy, no gather)
+        restore_train_state(orbax_ck, model, state)
     train_step = make_diffusion_train_step(model, optimizer,
                                            config.accumulation_steps,
                                            mesh=mesh)
     ranks = 1 if mesh is None else mesh.size()
 
     def save() -> None:
+        if orbax_ck is not None:    # async: returns before the write lands
+            orbax_ck.save(state.step, shard_restore_target(model, state))
+            return
         full = checkpoint_state(model, state)    # gathers the FSDP shards
         if first:
             save_step_checkpoint(checkpoint_dir, full, state.step)
@@ -883,4 +899,6 @@ def train_diffusion(model: nn.Module, data_iter_fn: Callable[[], Iterable],
         finally:
             if loader is not None:
                 loader.close()
+            if orbax_ck is not None:
+                orbax_ck.close()    # every queued save commits or raises
     return state, logger

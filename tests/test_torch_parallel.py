@@ -44,6 +44,8 @@ from moleculediffusiontransformer_tpu.train import trainer as jtrainer
 from moleculediffusiontransformer_tpu_torch import design
 from moleculediffusiontransformer_tpu_torch.core.checkpoint import \
     load_checkpoint
+from moleculediffusiontransformer_tpu_torch.core.checkpoint_orbax import (
+    OrbaxCheckpointer, restore_train_state)
 from moleculediffusiontransformer_tpu_torch.core.config import TrainConfig
 from moleculediffusiontransformer_tpu_torch.data.tokenizer import \
     CharTokenizer
@@ -462,14 +464,53 @@ def test_train_diffusion_resume_over_the_group(paths, sharding):
         r.get("loss") for r in logs["first"] + logs["resumed"]]
 
 
+def test_orbax_tier_over_the_group(qm, paths):
+    """The Orbax tier over the group's two ranks under FSDP: the same losses
+    and probes as the single-file tier's runs; the straight and the resumed
+    runs' last checkpoints (each rank's shards in its own file) load into a
+    one-process model and state, and equal the single-file tier's last
+    checkpoint bit for bit."""
+    run = paths[0][0]["loop_fsdp"]
+    logs = run["logs"]
+    for name in ("straight", "first", "resumed"):
+        assert [(r.get("loss"), r.get("probe")) for r in logs[name]] == [
+            (r.get("loss"), r.get("probe")) for r in logs[name + "_orbax"]]
+    want = load_checkpoint(os.path.join(run["straight"], "step_4.pt"))
+    names = list(want["adam"]["mu"])
+    for key in ("straight_orbax", "resumed_orbax"):
+        one = W.qm_model(SMALL, qm["sd"])
+        state = trainer.TrainState.create(
+            one, trainer.make_optimizer(TrainConfig()))
+        ck = OrbaxCheckpointer(run[key])
+        assert ck.all_steps() == [2, 4]
+        restore_train_state(ck, one, state)
+        assert (state.step, state.epoch, state.opt_state.count) == (
+            want["step"], want["epoch"], want["adam"]["count"])
+        for k, v in one.state_dict().items():
+            assert torch.equal(v, want["model"][k]), (key, k)
+        assert [n for n, _ in one.named_parameters()] == names
+        for m in ("mu", "nu"):
+            for n, t in zip(names, getattr(state.opt_state, m)):
+                assert torch.equal(t, want["adam"][m][n]), (key, m, n)
+
+
+def test_orbax_fsdp_ranks_write_and_restore_their_shards(paths):
+    """Under FSDP each rank's checkpoint files hold its own shards of every
+    sharded tensor, and a freshly sharded model and state restored from
+    them, with no gather of a tensor, hold the saved shards bit for bit."""
+    for rank, r in enumerate(paths[0]):
+        rec = r["loop_fsdp"]["orbax_shards"]
+        assert rec["step"] == 4 and rec["sharded"] > 0, rec
+        assert rec["differ"] == [] and rec["foreign"] == [], (rank, rec)
+        assert rec["gathers"] == [], (rank, rec["gathers"])
+        assert 0 < rec["rank_bytes"] < rec["bytes"], (rank, rec)
+
+
 def test_train_diffusion_fsdp_needs_a_group(qm):
     model = W.qm_model(SMALL, qm["sd"])
     config = TrainConfig(batch_size=BATCH, param_sharding="fsdp")
     with pytest.raises(ValueError, match="process group"):
         trainer.train_diffusion(model, lambda: iter(_batches(qm)), config)
-    with pytest.raises(ValueError, match="Orbax"):
-        trainer.train_diffusion(model, lambda: iter(_batches(qm)),
-                                TrainConfig(checkpoint_backend="orbax"))
 
 
 def test_a_group_of_one_trains_without_collectives(monkeypatch):

@@ -7,7 +7,8 @@ every logged loss within 1e-4 relative, the final params within rtol 1e-4
 / atol 1e-5 (the JAX suite's gradient band).  Then, without JAX: ``remat``
 gives the same step bit for bit, the eval and checkpoint cadences, a
 preflight that leaves the state untouched, the loaders yield the plain
-iterator's batches, and what the port refuses (mesh, FSDP, Orbax)."""
+iterator's batches, and what the loop refuses (FSDP with no group, an
+unknown checkpoint tier or sharding)."""
 import dataclasses
 
 import jax
@@ -228,12 +229,13 @@ def test_loaders_yield_the_plain_batches(data):
 
 @pytest.mark.parametrize("change, match", [
     ({"param_sharding": "fsdp"}, "process group"),
-    ({"checkpoint_backend": "orbax"}, "Orbax is JAX-only"),
+    ({"checkpoint_backend": "zarr"}, "unknown checkpoint_backend"),
     ({"param_sharding": "zero3"}, "unknown param_sharding")])
 def test_refuses_mesh_fsdp_and_orbax(data, change, match):
-    """What the loop still refuses: FSDP with no process group (no mesh to
-    shard over), the JAX-only Orbax tier, a sharding it does not know.
-    Training over a mesh is ``tests/test_torch_parallel.py``'s."""
+    """What the loop refuses: FSDP with no process group (no mesh to shard
+    over), a checkpoint tier or a sharding it does not know.  Training over
+    a mesh is ``tests/test_torch_parallel.py``'s, the Orbax tier
+    ``tests/test_torch_checkpoint_orbax.py``'s."""
     config = dataclasses.replace(TrainConfig(), **change)
     with pytest.raises(ValueError, match=match):
         trainer.train_diffusion(_tiny(data.vocab_size), _epoch(data, 0),

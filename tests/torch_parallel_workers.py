@@ -12,6 +12,7 @@ and the launcher stops waiting at ``TIMEOUT`` too: a hung collective fails
 its test."""
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import time
@@ -249,27 +250,128 @@ def global_norm(mesh, grads: dict) -> float:
 
 def train_loops(mesh, preset, state_dict, batches, tmp, sharding, lr):
     """``train_diffusion`` over the group's default mesh: 2 epochs into
-    ``tmp/straight``, 1 into ``tmp/resumed`` and 1 more resumed there; an
-    ``eval_fn`` that samples (through every model method, not the
-    forward).  Returns rank 0's logs and the checkpoint paths."""
+    ``tmp/straight``, 1 into ``tmp/resumed`` and 1 more resumed there; under
+    FSDP the same again on the Orbax checkpoint tier (``_orbax`` after its
+    directories and runs); an ``eval_fn`` that samples (through every model
+    method, not the forward).  Returns rank 0's logs, the checkpoint paths
+    and, under FSDP, ``orbax_shards``' record of the Orbax straight run's
+    last checkpoint."""
     from moleculediffusiontransformer_tpu_torch.core.config import \
         TrainConfig
     from moleculediffusiontransformer_tpu_torch.train import trainer
-    straight, resumed = (os.path.join(tmp, d)
-                         for d in ("straight", "resumed"))
-    logs = {}
-    for name, epochs, directory, resume in (
-            ("straight", 2, straight, False), ("first", 1, resumed, False),
-            ("resumed", 1, resumed, True)):
-        model = qm_model(preset, state_dict)
-        config = TrainConfig(batch_size=len(batches[0][0]), epochs=epochs,
-                             learning_rate=lr, print_loss_every=1,
-                             param_sharding=sharding, fsdp_min_elements=64)
-        _, logger = trainer.train_diffusion(
-            model, lambda: iter(batches), config, checkpoint_dir=directory,
-            resume=resume, eval_fn=probe(model))
-        logs[name] = logger.history
-    return {"logs": logs, "straight": straight, "resumed": resumed}
+    out, logs = {}, {}
+    tiers = [("msgpack", "")] + ([("orbax", "_orbax")] if sharding == "fsdp"
+                                 else [])
+    for backend, tag in tiers:
+        straight, resumed = (os.path.join(tmp, d + tag)
+                             for d in ("straight", "resumed"))
+        out.update({"straight" + tag: straight, "resumed" + tag: resumed})
+        for name, epochs, directory, resume in (
+                ("straight", 2, straight, False),
+                ("first", 1, resumed, False),
+                ("resumed", 1, resumed, True)):
+            model = qm_model(preset, state_dict)
+            config = TrainConfig(batch_size=len(batches[0][0]),
+                                 epochs=epochs, learning_rate=lr,
+                                 print_loss_every=1, param_sharding=sharding,
+                                 fsdp_min_elements=64,
+                                 checkpoint_backend=backend)
+            state, logger = trainer.train_diffusion(
+                model, lambda: iter(batches), config,
+                checkpoint_dir=directory, resume=resume,
+                eval_fn=probe(model))
+            logs[name + tag] = logger.history
+            if (backend, name, sharding) == ("orbax", "straight", "fsdp"):
+                out["orbax_shards"] = orbax_shards(mesh, preset, state_dict,
+                                                   model, state, straight)
+    return {"logs": logs, **out}
+
+
+@contextlib.contextmanager
+def counted_gathers():
+    """Count the gathers of tensors made inside the block: the calls of
+    ``torch.distributed``'s tensor gathers and of ``DTensor.full_tensor``
+    and ``redistribute`` (the object collectives that DCP plans with call
+    none of them through ``torch.distributed``'s names)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    calls: List[str] = []
+    patched = [(dist, n) for n in ("all_gather", "all_gather_into_tensor",
+                                   "gather")]
+    patched += [(DTensor, n) for n in ("full_tensor", "redistribute")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in patched]
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def orbax_shards(mesh, preset, state_dict, model, state, directory):
+    """The last checkpoint of an FSDP run of the Orbax tier against the
+    run's final state (what it saved): a freshly sharded model and state
+    restored from it, gathers counted; each restored local shard against
+    the saved one, bit for bit; whether this rank's files hold exactly its
+    own shards of every sharded tensor; this rank's bytes."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import MetadataIndex
+    from torch.distributed.tensor import DTensor, Shard
+
+    from moleculediffusiontransformer_tpu_torch.core.checkpoint_orbax import (
+        OrbaxCheckpointer, restore_train_state, shard_restore_target)
+    from moleculediffusiontransformer_tpu_torch.parallel import \
+        shard_state_fsdp
+    from moleculediffusiontransformer_tpu_torch.train import trainer
+
+    def local(target):
+        flat = {f"model.{k}": v for k, v in target["model"].items()}
+        for m in ("mu", "nu"):
+            flat.update({f"adam.{m}.{k}": v
+                         for k, v in target["adam"][m].items()})
+        return flat
+
+    saved = {k: (v.to_local() if isinstance(v, DTensor) else v).clone()
+             for k, v in local(shard_restore_target(model, state)).items()}
+    fresh = qm_model(preset, state_dict)
+    fstate = trainer.TrainState.create(
+        fresh, trainer.make_optimizer(trainer.OptimizerConfig()))
+    shard_state_fsdp(fresh, fstate, mesh, min_elements=64)
+    ck = OrbaxCheckpointer(directory)
+    with counted_gathers() as gathers:
+        step, target = restore_train_state(ck, fresh, fstate)
+    restored = local(target)
+    rank, n = mesh.get_local_rank(), mesh.size()
+    meta = dcp.FileSystemReader(ck._path(step)).read_metadata()
+    sharded, foreign, differ = 0, [], []
+    for key, t in restored.items():
+        mine = t.to_local() if isinstance(t, DTensor) else t
+        if not torch.equal(mine, saved[key]):
+            differ.append(key)
+        if not (isinstance(t, DTensor) and isinstance(t.placements[0],
+                                                      Shard)):
+            continue
+        sharded += 1
+        dim = t.placements[0].dim
+        offsets = [0] * t.dim()
+        offsets[dim] = sum(len(c) for c in torch.arange(
+            t.shape[dim]).chunk(n)[:rank])
+        held = meta.storage_data[MetadataIndex(key, torch.Size(offsets))]
+        if not held.relative_path.startswith(f"__{rank}_"):
+            foreign.append(key)
+    rank_bytes = sum(i.length for i in meta.storage_data.values()
+                     if i.relative_path.startswith(f"__{rank}_"))
+    return {"step": step, "gathers": gathers, "differ": differ,
+            "sharded": sharded, "foreign": foreign, "rank_bytes": rank_bytes,
+            "bytes": sum(i.length for i in meta.storage_data.values())}
 
 
 def probe(model):
