@@ -351,6 +351,27 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    ``audio_diffusion_torch.py`` at its tiny sizes; the code cells of
    ``notebooks/Quickstart_torch.ipynb`` in order.  Phase 30's directory
    goes after this phase, whether or not the phases before it passed.
+36. the stack kernels past the whole-row attention core's 64 rows (the
+   tiled core of ``csrc/stack_attention_tiles.cuh``, up to the JAX gate's
+   L 512): K1 (plain, stash, uniform_ctx), K3, K2 and K4 against their
+   plain versions at the audio preset's stack (C 512, 8 x 64, one layer,
+   batch 2) at L 65, 128, 256, 512 and at L 128 on contexts of 64 and 200
+   rows, float32 within 1e-4 and bfloat16 within 2e-2 of scale, two calls
+   bitwise equal, with each one's card time beside its plain version's,
+   K1's beside the module composition's, and the attention cores' (read
+   from ``torch.profiler``) beside ``scaled_dot_product_attention``'s and
+   its backward at the core's (b, h, L, m, d) (a yardstick, called nowhere
+   in the package); then ``AudioDiffusionModel(in_channels=1)`` (bfloat16,
+   seeded random weights) at 2**18 samples, batch 2, and 2**20, batch 1:
+   a 25-step request (linear schedule, v sampler, clamp) and a warm-up and
+   a timed train step (Adam), each on the kernels (K1 exactly 7 x the
+   evaluations; the stash, K3, K4 7 and K2 7 a step) and on the module
+   composition (``disable_fusion``, no launch), with seconds, rows a
+   second and peak memory; a float32 denoise at 2**18, batch 1, card
+   against CPU within 1e-4; and ``load_qm9`` and ``prepare_qm9`` on a
+   133,885-row synthetic CSV through the native data path
+   (``data/native``, built with g++) and the Python path: equal, each
+   one's seconds.
 
 Any failed check raises, and the script exits non-zero.  The last two lines
 are a JSON record of the kernels -- each with its launches on its main path
@@ -367,7 +388,11 @@ a rank's share of phase 32's mesh request, the training kernels with
 and the streaming-attention kernels with ``launches_parallel_axes``, a
 rank's tensor- and sequence-parallel steps of phase 33; K1 and the training
 kernels with ``launches_quality``, phase 34's two runs of the 91M, and with
-``launches_examples``, phase 35's runs),
+``launches_examples``, phase 35's runs; K1 with ``launches_audio_long``,
+phase 36's requests on the kernels, the training kernels with
+``launches_audio_long_train``, its steps; K1, its stash and uniform_ctx
+variants and K2-K4 with ``long``, phase 36's bf16 numbers at the tiled
+lengths summed over its shapes),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
 kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
@@ -694,6 +719,26 @@ QUALITY_ROWS, QUALITY_GENERATE, QUALITY_PRESET = 2048, 8, "notebook"
 # audio tour at its tiny sizes; the Quickstart notebook's code cells
 EXAMPLES_ROWS, EXAMPLES_BATCH, EXAMPLES_TARGET_SECONDS = 600, 256, 60
 EXAMPLES_TINY, EXAMPLES_FULL = False, True
+
+# phase 36: the stack kernels past the whole-row attention core's 64 rows
+# (the tiled core, up to the JAX gate's L 512) at the default audio
+# preset's stack (C 512, 8 heads x 64, one layer, batch 2): self-attention
+# at L 65 (a ragged tile) to 512, and at L 128 cross-attention on contexts
+# of 64 and 200 rows (128 features, as phase 3's), each (L, m) of them;
+# then the preset itself (AudioDiffusionModel(in_channels=1), bfloat16,
+# seeded random weights) at 2**18 samples, batch 2 (stacks at L 128, 64,
+# 32, 32, 32, 64, 128) and 2**20, batch 1 (L 512 ... 512): a 25-step
+# request at the reference's sampling kwargs and one warm-up and one timed
+# train step, each on the kernels and on the module composition
+# (disable_fusion); a float32 denoise at 2**18, batch 1, card against CPU;
+# and the native data path on QM9's row count
+LONG_STACK_SHAPES = [(65, None), (128, None), (256, None), (512, None),
+                     (128, 64), (128, 200)]
+LONG_STACK_C, LONG_STACK_BATCH = 512, 2
+AUDIO_LONG = ((2 ** 18, 2), (2 ** 20, 1))     # (samples, batch)
+AUDIO_LONG_STEPS, AUDIO_LONG_STACKS = 25, 7
+AUDIO_LONG_PARITY_SAMPLES = 2 ** 18
+QM9_ROWS = 133885
 
 # where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
 # and of the resnet-run kernel (K8) run
@@ -6984,6 +7029,455 @@ def examples_and_notebooks(dev, sampler_path, scratch=None):
     return dict(launched)
 
 
+# ------------------------------------------------------------- phase 36 ---
+
+def named_kernels_ms(fn, names, calls: int = 3):
+    """Device milliseconds a call of ``fn()`` spends in kernels whose
+    profiler name holds one of ``names``, over ``calls`` calls in a
+    ``torch.profiler`` window of their own, opened after an empty one;
+    None when the profiler saw no such kernel (not measured: a line then
+    names the kernels it did see)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    # in the whole script the first window after the timing loops saw none
+    # of the forward's kernels (the backward's, in the next window, it saw)
+    with profile(activities=activities):
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = sorted(((float(getattr(evt, "self_device_time_total", getattr(
+        evt, "self_cuda_time_total", 0.0))), evt.key)
+        for evt in prof.key_averages()
+        if evt.device_type == DeviceType.CUDA), reverse=True)
+    us = [t for t, key in device if any(n in key for n in names)]
+    if not us:
+        phase("kernels_not_seen", wanted=list(names),
+              seen=[[key[:80], t / 1e3] for t, key in device[:6]])
+        return None
+    return sum(us) / 1e3 / calls
+
+
+def check_long_stacks(dev):
+    """Phase 36's kernels: K1 (plain, with its stash, with a uniform
+    context), K3, K2 and K4 against their plain versions at
+    LONG_STACK_SHAPES in float32 and bfloat16, each error relative to the
+    plain output's scale within KERNEL_TOL, and each of them and the
+    backward chain bitwise equal across two calls; in bfloat16 the card's
+    time of each (calls back to back) beside the plain version's, the
+    module composition's, and the attention core's beside
+    ``scaled_dot_product_attention``'s at the core's (b, h, L, m, d) (a
+    yardstick; the port never calls it).  Returns, per kernel, the bf16
+    numbers summed over the shapes and their bound."""
+    import torch
+    import torch.nn.functional as F
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    from moleculediffusiontransformer_tpu_torch.nn.primitives import \
+        init_parameters
+    from moleculediffusiontransformer_tpu_torch.ops import \
+        transformer_fusion as tf
+    keys = ("fwd", "stash", "uniform", "conv_out", "layer", "conv_in_gn")
+    summary = {k: {"shapes": 0, "max_abs_err": 0.0, "card_ms": 0.0,
+                   "plain_ms": 0.0} for k in keys}
+    summary["fwd"].update(composition_ms=0.0, core_ms=0.0, sdpa_ms=0.0)
+    summary["layer"].update(core_ms=0.0, sdpa_ms=0.0)
+    b, c, heads, d = LONG_STACK_BATCH, LONG_STACK_C, 8, 64
+    kw = dict(num_layers=1, heads=heads, head_dim=d)
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = KERNEL_TOL[dname]
+        for length, m in LONG_STACK_SHAPES:
+            cross = m is not None
+            gen = torch.Generator().manual_seed(36 * length + (m or 0))
+            mod = Transformer1d(1, c, heads, d, 2, context_features=(
+                CONTEXT[1] if cross else None), dtype=dtype)
+            init_parameters(mod, gen)
+            mod = mod.to(dev)
+            kp = mod.kernel_params()
+            x, g = (torch.randn(b, length, c, generator=gen).to(dev, dtype)
+                    for _ in range(2))
+            ctx = (torch.randn(b, m, CONTEXT[1], generator=gen).to(
+                dev, dtype) if cross else None)
+            table = ctx[:1] if cross else None
+            w = tf._kernel_weights(kp, 1, cross, dtype)
+            lw = w[4:4 + (20 if cross else 12)]
+            calls = {
+                "fwd": (lambda: tf.transformer1d_forward(
+                    kp, x, ctx, multiplier=2, **kw),
+                    lambda: tf.transformer1d_reference(
+                        kp, x, ctx, multiplier=2, **kw)),
+                "stash": (lambda: tf.transformer1d_forward(
+                    kp, x, ctx, multiplier=2, with_stash=True, **kw),
+                    lambda: tf.transformer1d_reference(
+                        kp, x, ctx, multiplier=2, with_stash=True, **kw))}
+            if cross:
+                calls["uniform"] = (
+                    lambda: tf.transformer1d_forward(
+                        kp, x, table, multiplier=2, uniform_ctx=True, **kw),
+                    lambda: tf.transformer1d_reference(
+                        kp, x, table, multiplier=2, uniform_ctx=True, **kw))
+            with torch.no_grad():
+                _, stash = tf.transformer1d_reference(
+                    kp, x, ctx, multiplier=2, with_stash=True, **kw)
+                layer_args = (g, stash[0], stash[1] if cross else None,
+                              stash[-2], ctx, lw)
+                calls.update(
+                    conv_out=(lambda: tf.bwd_conv_out(g, stash[-1], w[-2]),
+                              lambda: tf.bwd_conv_out_reference(
+                                  g, stash[-1], w[-2])),
+                    layer=(lambda: tf.bwd_layer(*layer_args, heads=heads,
+                                                head_dim=d),
+                           lambda: tf.bwd_layer_reference(
+                               *layer_args, heads=heads, head_dim=d)),
+                    conv_in_gn=(lambda: tf.bwd_conv_in_gn(g, x, w[2], w[0],
+                                                          w[1]),
+                                lambda: tf.bwd_conv_in_gn_reference(
+                                    g, x, w[2], w[0], w[1])))
+                rel, absolute, repeat = {}, {}, {}
+                for key, (kernel, plain) in calls.items():
+                    got, again, want = kernel(), kernel(), plain()
+                    flat = [got] if torch.is_tensor(got) else list(got)
+                    flat_again = ([again] if torch.is_tensor(again)
+                                  else list(again))
+                    flat_want = [want] if torch.is_tensor(want) else list(
+                        want)
+                    if key == "layer":     # (dy, dctx, [grads])
+                        flat, flat_again, flat_want = (
+                            [f[0], *([f[1]] if cross else []), *f[2]]
+                            for f in (flat, flat_again, flat_want))
+                    rel[key] = max(_rel_err(a, w_) for a, w_ in
+                                   zip(flat, flat_want))
+                    absolute[key] = max(_abs_err(a, w_) for a, w_ in
+                                        zip(flat, flat_want))
+                    repeat[key] = all(torch.equal(a, a2) for a, a2 in
+                                      zip(flat, flat_again))
+                chain = [tf.transformer1d_backward(kp, x, ctx, stash, g,
+                                                   multiplier=2, **kw)
+                         for _ in range(2)]
+                repeat["chain"] = (
+                    torch.equal(chain[0][1], chain[1][1])
+                    and all(torch.equal(chain[0][0][n], chain[1][0][n])
+                            for n in chain[0][0])
+                    and (not cross or torch.equal(chain[0][2], chain[1][2])))
+                torch.cuda.synchronize()
+                timing = {}
+                if dtype == torch.bfloat16:
+                    timing = {k: {"card_ms": device_ms(kernel, reps=10,
+                                                       rounds=3),
+                                  "plain_ms": cuda_ms(plain, reps=5)}
+                              for k, (kernel, plain) in calls.items()}
+                    mod.disable_fusion = True
+                    timing["fwd"]["composition_ms"] = device_ms(
+                        lambda: mod(x, ctx), reps=10, rounds=3)
+                    mod.disable_fusion = False
+                    timing["fwd"]["core_ms"] = named_kernels_ms(
+                        calls["fwd"][0], ("attention_tiled_kernel",))
+                    timing["layer"]["core_ms"] = named_kernels_ms(
+                        calls["layer"][0], ("attention_bwd_dq_tiled_kernel",
+                                            "attention_bwd_dkv_tiled_kernel"))
+                    q = torch.randn(b, heads, length, d, generator=gen).to(
+                        dev, dtype)
+                    k, v = (torch.randn(b, heads, m or length, d,
+                                        generator=gen).to(dev, dtype)
+                            for _ in range(2))
+                    timing["fwd"]["sdpa_ms"] = device_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v),
+                        reps=10, rounds=3)
+                    q, k, v = (t.requires_grad_() for t in (q, k, v))
+                    with torch.enable_grad():
+                        o = F.scaled_dot_product_attention(q, k, v)
+                    do = torch.randn_like(o)
+                    timing["layer"]["sdpa_ms"] = device_ms(
+                        lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                    retain_graph=True),
+                        reps=10, rounds=3)
+            phase("long_stack_kernels", dtype=dname, batch=b, L=length,
+                  m=m, C=c, rel_err=rel, max_abs_err=absolute, tol=tol,
+                  bitwise_repeat=repeat, **({"bf16": timing} if timing
+                                            else {}))
+            bad = {k: v for k, v in rel.items() if not v <= tol}
+            if bad:
+                raise AssertionError(f"L {length}, m {m}, {dname}: kernels "
+                                     f"differ from their plain versions: "
+                                     f"{bad}")
+            if not all(repeat.values()):
+                raise AssertionError(f"L {length}, m {m}, {dname}: two "
+                                     f"calls differ: {repeat}")
+            if dtype != torch.bfloat16:
+                continue
+            conv = 4 * b * length * c * c
+            grad32 = 4 * (c * c + 3 * c)
+            flops = stack_flops(b, length, c, 1, cross, m or 0, CONTEXT[1])
+            out_bytes = nbytes(x)
+            limits = {
+                "fwd": bound(flops, nbytes(x, ctx, *w) + out_bytes),
+                "stash": bound(flops, nbytes(x, ctx, stash, *w) + out_bytes),
+                "conv_out": bound(conv, nbytes(g, g, g, w[-2]) + grad32),
+                "layer": bound(
+                    3 * stack_layer_flops(b, length, c, cross, m or 0,
+                                          CONTEXT[1]),
+                    (2 + (3 if cross else 2)) * nbytes(g) + 2 * nbytes(ctx)
+                    + nbytes(*lw) + 4 * sum(t.numel() for t in lw)),
+                "conv_in_gn": bound(conv, nbytes(g, x, g, w[2]) + grad32)}
+            if cross:
+                limits["uniform"] = bound(
+                    stack_flops(b, length, c, 1, True, m, CONTEXT[1],
+                                kv_rows=m),
+                    nbytes(x, table, *w) + out_bytes)
+            for key, t in timing.items():
+                row = summary[key]
+                row["shapes"] += 1
+                row["max_abs_err"] = max(row["max_abs_err"], absolute[key])
+                for name, ms in t.items():
+                    # a core the profiler missed leaves its sum not measured
+                    row[name] = (None if ms is None or row[name] is None
+                                 else row[name] + ms)
+                add_bound(row, limits[key])
+    return {k: close_bound(v) for k, v in summary.items()}
+
+
+def set_stack_fusion(model, on: bool) -> None:
+    """Every Transformer1d of ``model`` on the stack kernels (``on``) or on
+    its module composition."""
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    for mod in model.modules():
+        if isinstance(mod, Transformer1d):
+            mod.disable_fusion = not on
+
+
+def stack_lengths(model, samples: int) -> list:
+    """The L of each Transformer1d stack of ``model`` on a waveform of
+    ``samples`` (one no-grad denoise at batch 1, hooked)."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.nn.attention import \
+        Transformer1d
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].shape[1]))
+        for m in model.modules() if isinstance(m, Transformer1d)]
+    dev = next(model.parameters()).device
+    try:
+        with torch.no_grad():
+            model.denoise(torch.zeros(1, samples, model.in_channels,
+                                      device=dev), torch.ones(1, device=dev))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return seen
+
+
+def audio_long_path(dev):
+    """Phase 36's path: the default audio preset at AUDIO_LONG, each
+    request and step on the stack kernels (launches exactly stacks x
+    evaluations, or stacks and layers x steps, and nothing else) and on the
+    module composition (no stack kernel; its attention streams through K5
+    to K7 where ``nn.attention.sdpa`` routes it).  A two-step request on
+    each route first warms both up.  Returns the kernels' launches on that
+    path."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    model = audio.AudioDiffusionModel(
+        in_channels=1, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(61))
+    stacks, layers = audio_stacks(model)
+    if stacks != AUDIO_LONG_STACKS:
+        raise AssertionError(f"the audio preset has {stacks} stacks")
+    gen = torch.Generator(device=dev).manual_seed(62)
+    sampling = audio.get_default_sampling_kwargs()
+    total = dict.fromkeys(counts(), 0)
+    for samples, batch in AUDIO_LONG:
+        lengths = stack_lengths(model, samples)
+        for route in ("kernels", "composition"):
+            set_stack_fusion(model, route == "kernels")
+            audio.sample_model1d(model, shape=(batch, samples, 1),
+                                 generator=gen, num_steps=2, **sampling)
+        for route in ("kernels", "composition"):
+            set_stack_fusion(model, route == "kernels")
+            calls, handle = count_calls(model.unet)
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            out, seconds = timed(lambda: audio.sample_model1d(
+                model, shape=(batch, samples, 1), generator=gen,
+                num_steps=AUDIO_LONG_STEPS, **sampling))
+            handle.remove()
+            launched = counts()
+            evals = len(calls)
+            want = (loop_want(stacks, 0, 0, evals) if route == "kernels"
+                    else composed(launched))
+            phase("audio_long_request", route=route, samples=samples,
+                  batch=batch, num_steps=AUDIO_LONG_STEPS, evals=evals,
+                  stack_lengths=lengths, seconds=seconds,
+                  waveforms_per_s=batch / seconds,
+                  samples_per_s=batch * samples / seconds,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches=launched["LAUNCHES"],
+                  want_launches=want["LAUNCHES"])
+            if tuple(out.shape) != (batch, samples, 1) or not (
+                    torch.isfinite(out).all() and out.abs().max() <= 1):
+                raise AssertionError(f"audio request at {samples}: output "
+                                     f"{tuple(out.shape)}")
+            check_launches(f"audio request at {samples}, {route}", launched,
+                           want)
+            if route == "kernels":
+                total = {k: total[k] + launched[k] for k in total}
+        for route in ("kernels", "composition"):
+            set_stack_fusion(model, route == "kernels")
+            step = audio_train_step(model)
+            x = torch.rand(batch, samples, 1, generator=gen,
+                           device=dev) * 2 - 1
+            reset_counts()
+            first, first_seconds = timed(lambda: step(x, gen))
+            torch.cuda.reset_peak_memory_stats()
+            loss, seconds = timed(lambda: step(x, gen))
+            launched = counts()
+            want = (loop_want(stacks, layers, 2, 0) if route == "kernels"
+                    else composed(launched))
+            losses = [first.item(), loss.item()]
+            phase("audio_long_train", route=route, samples=samples,
+                  batch=batch, first_step_seconds=first_seconds,
+                  seconds_per_step=seconds, waveforms_per_s=batch / seconds,
+                  samples_per_s=batch * samples / seconds, losses=losses,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches={k: v for k, v in launched.items() if v})
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"audio step at {samples}: {losses}")
+            check_launches(f"audio step at {samples}, {route}", launched,
+                           want)
+            if route == "kernels":
+                total = {k: total[k] + launched[k] for k in total}
+    set_stack_fusion(model, True)
+    return total
+
+
+def composed(launched: dict) -> dict:
+    """The launches a call on the module composition may make: ``launched``
+    with every stack kernel's count 0."""
+    return {k: 0 if k in _COUNTERS["transformer_fusion"] else v
+            for k, v in launched.items()}
+
+
+def audio_long_fp32_vs_cpu(dev):
+    """Phase 36: one float32 denoise of the preset at
+    AUDIO_LONG_PARITY_SAMPLES, batch 1, through K1 on the card against the
+    plain versions on the CPU, within SAMPLE_TOL."""
+    import torch
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    model = audio.AudioDiffusionModel(
+        in_channels=1, device="cpu",
+        generator=torch.Generator().manual_seed(63)).eval()
+    g = torch.Generator().manual_seed(64)
+    x = torch.randn(1, AUDIO_LONG_PARITY_SAMPLES, 1, generator=g)
+    sigma = torch.tensor([0.5])
+    with torch.no_grad():
+        want = model.denoise(x, sigma)
+        model = model.to(dev)
+        reset_counts()
+        got = model.denoise(x.to(dev), sigma.to(dev)).cpu()
+    launched = counts()
+    err = _abs_err(got, want)
+    phase("audio_long_fp32_vs_cpu", samples=AUDIO_LONG_PARITY_SAMPLES,
+          batch=1, max_abs_err=err, tol=SAMPLE_TOL,
+          launches=launched["LAUNCHES"])
+    check_launches("audio fp32 denoise", launched,
+                   loop_want(AUDIO_LONG_STACKS, 0, 0, 1))
+    if not err <= SAMPLE_TOL:
+        raise AssertionError(f"audio fp32 denoise: card vs CPU {err}")
+
+
+def native_data_path(dev):
+    """Phase 36: ``load_qm9`` and ``prepare_qm9`` on a QM9_ROWS-row
+    ``synthetic_qm9`` CSV through the native library and through the
+    Python and numpy paths: equal, each one's host seconds, the native
+    calls counted."""
+    import numpy as np
+    import torch
+    from moleculediffusiontransformer_tpu_torch.data import native, qm9
+    # QM9_ROWS rows cycled from 8,192 synthetic molecules, each row's
+    # properties scaled by its own seeded factor (``synthetic_qm9`` itself
+    # takes ~10 s a 133,885 rows on the host)
+    base_smiles, base_props = qm9.synthetic_qm9(8192, seed=0,
+                                                chemically_valid=True)
+    rows = np.arange(QM9_ROWS) % len(base_smiles)
+    smiles = [base_smiles[i] for i in rows]
+    props = (base_props[rows] * np.random.default_rng(36).uniform(
+        0.5, 1.5, (QM9_ROWS, 1))).astype(np.float32)
+    head = "smiles," + ",".join(qm9.PROPERTY_NAMES)
+    out = {"rows": QM9_ROWS, "card": torch.cuda.get_device_name(dev)}
+    native.build()
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "qm9.csv")
+        with open(path, "w") as f:
+            f.write(head + "\n" + "\n".join(
+                s + "," + ",".join(map(repr, p.tolist()))
+                for s, p in zip(smiles, props)) + "\n")
+
+        def both(name, fn, patched, call):
+            before = native.CALLS[call]
+            t0 = time.perf_counter()
+            got = fn()
+            t_native = time.perf_counter() - t0
+            if native.CALLS[call] != before + 1:
+                raise AssertionError(f"{name}: the native {call} ran "
+                                     f"{native.CALLS[call] - before} times")
+            saved = {n: getattr(native, n) for n in patched}
+            for n in patched:
+                setattr(native, n, lambda *a, **k: None)
+            try:
+                t0 = time.perf_counter()
+                want = fn()
+                t_python = time.perf_counter() - t0
+            finally:
+                for n, f in saved.items():
+                    setattr(native, n, f)
+            out[name] = {"native_seconds": t_native,
+                         "python_seconds": t_python}
+            return got, want
+
+        got, want = both("load_qm9", lambda: qm9.load_qm9(path),
+                         ("load_csv",), "load_csv")
+        same = got[0] == want[0] and np.array_equal(got[1], want[1])
+        equal = {"load_qm9": same and got[0] == list(smiles)
+                 and np.array_equal(got[1], props)}
+        for mode, call in (("inverse_diffusion", "tokenize_one_hot"),
+                           ("transformer", "tokenize_pad")):
+            got, want = both(f"prepare_qm9 {mode}", lambda: qm9.prepare_qm9(
+                smiles, props, mode=mode),
+                ("tokenize_pad", "tokenize_one_hot"), call)
+            equal[mode] = all(np.array_equal(getattr(got, n),
+                                             getattr(want, n))
+                              for n in ("X_train", "X_test", "y_train",
+                                        "y_test"))
+    phase("native_data_path", equal=equal, calls=dict(native.CALLS), **out)
+    if not all(equal.values()):
+        raise AssertionError(f"native data path differs from the Python "
+                             f"path: {equal}")
+
+
+def long_stacks_phase(dev):
+    """Phase 36 as a whole: the kernels at the tiled lengths, the audio
+    preset's path, its float32 parity, the native data path.  Returns
+    (the kernels' bf16 summary, the path's launches)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    kernels = check_long_stacks(dev)
+    seconds["kernels"] = time.perf_counter() - t0
+    launched = audio_long_path(dev)
+    seconds["path"] = time.perf_counter() - t0 - sum(seconds.values())
+    audio_long_fp32_vs_cpu(dev)
+    seconds["fp32_vs_cpu"] = time.perf_counter() - t0 - sum(seconds.values())
+    native_data_path(dev)
+    seconds["native"] = time.perf_counter() - t0 - sum(seconds.values())
+    phase("long_stacks_seconds", **seconds)
+    return kernels, launched
+
+
 class PhaseClock:
     """Host seconds of each numbered phase: ``start(n)`` prints the seconds
     of the phase that ran since the last call and starts phase ``n``."""
@@ -7371,6 +7865,11 @@ def main() -> int:
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
 
+    clock.start(36)
+    # 36. the stack kernels past 64 rows, the audio preset at 2**18 and
+    # 2**20 samples through them, the native data path
+    long_kernels, audio_long = long_stacks_phase(dev)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "moleculediffusiontransformer_tpu"))
     if leaked:
@@ -7397,6 +7896,8 @@ def main() -> int:
         "launches_parallel": parallel["serve"]["LAUNCHES"],
         "launches_quality": quality["LAUNCHES"],
         "launches_examples": examples["LAUNCHES"],
+        "launches_audio_long": audio_long["LAUNCHES"],
+        "long": long_kernels["fwd"],
     }]
     # the training kernels' numbers: bf16, batch 512, from phase 6; every
     # bf16 product of the four on the tensor cores (phases 6 and 7 check it)
@@ -7421,7 +7922,9 @@ def main() -> int:
                         "launches_parallel": parallel["train"][count],
                         "launches_parallel_axes": axes["tp"][count],
                         "launches_quality": quality[count],
-                        "launches_examples": examples[count]})
+                        "launches_examples": examples[count],
+                        "launches_audio_long_train": audio_long[count],
+                        "long": long_kernels[key]})
     # this slice's kernels: launches from phase 10, the 91M model serving
     # with both switches on; bf16 numbers from phases 8 and 9
     kernels.append({
@@ -7445,7 +7948,8 @@ def main() -> int:
         "plain_ms": uniform["plain_ms"], "bound_ms": uniform["bound_ms"],
         "bound_by": uniform["bound_by"], "library_ms": None,
         "products": TC_PRODUCTS,
-        "launches_served": served["UNIFORM_LAUNCHES"]})
+        "launches_served": served["UNIFORM_LAUNCHES"],
+        "long": long_kernels["uniform"]})
     # the streaming-attention kernels: bf16 at bh 16, n = m = 4096, d 64
     # from phase 15 (plain_ms and library_ms of the dq and the dk/dv kernel
     # are those of the whole backward, which computes all three grads);

@@ -112,18 +112,19 @@ def _model_flags(p: argparse.ArgumentParser, tasks) -> None:
     _run_flags(p)
 
 
-def _build(args, task: str, data, device: torch.device):
+def _build(args, task: str, data, device: torch.device, init: bool = True):
     from .train import recipes
     return recipes.build_model(task, data.vocab_size, args.preset,
                                dtype=DTYPES[args.dtype], device=device,
-                               seed=args.seed)
+                               seed=args.seed, init=init)
 
 
 def _load(args, task: str, data, checkpoint: Optional[str],
           device: torch.device):
     from .train import recipes
-    model, _ = recipes.load_params(checkpoint, task,
-                                   _build(args, task, data, device))
+    model, _ = recipes.load_params(
+        checkpoint, task,
+        _build(args, task, data, device, init=checkpoint is None))
     if checkpoint is None:
         print("NOTE: random-init params (pass --checkpoint)",
               file=sys.stderr)
@@ -369,7 +370,7 @@ def cmd_export(args) -> Dict:
             vocab = data.vocab_size
     model = recipes.build_model(args.task, vocab, args.preset,
                                 dtype=DTYPES[args.dtype], device=device,
-                                seed=args.seed)
+                                seed=args.seed, init=not args.checkpoint)
     if args.checkpoint:
         recipes.load_params(args.checkpoint, args.task, model)
     model.eval()

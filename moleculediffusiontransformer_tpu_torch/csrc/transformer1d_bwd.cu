@@ -48,10 +48,15 @@
 // (dW and its split sum, db and its second pass, dy), K4 7 (GroupNorm
 // statistics, dW and its split sum, dgn, the column sums and their second
 // pass, dx); one fewer for each that does not split (float32 products, or
-// too few rows).  Attention is one block per (batch, head): q, k, v, dO and
-// the L x m probability and dP matrices sit in shared memory (L, m <= 64,
-// d <= 128: at most 165 KB, asked for with cudaFuncSetAttribute), P is
-// recomputed from q and k.
+// too few rows).  Attention at L, m <= 64 is one block per (batch, head): q,
+// k, v, dO and the L x m probability and dP matrices sit in shared memory
+// (d <= 128: at most 165 KB, asked for with cudaFuncSetAttribute), P is
+// recomputed from q and k.  Past 64 (up to the JAX gate's 512) it is two
+// tiled passes, each block the one owner of its outputs: dQ (and the
+// recomputed o) by (batch, head, 64 query rows) sweeping the key tiles,
+// which leaves each row's softmax max, sum and rowsum(dP * P) in the
+// workspace; then dK and dV by (batch, head, 64 key rows) sweeping the
+// query tiles with those statistics.
 //
 // Rounding follows the Pallas kernels: g and dO in the compute dtype before
 // their products, the probabilities rounded before dV (and the recomputed
@@ -62,8 +67,14 @@
 // summed across layers in the compute dtype, the recomputed GroupNorm output
 // rounded before dW_in; every weight grad float32.
 #include "gemm_tc.cuh"
+#include "stack_attention_tiles.cuh"
 
 namespace {
+
+// The longest L and m the whole-row attention backward takes in one block,
+// and the longest the tiled passes take (the JAX gate's L <= 512).
+constexpr int WHOLE_ROWS = 64;
+constexpr int MAX_TILED_LENGTH = 512;
 
 constexpr long long GRID_CAP = 4096;
 
@@ -521,6 +532,196 @@ size_t attention_bwd_smem_bytes(int L, int m, int d) {
   return sizeof(float) * ((size_t)(2 * L + 2 * m) * (d + 1) + 2 * (size_t)L * m);
 }
 
+// The same backward at any L, m up to MAX_TILED_LENGTH, in two kernels that
+// each own their outputs (stack_attention_tiles.cuh), as the streaming
+// kernels K6 and K7 split it.  The dQ pass: one block per (batch, head, tile
+// of up to 64 query rows) sweeps the key tiles three times: the softmax
+// statistics online; o = round(P) V (for dW_out) and r = rowsum(dP * P);
+// dS = round(P (dP - r) scale) and dQ = dS K.  It writes o and dq, and the
+// rows' (max, sum, r) to `stats` (B*heads*L x 3 floats) for the dK/dV pass.
+template <typename T>
+__global__ void __launch_bounds__(tiles::THREADS)
+attention_bwd_dq_tiled_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                              const T* __restrict__ dout, T* __restrict__ o,
+                              T* __restrict__ dq, float* __restrict__ stats, int L, int m,
+                              int heads, int d, float scale) {
+  using namespace tiles;
+  extern __shared__ float smem[];
+  const int qtiles = (L + TQ - 1) / TQ;
+  const int bh = blockIdx.x / qtiles, r0 = (blockIdx.x % qtiles) * TQ;
+  const int b = bh / heads, h = bh % heads;
+  const int nq = min(TQ, L - r0);
+  const int inner = heads * d, dp = d + 1;
+  const long long ld = 2LL * inner;
+  float* qs = smem;            // TQ x dp
+  float* dos = qs + TQ * dp;   // TQ x dp
+  float* ks = dos + TQ * dp;   // TK x dp
+  float* vs = ks + TK * dp;    // TK x dp
+  float* ss = vs + TK * dp;    // TQ x SP: scores, then P, then dS
+  float* dps = ss + TQ * SP;   // TQ x SP: dP = dO V^T
+  float* mx = dps + TQ * SP;   // TQ
+  float* l = mx + TQ;          // TQ
+  float* rs = l + TQ;          // TQ: rowsum(dP * P)
+  const size_t qrow = ((size_t)b * L + r0) * inner + h * d;
+  const T* kb = kv + (size_t)b * m * ld + h * d;
+  const T* vb = kb + inner;
+  load(qs, q + qrow, inner, nq, d, dp);
+  load(dos, dout + qrow, inner, nq, d, dp);
+  for (int r = threadIdx.x; r < TQ; r += blockDim.x) rs[r] = 0.f;
+  row_stats(mx, l, qs, ks, ss, kb, ld, nq, m, d, dp, scale);
+  const int row = threadIdx.x / COLS, col = threadIdx.x % COLS;
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  float acc[PER];
+  // sweep 2 (o, r) and sweep 3 (dq)
+  for (int sweep = 2; sweep <= 3; ++sweep) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) acc[k] = 0.f;
+    for (int k0 = 0; k0 < m; k0 += TK) {
+      const int nk = min(TK, m - k0);
+      __syncthreads();  // the last tile read, rs complete
+      load(ks, kb + (size_t)k0 * ld, ld, nk, d, dp);
+      load(vs, vb + (size_t)k0 * ld, ld, nk, d, dp);
+      __syncthreads();
+      dots(ss, qs, ks, nq, nk, d, dp, scale);
+      dots(dps, dos, vs, nq, nk, d, dp, 1.f);
+      __syncthreads();
+      for (int i = threadIdx.x; i < TQ * TK; i += blockDim.x) {
+        const int r = i / TK, j = i % TK;
+        if (r < nq && j < nk) {
+          const float p = prob(ss[r * SP + j], mx[r], l[r]);
+          ss[r * SP + j] =
+              sweep == 2 ? p : round_to<T>(p * (dps[r * SP + j] - rs[r]) * scale);
+        }
+      }
+      __syncthreads();
+      if (sweep == 2) {
+        for (int r = threadIdx.x >> 5; r < nq; r += nwarps) {
+          float t = 0.f;
+          for (int j = lane; j < nk; j += 32) t += dps[r * SP + j] * ss[r * SP + j];
+          t = warp_sum(t);
+          if (lane == 0) rs[r] += t;
+        }
+      }
+      if (row < nq) {
+        const float* with = sweep == 2 ? vs : ks;
+        for (int j = 0; j < nk; ++j) {
+          const float p = ss[row * SP + j];
+          const float w = sweep == 2 ? round_to<T>(p) : p;
+          const float* wr = with + j * dp;
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            const int c = col + COLS * k;
+            if (c < d) acc[k] = fmaf(w, wr[c], acc[k]);
+          }
+        }
+      }
+    }
+    if (row < nq) {
+      T* out = (sweep == 2 ? o : dq) + qrow + (size_t)row * inner;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int c = col + COLS * k;
+        if (c < d) out[c] = from_f<T>(acc[k]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < nq; r += blockDim.x) {
+    float* st = stats + ((size_t)bh * L + r0 + r) * 3;
+    st[0] = mx[r];
+    st[1] = l[r];
+    st[2] = rs[r];
+  }
+}
+
+// The dK/dV pass: one block per (batch, head, tile of up to 64 key rows)
+// sweeps the query tiles with the dQ pass's row statistics: dV = round(P)^T
+// dO and dK = dS^T Q, each key row's sums in query order.
+template <typename T>
+__global__ void __launch_bounds__(tiles::THREADS)
+attention_bwd_dkv_tiled_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                               const T* __restrict__ dout, const float* __restrict__ stats,
+                               T* __restrict__ dkv, int L, int m, int heads, int d,
+                               float scale) {
+  using namespace tiles;
+  extern __shared__ float smem[];
+  const int ktiles = (m + TK - 1) / TK;
+  const int bh = blockIdx.x / ktiles, k0 = (blockIdx.x % ktiles) * TK;
+  const int b = bh / heads, h = bh % heads;
+  const int nk = min(TK, m - k0);
+  const int inner = heads * d, dp = d + 1;
+  const long long ld = 2LL * inner;
+  float* ks = smem;            // TK x dp
+  float* vs = ks + TK * dp;    // TK x dp
+  float* qs = vs + TK * dp;    // TQ x dp
+  float* dos = qs + TQ * dp;   // TQ x dp
+  float* ss = dos + TQ * dp;   // TQ x SP: scores, then round(P)
+  float* dps = ss + TQ * SP;   // TQ x SP: dP, then dS
+  float* st = dps + TQ * SP;   // TQ x 3: the rows' (max, sum, r)
+  const size_t krow = ((size_t)b * m + k0) * ld + h * d;
+  load(ks, kv + krow, ld, nk, d, dp);
+  load(vs, kv + krow + inner, ld, nk, d, dp);
+  const int row = threadIdx.x / COLS, col = threadIdx.x % COLS;
+  float acc_k[PER], acc_v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) acc_k[k] = acc_v[k] = 0.f;
+  for (int i0 = 0; i0 < L; i0 += TQ) {
+    const int nq = min(TQ, L - i0);
+    const size_t qrow = ((size_t)b * L + i0) * inner + h * d;
+    __syncthreads();  // the last tile read
+    load(qs, q + qrow, inner, nq, d, dp);
+    load(dos, dout + qrow, inner, nq, d, dp);
+    for (int i = threadIdx.x; i < nq * 3; i += blockDim.x)
+      st[i] = stats[((size_t)bh * L + i0) * 3 + i];
+    __syncthreads();
+    dots(ss, qs, ks, nq, nk, d, dp, scale);
+    dots(dps, dos, vs, nq, nk, d, dp, 1.f);
+    __syncthreads();
+    for (int i = threadIdx.x; i < TQ * TK; i += blockDim.x) {
+      const int r = i / TK, j = i % TK;
+      if (r < nq && j < nk) {
+        const float p = prob(ss[r * SP + j], st[3 * r], st[3 * r + 1]);
+        ss[r * SP + j] = round_to<T>(p);
+        dps[r * SP + j] = round_to<T>(p * (dps[r * SP + j] - st[3 * r + 2]) * scale);
+      }
+    }
+    __syncthreads();
+    if (row < nk) {
+      for (int r = 0; r < nq; ++r) {
+        const float p = ss[r * SP + row], ds = dps[r * SP + row];
+        const float* dor = dos + r * dp;
+        const float* qr = qs + r * dp;
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int c = col + COLS * k;
+          if (c < d) {
+            acc_v[k] = fmaf(p, dor[c], acc_v[k]);
+            acc_k[k] = fmaf(ds, qr[c], acc_k[k]);
+          }
+        }
+      }
+    }
+  }
+  if (row < nk) {
+    T* out = dkv + ((size_t)b * m + k0 + row) * ld + h * d;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int c = col + COLS * k;
+      if (c < d) {
+        out[c] = from_f<T>(acc_k[k]);
+        out[inner + c] = from_f<T>(acc_v[k]);
+      }
+    }
+  }
+}
+
+// Shared memory of either tiled pass: two query-side and two key-side
+// tiles, the scores and dP, three floats a query row (at d 128: 166,144 B).
+size_t attention_bwd_tiled_smem_bytes(int d) {
+  using namespace tiles;
+  return sizeof(float) * ((size_t)(2 * TQ + 2 * TK) * (d + 1) + 2 * (size_t)TQ * SP + 3 * TQ);
+}
+
 // ------------------------------------------------------------- host helpers
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
@@ -528,7 +729,7 @@ inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 // buffers of the compute dtype (element size `es`).
 struct BwdWorkspace {
   size_t partial, dy32, h32, dh32, dq_in32, dkv_in32, q_mean, q_rstd, kv_mean, kv_rstd, gn_mean,
-      gn_rstd, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
+      gn_rstd, stats, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
 };
 
 // Floats of partials a K3 call takes: its weight grad's split (bf16) and its
@@ -578,6 +779,7 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
   w.kv_rstd = take(4 * kv_rows);
   w.gn_mean = take(4 * B * 32);
   w.gn_rstd = take(4 * B * 32);
+  w.stats = take(4 * 3 * R * heads);  // the tiled attention backward's row statistics
   w.dy_dt = take(es * R * C);
   w.gd = take(es * R * H);
   w.dh_dt = take(es * R * H);
@@ -596,7 +798,7 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
 template <typename T>
 struct Buffers {
   float *dy32, *h32, *dh32, *dq_in32, *dkv_in32, *q_mean, *q_rstd, *kv_mean, *kv_rstd,
-      *gn_mean, *gn_rstd, *partial;
+      *gn_mean, *gn_rstd, *stats, *partial;
   T *dy_dt, *gd, *dh_dt, *q_in, *kv_in, *q, *kv, *dout, *o, *dq, *dkv;
 };
 
@@ -614,6 +816,7 @@ Buffers<T> carve(char* base, const BwdWorkspace& w) {
   b.kv_rstd = (float*)(base + w.kv_rstd);
   b.gn_mean = (float*)(base + w.gn_mean);
   b.gn_rstd = (float*)(base + w.gn_rstd);
+  b.stats = (float*)(base + w.stats);
   b.partial = (float*)(base + w.partial);
   b.dy_dt = (T*)(base + w.dy_dt);
   b.gd = (T*)(base + w.gd);
@@ -648,17 +851,39 @@ int launch_ln_bwd(const float* dy, const T* x, const float* mean, const float* r
   return (int)cudaGetLastError();
 }
 
+template <typename K>
+int allow_smem(K* kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+// The whole-row backward where L and m fit one block (<= WHOLE_ROWS), the
+// tiled dQ and dK/dV passes past that (`stats`: B*heads*L x 3 floats).
 template <typename T>
-int launch_attention_bwd(const T* q, const T* kv, const T* dout, T* o, T* dq, T* dkv, int B,
-                         int L, int m, int heads, int d, cudaStream_t s) {
+int launch_attention_bwd(const T* q, const T* kv, const T* dout, T* o, T* dq, T* dkv,
+                         float* stats, int B, int L, int m, int heads, int d, cudaStream_t s) {
+  const float scale = 1.0f / sqrtf((float)d);
+  if (L > WHOLE_ROWS || m > WHOLE_ROWS) {
+    const size_t smem = attention_bwd_tiled_smem_bytes(d);
+    T1D_CHECK(allow_smem(attention_bwd_dq_tiled_kernel<T>, smem));
+    T1D_CHECK(allow_smem(attention_bwd_dkv_tiled_kernel<T>, smem));
+    attention_bwd_dq_tiled_kernel<T><<<B * heads * gtc::cdiv(L, tiles::TQ), tiles::THREADS,
+                                       smem, s>>>(q, kv, dout, o, dq, stats, L, m, heads, d,
+                                                  scale);
+    T1D_CHECK((int)cudaGetLastError());
+    attention_bwd_dkv_tiled_kernel<T><<<B * heads * gtc::cdiv(m, tiles::TK), tiles::THREADS,
+                                        smem, s>>>(q, kv, dout, stats, dkv, L, m, heads, d,
+                                                   scale);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = attention_bwd_smem_bytes(L, m, d);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         attention_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  attention_bwd_kernel<T><<<B * heads, ATTN_BWD_THREADS, smem, s>>>(
-      q, kv, dout, o, dq, dkv, L, m, heads, d, 1.0f / sqrtf((float)d));
+  attention_bwd_kernel<T><<<B * heads, ATTN_BWD_THREADS, smem, s>>>(q, kv, dout, o, dq, dkv,
+                                                                    L, m, heads, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -691,8 +916,8 @@ int attention_bwd(float* dy32, const T* a, const T* kv_src, int kv_rows, int kv_
   T1D_CHECK(launch_cast<float, T>(dy32, bf.dy_dt, (long long)R * C, s));
   T1D_CHECK(launch_gemm_tc(gemm_nn<T, T>(bf.dy_dt, wout, bf.dout, R, I, C), s));
   T1D_CHECK(launch_colsum<float>(dy32, R, C, g[7], s));
-  T1D_CHECK(launch_attention_bwd<T>(bf.q, bf.kv, bf.dout, bf.o, bf.dq, bf.dkv, B, L, m,
-                                    heads, d, s));
+  T1D_CHECK(launch_attention_bwd<T>(bf.q, bf.kv, bf.dout, bf.o, bf.dq, bf.dkv, bf.stats, B, L,
+                                    m, heads, d, s));
   T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dy_dt, bf.o, g[6], R, C, I), s, bf.partial));
   T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dq, bf.q_in, g[4], R, I, C), s, bf.partial));
   T1D_CHECK(launch_gemm_tc(gemm_tn<T>(bf.dkv, bf.kv_in, g[5], kv_rows, 2 * I, kv_c), s,
@@ -839,8 +1064,8 @@ int gemm_tc_alone(const void* A, long long sam, long long sak, const void* B, lo
 }
 
 bool shapes_ok(int L, int C, int ctx_len, bool cross, int head_dim) {
-  return C % 32 == 0 && L >= 1 && L <= 64 && head_dim >= 1 && head_dim <= 128 &&
-         (!cross || (ctx_len >= 1 && ctx_len <= 64));
+  return C % 32 == 0 && L >= 1 && L <= MAX_TILED_LENGTH && head_dim >= 1 && head_dim <= 128 &&
+         (!cross || (ctx_len >= 1 && ctx_len <= MAX_TILED_LENGTH));
 }
 
 }  // namespace

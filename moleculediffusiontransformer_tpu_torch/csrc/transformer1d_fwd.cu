@@ -39,10 +39,17 @@
 //     blocks chosen from the shape so that a request of a few rows does not
 //     launch 128-row blocks), in float32 on the CUDA cores (gemm.cuh's
 //     64x64 tile), so that float32 keeps its 1e-4 parity with the CPU;
-//   * attention: one block per (batch, head), q/k/v and the L x m score
-//     matrix in shared memory (L, m <= 64), float32 scores and stable
+//   * attention: for L, m <= 64 one block per (batch, head), q/k/v and the
+//     L x m score matrix in shared memory, float32 scores and stable
 //     softmax, float32 P.V, on the CUDA cores (a small share of the work at
-//     L 8 and m 12).
+//     L 8 and m 12); past 64 (up to the JAX gate's 512: the audio preset's
+//     stacks run at L 128-512 on waveforms of 2^18-2^20 samples) one block
+//     per (batch, head, 64 query rows), K and V in tiles of 64 rows through
+//     shared memory, the softmax statistics taken online in a first sweep
+//     and the rounded probabilities applied in a second (q.k twice and P.V
+//     once: 1.6 GFLOP at L = m = 512, 8 heads of 64, batch 2, beside 5.4
+//     GFLOP of the stack's products on the tensor cores; moving this core
+//     onto the tensor cores is later work).
 // With a uniform context the cross-attention's context LayerNorm and KV
 // projection run once, on m rows instead of B*m, and every (batch, head)
 // block reads that one K/V (batch stride 0).
@@ -55,8 +62,14 @@
 // between kernels: fewer launches a layer (LayerNorm in the products'
 // prologue, the attention core on the tensor cores) is later work.
 #include "gemm_tc.cuh"
+#include "stack_attention_tiles.cuh"
 
 namespace {
+
+// The longest L and m the whole-row attention core takes in one block, and
+// the longest the tiled core takes (the JAX gate's L <= 512).
+constexpr int WHOLE_ROWS = 64;
+constexpr int MAX_TILED_LENGTH = 512;
 
 // ---------------------------------------------------------------- GroupNorm
 // x (B, L, C) -> y (B, L, C) in T; one block per (batch, group).
@@ -174,6 +187,73 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   }
 }
 
+// The same core at any L, m up to MAX_TILED_LENGTH: one block per (batch,
+// head, tile of up to 64 query rows), K and V swept in tiles of 64 rows
+// through shared memory (stack_attention_tiles.cuh).  A first sweep over K
+// takes each row's max and sum online; a second recomputes the scores,
+// rounds the normalised probabilities to T and accumulates P.V, so the
+// rounding points are attention_kernel's.
+template <typename T>
+__global__ void __launch_bounds__(tiles::THREADS)
+attention_tiled_kernel(const T* __restrict__ q, const T* __restrict__ kv, T* __restrict__ o,
+                       int L, int m, int heads, int d, long long kv_bstride, float scale) {
+  using namespace tiles;
+  extern __shared__ float smem[];
+  const int qtiles = (L + TQ - 1) / TQ;
+  const int bh = blockIdx.x / qtiles, r0 = (blockIdx.x % qtiles) * TQ;
+  const int b = bh / heads, h = bh % heads;
+  const int nq = min(TQ, L - r0);
+  const int inner = heads * d, dp = d + 1;
+  const long long ld = 2LL * inner;
+  float* qs = smem;          // TQ x dp
+  float* ks = qs + TQ * dp;  // TK x dp
+  float* vs = ks + TK * dp;  // TK x dp
+  float* ss = vs + TK * dp;  // TQ x SP: scores, then probabilities
+  float* mx = ss + TQ * SP;  // TQ
+  float* l = mx + TQ;        // TQ
+  const T* kb = kv + (size_t)b * kv_bstride + h * d;
+  const T* vb = kb + inner;
+  load(qs, q + ((size_t)b * L + r0) * inner + h * d, inner, nq, d, dp);
+  row_stats(mx, l, qs, ks, ss, kb, ld, nq, m, d, dp, scale);
+  const int row = threadIdx.x / COLS, col = threadIdx.x % COLS;
+  float acc[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) acc[k] = 0.f;
+  for (int k0 = 0; k0 < m; k0 += TK) {
+    const int nk = min(TK, m - k0);
+    __syncthreads();  // the last tile's probabilities and values read
+    load(ks, kb + (size_t)k0 * ld, ld, nk, d, dp);
+    load(vs, vb + (size_t)k0 * ld, ld, nk, d, dp);
+    __syncthreads();
+    dots(ss, qs, ks, nq, nk, d, dp, scale);
+    __syncthreads();
+    for (int i = threadIdx.x; i < TQ * TK; i += blockDim.x) {
+      const int r = i / TK, j = i % TK;
+      if (r < nq && j < nk) ss[r * SP + j] = round_to<T>(prob(ss[r * SP + j], mx[r], l[r]));
+    }
+    __syncthreads();
+    if (row < nq) {
+      for (int j = 0; j < nk; ++j) {
+        const float p = ss[row * SP + j];
+        const float* vr = vs + j * dp;
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int c = col + COLS * k;
+          if (c < d) acc[k] = fmaf(p, vr[c], acc[k]);
+        }
+      }
+    }
+  }
+  if (row < nq) {
+    T* orow = o + ((size_t)b * L + r0 + row) * inner + h * d;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int c = col + COLS * k;
+      if (c < d) orow[c] = from_f<T>(acc[k]);
+    }
+  }
+}
+
 // ------------------------------------------------------------- host helpers
 
 inline long long align64(long long n) { return (n + 63) / 64 * 64; }
@@ -205,6 +285,11 @@ size_t attention_smem_bytes(int L, int m, int d) {
                           (size_t)L * m);
 }
 
+size_t attention_tiled_smem_bytes(int d) {
+  using namespace tiles;
+  return sizeof(float) * ((size_t)(TQ + 2 * TK) * (d + 1) + (size_t)TQ * SP + 2 * TQ);
+}
+
 // out = epilogue(A W^T): the forward's one product shape
 template <typename T>
 int fwd_gemm(const T* A, const T* W, const float* bias, const T* res, T* out, int M, int N,
@@ -225,9 +310,21 @@ int launch_layer_norm(const T* x, T* y, const float* g, const float* b, int rows
   return (int)cudaGetLastError();
 }
 
+// The whole-row core where L and m fit one block (<= WHOLE_ROWS), the tiled
+// core past that.
 template <typename T>
 int launch_attention(const T* q, const T* kv, T* o, int B, int L, int m, int heads, int d,
                      long long kv_bstride, cudaStream_t s) {
+  if (L > WHOLE_ROWS || m > WHOLE_ROWS) {
+    const size_t smem = attention_tiled_smem_bytes(d);
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const int qtiles = gtc::cdiv(L, tiles::TQ);
+    attention_tiled_kernel<T><<<B * heads * qtiles, tiles::THREADS, smem, s>>>(
+        q, kv, o, L, m, heads, d, kv_bstride, 1.0f / sqrtf((float)d));
+    return (int)cudaGetLastError();
+  }
   const size_t smem = attention_smem_bytes(L, m, d);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -355,8 +452,9 @@ int t1d_forward(const void* x, const void* ctx, void* out, void* stash,
                 int C, int ctx_len, int ctx_c, int uniform_ctx, int num_layers, int heads,
                 int head_dim, int mult, int dtype, int device, void* stream) {
   if (n_weights != t1d_num_weights(num_layers, ctx != nullptr) || C % 32 != 0 ||
-      L < 1 || L > 64 || head_dim < 1 || head_dim > 128 ||
-      (ctx != nullptr && (ctx_len < 1 || ctx_len > 64)) || (uniform_ctx && ctx == nullptr))
+      L < 1 || L > MAX_TILED_LENGTH || head_dim < 1 || head_dim > 128 ||
+      (ctx != nullptr && (ctx_len < 1 || ctx_len > MAX_TILED_LENGTH)) ||
+      (uniform_ctx && ctx == nullptr))
     return -1;
   T1D_CHECK((int)cudaSetDevice(device));
   cudaStream_t s = (cudaStream_t)stream;

@@ -8,10 +8,13 @@ padded post/post; the inverse-diffusion input one-hot with 0 -> -1.
 a seed, for tests and the card's smoke run.
 
 ``load_qm9`` reads the reference CSV (a download: the tests write their
-own) on the JAX package's Python csv path; that package's native CSV reader
-and native tokenizer are not copied (its own tests hold each equal to the
-Python path).  ``batch_iterator`` is the host-side batch stream of the
-training loops.
+own).  As in the JAX package, a plain CSV goes through the native reader
+(``data/native``, the port's copy of that package's C++, built with g++ at
+first use) and ``prepare_qm9`` tokenizes and one-hots through the native
+tokenizer; a quoted CSV, a missing column, a malformed row and a vocabulary
+that is not single-byte stay on the Python and numpy paths, which give the
+same values and own the user-facing errors.  ``batch_iterator`` is the
+host-side batch stream of the training loops.
 """
 from __future__ import annotations
 
@@ -99,8 +102,17 @@ def verify_qm9_csv(csv_path: str,
 
 def load_qm9(csv_path: str, smiles_column: str = "smiles",
              max_rows: Optional[int] = None) -> Tuple[List[str], np.ndarray]:
-    """Load (smiles, properties[n, 12]) from the reference CSV (the JAX
-    package's Python csv path)."""
+    """Load (smiles, properties[n, 12]) from the reference CSV.
+
+    A plain (unquoted) CSV goes through the multithreaded native reader
+    (``native/csv_loader.cpp``); anything it cannot commit to byte-exactly
+    (quoting, missing columns, malformed rows) takes this Python csv path,
+    which owns the user-facing errors."""
+    from . import native
+    loaded = native.load_csv(csv_path, PROPERTY_NAMES,
+                             smiles_column=smiles_column, max_rows=max_rows)
+    if loaded is not None:
+        return loaded
     import csv
 
     smiles: List[str] = []
@@ -309,8 +321,13 @@ def prepare_qm9(smiles: Sequence[str], properties: np.ndarray, *,
 
     tokenizer = CharTokenizer().fit_on_texts(texts)
 
+    from . import native
+
     def padded_ids(length: int) -> np.ndarray:
-        return pad_sequences(tokenizer.texts_to_sequences(texts), length)
+        out = native.tokenize_pad(texts, tokenizer.word_index, length)
+        if out is None:    # a vocabulary that is not single-byte: numpy
+            out = pad_sequences(tokenizer.texts_to_sequences(texts), length)
+        return out
 
     if mode == "forward_diffusion":
         max_length = 64 if max_length is None else max_length
@@ -318,7 +335,10 @@ def prepare_qm9(smiles: Sequence[str], properties: np.ndarray, *,
         X = padded_ids(max_length).astype(np.float32) / x_norm
     elif mode == "inverse_diffusion":
         max_length = 32 if max_length is None else max_length
-        X = one_hot_signed(padded_ids(max_length), tokenizer.num_tokens)
+        X = native.tokenize_one_hot(texts, tokenizer.word_index, max_length,
+                                    tokenizer.num_tokens)
+        if X is None:
+            X = one_hot_signed(padded_ids(max_length), tokenizer.num_tokens)
         x_norm = 1.0
     elif mode == "transformer":
         max_length = 64 if max_length is None else max_length

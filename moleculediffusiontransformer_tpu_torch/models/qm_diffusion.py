@@ -164,8 +164,8 @@ class QMDiffusionForward(QMDiffusionBase):
 
 def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
                 device: Optional[torch.device] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> QMDiffusionBase:
+                generator: Optional[torch.Generator] = None,
+                init: bool = True) -> QMDiffusionBase:
     """Build a QM model from a ``QMDiffusionConfig`` preset (the JAX
     package's framework-neutral ``core/config.py``, e.g.
     ``inverse_diffusion_qm9(22)`` or ``forward_diffusion_qm9()``; read by
@@ -173,8 +173,10 @@ def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
     the card ("cuda") unless the caller names another, so without a card
     the default raises and a CPU run asks for ``device="cpu"`` -- its
     parameters drawn from ``generator`` (a CPU generator; torch's global RNG
-    when None)."""
-    with seeded_build(generator):
+    when None).  ``init=False`` draws none: the parameters stay unset, for
+    a caller that loads every one of them next (a checkpoint, with
+    ``strict=True``)."""
+    with seeded_build(generator if init else torch.Generator()):
         model = cls(
             max_length=config.max_length, channels=config.channels,
             pred_dim=config.pred_dim, unet_type=config.unet_type,
@@ -191,7 +193,7 @@ def from_config(cls, config: Any, dtype: torch.dtype = torch.float32,
             sigma_std=config.diffusion.sigma_std,
             dynamic_threshold=config.diffusion.dynamic_threshold,
             dtype=dtype)
-    if generator is not None:
+    if init and generator is not None:
         init_parameters(model, generator)
     return model.to("cuda" if device is None else device)
 

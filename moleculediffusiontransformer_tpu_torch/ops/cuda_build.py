@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -71,29 +71,39 @@ def build(source: str) -> Tuple[Path, float]:
     """Compile ``csrc/<source>`` unless its library exists; returns the
     library path and the seconds spent compiling (0.0 when it existed).
     Raises RuntimeError with nvcc's output when the build fails."""
-    out = library_path(source)
+    return build_once(library_path(source), lambda out: [
+        nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+        str(CSRC_DIR / source)], source)
+
+
+def build_once(out: Path, command: Callable[[Path], List[str]],
+               what: str) -> Tuple[Path, float]:
+    """Build the shared library ``out`` unless it exists, with the compiler
+    command line ``command(path)`` that writes ``path``: under the
+    library's lock, into a temporary file renamed when complete, so that
+    processes building it at once take turns and a reader never sees half
+    a file.  Returns ``out`` and the seconds spent compiling (0.0 when it
+    existed); raises RuntimeError with the compiler's output, naming
+    ``what`` was built, when the build fails.  The port's host library
+    (``data/native``) builds through it too."""
     if out.exists():
         return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     with _locked(out):
         if out.exists():            # built by another process meanwhile
             return out, 0.0
-        return out, _compile(source, out)
-
-
-def _compile(source: str, out: Path) -> float:
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_out = Path(tmp) / out.name
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o",
-               str(tmp_out), str(CSRC_DIR / source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {source}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp_out, out)   # atomic: a reader never sees half a file
-    return time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+            tmp_out = Path(tmp) / out.name
+            cmd = command(tmp_out)
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{Path(cmd[0]).name} failed ({proc.returncode}) "
+                    f"building {what}:\n{' '.join(cmd)}\n{proc.stdout}\n"
+                    f"{proc.stderr}")
+            os.replace(tmp_out, out)   # atomic
+        return out, time.perf_counter() - t0
 
 
 def load(source: str) -> ctypes.CDLL:

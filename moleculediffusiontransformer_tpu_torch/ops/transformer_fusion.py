@@ -71,8 +71,11 @@ from . import cuda_build
 
 SOURCE = "transformer1d_fwd.cu"
 BWD_SOURCE = "transformer1d_bwd.cu"
-MAX_LENGTH = 64      # rows of q per (batch, head) block in the attention core
-MAX_CONTEXT = 64     # rows of k/v per (batch, head) block
+# The longest x and context the kernels take: the JAX gate's L <= 512 (its
+# stacks past 512 are the composition's, as here).  The attention core holds
+# L, m <= 64 in one block per (batch, head) and tiles longer ones.
+MAX_LENGTH = 512
+MAX_CONTEXT = 512
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -153,9 +156,10 @@ def stack_kernel_takes(x: torch.Tensor, context: Optional[torch.Tensor], *,
                        use_rel_pos: bool = False) -> bool:
     """The static part of the JAX ``fusable`` gate: a stack the kernel takes.
     A stack with relative position bias never is (the kernel has no bias
-    term; the JAX gate refuses it too); the VMEM budget of the TPU gate has
-    no counterpart here.  A head size past ``MAX_HEAD_DIM`` is, like a length
-    past ``MAX_LENGTH``, the composition's."""
+    term; the JAX gate refuses it too), nor one longer than ``MAX_LENGTH``
+    (512, the JAX gate's rule); the VMEM budget of the TPU gate has no
+    counterpart here, and a context of up to ``MAX_CONTEXT`` rows is the
+    kernel's.  A head size past ``MAX_HEAD_DIM`` is the composition's."""
     return (not use_rel_pos and channels % 32 == 0 and x.dim() == 3 and x.shape[-1] == channels
             and x.dtype == dtype and dtype in _DTYPES
             and 1 <= x.shape[1] <= MAX_LENGTH

@@ -63,10 +63,13 @@ def data_mode(task: str) -> str:
 
 def build_model(task: str, vocab_size: Optional[int] = None,
                 preset: str = "notebook", dtype: torch.dtype = torch.float32,
-                device=None, seed: int = 0) -> torch.nn.Module:
+                device=None, seed: int = 0,
+                init: bool = True) -> torch.nn.Module:
     """Construct the task's model at notebook (reference) or tiny scale, on
     ``device`` (the card when None), its weights from a CPU generator
-    seeded with ``seed``."""
+    seeded with ``seed``.  ``init=False``, for a caller that loads a
+    checkpoint into it next: the notebook diffusion models (91M, 18M) skip
+    drawing weights that the checkpoint overwrites."""
     from ..core import config as cfg
     from ..models.qm_diffusion import (QMDiffusion, QMDiffusionForward,
                                        from_config)
@@ -94,7 +97,8 @@ def build_model(task: str, vocab_size: Optional[int] = None,
                            pred_dim=1, context_embedding_max_length=64,
                            patch_size=4)
         return from_config(QMDiffusionForward, cfg.forward_diffusion_qm9(),
-                           dtype=dtype, device=device, generator=generator)
+                           dtype=dtype, device=device, generator=generator,
+                           init=init)
     if task == "inverse_diffusion":
         vocab = vocab_size or 22
         if tiny:
@@ -102,7 +106,8 @@ def build_model(task: str, vocab_size: Optional[int] = None,
                            pred_dim=vocab, context_embedding_max_length=12,
                            pre_transformer=1, patch_size=1)
         return from_config(QMDiffusion, cfg.inverse_diffusion_qm9(vocab),
-                           dtype=dtype, device=device, generator=generator)
+                           dtype=dtype, device=device, generator=generator,
+                           init=init)
     if task == "inverse_transformer":
         t = cfg.inverse_transformer_qm9()
         dim, depth = (32, 2) if tiny else (t.dim, t.depth)

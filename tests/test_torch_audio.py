@@ -239,14 +239,16 @@ def test_model1d_forward_draws_from_a_generator():
 
 
 def test_model1d_through_the_flash_route(monkeypatch):
-    """A ``Model1d`` whose attention runs at 512 tokens, the threshold
-    patched to 512 in both packages: JAX through its Pallas kernels in
-    interpret mode, the port through ``flash_attention``."""
+    """A ``Model1d`` whose attention runs at 1,024 tokens (past the stack
+    kernels' 512, so that its stack takes the module composition in both
+    packages), the threshold patched to 512 in both packages: JAX through
+    its Pallas kernels in interpret mode, the port through
+    ``flash_attention``."""
     monkeypatch.setattr(jfa, "LONG_SEQ_THRESHOLD", 512)
     monkeypatch.setattr(tfa, "LONG_SEQ_THRESHOLD", 512)
     monkeypatch.setenv("MDT_FLASH_INTERPRET", "1")
     monkeypatch.delenv("MDT_FLASH", raising=False)
-    jmodel, params, tmodel, x, _ = _pair(8, length=2048, batch=1,
+    jmodel, params, tmodel, x, _ = _pair(8, length=4096, batch=1,
                                          attention_features=16)
     calls = []
     inner = tfa.flash_attention
@@ -260,7 +262,7 @@ def test_model1d_through_the_flash_route(monkeypatch):
                   noise=torch.tensor(noise))
     loss.backward()
     # one attention layer: batch 1, 2 heads, handed over as split heads
-    assert calls == [(1, 2, 512, 16)]
+    assert calls == [(1, 2, 1024, 16)]
     assert abs(loss.item() - want_loss) <= 1e-4
     _assert_grads(tmodel, want, dict(rtol=1e-4, atol=5e-5))
 

@@ -7,7 +7,8 @@ card, at the shapes of the 91M inverse and the 18M forward QM9 models; the
 streaming-attention kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) at the long model's shapes; and the
 resident-KV attention kernels (``csrc/attention.cu``) at the micro-shapes of
-those models and of the AR transformer's decode step.
+those models and of the AR transformer's decode step.  The stack kernels
+also at the audio preset's stacks past 64 rows (the tiled attention core).
 Marked ``cuda_hw``: every test skips without a CUDA card (decided inside
 the fixture).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
@@ -41,6 +42,16 @@ STACK_CASES = [(*st, None, 12) for st in STACKS] + [
     (2, 512, 2, False, 1, 12), (2, 512, 4, True, 3, 12),
     (4, 128, 2, True, None, 64), (1, 256, 2, True, None, 64),
     (4, 128, 2, True, 1, 64), (1, 256, 2, True, 3, 64)]
+# past the whole-row attention core's 64 rows (the tiled core, up to 512):
+# the audio preset's stacks at 2**18-2**20 samples (C 512, one layer, L 65
+# to 512 with a ragged tile), cross stacks on contexts of 64, 80, 200 and
+# 512 rows, and a short x on a long context
+LONG_STACK_CASES = [
+    (65, 512, 1, False, 2, 12), (128, 512, 1, False, 2, 12),
+    (256, 512, 1, False, 2, 12), (512, 512, 1, False, 1, 12),
+    (128, 512, 1, True, 2, 64), (128, 512, 1, True, 2, 200),
+    (200, 256, 2, True, 3, 80), (8, 256, 2, True, 4, 200),
+    (512, 128, 1, True, 1, 512)]
 
 
 @pytest.fixture
@@ -69,7 +80,8 @@ def _stack(dev, length, c, layers, cross, dtype, batch=128, seed=0,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", STACK_CASES)
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len",
+                         STACK_CASES + LONG_STACK_CASES)
 def test_kernel_matches_plain_version(cuda, length, c, layers, cross, batch,
                                       ctx_len, dtype):
     """Every bf16 product of the stack goes to the tensor cores, every
@@ -170,7 +182,8 @@ def _chain_case(dev, length, c, layers, cross, dtype, batch=TRAIN_BATCH,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", STACK_CASES)
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len",
+                         STACK_CASES + LONG_STACK_CASES)
 def test_stash_forward_matches_plain_version(cuda, length, c, layers, cross,
                                              batch, ctx_len, dtype):
     _, kp, x, ctx, out, stash, _, kw = _chain_case(
@@ -190,7 +203,8 @@ def test_stash_forward_matches_plain_version(cuda, length, c, layers, cross,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", STACK_CASES)
+@pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len",
+                         STACK_CASES + LONG_STACK_CASES)
 def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
                                                cross, batch, ctx_len, dtype):
     """K3, every layer's K2 and K4, each on the plain stash, output by
@@ -278,7 +292,8 @@ def test_conv_backward_kernels_match_plain_versions(cuda, c, rows, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("length,c,layers,cross,batch,ctx_len", [
     (8, 256, 4, True, None, 12), (8, 256, 4, True, 3, 12),
-    (4, 128, 2, True, 1, 64), (1, 256, 2, True, None, 64)])
+    (4, 128, 2, True, 1, 64), (1, 256, 2, True, None, 64),
+    (512, 512, 1, True, 1, 200), (200, 256, 2, True, 3, 80)])
 def test_backward_chain_is_bitwise_deterministic(cuda, length, c, layers,
                                                  cross, batch, ctx_len,
                                                  dtype):
@@ -584,7 +599,8 @@ def test_resnet_grads_on_the_card(cuda):
 # of 1 and 3 requests
 UNIFORM = [(8, 256, 4, 12, 128), (2, 512, 4, 12, 128), (4, 128, 2, 64, 128),
            (1, 256, 2, 64, 128), (8, 256, 4, 12, 1), (2, 512, 4, 12, 3),
-           (4, 128, 2, 64, 3), (1, 256, 2, 64, 1)]
+           (4, 128, 2, 64, 3), (1, 256, 2, 64, 1),
+           (128, 512, 1, 200, 2), (200, 256, 2, 80, 3), (8, 256, 2, 512, 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -58,6 +58,7 @@ PORT_MODULES = [
     "moleculediffusiontransformer_tpu_torch.data.tokenizer",
     "moleculediffusiontransformer_tpu_torch.data.preprocess",
     "moleculediffusiontransformer_tpu_torch.data.qm9",
+    "moleculediffusiontransformer_tpu_torch.data.native",
     "moleculediffusiontransformer_tpu_torch.design",
     "moleculediffusiontransformer_tpu_torch.design.valence",
     "moleculediffusiontransformer_tpu_torch.design.inverse_design",
@@ -623,3 +624,47 @@ def test_chip_smoke_runs_the_parallel_phase(monkeypatch, tmp_path):
     assert want["FSDP training (rank 1)"]["STASH_LAUNCHES"] == stacks * 3
     assert "torchrun train" in want
     assert not any(got["train"].values()) and not any(got["serve"].values())
+
+
+def test_chip_smoke_runs_the_long_stacks_phase(monkeypatch):
+    """Phase 36's code (``long_stacks_phase``) on the CPU at tiny sizes:
+    every kernel-against-plain comparison (on the CPU the wrappers run the
+    plain versions), the audio preset's requests and steps on both routes
+    (a tiny preset whose stacks run past 64 rows), the float32 parity and
+    the native data path; each launch count is held against the expected
+    one (recorded here: on the CPU no kernel launches)."""
+    from moleculediffusiontransformer_tpu_torch.models import audio
+    smoke = _smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
+    for name in ("cuda_ms", "device_ms", "named_kernels_ms"):
+        monkeypatch.setattr(smoke, name, lambda fn, *a, **k: (fn(), 0.0)[1])
+    held = []
+    monkeypatch.setattr(smoke, "check_launches",
+                        lambda what, got, want: held.append((what, want)))
+    # three stacks (down, bottleneck, up) at L 128 on 2**11 samples and
+    # 256 on 2**12
+    tiny = dict(channels=32, patch_size=2, multipliers=(1, 1, 2),
+                factors=(4, 2), num_blocks=(1, 1), attentions=(0, 1, 1),
+                attention_heads=2, attention_features=16,
+                attention_multiplier=2, resnet_groups=8, diffusion_type="v")
+    monkeypatch.setattr(audio, "get_default_model_kwargs", lambda: dict(
+        tiny, diffusion_sigma_distribution=audio.UniformDistribution()))
+    for name, value in (("LONG_STACK_SHAPES", [(65, None), (70, 66)]),
+                        ("LONG_STACK_C", 64), ("AUDIO_LONG_STACKS", 3),
+                        ("AUDIO_LONG", ((2 ** 11, 2), (2 ** 12, 1))),
+                        ("AUDIO_LONG_STEPS", 3),
+                        ("AUDIO_LONG_PARITY_SAMPLES", 2 ** 11),
+                        ("QM9_ROWS", 300)):
+        monkeypatch.setattr(smoke, name, value)
+    kernels, launched = smoke.long_stacks_phase(torch.device("cpu"))
+    want = dict(held)
+    assert want["audio request at 2048, kernels"]["LAUNCHES"] == 3 * 2
+    assert want["audio request at 4096, composition"]["LAUNCHES"] == 0
+    assert want["audio step at 4096, kernels"]["LAYER_BWD_LAUNCHES"] == 3 * 2
+    assert want["audio fp32 denoise"]["LAUNCHES"] == 3
+    assert kernels["fwd"]["shapes"] == 2 and kernels["uniform"]["shapes"] == 1
+    assert kernels["layer"]["bound_by"] in ("operations", "bytes")
+    assert not any(launched.values())

@@ -88,3 +88,22 @@ def test_unseeded_builds_keep_the_default_draw():
     state = torch.get_rng_state()
     primitives.Dense(4, 3)
     assert not torch.equal(torch.get_rng_state(), state)
+
+
+@pytest.mark.parametrize("task", ["inverse_diffusion", "forward_diffusion"])
+def test_build_without_init_then_a_checkpoint(task):
+    """``build_model(init=False)`` (the CLI's build when a checkpoint is
+    loaded next) draws no weights, neither from the seed nor from torch's
+    global RNG; loading a model's state dict with ``strict=True`` then
+    gives that model bit for bit, every parameter and buffer."""
+    kw = dict(vocab_size=22, preset="notebook", device="cpu")
+    want = recipes.build_model(task, seed=5, **kw)
+    state = torch.random.get_rng_state()
+    bare = recipes.build_model(task, seed=0, init=False, **kw)
+    assert torch.equal(torch.random.get_rng_state(), state)
+    bare.load_state_dict(want.state_dict(), strict=True)
+    got, ref = bare.state_dict(), want.state_dict()
+    assert set(got) == set(ref)
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    assert all(torch.equal(a, b) for a, b in zip(bare.buffers(),
+                                                  want.buffers()))

@@ -2,7 +2,9 @@
 package, on the CPU (fp32 unless stated): the stash forward, the three
 backward segment kernels' plain versions (K3 conv out, K2 one layer, K4
 GroupNorm + conv in) against the Pallas kernels run with ``interpret=True``,
-and the whole stack's gradients through the port's dispatch.
+and the whole stack's gradients through the port's dispatch; at L 16 and 64
+and, past the whole-row attention core's 64 rows, at L 128 with a context
+of 80 rows.
 
 Weights come from the JAX module's ``init`` through
 ``state_dict_from_jax_params``; JAX grads are mapped the same way, which
@@ -26,10 +28,12 @@ from moleculediffusiontransformer_tpu_torch.nn.jax_import import \
 from moleculediffusiontransformer_tpu_torch.ops import transformer_fusion as tf
 
 HEADS, HEAD_DIM, LAYERS = 4, 16, 2
-# (B, L, C, m): the JAX suite's gradient geometry (one Pallas program) and
-# its grid > 1 geometry
-GEOMS = {"grid1": (8, 16, 64, 12), "grid4": (16, 64, 64, 12)}
-BANDS = {"grid1": (1e-4, 1e-5), "grid4": (5e-4, 5e-5)}
+# (B, L, C, m): the JAX suite's gradient geometry (one Pallas program), its
+# grid > 1 geometry, and a stack past the whole-row attention core's 64 rows
+# (the tiled core's) with a context of 80 rows
+GEOMS = {"grid1": (8, 16, 64, 12), "grid4": (16, 64, 64, 12),
+         "L128": (2, 128, 64, 80)}
+BANDS = {"grid1": (1e-4, 1e-5), "grid4": (5e-4, 5e-5), "L128": (5e-4, 5e-5)}
 BF16_BAND = 2e-2
 
 
@@ -84,9 +88,8 @@ def _assert_bf16(got, want, what=""):
 
 # ------------------------------------------------------------------ stash ---
 
-@pytest.mark.parametrize("cross", [False, True])
-def test_stash_forward_matches_pallas(cross):
-    _, params, x, ctx, _ = _setup(cross)
+def _stash_forward_matches_pallas(cross, geom):
+    _, params, x, ctx, _ = _setup(cross, geom)
     want_out, want_stash = jtf._fused_forward(
         _jax_ws(params, cross), jnp.asarray(x),
         None if ctx is None else jnp.asarray(ctx), num_layers=LAYERS,
@@ -102,6 +105,18 @@ def test_stash_forward_matches_pallas(cross):
         _assert_close(stash[i], want_stash[i], 0, 2e-5, f"slot {i}")
 
 
+@pytest.mark.parametrize("cross", [False, True])
+def test_stash_forward_matches_pallas(cross):
+    _stash_forward_matches_pallas(cross, "grid1")
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_stash_forward_past_64_rows_matches_pallas(cross):
+    """The stash forward at L 128 (context 80 rows): the tiled core's
+    lengths."""
+    _stash_forward_matches_pallas(cross, "L128")
+
+
 # ------------------------------------------------- K3, K2, K4 one by one ---
 
 def _port_weights(params, cross, dtype=torch.float32):
@@ -109,7 +124,7 @@ def _port_weights(params, cross, dtype=torch.float32):
                               cross, dtype)
 
 
-@pytest.mark.parametrize("geom", ["grid1", "grid4"])
+@pytest.mark.parametrize("geom", ["grid1", "grid4", "L128"])
 def test_conv_out_backward_matches_pallas(geom):
     _, params, _, _, rng = _setup(False, geom)
     B, L, C, _ = GEOMS[geom]
@@ -231,7 +246,7 @@ def _layer_inputs(cross, geom, dtype=np.float32):
     return params, dy, a, (c if cross else None), f, ctx, per_layer
 
 
-@pytest.mark.parametrize("geom", ["grid1", "grid4"])
+@pytest.mark.parametrize("geom", ["grid1", "grid4", "L128"])
 @pytest.mark.parametrize("cross", [False, True])
 def test_layer_backward_matches_pallas(cross, geom):
     params, dy, a, c, f, ctx, per_layer = _layer_inputs(cross, geom)
@@ -270,7 +285,7 @@ def test_layer_backward_sums_dcontext_across_layers():
     assert torch.equal(summed, prior + alone)
 
 
-@pytest.mark.parametrize("geom", ["grid1", "grid4"])
+@pytest.mark.parametrize("geom", ["grid1", "grid4", "L128"])
 def test_conv_in_gn_backward_matches_pallas(geom):
     _, params, x, _, rng = _setup(False, geom)
     B, L, C, _ = GEOMS[geom]
@@ -288,7 +303,16 @@ def test_conv_in_gn_backward_matches_pallas(geom):
 
 def test_backward_kernels_bf16():
     """Each backward segment in bf16 against the Pallas kernel in bf16."""
-    params, dy, a, c, f, ctx, per_layer = _layer_inputs(True, "grid1")
+    _backward_kernels_bf16("grid1")
+
+
+def test_backward_kernels_past_64_rows_bf16():
+    """The same at L 128 with a context of 80 rows."""
+    _backward_kernels_bf16("L128")
+
+
+def _backward_kernels_bf16(geom):
+    params, dy, a, c, f, ctx, per_layer = _layer_inputs(True, geom)
     bf = jnp.bfloat16
     jw = _jax_ws(params, True, bf)
     pw = _port_weights(params, True, torch.bfloat16)
@@ -388,7 +412,7 @@ def test_stack_dispatch_gives_gradients(cross):
     _compare_grads(got, _jax_grads(loss, params, x, ctx), 1e-4, 1e-5)
 
 
-@pytest.mark.parametrize("geom", ["grid1", "grid4"])
+@pytest.mark.parametrize("geom", ["grid1", "grid4", "L128"])
 @pytest.mark.parametrize("cross", [False, True])
 def test_stack_gradients_match_pallas_backward(cross, geom):
     """The port's stack grads against ``transformer1d_fused`` with the

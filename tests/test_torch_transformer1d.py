@@ -5,8 +5,11 @@ The stack is checked three ways: the port's plain kernel version
 ``transformer1d_reference`` against the JAX composition
 (``disable_fusion=True``) and against the Pallas kernel itself in interpret
 mode, and the port's module (both its dispatch and its own composition)
-against the JAX composition.  Tolerance: 2e-5 absolute, the primitive band
-of the JAX suite, unless stated at the assert.
+against the JAX composition; at L 2-16 and, past the whole-row attention
+core's 64 rows, at L 65-200 with contexts of 12 and 80 rows.  The gate is
+held to the JAX ``fusable``'s length rule at 512 and 513.  Tolerance: 2e-5
+absolute, the primitive band of the JAX suite, unless stated at the
+assert.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from moleculediffusiontransformer_tpu.nn import attention as ja
+from moleculediffusiontransformer_tpu.ops import transformer_fusion as jtf
 from moleculediffusiontransformer_tpu.ops.transformer_fusion import \
     transformer1d_fused
 from moleculediffusiontransformer_tpu_torch.nn import attention as ta
@@ -107,6 +111,90 @@ def test_stack_reference_vs_pallas_kernel_bf16():
     assert _max_diff(got.float(), want) <= 2e-2 * np.abs(want).max()
 
 
+# Stacks past the whole-row attention core's 64 rows, which the tiled core
+# takes up to the JAX gate's 512: self-attention and cross-attention on
+# contexts of 12 and 80 rows, at C 64, 2 heads x 32, one layer.
+LONG_HEADS, LONG_HEAD_DIM, LONG_CTX_C = 2, 32, 32
+LONG_STACKS = [(length, m) for length in (65, 128, 200)
+               for m in (None, 12, 80)]
+
+
+def _long_stack(length, m, seed=17):
+    x, c = _inputs(seed, (2, length, 64), (2, m or 1, LONG_CTX_C))
+    ctx_f = LONG_CTX_C if m else None
+    jmod = ja.Transformer1d(1, 64, LONG_HEADS, LONG_HEAD_DIM, 2,
+                            context_features=ctx_f, disable_fusion=True)
+    params = _jax_params(jmod, [x, c] if m else [x])
+    port = _load(ta.Transformer1d(1, 64, LONG_HEADS, LONG_HEAD_DIM, 2,
+                                  context_features=ctx_f), params)
+    kp = {k: v.detach() for k, v in port.named_parameters()}
+    return jmod, params, kp, x, (c if m else None), ctx_f
+
+
+def _long_reference(kp, x, c, dtype=torch.float32):
+    return tf.transformer1d_reference(
+        kp, torch.from_numpy(x).to(dtype),
+        None if c is None else torch.from_numpy(c).to(dtype), num_layers=1,
+        heads=LONG_HEADS, head_dim=LONG_HEAD_DIM, multiplier=2)
+
+
+@pytest.mark.parametrize("length,m", LONG_STACKS)
+def test_long_stack_reference_vs_jax_composition(length, m):
+    jmod, params, kp, x, c, _ = _long_stack(length, m)
+    args = [jnp.asarray(x)] + ([jnp.asarray(c)] if m else [])
+    want = jmod.apply({"params": params}, *args)
+    assert _max_diff(_long_reference(kp, x, c), want) <= TOL
+
+
+@pytest.mark.parametrize("length,m", LONG_STACKS)
+def test_long_stack_reference_vs_pallas_kernel(length, m):
+    _, params, kp, x, c, ctx_f = _long_stack(length, m)
+    want = transformer1d_fused(
+        params, jnp.asarray(x), None if c is None else jnp.asarray(c),
+        num_layers=1, heads=LONG_HEADS, head_dim=LONG_HEAD_DIM, multiplier=2,
+        context_features=ctx_f, interpret=True)
+    assert _max_diff(_long_reference(kp, x, c), want) <= TOL
+
+
+@pytest.mark.parametrize("length,m", [(128, None), (200, 80)])
+def test_long_stack_reference_vs_pallas_kernel_bf16(length, m):
+    """bf16 at the tiled lengths, within 2e-2 of the output's scale (see
+    ``test_stack_reference_vs_pallas_kernel_bf16``)."""
+    _, params, kp, x, c, ctx_f = _long_stack(length, m)
+    want = transformer1d_fused(
+        params, jnp.asarray(x, jnp.bfloat16),
+        None if c is None else jnp.asarray(c, jnp.bfloat16), num_layers=1,
+        heads=LONG_HEADS, head_dim=LONG_HEAD_DIM, multiplier=2,
+        context_features=ctx_f, interpret=True)
+    got = _long_reference(kp, x, c, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want, np.float32)
+    assert _max_diff(got.float(), want) <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("length,m", [(128, None), (200, 80)])
+def test_long_stack_module_takes_the_kernel_route(length, m, monkeypatch):
+    """Past 64 rows the module takes the stack dispatch (on the CPU its plain
+    version), not its composition, as the JAX gate fuses it; both match the
+    JAX composition."""
+    jmod, params, _, x, c, ctx_f = _long_stack(length, m)
+    args = [jnp.asarray(x)] + ([jnp.asarray(c)] if m else [])
+    want = jmod.apply({"params": params}, *args)
+    port = _load(ta.Transformer1d(1, 64, LONG_HEADS, LONG_HEAD_DIM, 2,
+                                  context_features=ctx_f), params)
+    targs = [torch.from_numpy(x)] + ([torch.from_numpy(c)] if m else [])
+    routed = []
+    dispatch = tf.transformer1d
+    monkeypatch.setattr(tf, "transformer1d", lambda *a, **k: (
+        routed.append(a[2].shape[1]), dispatch(*a, **k))[1])
+    with torch.no_grad():
+        assert _max_diff(port(*targs), want) <= TOL
+        assert routed == [length]
+        port.disable_fusion = True
+        assert _max_diff(port(*targs), want) <= TOL
+    assert routed == [length]
+
+
 @pytest.mark.parametrize("length,cross", STACKS)
 def test_stack_module_dispatch(length, cross):
     """The port's Transformer1d on a CPU tensor takes the plain kernel
@@ -146,6 +234,45 @@ def test_stack_kernel_gate():
     # gate refuses it
     assert not take(x, ctx, channels=64, dtype=torch.float32,
                     use_rel_pos=True)
+
+
+@pytest.mark.parametrize("length", [64, 65, 512, 513])
+def test_stack_kernel_gate_length_matches_jax(length):
+    """The port's gate takes x of L rows exactly where the JAX ``fusable``
+    does (its rule: L <= 512), with and without a context."""
+    jmod = ja.Transformer1d(1, 64, LONG_HEADS, LONG_HEAD_DIM, 2,
+                            context_features=LONG_CTX_C)
+    for m in (None, 12):
+        jx = jnp.zeros((2, length, 64))
+        jc = None if m is None else jnp.zeros((2, m, LONG_CTX_C))
+        jax_takes = jtf.fusable(
+            jx, jc, False, None if m is None else LONG_CTX_C,
+            dtype=jnp.float32, num_layers=jmod.num_layers,
+            heads=LONG_HEADS, head_dim=LONG_HEAD_DIM, multiplier=2)
+        assert jax_takes is (length <= 512)
+        port_takes = tf.stack_kernel_takes(
+            torch.zeros(2, length, 64),
+            None if m is None else torch.zeros(2, m, LONG_CTX_C),
+            channels=64, dtype=torch.float32, head_dim=LONG_HEAD_DIM)
+        assert port_takes is jax_takes
+
+
+@pytest.mark.parametrize("m", [64, 65, 512, 513])
+def test_stack_kernel_gate_context_length(m):
+    """A context of m rows is the kernel's up to ``MAX_CONTEXT`` (512): the
+    JAX gate's length rule held to the context.  (The JAX ``fusable`` has
+    no rule of its own for m beyond its VMEM budget, which it meets here:
+    past 512 the port's gate is the stricter.)"""
+    assert tf.MAX_CONTEXT == 512
+    x = torch.zeros(2, 128, 64)
+    port_takes = tf.stack_kernel_takes(
+        x, torch.zeros(2, m, LONG_CTX_C), channels=64, dtype=torch.float32,
+        head_dim=LONG_HEAD_DIM)
+    assert port_takes is (m <= 512)
+    assert jtf.fusable(jnp.zeros((2, 128, 64)),
+                       jnp.zeros((2, m, LONG_CTX_C)), False, LONG_CTX_C,
+                       dtype=jnp.float32, num_layers=1, heads=LONG_HEADS,
+                       head_dim=LONG_HEAD_DIM, multiplier=2)
 
 
 def test_stack_kernel_gate_head_size():
@@ -195,3 +322,29 @@ def test_stack_wrapper_refuses_other_devices():
         tf.transformer1d_forward(dict(port.named_parameters()), x, None,
                                  num_layers=1, heads=HEADS, head_dim=HEAD_DIM,
                                  multiplier=2)
+
+
+@pytest.mark.parametrize("length,m", [(200, None), (128, 80)])
+def test_long_stack_exports_as_the_kernel_operator(length, m):
+    """``torch.export`` of a stack past 64 rows records the K1 operator
+    (``mdt_torch::t1d_forward``, whose fake takes any length) as one node,
+    so that an artifact of such a model holds the kernel; the exported
+    program gives the module's output.  (As ``design/export.py`` traces:
+    the kernel parameters handed in, here the float32 parameters as they
+    are.)"""
+    _, params, _, x, c, ctx_f = _long_stack(length, m)
+    port = _load(ta.Transformer1d(1, 64, LONG_HEADS, LONG_HEAD_DIM, 2,
+                                  context_features=ctx_f), params).eval()
+    port.requires_grad_(False)
+    assert port.kernel_casts() == {}
+    args = (torch.from_numpy(x),) + ((torch.from_numpy(c),) if m else ())
+    port.given_kernel_params = {}
+    try:
+        program = torch.export.export(port, args)
+    finally:
+        port.given_kernel_params = None
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function"]
+    assert ops.count("mdt_torch.t1d_forward.default") == 1
+    with torch.no_grad():
+        assert torch.equal(program.module()(*args), port(*args))
