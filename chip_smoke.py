@@ -12,7 +12,9 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    shapes of the 91M inverse QM9 model, batch 128 (a CFG-doubled 64), in
    float32 (TF32 off) and bfloat16, with CUDA-event timings of both around
    one call (``ms``) and, for the kernel, the card's time with the calls
-   enqueued back to back (``card_ms``);
+   enqueued back to back (``card_ms``); every product of each call, in
+   either dtype, must go to the tensor-core GEMM (float32 as three TF32
+   passes);
 4. the serving path: the 91M model in bfloat16 with seeded random weights
    answers three ``sample(num_steps=64, cond_scale=2.0)`` requests (batch 1,
    16, 512), each of which must launch the stack kernel at least 9 x 126
@@ -30,10 +32,10 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    stash forward slot by slot, the conv-out (K3), every layer's (K2) and the
    GroupNorm + conv-in (K4) backward output by output, the whole stack's
    grads through the autograd function against autograd of the plain
-   forward, CUDA-event timings of each kernel (and in bf16 the card's time)
-   and of the chain against the plain versions, and a bitwise determinism
-   check of the chain; each bf16 K3 and K4 call must send its two products
-   to the tensor-core GEMM (a float32 call none);
+   forward, CUDA-event timings of each kernel (and the card's time) and of
+   the chain against the plain versions, and a bitwise determinism check of
+   the chain; every product of each call, in either dtype, must go to the
+   tensor-core GEMM (K3 and K4 two each, K2 its layers');
 7. the training path: the 91M model in bfloat16 trains one warm-up and 5
    timed steps of batch 1024 as 2 x 512 (Adam 2e-4, clip 0.5); every loss
    is finite, each training kernel launched at least (its stacks or
@@ -48,15 +50,16 @@ CUDA; it imports nothing of JAX and nothing of the JAX package.  Phases:
    float32 and bfloat16, with CUDA-event timings of the kernel (``ms``, and
    the card's time with the calls back to back, ``card_ms``), the plain
    version and the module composition the switch-off path runs, and a
-   determinism check; each bf16 call must send all its products (two convs
-   a block, each projection, one FiLM product a run: 7 for a 3-block down
-   run, 13 for a 4-block up run) to the tensor-core GEMM, counted by
-   ``resnet_fusion.gemm_tc_launches``, and a float32 call none; then its
+   determinism check; each call, in either dtype, must send all its
+   products (two convs a block, each projection, one FiLM product a run: 7
+   for a 3-block down run, 13 for a 4-block up run) to the tensor-core
+   GEMM, counted by ``resnet_fusion.gemm_tc_launches``; then its
    gradients through the autograd function against autograd of the
    composition at batch 512;
 9. K1's uniform-context variant (the shared-KV CFG null half) against its
    plain version at the four cross-stack shapes of the two presets, batch
-   512, float32 and bfloat16, with timings (``ms``, ``card_ms``);
+   512, float32 and bfloat16, with timings (``ms``, ``card_ms``), every
+   product on the tensor cores;
 10. the 91M model serving with both switches on (``enable_resnet_fusion``,
    ``enable_sharedkv``): three 64-step CFG requests (batch 1, 16, 512),
    each launching K8 at least 4 x 126 times and the uniform-context kernel
@@ -395,11 +398,14 @@ variants and K2-K4 with ``long``, phase 36's bf16 numbers at the tiled
 lengths summed over its shapes),
 its bfloat16 time beside its plain version's (the stack kernels K1-K4, K8
 and the streaming-attention kernels also with ``card_ms``; the stack
-kernels and K8, whose bf16 products all run on the tensor-core GEMM, with
+kernels and K8, whose products all run on the tensor-core GEMM, with
 ``products`` naming it), the library call's
 where there is one, and the least time the card could take (the larger of
-its operations over 989 TFLOP/s and its bytes over 3.35 TB/s) -- and
-``{"ok": true, "device": ...}``.
+its operations over 989 TFLOP/s and its bytes over 3.35 TB/s); K1, its
+stash and uniform_ctx variants and K2-K4 also with ``float32``, phases 3,
+6 and 9's float32 figures, whose bound counts three TF32 passes at 495
+TFLOP/s (``cuda_core_bound_ms``: the operations at the CUDA cores' 67
+TFLOP/s) -- and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -740,12 +746,16 @@ AUDIO_LONG_STEPS, AUDIO_LONG_STACKS = 25, 7
 AUDIO_LONG_PARITY_SAMPLES = 2 ** 18
 QM9_ROWS = 133885
 
-# where the bf16 products of the stack kernels (K1 and its variants, K2-K4)
-# and of the resnet-run kernel (K8) run
+# where the products of the stack kernels (K1 and its variants, K2-K4) and
+# of the resnet-run kernel (K8) run: bf16 in one pass, float32 in three TF32
+# passes (hi.hi + hi.lo + lo.hi)
 TC_PRODUCTS = "tensor cores (wgmma, csrc/gemm_tc.cuh)"
 # the card's published dense peaks (NVIDIA's H100 SXM data sheet): bf16
-# tensor-core operations a second, device-memory bytes a second
+# tensor-core operations a second, device-memory bytes a second; TF32
+# tensor-core and float32 CUDA-core operations a second (a float32 product
+# of the stack kernels is three TF32 passes: hi.hi + hi.lo + lo.hi)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+TF32_PEAK_FLOPS, F32_PEAK_FLOPS, TF32_PASSES = 495e12, 67e12, 3
 
 
 def exp_bound_ms(count: float) -> float:
@@ -761,19 +771,36 @@ def exp_bound_ms(count: float) -> float:
     return count / (sms * EXP_PER_CLOCK * mhz * 1e6) * 1e3
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, f32: bool = False) -> dict:
     """The least milliseconds the card could take: each operation at the
-    bf16 peak, each input byte read and output byte written once."""
-    return {"ops_ms": flops / PEAK_FLOPS * 1e3,
-            "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    bf16 peak (``f32``: three TF32 passes of each at the TF32 peak), each
+    input byte read and output byte written once."""
+    ops = (TF32_PASSES * flops / TF32_PEAK_FLOPS if f32
+           else flops / PEAK_FLOPS)
+    return {"ops_ms": ops * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+def f32_bounds(flops: float, nbytes: float) -> dict:
+    """A float32 call's two bounds: three TF32 passes on the tensor cores
+    (``bound(..., f32=True)``) and, beside it, the CUDA cores' float32 peak
+    (``cuda_core_ops_ms``)."""
+    b = bound(flops, nbytes, f32=True)
+    b["cuda_core_ops_ms"] = flops / F32_PEAK_FLOPS * 1e3
+    return b
 
 
 def add_bound(summary: dict, b: dict) -> None:
     """Sum a shape's bound into ``summary`` (the larger of the two times
-    binds each shape) and keep both sums to say which binds overall."""
-    summary["bound_ms"] = summary.get("bound_ms", 0.0) + max(b.values())
-    for k, v in b.items():
-        summary[k] = summary.get(k, 0.0) + v
+    binds each shape) and keep both sums to say which binds overall; a
+    float32 shape's CUDA-core bound (``f32_bounds``) is summed apart."""
+    summary["bound_ms"] = summary.get("bound_ms", 0.0) + max(
+        b["ops_ms"], b["bytes_ms"])
+    if "cuda_core_ops_ms" in b:
+        summary["cuda_core_bound_ms"] = summary.get(
+            "cuda_core_bound_ms", 0.0) + max(b["cuda_core_ops_ms"],
+                                             b["bytes_ms"])
+    for k in ("ops_ms", "bytes_ms"):
+        summary[k] = summary.get(k, 0.0) + b[k]
 
 
 def close_bound(summary: dict) -> dict:
@@ -910,10 +937,12 @@ def attention_shapes(at, dtype) -> list:
 
 def check_stacks(dev):
     """Phase 3: the kernel against its plain version at the flagship stack
-    shapes.  Returns the largest error per dtype, and the kernel's (CUDA
-    events around one call, and the card's time of calls back to back) and
-    the plain version's bf16 milliseconds summed over the four shapes, with
-    the bound of those four calls."""
+    shapes; each call, in either dtype, sends every product to the tensor
+    cores (float32 as three TF32 passes).  Returns the largest error per
+    dtype, and per dtype the kernel's (CUDA events around one call, and the
+    card's time of calls back to back) and the plain version's milliseconds
+    summed over the four shapes, with the bound of those four calls (float32
+    also with its CUDA-core bound)."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -922,8 +951,7 @@ def check_stacks(dev):
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = card_ms = 0.0
-    limit = {}
+    sums = {d: {"ms": 0.0, "card_ms": 0.0, "plain_ms": 0.0} for d in worst}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         for name, length, c, layers, cross in STACKS:
@@ -940,8 +968,10 @@ def check_stacks(dev):
                 dev, dtype) if cross else None)
             kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
             with torch.no_grad():
+                products = tf.gemm_tc_launches()
                 out = tf.transformer1d_forward(params, x, ctx, **kw)
                 torch.cuda.synchronize()
+                products = tf.gemm_tc_launches() - products
                 ref = tf.transformer1d_reference(params, x, ctx, **kw)
                 err = (out.float() - ref.float()).abs().max().item()
                 t_kernel = cuda_ms(
@@ -950,24 +980,31 @@ def check_stacks(dev):
                     lambda: tf.transformer1d_forward(params, x, ctx, **kw))
                 t_plain = cuda_ms(
                     lambda: tf.transformer1d_reference(params, x, ctx, **kw))
+            want_products = tf.stack_products(layers, cross)
             phase("kernel", stack=name, dtype=dname, batch=STACK_BATCH,
                   max_abs_err=err, tol=KERNEL_TOL[dname],
                   ref_max_abs=ref.float().abs().max().item(),
-                  ms=t_kernel, card_ms=t_card, plain_ms=t_plain)
+                  ms=t_kernel, card_ms=t_card, plain_ms=t_plain,
+                  gemm_tc_launches=products,
+                  want_gemm_tc_launches=want_products)
             if not err <= KERNEL_TOL[dname]:
                 raise AssertionError(f"{name} {dname}: kernel differs from "
                                      f"the plain version by {err}")
+            if products != want_products:
+                raise AssertionError(f"{name} {dname}: K1 sent {products} "
+                                     f"products to the tensor cores, "
+                                     f"expected {want_products}")
             worst[dname] = max(worst[dname], err)
-            if dtype == torch.bfloat16:
-                ms += t_kernel
-                card_ms += t_card
-                plain_ms += t_plain
-                add_bound(limit, bound(
-                    stack_flops(STACK_BATCH, length, c, layers, cross,
-                                *CONTEXT),
-                    nbytes(x, out, ctx, *tf._kernel_weights(
-                        params, layers, cross, dtype))))
-    return worst, ms, card_ms, plain_ms, close_bound(limit)
+            sums[dname]["ms"] += t_kernel
+            sums[dname]["card_ms"] += t_card
+            sums[dname]["plain_ms"] += t_plain
+            flops = stack_flops(STACK_BATCH, length, c, layers, cross,
+                                *CONTEXT)
+            moved = nbytes(x, out, ctx, *tf._kernel_weights(
+                params, layers, cross, dtype))
+            add_bound(sums[dname], f32_bounds(flops, moved)
+                      if dtype == torch.float32 else bound(flops, moved))
+    return worst, {d: close_bound(v) for d, v in sums.items()}
 
 
 def _rel_err(got, want, floor: float = 1e-30) -> float:
@@ -983,12 +1020,16 @@ def _abs_err(got, want) -> float:
 
 def check_backward(dev):
     """Phase 6: the stash forward and K3, K2, K4 against their plain
-    versions at the flagship stack shapes, batch 512.  Returns, per kernel,
-    the largest bf16 absolute error, the bf16 kernel (CUDA events around one
-    call, and the card's time of calls back to back) and plain milliseconds
-    summed over the four shapes, and the bound of those calls.  A layer's
-    backward is counted as three times its forward products: recomputing
-    them from the stash, and a data and a weight gradient for each."""
+    versions at the flagship stack shapes, batch 512; every product of each
+    call, in either dtype, on the tensor cores (float32 as three TF32
+    passes), counted.  Returns, per dtype and kernel, the largest absolute
+    error, the kernel (CUDA events around one call, and the card's time of
+    calls back to back) and plain milliseconds summed over the four shapes,
+    and the bound of those calls (float32 also with its CUDA-core bound);
+    and per dtype the backward chain's and the plain chain's milliseconds
+    summed over the four shapes (``chain``).  A layer's backward is counted
+    as three times its forward products: recomputing them from the stash,
+    and a data and a weight gradient for each."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -997,8 +1038,10 @@ def check_backward(dev):
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
     kernels = ("stash", "conv_out", "layer", "conv_in_gn")
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
-                   "plain_ms": 0.0} for k in kernels}
+    summary = {d: {k: {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
+                       "plain_ms": 0.0} for k in kernels}
+               for d in ("float32", "bfloat16")}
+    chains = {d: {"ms": 0.0, "plain_ms": 0.0} for d in summary}
     batch = TRAIN_BATCH // MICRO_BATCHES
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
@@ -1024,15 +1067,16 @@ def check_backward(dev):
             errs = dict.fromkeys(kernels, 0.0)      # relative to the scale
             abs_errs = dict.fromkeys(kernels, 0.0)
             with torch.no_grad():
+                products = {"stash": tf.gemm_tc_launches()}
                 out, stash = tf.transformer1d_forward(
                     kp, x, ctx, multiplier=2, with_stash=True, **kw)
+                products["stash"] = tf.gemm_tc_launches() - products["stash"]
                 ref, ref_stash = tf.transformer1d_reference(
                     kp, x, ctx, multiplier=2, with_stash=True, **kw)
                 pairs = {"stash": [(out, ref)] + [
                     (stash[i], ref_stash[i]) for i in range(stash.shape[0])]}
-                # K3's and K4's bf16 products go to the tensor cores, each
-                # call's CONV_BWD_PRODUCTS of them; float32 ones do not
-                conv_products = {}
+                # every product of a call on the tensor cores, in either
+                # dtype: K3 and K4 CONV_BWD_PRODUCTS each, K2 its layers'
                 for fn, plain, key, args in (
                         (tf.bwd_conv_out, tf.bwd_conv_out_reference,
                          "conv_out", (g, ref_stash[-1], w[-2])),
@@ -1040,15 +1084,8 @@ def check_backward(dev):
                          "conv_in_gn", (g, x, w[2], w[0], w[1]))):
                     before = tf.gemm_tc_launches()
                     got = fn(*args)
-                    conv_products[key] = tf.gemm_tc_launches() - before
+                    products[key] = tf.gemm_tc_launches() - before
                     pairs[key] = list(zip(got, plain(*args)))
-                want_conv = (tf.CONV_BWD_PRODUCTS
-                             if dtype == torch.bfloat16 else 0)
-                if any(v != want_conv for v in conv_products.values()):
-                    raise AssertionError(
-                        f"{name} {dname}: K3/K4 sent {conv_products} "
-                        f"products to the tensor cores, expected "
-                        f"{want_conv} each")
 
                 def run_layers(fn, s):
                     outs = []
@@ -1061,7 +1098,21 @@ def check_backward(dev):
                     return outs
 
                 pairs["layer"] = []
-                for got, want in zip(run_layers(tf.bwd_layer, ref_stash),
+                before = tf.gemm_tc_launches()
+                layer_outs = run_layers(tf.bwd_layer, ref_stash)
+                products["layer"] = tf.gemm_tc_launches() - before
+                want_products = {
+                    "stash": tf.stack_products(layers, cross),
+                    "conv_out": tf.CONV_BWD_PRODUCTS,
+                    "layer": tf.stack_products(layers, cross,
+                                               backward=True),
+                    "conv_in_gn": tf.CONV_BWD_PRODUCTS}
+                if products != want_products:
+                    raise AssertionError(
+                        f"{name} {dname}: the training kernels sent "
+                        f"{products} products to the tensor cores, "
+                        f"expected {want_products}")
+                for got, want in zip(layer_outs,
                                      run_layers(tf.bwd_layer_reference,
                                                 ref_stash)):
                     pairs["layer"] += [(got[0], want[0])] + list(
@@ -1092,9 +1143,8 @@ def check_backward(dev):
                 }
                 ms = {k: (cuda_ms(a, reps=10), cuda_ms(b, reps=10))
                       for k, (a, b) in times.items()}
-                card = ({k: device_ms(a, reps=10, rounds=3)
-                         for k, (a, _) in times.items()}
-                        if dtype == torch.bfloat16 else None)
+                card = {k: device_ms(a, reps=10, rounds=3)
+                        for k, (a, _) in times.items()}
                 chain = tf.transformer1d_backward(kp, x, ctx, stash, g,
                                                   multiplier=2, **kw)
                 again = tf.transformer1d_backward(kp, x, ctx, stash, g,
@@ -1132,7 +1182,7 @@ def check_backward(dev):
                   plain_ms={k: v[1] for k, v in ms.items()},
                   chain_ms=chain_ms, plain_chain_ms=plain_chain_ms,
                   deterministic=deterministic,
-                  conv_gemm_tc_launches=conv_products)
+                  gemm_tc_launches=products)
             bad = {k: v for k, v in errs.items() if not v <= tol}
             if bad or not stack_err <= tol:
                 raise AssertionError(f"{name} {dname}: training kernels "
@@ -1141,32 +1191,35 @@ def check_backward(dev):
             if not deterministic:
                 raise AssertionError(f"{name} {dname}: two backward calls "
                                      f"gave different grads")
-            if dtype == torch.bfloat16:
-                for k in kernels:
-                    summary[k]["max_abs_err"] = max(
-                        summary[k]["max_abs_err"], abs_errs[k])
-                    summary[k]["ms"] += ms[k][0]
-                    summary[k]["card_ms"] += card[k]
-                    summary[k]["plain_ms"] += ms[k][1]
-                conv = 4 * batch * length * c * c
-                grad32 = 4 * (c * c + 3 * c)     # a float32 dW and vectors
-                lw_bytes = sum(nbytes(*lw) + 4 * sum(t.numel() for t in lw)
-                               for lw, _ in layer_args)
-                limits = {
-                    "stash": bound(
-                        stack_flops(batch, length, c, layers, cross,
-                                    *CONTEXT),
-                        nbytes(x, out, ctx, stash, *w)),
-                    "conv_out": bound(conv, nbytes(g, g, g, w[-2]) + grad32),
-                    "layer": bound(
-                        3 * layers * stack_layer_flops(batch, length, c,
-                                                       cross, *CONTEXT),
-                        layers * ((2 + per_stash) * nbytes(g)
-                                  + 2 * nbytes(ctx)) + lw_bytes),
-                    "conv_in_gn": bound(conv, nbytes(g, x, g, w[2]) + grad32)}
-                for k in kernels:
-                    add_bound(summary[k], limits[k])
-    return {k: close_bound(v) for k, v in summary.items()}
+            chains[dname]["ms"] += chain_ms
+            chains[dname]["plain_ms"] += plain_chain_ms
+            for k in kernels:
+                got = summary[dname][k]
+                got["max_abs_err"] = max(got["max_abs_err"], abs_errs[k])
+                got["ms"] += ms[k][0]
+                got["card_ms"] += card[k]
+                got["plain_ms"] += ms[k][1]
+            conv = 4 * batch * length * c * c
+            grad32 = 4 * (c * c + 3 * c)     # a float32 dW and vectors
+            lw_bytes = sum(nbytes(*lw) + 4 * sum(t.numel() for t in lw)
+                           for lw, _ in layer_args)
+            limit = (f32_bounds if dtype == torch.float32 else bound)
+            limits = {
+                "stash": limit(
+                    stack_flops(batch, length, c, layers, cross,
+                                *CONTEXT),
+                    nbytes(x, out, ctx, stash, *w)),
+                "conv_out": limit(conv, nbytes(g, g, g, w[-2]) + grad32),
+                "layer": limit(
+                    3 * layers * stack_layer_flops(batch, length, c,
+                                                   cross, *CONTEXT),
+                    layers * ((2 + per_stash) * nbytes(g)
+                              + 2 * nbytes(ctx)) + lw_bytes),
+                "conv_in_gn": limit(conv, nbytes(g, x, g, w[2]) + grad32)}
+            for k in kernels:
+                add_bound(summary[dname][k], limits[k])
+    return ({d: {k: close_bound(v) for k, v in per.items()}
+             for d, per in summary.items()}, chains)
 
 
 def train_path(dev):
@@ -1487,8 +1540,7 @@ def check_resnet(dev):
                 out, outs = rf.resnet_stack_forward(w, x, mp, skips, **kw)
                 torch.cuda.synchronize()
                 products = rf.gemm_tc_launches() - products
-                want_products = (rf.tc_products(w, True)
-                                 if dtype == torch.bfloat16 else 0)
+                want_products = rf.tc_products(w, True)
                 ref, ref_outs = rf.resnet_stack_reference(w, x, mp, skips,
                                                           **kw)
                 pairs = [(out, ref)] + list(zip(outs, ref_outs))
@@ -1565,9 +1617,10 @@ def check_resnet(dev):
 
 def check_uniform(dev):
     """Phase 9: the uniform-context stack kernel against its plain version
-    and the per-row kernel at the cross stacks' shapes.  Returns the largest
-    bf16 absolute error, the bf16 kernel and plain milliseconds summed
-    over the four shapes, and the bound of those calls."""
+    and the per-row kernel at the cross stacks' shapes, every product on the
+    tensor cores in either dtype.  Returns the largest bf16 absolute error,
+    the bf16 kernel and plain milliseconds summed over the four shapes, and
+    the bound of those calls; under ``float32`` the same in float32."""
     import torch
     from moleculediffusiontransformer_tpu_torch.nn.attention import \
         Transformer1d
@@ -1575,11 +1628,13 @@ def check_uniform(dev):
         init_parameters
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
-    summary = {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
-               "plain_ms": 0.0, "per_row_ms": 0.0}
+    sums = {d: {"max_abs_err": 0.0, "ms": 0.0, "card_ms": 0.0,
+                "plain_ms": 0.0, "per_row_ms": 0.0}
+            for d in ("float32", "bfloat16")}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         tol = KERNEL_TOL[dname]
+        summary = sums[dname]
         for name, length, c, layers, m in UNIFORM_STACKS:
             gen = torch.Generator().manual_seed(length * c + m)
             mod = Transformer1d(layers, c, 8, 64, 2,
@@ -1593,9 +1648,11 @@ def check_uniform(dev):
             rows = table.expand(NULL_HALF_BATCH, m, CONTEXT[1]).contiguous()
             kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
             with torch.no_grad():
+                products = tf.gemm_tc_launches()
                 out = tf.transformer1d_forward(kp, x, table, uniform_ctx=True,
                                                **kw)
                 torch.cuda.synchronize()
+                products = tf.gemm_tc_launches() - products
                 ref = tf.transformer1d_reference(kp, x, table,
                                                  uniform_ctx=True, **kw)
                 per_row = tf.transformer1d_forward(kp, x, rows, **kw)
@@ -1613,22 +1670,28 @@ def check_uniform(dev):
                   batch=NULL_HALF_BATCH, context=m, max_abs_err=err,
                   rel_err=rel, tol=tol,
                   ref_max_abs=ref.float().abs().max().item(), ms=t_kernel,
-                  card_ms=t_card, plain_ms=t_plain, per_row_kernel_ms=t_rows)
+                  card_ms=t_card, plain_ms=t_plain, per_row_kernel_ms=t_rows,
+                  gemm_tc_launches=products)
             if not rel <= tol:
                 raise AssertionError(f"{name} {dname}: the uniform-context "
                                      f"kernel differs by {rel} of scale")
-            if dtype == torch.bfloat16:
-                summary["max_abs_err"] = max(summary["max_abs_err"], err)
-                summary["ms"] += t_kernel
-                summary["card_ms"] += t_card
-                summary["plain_ms"] += t_plain
-                summary["per_row_ms"] += t_rows
-                add_bound(summary, bound(
-                    stack_flops(NULL_HALF_BATCH, length, c, layers, True, m,
-                                CONTEXT[1], kv_rows=m),
-                    nbytes(x, out, table, *tf._kernel_weights(
-                        kp, layers, True, dtype))))
-    return close_bound(summary)
+            if products != tf.stack_products(layers, True):
+                raise AssertionError(f"{name} {dname}: the uniform-context "
+                                     f"kernel sent {products} products to "
+                                     f"the tensor cores")
+            summary["max_abs_err"] = max(summary["max_abs_err"], err)
+            summary["ms"] += t_kernel
+            summary["card_ms"] += t_card
+            summary["plain_ms"] += t_plain
+            summary["per_row_ms"] += t_rows
+            flops = stack_flops(NULL_HALF_BATCH, length, c, layers, True, m,
+                                CONTEXT[1], kv_rows=m)
+            moved = nbytes(x, out, table, *tf._kernel_weights(
+                kp, layers, True, dtype))
+            add_bound(summary, f32_bounds(flops, moved)
+                      if dtype == torch.float32 else bound(flops, moved))
+    return {**close_bound(sums["bfloat16"]),
+            "float32": close_bound(sums["float32"])}
 
 
 def ab(what, run):
@@ -3228,8 +3291,7 @@ def loop_step_memory(dev):
         elapsed = [r["step"] * batch / r["samples_per_sec"] for r in logged]
         seconds = (elapsed[-1] - elapsed[0]) / (len(elapsed) - 1)
         want_products = (stack_products(model, backward=True)
-                         * (micro * state.step + 1)
-                         if dtype == "bfloat16" else 0)
+                         * (micro * state.step + 1))
         peaks[(dtype, micro)] = peak
         phase("loop_step_memory", dtype=dtype, batch=batch,
               micro_batches=micro, steps=state.step,
@@ -3244,8 +3306,8 @@ def loop_step_memory(dev):
         if not all(math.isfinite(r["loss"]) for r in logged):
             raise AssertionError(f"{dtype} {micro} x {batch // micro}: "
                                  f"non-finite loss")
-        if dtype == "bfloat16" and products != want_products:
-            raise AssertionError(f"bf16 training sent {products} products "
+        if products != want_products:
+            raise AssertionError(f"{dtype} training sent {products} products "
                                  f"to the tensor cores, expected "
                                  f"{want_products}")
         del model, state, logger
@@ -7546,8 +7608,7 @@ def main() -> int:
 
     clock.start(3)
     # 3. kernel against its plain version
-    worst, stack_ms, stack_card_ms, stack_plain_ms, stack_bound = \
-        check_stacks(dev)
+    worst, stack_sums = check_stacks(dev)
 
     clock.start(4)
     # 4. the serving path, both switches at their default (off)
@@ -7608,7 +7669,8 @@ def main() -> int:
 
     clock.start(6)
     # 6. the training kernels against their plain versions
-    train_kernels = check_backward(dev)
+    train_kernels, train_chains = check_backward(dev)
+    phase("train_chain", **train_chains)
 
     clock.start(7)
     # 7. the training path
@@ -7884,12 +7946,11 @@ def main() -> int:
         "replaces": jax_ops + ":313",
         "launches": launches,
         "max_abs_err": worst["bfloat16"],
-        "ms": stack_ms,
-        "card_ms": stack_card_ms,
-        "plain_ms": stack_plain_ms,
-        **stack_bound,
+        **stack_sums["bfloat16"],
         "library_ms": None,
         "products": TC_PRODUCTS,
+        "float32": {"max_abs_err": worst["float32"],
+                    **stack_sums["float32"]},
         "launches_cli_train": loop_launches["LAUNCHES"],
         "launches_served": served["LAUNCHES"],
         "launches_assemblies": asm_served["LAUNCHES"],
@@ -7914,8 +7975,10 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": f"{jax_ops}:{line}",
                         "launches": train_launches[count],
-                        **train_kernels[key], "library_ms": None,
+                        **train_kernels["bfloat16"][key],
+                        "library_ms": None,
                         "products": TC_PRODUCTS,
+                        "float32": train_kernels["float32"][key],
                         "launches_cli_train": loop_launches[count],
                         "launches_audio_all_train": audio_launches[count],
                         "launches_assemblies_train": asm_trained[count],
@@ -7947,6 +8010,7 @@ def main() -> int:
         "card_ms": uniform["card_ms"],
         "plain_ms": uniform["plain_ms"], "bound_ms": uniform["bound_ms"],
         "bound_by": uniform["bound_by"], "library_ms": None,
+        "float32": uniform["float32"],
         "products": TC_PRODUCTS,
         "launches_served": served["UNIFORM_LAUNCHES"],
         "long": long_kernels["uniform"]})

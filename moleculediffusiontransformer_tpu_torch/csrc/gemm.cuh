@@ -12,9 +12,10 @@
 //                      block and the sum has a fixed order)
 // Accumulation is float32 on the CUDA cores (64x64 tile, 4x4 outputs a
 // thread); no atomics anywhere, so a second call on the same inputs gives
-// bitwise the same result.  This kernel takes every float32 product; bf16
-// products of K1-K4 and K8 go to the tensor cores through gemm_tc.cuh's
-// `launch_gemm_tc`, which takes the same `GemmArgs`.
+// bitwise the same result.  gemm_tc.cuh's `launch_gemm_tc` takes the same
+// `GemmArgs` and sends every product whose rows are 16-byte vectors to the
+// tensor cores (bf16 in one pass, float32 in three TF32 passes); this
+// kernel takes the shapes it does not, none of them at the models' shapes.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -42,8 +42,9 @@
 //     only the centre tap is written, as (B, C);
 //   * every product through gemm_tc.cuh's `launch_gemm_tc` (bf16 on the
 //     tensor cores: `wgmma`, TMA-fed ring, staged epilogue; float32 on the
-//     CUDA cores of gemm.cuh, which keeps the 1e-4 float32 band that TF32
-//     would break), C = A W^T with the conv weight laid out (C_out, 3*C_in)
+//     same tensor cores as three TF32 passes, which keep the 1e-4 float32
+//     band that one TF32 pass would break), C = A W^T with the conv weight
+//     laid out (C_out, 3*C_in)
 //     tap-major: conv 1 with + bias; conv 2 with + bias + residual; the 1x1
 //     projection with + bias; at L = 1 each conv multiplies the (B, C)
 //     centre tap by W's middle column block, read in place through its row

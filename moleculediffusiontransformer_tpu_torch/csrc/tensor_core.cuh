@@ -4,7 +4,8 @@
 // the `cp.async` copies and the TMA loads (with their mbarriers) that fill
 // it, `ldmatrix`, `mma.sync` and the packing of float32 accumulators into
 // bf16 operand registers, and (`tc::wg`) the matrix descriptors, fences and
-// `wgmma` wrappers of the warpgroup products.
+// `wgmma` wrappers of the warpgroup products; for the stack GEMM's float32
+// route also the TF32 rounding (`tf32_rna`) and the TF32 `wgmma`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
+// 16 bytes, or (where `in` is false) 16 zero bytes without reading `src`
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -66,6 +73,14 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as a float whose low 13 bits are zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
 // two float32 -> one register of two bf16, `lo` in the low half
@@ -128,7 +143,7 @@ constexpr int ALIGN = 1024;   // a 128-byte swizzle atom is 8 rows of 128 bytes
 // 128-byte swizzle: start address, leading offset (unused by a swizzled
 // 64-wide tile: 1), stride between 8-row groups (1024 bytes), all in units
 // of 16 bytes; swizzle mode 1 in bits 62-63.
-__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
+__device__ __forceinline__ uint64_t tile_desc(const void* tile) {
   const uint64_t addr = smem_addr(tile);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
@@ -201,6 +216,30 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[8][4], uint64_t adesc, uin
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(adesc), "l"(desc), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (as in `wgmma`) = or += a (64 x 8) b (8 x 64), TF32 operands read
+// K-major from shared memory through `adesc` and `desc` (TF32 has no
+// transposed read: a[m][k] = tile[m][k], b[k][n] = tile[n][k]).  A k8 step
+// is 32 bytes along a row, as a bf16 k16 step: `desc_cols` steps it.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], uint64_t adesc, uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(adesc), "l"(desc), "r"(accumulate));
 }
 
 // a K-major from shared memory (the streaming-attention kernels' use)

@@ -27,16 +27,18 @@
 // What the design does about it.  The TPU kernels zero the weight-grad banks
 // at grid step 0 and then `+=` across the batch grid, which is right only
 // because a TPU grid runs in order.  Here every product of K2, K3 and K4
-// runs through gemm_tc.cuh's `launch_gemm_tc`: in bf16 on the tensor cores
-// (`wgmma` from swizzled shared memory), in float32 on the CUDA cores
-// (gemm.cuh), chosen on the host by dtype and shape, never by a retry.
-// Every weight grad is dW = G^T A with G^T read in place (`wgmma`'s
-// transpose of A), and in bf16 its rows are split into S chunks, S chosen
-// from the shape so that (tile, chunk) blocks fill the card about once:
-// each block writes a float32 partial into the workspace and a second pass
-// sums the S partials in chunk order.  (K3's and K4's C x C weight grads
-// have only 4..16 tiles of 128 x 128, and at 8 k-steps a chunk the plan
-// gives them 32 blocks for 132 SMs: an under-filled grid, left so.)  K2's
+// runs through gemm_tc.cuh's `launch_gemm_tc` on the tensor cores: bf16 in
+// one `wgmma` pass from swizzled shared memory, float32 in three TF32 passes
+// (hi.hi + hi.lo + lo.hi of each operand's TF32 split, within the 1e-4
+// float32 band), chosen on the host by dtype and shape, never by a retry.
+// Every weight grad is dW = G^T A with G^T read in place (bf16: `wgmma`'s
+// transpose of A; float32: transposed by the threads that stage it), and in
+// either dtype its rows are split into S chunks, S chosen from the shape so
+// that (tile, chunk) blocks fill the card about once: each block writes a
+// float32 partial into the workspace and a second pass sums the S partials
+// in chunk order.  (K3's and K4's C x C weight grads have only 4..16 tiles
+// of 128 x 128, and at 8 64-row k-steps a chunk (float32: 4) the plan gives
+// them 32 (64) blocks for 132 SMs: an under-filled grid, left so.)  K2's
 // bias and LayerNorm parameter grads are column sums by one block per 32
 // columns, each column summed in a fixed order.  K3's and K4's column sums
 // (db, and K4's GroupNorm dgamma, dbeta) are split over rows the same way
@@ -47,8 +49,8 @@
 // warp per (batch, group), eight groups a block.  Launches a call: K3 5
 // (dW and its split sum, db and its second pass, dy), K4 7 (GroupNorm
 // statistics, dW and its split sum, dgn, the column sums and their second
-// pass, dx); one fewer for each that does not split (float32 products, or
-// too few rows).  Attention at L, m <= 64 is one block per (batch, head): q,
+// pass, dx); one fewer for each that does not split (too few rows).
+// Attention at L, m <= 64 is one block per (batch, head): q,
 // k, v, dO and the L x m probability and dP matrices sit in shared memory
 // (d <= 128: at most 165 KB, asked for with cudaFuncSetAttribute), P is
 // recomputed from q and k.  Past 64 (up to the JAX gate's 512) it is two
@@ -732,11 +734,11 @@ struct BwdWorkspace {
       gn_rstd, stats, dy_dt, gd, dh_dt, q_in, kv_in, q, kv, dout, o, dq, dkv, total;
 };
 
-// Floats of partials a K3 call takes: its weight grad's split (bf16) and its
+// Floats of partials a K3 call takes: its weight grad's split and its
 // column sum's, which share them in stream order.
-long long conv_out_partial_elems(long long R, long long C, size_t es) {
-  const long long gemm = es == 2 ? gtc::split_elems((int)C, (int)C, (int)R) : 0;
-  return std::max(gemm, colsum_elems((int)R, (int)C, 1));
+long long conv_out_partial_elems(long long R, long long C, bool f32) {
+  return std::max(gtc::split_elems((int)C, (int)C, (int)R, f32),
+                  colsum_elems((int)R, (int)C, 1));
 }
 
 BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
@@ -754,19 +756,17 @@ BwdWorkspace plan_bwd(long long B, long long L, long long C, long long ctx_len,
   };
   // First, at offset 0, so that K3, which is handed the whole workspace but
   // not its plan, finds it there: the largest of the weight grads split over
-  // rows of a layer and of K3 and K4 (bf16 only: the float32 products stay
-  // on the CUDA cores, unsplit), and the column sums of K3 and K4 (up to
-  // three sums of R x C).  The products and sums of a call take it in turn,
-  // in stream order.
-  long long part = std::max(conv_out_partial_elems(R, C, es), colsum_elems((int)R, (int)C, 3));
-  if (es == 2) {
-    const long long shapes[][3] = {{C, C, R}, {C, H, R},     {H, C, R},
-                                   {C, I, R}, {I, C, R},     {2 * I, C, R},
-                                   {2 * I, ctx_c, B * ctx_len}};
-    for (const auto& sh : shapes)
-      if (sh[0] > 0 && sh[1] > 0 && sh[2] > 0)
-        part = std::max(part, gtc::split_elems((int)sh[0], (int)sh[1], (int)sh[2]));
-  }
+  // rows of a layer and of K3 and K4 (in either dtype), and the column sums
+  // of K3 and K4 (up to three sums of R x C).  The products and sums of a
+  // call take it in turn, in stream order.
+  long long part = std::max(conv_out_partial_elems(R, C, es == 4),
+                            colsum_elems((int)R, (int)C, 3));
+  const long long shapes[][3] = {{C, C, R}, {C, H, R},     {H, C, R},
+                                 {C, I, R}, {I, C, R},     {2 * I, C, R},
+                                 {2 * I, ctx_c, B * ctx_len}};
+  for (const auto& sh : shapes)
+    if (sh[0] > 0 && sh[1] > 0 && sh[2] > 0)
+      part = std::max(part, gtc::split_elems((int)sh[0], (int)sh[1], (int)sh[2], es == 4));
   w.partial = take(4 * part);
   w.dy32 = take(4 * R * C);
   w.h32 = take(4 * R * H);
@@ -1081,13 +1081,13 @@ long long t1d_bwd_workspace_bytes(int B, int L, int C, int ctx_len, int ctx_c, i
       .total;
 }
 
-// Floats of `partial` a `t1d_bwd_conv_out` call takes: its bf16 weight
-// grad's split over rows and its column sum's, one after the other in the
+// Floats of `partial` a `t1d_bwd_conv_out` call takes: its weight grad's
+// split over rows and its column sum's, one after the other in the
 // same floats.  A `t1d_bwd_workspace_bytes` workspace of the same rows and
 // C holds at least this many at its start.
 long long t1d_bwd_conv_out_partial_elems(int rows, int C, int dtype) {
   if (rows < 1 || C < 1) return 0;
-  return conv_out_partial_elems(rows, C, dtype == DTYPE_BF16 ? 2 : 4);
+  return conv_out_partial_elems(rows, C, dtype == DTYPE_F32);
 }
 
 // K3.  g, y (rows, C) and w (C, C) in the compute dtype; dy (rows, C) out in
@@ -1210,10 +1210,11 @@ int t1d_gemm_tc(const void* A, long long sam, long long sak, const void* B, long
 }
 
 // Float32 elements of `partial` a split `t1d_gemm_tc` call of this shape
-// takes (0 when it would not split).
+// takes in either dtype (0 when it would not split; float32 splits into as
+// many chunks as bf16 or more).
 long long t1d_gemm_partial_elems(int M, int N, int K) {
   if (M < 1 || N < 1 || K < 1) return 0;
-  return gtc::split_elems(M, N, K);
+  return gtc::split_elems(M, N, K, true);
 }
 
 // Products this library has sent to the tensor cores (gemm_tc.cuh) since

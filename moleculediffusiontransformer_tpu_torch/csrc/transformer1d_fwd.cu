@@ -37,8 +37,10 @@
 //     GELU (erff), + residual): in bf16 on the tensor cores (`wgmma` from
 //     swizzled shared memory, a TMA-fed ring, 128 x 128 or 64 x 64
 //     blocks chosen from the shape so that a request of a few rows does not
-//     launch 128-row blocks), in float32 on the CUDA cores (gemm.cuh's
-//     64x64 tile), so that float32 keeps its 1e-4 parity with the CPU;
+//     launch 128-row blocks), in float32 as three TF32 passes on the same
+//     tensor cores (hi.hi + hi.lo + lo.hi of each operand's TF32 split,
+//     staged K-major by the threads: some 1e-7 of the output's scale, so
+//     that float32 keeps its 1e-4 parity with the CPU);
 //   * attention: for L, m <= 64 one block per (batch, head), q/k/v and the
 //     L x m score matrix in shared memory, float32 scores and stable
 //     softmax, float32 P.V, on the CUDA cores (a small share of the work at

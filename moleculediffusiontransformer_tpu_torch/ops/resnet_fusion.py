@@ -11,12 +11,12 @@ CUDA tensor it launches ``csrc/resnet_fwd.cu`` (built on first use by
 rounding is the Pallas kernel's: each conv's and the projection's
 (acc + bias) rounded to the compute dtype, GroupNorm, FiLM and SiLU in
 float32 and rounded before each conv, ``h + x`` in the compute dtype.
-Every bfloat16 product of the kernel (both convs of each block, each
-widening block's projection, and one FiLM product for the whole run, over
-the blocks' FiLM weights that ``kernel_weights`` lays out as one matrix)
-runs on the tensor-core GEMM of ``csrc/gemm_tc.cuh``; ``tc_products`` says
-how many a call sends there, and ``gemm_tc_launches`` counts them.
-float32 products stay on the CUDA cores.
+Every product of the kernel (both convs of each block, each widening
+block's projection, and one FiLM product for the whole run, over the
+blocks' FiLM weights that ``kernel_weights`` lays out as one matrix) runs on
+the tensor-core GEMM of ``csrc/gemm_tc.cuh``, bfloat16 in one pass and
+float32 in three TF32 passes; ``tc_products`` says how many a call sends
+there, and ``gemm_tc_launches`` counts them.
 
 The call goes through the operator ``mdt_torch::resnet_run``
 (``torch.library.custom_op``, with a fake for the outputs' shapes), so that
@@ -170,9 +170,9 @@ def film_contiguous(weights: Sequence[Sequence[torch.Tensor]]) -> bool:
 
 def tc_products(weights: Sequence[Sequence[torch.Tensor]],
                 film: bool) -> int:
-    """Products a bfloat16 kernel call sends to the tensor cores: both convs
-    of every block, the projection of each block that widens, and one FiLM
-    product for the run (a float32 call sends none)."""
+    """Products a kernel call sends to the tensor cores, in either dtype:
+    both convs of every block, the projection of each block that widens,
+    and one FiLM product for the run."""
     return (sum(2 + (_split(ws, film)[5] is not None) for ws in weights)
             + int(film))
 

@@ -37,10 +37,13 @@ want matrices in the compute dtype and vectors in float32
 here, per call.  Weight grads come back in torch's layout: (out, in)
 matrices (a 1x1 conv's without its kernel axis) and vectors.
 
-Every product of K1-K4 goes through one GEMM, ``csrc/gemm_tc.cuh``: in
-bf16 on the tensor cores (``wgmma``), the backward's weight grads split over
-rows with a second pass that sums the chunks in order; in float32 on the
-CUDA cores, so that float32 keeps its 1e-4 parity with the CPU.
+Every product of K1-K4 goes through one GEMM, ``csrc/gemm_tc.cuh``, on
+the tensor cores (``wgmma``): bf16 in one pass, float32 in three TF32
+passes (hi.hi + hi.lo + lo.hi of each operand split into a TF32 high part
+and remainder; some 1e-7 of the output's scale, so that float32 keeps its
+1e-4 parity with the CPU, which one TF32 pass would not); the backward's
+weight grads split over rows with a second pass that sums the chunks in
+order, in either dtype.
 ``gemm_tc`` launches that GEMM alone (no model path calls it; the card
 tests and ``tools/check_torch_gemm.py`` do), ``gemm_tc_reference`` is its
 plain version, and ``gemm_tc_launches`` counts the products the stack
@@ -943,10 +946,11 @@ def gemm_tc(x: torch.Tensor, y: torch.Tensor, layout: str, *,
             split: bool = False, info: Optional[dict] = None):
     """The stack kernels' GEMM (``csrc/gemm_tc.cuh``) alone: the CUDA entry
     ``t1d_gemm_tc`` for CUDA tensors, ``gemm_tc_reference`` (which documents
-    the arguments) for CPU tensors.  x and y may be strided views; bf16 calls
-    whose strides and sizes the tensor-core loads take run there, the others
-    (and all float32 calls) on the CUDA cores.  ``split`` (``tn``, a plain
-    float32 sum): split the rows as K2 splits its weight grads.  ``info``,
+    the arguments) for CPU tensors.  x and y may be strided views; calls
+    whose strides and sizes the tensor-core loads take (16-byte rows) run
+    there, bf16 in one pass and float32 in three TF32 passes, the others on
+    the CUDA cores.  ``split`` (``tn``, a plain float32 sum): split the rows
+    as K2 splits its weight grads.  ``info``,
     if given, gets the ``route`` the call took (0 CUDA cores, 1 tensor cores
     64 x 64, 2 tensor cores 128 x 128) and the ``splits`` it ran.
     ``gemm_tc_launches`` counts the calls that took the tensor cores."""

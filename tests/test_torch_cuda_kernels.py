@@ -13,10 +13,13 @@ Marked ``cuda_hw``: every test skips without a CUDA card (decided inside
 the fixture).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 
-Tolerances: 1e-4 in float32 with TF32 off (only the order of float32 sums
-differs) and 2e-2 in bfloat16 on unit-scale inputs (the JAX fused-vs-
-composition band, 0.016); backward outputs are held to the same fractions of
-each tensor's largest magnitude, since weight grads sum over all b*L rows."""
+Tolerances: 1e-4 in float32 with TF32 off in the plain versions (the
+kernels' float32 products are three TF32 passes, some 1e-7 of scale, and
+their float32 sums run in another order) and 2e-2 in bfloat16 on unit-scale
+inputs (the JAX fused-vs-composition band, 0.016); backward outputs are held
+to the same fractions of each tensor's largest magnitude, since weight grads
+sum over all b*L rows.  Every product of the stack kernels and of K8 goes to
+the tensor cores in either dtype, and the counts say so."""
 import pytest
 import torch
 
@@ -84,8 +87,8 @@ def _stack(dev, length, c, layers, cross, dtype, batch=128, seed=0,
                          STACK_CASES + LONG_STACK_CASES)
 def test_kernel_matches_plain_version(cuda, length, c, layers, cross, batch,
                                       ctx_len, dtype):
-    """Every bf16 product of the stack goes to the tensor cores, every
-    float32 one to the CUDA cores."""
+    """Every product of the stack goes to the tensor cores, in either
+    dtype (float32 as three TF32 passes)."""
     mod, x, ctx = _stack(cuda, length, c, layers, cross, dtype,
                          batch=batch or 128, ctx_len=ctx_len)
     kw = dict(num_layers=layers, heads=8, head_dim=64, multiplier=2)
@@ -95,8 +98,8 @@ def test_kernel_matches_plain_version(cuda, length, c, layers, cross, batch,
         out = tf.transformer1d_forward(mod.kernel_params(), x, ctx, **kw)
         torch.cuda.synchronize()
         assert tf.LAUNCHES == before + 1
-        assert tf.gemm_tc_launches() - products == (
-            tf.stack_products(layers, cross) if dtype == torch.bfloat16 else 0)
+        assert tf.gemm_tc_launches() - products == tf.stack_products(
+            layers, cross)
         ref = tf.transformer1d_reference(mod.kernel_params(), x, ctx, **kw)
     assert out.dtype == dtype and out.shape == x.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
@@ -208,11 +211,12 @@ def test_stash_forward_matches_plain_version(cuda, length, c, layers, cross,
 def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
                                                cross, batch, ctx_len, dtype):
     """K3, every layer's K2 and K4, each on the plain stash, output by
-    output; the bf16 products of all three on the tensor cores."""
+    output; the products of all three on the tensor cores in either
+    dtype."""
     _, kp, x, ctx, _, stash, g, kw = _chain_case(
         cuda, length, c, layers, cross, dtype, batch, ctx_len)
     w = tf._kernel_weights(kp, layers, cross, dtype)
-    conv_products = tf.CONV_BWD_PRODUCTS if dtype == torch.bfloat16 else 0
+    conv_products = tf.CONV_BWD_PRODUCTS
     with torch.no_grad():
         products = tf.gemm_tc_launches()
         got = tf.bwd_conv_out(g, stash[-1], w[-2])
@@ -229,9 +233,8 @@ def test_backward_kernels_match_plain_versions(cuda, length, c, layers,
                     stash[i * per_stash + per_stash - 1], ctx_dt, lw)
             products = tf.gemm_tc_launches()
             got = tf.bwd_layer(*args, heads=8, head_dim=64)
-            assert tf.gemm_tc_launches() - products == (
-                tf.stack_products(1, cross, backward=True)
-                if dtype == torch.bfloat16 else 0)
+            assert tf.gemm_tc_launches() - products == tf.stack_products(
+                1, cross, backward=True)
             want = tf.bwd_layer_reference(*args, heads=8, head_dim=64)
             _within(got[0], want[0], dtype, f"K2 layer {i} dy")
             if cross:
@@ -260,17 +263,17 @@ CONV_ROWS = [1, 24, 2048, 4096]
 @pytest.mark.parametrize("rows", CONV_ROWS)
 @pytest.mark.parametrize("c", CONV_C)
 def test_conv_backward_kernels_match_plain_versions(cuda, c, rows, dtype):
-    """K3 and K4 against their plain versions, output by output; a bf16 call
-    sends exactly its ``CONV_BWD_PRODUCTS`` products to the tensor cores and
-    a float32 call none; two calls agree bit for bit (no float atomics in
-    the split weight grads and column sums)."""
+    """K3 and K4 against their plain versions, output by output; a call
+    sends exactly its ``CONV_BWD_PRODUCTS`` products to the tensor cores, in
+    either dtype; two calls agree bit for bit (no float atomics in the split
+    weight grads and column sums)."""
     gen = torch.Generator().manual_seed(rows + 7 * c)
     g, y, x = (torch.randn(rows, 1, c, generator=gen).to(cuda, dtype)
                for _ in range(3))
     w = (torch.randn(c, c, generator=gen) / c ** 0.5).to(cuda, dtype)
     gs = (1 + 0.1 * torch.randn(c, generator=gen)).to(cuda)
     gb = (0.1 * torch.randn(c, generator=gen)).to(cuda)
-    conv_products = tf.CONV_BWD_PRODUCTS if dtype == torch.bfloat16 else 0
+    conv_products = tf.CONV_BWD_PRODUCTS
     for name, kernel, plain, args, outs in (
             ("K3", tf.bwd_conv_out, tf.bwd_conv_out_reference, (g, y, w),
              ["dy", "dW", "db"]),
@@ -298,7 +301,7 @@ def test_backward_chain_is_bitwise_deterministic(cuda, length, c, layers,
                                                  cross, batch, ctx_len,
                                                  dtype):
     """No float atomics: two backward calls on the same inputs agree bit for
-    bit (the bf16 weight grads split over rows too)."""
+    bit (the weight grads split over rows too, in either dtype)."""
     _, kp, x, ctx, _, stash, g, kw = _chain_case(
         cuda, length, c, layers, cross, dtype, batch, ctx_len)
     runs = [tf.transformer1d_backward(kp, x, ctx, stash, g, **kw)
@@ -454,10 +457,12 @@ def test_gemm_tc_split_rows_is_bitwise_repeatable(cuda, rows, n, k, even):
 
 
 def test_gemm_tc_route(cuda):
-    """The route is the dtype's and the shape's: bf16 with 16-byte rows takes
-    the tensor cores (64 x 64 blocks for a few rows, 128 x 128 when that
-    grid fills the card), float32 and a K that is not a multiple of 8 take
-    the CUDA cores, which the tensor-core count does not see."""
+    """The route is the dtype's and the shape's: with 16-byte rows (8 bf16, 4
+    float32 elements) a call takes the tensor cores (64 x 64 blocks for a
+    few rows, 128 x 128 when that grid fills the card), bf16 in one pass and
+    float32 in three TF32 passes; a K that is not a multiple of 8 (bf16) or
+    4 (float32) takes the CUDA cores, which the tensor-core count does not
+    see."""
     def run(x, y, layout="nt", **kw):
         info = {}
         before = tf.gemm_tc_launches()
@@ -473,12 +478,99 @@ def test_gemm_tc_route(cuda):
     assert run(x, y, "tn", out_dtype=torch.float32, split=True)[1:] == (2, 1)
     x, y = _gemm_case(cuda, "nt", 65, 256, 128, dtype=torch.float32)
     out, route, launched = run(x, y)
-    assert (route, launched) == (0, 0)
+    assert (route, launched) == (1, 1)
     _within(out, torch.matmul(x, y.t()), torch.float32, "float32")
     x, y = _gemm_case(cuda, "nt", 65, 256, 60)
     out, route, launched = run(x, y)
     assert (route, launched) == (0, 0)
     _gemm_within(out, torch.matmul(x.float(), y.float().t()), "K 60")
+    x, y = _gemm_case(cuda, "nt", 65, 256, 60, dtype=torch.float32)
+    assert run(x, y)[1:] == (1, 1)
+    x, y = _gemm_case(cuda, "nt", 65, 256, 62, dtype=torch.float32)
+    out, route, launched = run(x, y)
+    assert (route, launched) == (0, 0)
+    _within(out, torch.matmul(x, y.t()), torch.float32, "float32 K 62")
+
+
+# float32 operands: three TF32 passes against torch.matmul in float32 (TF32
+# off), some 1e-7 of the output's scale; 1e-5 is the float32 band of
+# tests/test_torch_gemm_tc.py
+GEMM_F32_TOL = 1e-5
+
+
+def _gemm_f32_within(got, want, what):
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
+    assert err <= GEMM_F32_TOL * scale, f"{what}: {err} > {GEMM_F32_TOL} x {scale}"
+
+
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+def test_gemm_tc_float32_matches_matmul(cuda, layout, rows, n, k):
+    """Each layout in float32 on the tensor cores (three TF32 passes, the
+    transposed operands staged K-major) against torch.matmul in float32; the
+    weight grad (tn) split over its rows as K2 splits it."""
+    x, y = _gemm_case(cuda, layout, rows, n, k, dtype=torch.float32)
+    info = {}
+    before = tf.gemm_tc_launches()
+    out, _ = tf.gemm_tc(x, y, layout, split=layout == "tn", info=info)
+    again, _ = tf.gemm_tc(x, y, layout, split=layout == "tn")
+    torch.cuda.synchronize()
+    assert tf.gemm_tc_launches() == before + 2 and info["route"] in (1, 2)
+    want = {"nt": lambda: torch.matmul(x, y.t()),
+            "nn": lambda: torch.matmul(x, y),
+            "tn": lambda: torch.matmul(x.t(), y)}[layout]()
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    _gemm_f32_within(out, want, f"{layout} rows {rows} n {n} k {k}")
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("rows", [2, 65, 1024])
+@pytest.mark.parametrize("layout,epi", [("nt", "bias"), ("nt", "bias_res"),
+                                        ("nt", "bias_gelu"), ("nn", "res"),
+                                        ("nn", "mul")])
+def test_gemm_tc_float32_epilogues(cuda, layout, epi, rows):
+    """The float32 route's epilogues (K1's and K2's) against the float32
+    product plus the epilogue in plain PyTorch, with out_t where K2 asks
+    for it."""
+    n, k = 256, 128
+    x, y = _gemm_case(cuda, layout, rows, n, k, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(rows + 1)
+    extra = {}
+    if epi in ("bias", "bias_res", "bias_gelu"):
+        extra["bias"] = torch.randn(n, generator=gen).to(cuda)
+    if epi in ("bias_res", "res"):
+        extra["res"] = torch.randn(rows, n, generator=gen).to(cuda)
+    if epi == "mul":
+        extra["mul"] = torch.randn(rows, n, generator=gen).to(cuda)
+    kw = dict(epi=epi, want_out_t=epi == "mul", **extra)
+    info = {}
+    out, out_t = tf.gemm_tc(x, y, layout, info=info, **kw)
+    want, want_t = tf.gemm_tc_reference(x, y, layout, **kw)
+    torch.cuda.synchronize()
+    assert info["route"] in (1, 2)
+    _gemm_f32_within(out, want, f"{layout} {epi}")
+    if want_t is not None:
+        assert torch.equal(out_t, out)
+
+
+@pytest.mark.parametrize("rows,n,k,even", SPLIT_CASES)
+def test_gemm_tc_float32_split_rows(cuda, rows, n, k, even):
+    """A float32 weight grad split over its rows as K2 splits it: two calls
+    agree bit for bit, and the split sum equals the unsplit one within
+    1e-5 of scale."""
+    x, y = _gemm_case(cuda, "tn", rows, n, k, dtype=torch.float32)
+    runs, info = [], {}
+    for _ in range(2):
+        runs.append(tf.gemm_tc(x, y, "tn", split=True, info=info)[0])
+    whole, _ = tf.gemm_tc(x, y, "tn")
+    torch.cuda.synchronize()
+    assert info["splits"] > 1 and info["route"] == 2
+    assert ((rows // 64) % info["splits"] == 0) == even
+    assert torch.equal(runs[0], runs[1])
+    _gemm_f32_within(runs[0], whole, "split against unsplit")
+    _gemm_f32_within(runs[0], torch.matmul(x.t(), y), "split")
 
 
 # ---------------------------------------------- K8, the resnet-run kernel ---
@@ -526,8 +618,8 @@ def _resnet_case(dev, length, c, n, layout, cm, dtype, batch=RESNET_BATCH,
 @pytest.mark.parametrize("length,c,n,layout,cm", RUNS)
 def test_resnet_kernel_matches_plain_version(cuda, length, c, n, layout, cm,
                                              dtype):
-    """All three layouts; every bf16 product on the tensor cores (a float32
-    call sends none there); two calls agree bit for bit."""
+    """All three layouts; every product on the tensor cores, in either
+    dtype; two calls agree bit for bit."""
     _, w, x, mp, skips, kw = _resnet_case(cuda, length, c, n, layout, cm,
                                           dtype)
     with torch.no_grad():
@@ -536,8 +628,7 @@ def test_resnet_kernel_matches_plain_version(cuda, length, c, n, layout, cm,
         out, outs = rf.resnet_stack_forward(w, x, mp, skips, **kw)
         torch.cuda.synchronize()
         assert rf.RESNET_LAUNCHES == before + 1
-        assert rf.gemm_tc_launches() - products == (
-            rf.tc_products(w, True) if dtype == torch.bfloat16 else 0)
+        assert rf.gemm_tc_launches() - products == rf.tc_products(w, True)
         ref, ref_outs = rf.resnet_stack_reference(w, x, mp, skips, **kw)
         again, _ = rf.resnet_stack_forward(w, x, mp, skips, **kw)
     assert out.dtype == dtype and out.shape == (RESNET_BATCH, length, c)
@@ -623,8 +714,8 @@ def test_uniform_kernel_matches_plain_version(cuda, length, c, layers, m,
         torch.cuda.synchronize()
         assert (tf.LAUNCHES, tf.UNIFORM_LAUNCHES) == (before[0],
                                                       before[1] + 1)
-        assert tf.gemm_tc_launches() - products == (
-            tf.stack_products(layers, True) if dtype == torch.bfloat16 else 0)
+        assert tf.gemm_tc_launches() - products == tf.stack_products(
+            layers, True)
         ref = tf.transformer1d_reference(kp, x, table, uniform_ctx=True,
                                          **kw)
         per_row = tf.transformer1d_forward(

@@ -65,9 +65,15 @@ def smi(query):
 
 def compiler_report(cuda_build, source, match=None):
     """ptxas' resource lines for every kernel of ``source`` (whose name holds
-    ``match``, when given) and the tensor-core and warpgroup-wait counts of
-    the built library's SASS.  Returns {kernel: {"spills": [...],
-    "notes": [...], **SASS counts}} of those kernels."""
+    ``match``, or one of a tuple of names, when given) and the tensor-core
+    and warpgroup-wait counts of the built library's SASS.  Returns
+    {kernel: {"spills": [...], "notes": [...], **SASS counts}} of those
+    kernels."""
+    names = (match,) if isinstance(match, str) else match
+
+    def skip(name):
+        return names is not None and not any(m in name for m in names)
+
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas",
                "-v", "-I", str(cuda_build.CSRC_DIR), "-o",
@@ -82,7 +88,7 @@ def compiler_report(cuda_build, source, match=None):
             name = found.group(1)
             pretty = subprocess.run(["c++filt", name], capture_output=True,
                                     text=True).stdout.strip() or name
-            if match is not None and match not in name:
+            if skip(name):
                 name = None
             else:
                 report[name] = {"spills": [], "notes": []}
@@ -110,7 +116,7 @@ def compiler_report(cuda_build, source, match=None):
         found = re.search(r"Function : (\w+)", line)
         if found:
             function = found.group(1)
-            if match is not None and match not in function:
+            if skip(function):
                 function = None
                 continue
             counts[function] = {**dict.fromkeys(SASS_OPS, 0),

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """The tensor-core GEMM of the PyTorch port's Transformer1d stack kernels
-and resnet-run kernel (``csrc/gemm_tc.cuh``: every bf16 product of K1-K4
-and K8) on one NVIDIA GPU: what the compiler made of it, how long it takes
+and resnet-run kernel (``csrc/gemm_tc.cuh``: every product of K1-K4 and K8,
+bf16 in one pass, float32 in three TF32 passes) on one NVIDIA GPU: what the compiler made of it, how long it takes
 at the 91M model's product shapes, and K1-K4 and K8 of this checkout
 against another one's.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 ``python3 tools/check_torch_gemm.py [--root DIR] [--reps 20]
 [--no-compiler-report] [--no-shapes] [--batches 1024,512] [--trace]
-[--tiles]``.
+[--tiles] [--dtype bfloat16|float32|both] [--plain]``.
+``--dtype`` picks the operands of steps 2 and 5 (bf16 by default; float32
+takes the three-TF32-pass route, TF32 off in ``torch.matmul``).
 It
 
 1. compiles ``csrc/transformer1d_fwd.cu``, ``csrc/transformer1d_bwd.cu``
    and ``csrc/resnet_fwd.cu`` once more with ``-Xptxas -v`` and prints the
-   registers, spills and shared memory of each ``gemm_tc_kernel`` instance
+   registers, spills and shared memory of each ``gemm_tc_kernel`` (bf16)
+   and ``gemm_tf32x3_kernel`` (float32, three TF32 passes) instance
    and any ptxas note about ``wgmma`` (``C7515``: the products were
    serialised), and counts in the SASS of the built libraries
    (``cuobjdump -sass``) the ``HGMMA`` against the ``WARPGROUP.DEPBAR`` of
@@ -25,8 +28,10 @@ It
    K2, K3 and K4, TN split over rows as the backward splits it), on the
    card's time with the calls
    enqueued back to back (``chip_smoke.device_ms``), beside ``torch.matmul``
-   of the same bf16 operands (a yardstick only: the port never calls it),
-   with each shape's TFLOP/s and bound;
+   of the same operands (a yardstick only: the port never calls it; float32
+   with TF32 off), with each shape's TFLOP/s and bound (bf16: operations at
+   989 TFLOP/s; float32: three TF32 passes at 495 TFLOP/s, with the
+   CUDA-core bound at 67 TFLOP/s beside it);
 3. with ``--trace``, builds the GEMM once more with its clock64 stamps
    (``-DGTC_TRACE``) and prints where block (0, 0, 0) spends its cycles at
    a few shapes: before the first k-step, each k-step's wait, barrier, load
@@ -45,9 +50,12 @@ It
    (``card_ms``) and the host's time to make the call behind a busy card
    (``host_ms``: the wrapper's checks and launches), and the host's time to
    build K1's weight list (``K1 weight list``, summed over the four stacks
-   like the rest); for K8 also the products one call of each run sent to
+   like the rest; each kernel's figures of each stack under ``by_stack``);
+   for K8 also the products one call of each run sent to
    the tensor cores (``K8 products``, summed over the runs; absent for a
-   tree whose K8 counts none).
+   tree whose K8 counts none).  With ``--plain`` the plain versions of K1,
+   its stash, K2, K3 and K4 too (``K2 plain`` and so on), timed the same
+   way in each turn.
 
 It prints the card's name and power limit first.
 """
@@ -115,19 +123,21 @@ def product_shapes(batch):
     return [(what, *key) for key, what in shapes.items()]
 
 
-def time_products(tf, dev, reps, batches=BATCHES, **tags):
-    """Step 2; ``tags`` are added to each printed line."""
+def time_products(tf, dev, reps, batches=BATCHES, dtype="bfloat16", **tags):
+    """Step 2 in ``dtype``; ``tags`` are added to each printed line."""
     import torch
-    from chip_smoke import bound, device_ms
+    from chip_smoke import F32_PEAK_FLOPS, bound, device_ms
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
     for batch in batches:
         for what, layout, rows, n, k, epi, out in product_shapes(batch):
             gen = torch.Generator().manual_seed(rows + n + k)
             shapes = {"nt": ((rows, k), (n, k)), "nn": ((rows, k), (k, n)),
                       "tn": ((rows, n), (rows, k))}[layout]
-            x, y = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+            x, y = (torch.randn(s, generator=gen).to(dev, dt)
                     for s in shapes)
             m_out, n_out = (n, k) if layout == "tn" else (rows, n)
-            odt = torch.float32 if out == "float32" else torch.bfloat16
+            odt = torch.float32 if out == "float32" or f32 else torch.bfloat16
             extra = {}
             if epi in ("bias", "bias_res", "bias_gelu"):
                 extra["bias"] = torch.randn(n_out, device=dev)
@@ -146,17 +156,23 @@ def time_products(tf, dev, reps, batches=BATCHES, **tags):
                         "tn": (x.t(), y)}[layout]
                 library = device_ms(lambda: torch.matmul(a, b), reps=reps)
             flops = 2.0 * m_out * n_out * (rows if layout == "tn" else k)
-            moved = (x.numel() + y.numel()) * 2 + m_out * n_out * (
-                4 if odt == torch.float32 else 2)
-            limit = bound(flops, moved)
+            moved = (x.numel() + y.numel()) * x.element_size() + (
+                m_out * n_out * (4 if odt == torch.float32 else 2))
+            limit = bound(flops, moved, f32)
+            extra = ({"cuda_core_bound_ms": max(
+                flops / F32_PEAK_FLOPS * 1e3, limit["bytes_ms"])} if f32
+                else {})
             print(json.dumps({
-                **tags, "product": what, "batch": batch, "layout": layout,
+                **tags, "product": what, "dtype": dtype, "batch": batch,
+                "layout": layout,
                 "m": m_out, "n": n_out, "k": rows if layout == "tn" else k,
-                "epi": epi, "out": out, "route": info["route"],
+                "epi": epi, "out": "float32" if f32 else out,
+                "route": info["route"],
                 "splits": info["splits"], "card_ms": card,
                 "library_ms": library, "tflops": flops / card / 1e9,
                 "bound_ms": max(limit.values()),
-                "bound_by": max(limit, key=limit.get)[:-3]}), flush=True)
+                "bound_by": max(limit, key=limit.get)[:-3], **extra}),
+                flush=True)
 
 
 # (layout, rows, n, k, epilogue) of the traced products: a 64 x 64-block
@@ -219,12 +235,13 @@ def trace_products(cuda_build, tf, dev):
         tf._BWD_LIB = saved
 
 
-def time_stacks(reps, only=None):
+def time_stacks(reps, only=None, dtype="bfloat16", plain=False):
     """Step 5 for the port package first on ``sys.path``: K1, its stash and
-    uniform-context variants, K2, K3, K4 and K8 in bf16 (or the kernels
+    uniform-context variants, K2, K3, K4 and K8 in ``dtype`` (or the kernels
     named in ``only``), summed over their shapes, each as CUDA events around
-    one call, as the card's time and as the host's time to make the call;
-    and the host's time to build K1's weight list."""
+    one call, as the card's time and as the host's time to make the call
+    (each shape's under ``by_stack``); the host's time to build K1's weight
+    list; with ``plain``, the plain versions of K1-K4 the same way."""
     import time
     import torch
     from check_torch_flash import host_ms
@@ -238,19 +255,24 @@ def time_stacks(reps, only=None):
     from moleculediffusiontransformer_tpu_torch.ops import resnet_fusion as rf
     from moleculediffusiontransformer_tpu_torch.ops import \
         transformer_fusion as tf
-    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    dev, dt = torch.device("cuda", 0), getattr(torch, dtype)
     sums = {}
+    where = [None]           # the stack being timed
 
     def add(key, fn):
-        if only is not None and key not in only:
+        if only is not None and key.replace(" plain", "") not in only:
+            return
+        if key.endswith(" plain") and not plain:
             return
         ms, card = cuda_ms(fn, reps=reps), device_ms(fn, reps=reps)
         host = host_ms(fn, reps)
         got = sums.setdefault(key, {"ms": 0.0, "card_ms": 0.0,
-                                    "host_ms": 0.0})
+                                    "host_ms": 0.0, "by_stack": {}})
         got["ms"] += ms
         got["card_ms"] += card
         got["host_ms"] += host
+        got["by_stack"][where[0]] = {"ms": ms, "card_ms": card,
+                                     "host_ms": host}
 
     def add_host(key, fn):
         """A host-only function: the median of ``reps`` timed calls."""
@@ -278,10 +300,13 @@ def time_stacks(reps, only=None):
 
     kw = dict(heads=HEADS, head_dim=HEAD_DIM)
     with torch.no_grad():
-        for _, length, c, layers, cross in STACKS:
+        for name, length, c, layers, cross in STACKS:
+            where[0] = name
             kp, x, ctx, _ = stack(length, c, layers, cross, STACK_BATCH,
                                   length * c + layers)
             add("K1", lambda: tf.transformer1d_forward(
+                kp, x, ctx, num_layers=layers, multiplier=MULT, **kw))
+            add("K1 plain", lambda: tf.transformer1d_reference(
                 kp, x, ctx, num_layers=layers, multiplier=MULT, **kw))
             add_host("K1 weight list", lambda: tf._kernel_weights(
                 kp, layers, cross, dt))
@@ -296,21 +321,28 @@ def time_stacks(reps, only=None):
             add("K1 stash", lambda: tf.transformer1d_forward(
                 kp, x, ctx, num_layers=layers, multiplier=MULT,
                 with_stash=True, **kw))
+            add("K1 stash plain", lambda: tf.transformer1d_reference(
+                kp, x, ctx, num_layers=layers, multiplier=MULT,
+                with_stash=True, **kw))
             per_layer, per_stash = (20, 3) if cross else (12, 2)
 
-            def layers_bwd():
+            def layers_bwd(fn):
                 for i in range(layers):
                     s0 = i * per_stash
-                    tf.bwd_layer(g, stash[s0],
-                                 stash[s0 + 1] if cross else None,
-                                 stash[s0 + per_stash - 1], ctx,
-                                 w[4 + i * per_layer:4 + (i + 1) * per_layer],
-                                 **kw)
+                    fn(g, stash[s0], stash[s0 + 1] if cross else None,
+                       stash[s0 + per_stash - 1], ctx,
+                       w[4 + i * per_layer:4 + (i + 1) * per_layer], **kw)
 
-            add("K2", layers_bwd)
+            add("K2", lambda: layers_bwd(tf.bwd_layer))
+            add("K2 plain", lambda: layers_bwd(tf.bwd_layer_reference))
             add("K3", lambda: tf.bwd_conv_out(g, stash[-1], w[-2]))
+            add("K3 plain", lambda: tf.bwd_conv_out_reference(
+                g, stash[-1], w[-2]))
             add("K4", lambda: tf.bwd_conv_in_gn(g, x, w[2], w[0], w[1]))
-        for _, length, c, layers, m in UNIFORM_STACKS:
+            add("K4 plain", lambda: tf.bwd_conv_in_gn_reference(
+                g, x, w[2], w[0], w[1]))
+        for name, length, c, layers, m in UNIFORM_STACKS:
+            where[0] = name
             kp, x, _, gen = stack(length, c, layers, True, NULL_HALF_BATCH,
                                   length * c + m)
             table = torch.randn(1, m, CONTEXT[1], generator=gen).to(dev, dt)
@@ -318,7 +350,8 @@ def time_stacks(reps, only=None):
                 kp, x, table, num_layers=layers, multiplier=MULT,
                 uniform_ctx=True, **kw))
         counted = getattr(rf, "gemm_tc_launches", None)
-        for i, (_, length, c, n, layout, cm) in enumerate(RESNET_RUNS):
+        for i, (name, length, c, n, layout, cm) in enumerate(RESNET_RUNS):
+            where[0] = name
             _, w, x, mp, skips, rkw = _resnet_case(
                 dev, length, c, n, layout, cm, dt, RESNET_BATCH, i)
             if counted is not None and (only is None or "K8" in only):
@@ -347,6 +380,11 @@ def main() -> int:
                         help="time the products and K1, K2 with every "
                              "unsplit product on 64 x 64 and on 128 x 128 "
                              "blocks, in turns")
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float32", "both"),
+                        help="operands of the products and the kernels")
+    parser.add_argument("--plain", action="store_true",
+                        help="time the plain versions of K1-K4 in each turn")
     parser.add_argument("--stacks-of", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tile", type=int, default=0, help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -355,6 +393,9 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtypes = ("bfloat16", "float32") if args.dtype == "both" else (
+        args.dtype,)
     if args.stacks_of is not None:     # one turn of step 4 or 5, alone
         import chip_smoke  # noqa: F401  (this checkout's harness for both)
         sys.path.insert(0, os.path.abspath(args.stacks_of))
@@ -364,13 +405,16 @@ def main() -> int:
         if args.tile:                  # step 4: libraries of one block shape
             from moleculediffusiontransformer_tpu_torch.ops import cuda_build
             cuda_build.NVCC_FLAGS += (f"-DGTC_TILE={args.tile}",)
-            time_products(transformer_fusion, torch.device("cuda", 0),
-                          args.reps, [int(b) for b in args.batches.split(",")],
-                          tile=args.tile)
+            for dtype in dtypes:
+                time_products(transformer_fusion, torch.device("cuda", 0),
+                              args.reps,
+                              [int(b) for b in args.batches.split(",")],
+                              dtype, tile=args.tile)
             only = ("K1", "K2")
         print(json.dumps({"package": os.path.dirname(os.path.dirname(
             os.path.abspath(transformer_fusion.__file__))), "tile": args.tile,
-            **time_stacks(args.reps, only)}), flush=True)
+            **{dtype: time_stacks(args.reps, only, dtype, args.plain)
+               for dtype in dtypes}}), flush=True)
         return 0
     from check_torch_flash import compiler_report, smi
     from moleculediffusiontransformer_tpu_torch.ops import cuda_build
@@ -381,7 +425,8 @@ def main() -> int:
     faults = []
     if not args.no_compiler_report:
         for source in (tf.SOURCE, tf.BWD_SOURCE, rf.SOURCE):
-            report = compiler_report(cuda_build, source, match="gemm_tc")
+            report = compiler_report(cuda_build, source,
+                                     match=("gemm_tc", "gemm_tf32x3"))
             for kernel, r in report.items():
                 if r["spills"] or any("C7515" in n for n in r["notes"]):
                     faults.append((kernel, r["spills"], r["notes"]))
@@ -392,8 +437,9 @@ def main() -> int:
     if args.trace:
         trace_products(cuda_build, tf, dev)
     if not args.no_shapes:
-        time_products(tf, dev, args.reps,
-                      [int(b) for b in args.batches.split(",")])
+        for dtype in dtypes:
+            time_products(tf, dev, args.reps,
+                          [int(b) for b in args.batches.split(",")], dtype)
     turns = []
     if args.tiles:
         turns += [(f"tile {t}", ROOT, t) for t in (1, 2, 2, 1)]
@@ -405,7 +451,8 @@ def main() -> int:
     for label, root, tile in turns:
         proc = subprocess.run(
             [sys.executable, me, "--stacks-of", root, "--reps",
-             str(args.reps), "--tile", str(tile), "--batches", args.batches],
+             str(args.reps), "--tile", str(tile), "--batches", args.batches,
+             "--dtype", args.dtype] + (["--plain"] if args.plain else []),
             capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout, proc.stderr, file=sys.stderr)

@@ -5,10 +5,11 @@ time on one CUDA card.
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 tools/profile_torch_train_step.py [--eval] [--resnet-fusion]
-        [--root DIR] [--out FILE]
+        [--dtype bfloat16|float32] [--root DIR] [--out FILE]
 
-It trains the flagship preset (``chip_smoke.FLAGSHIP``) in bfloat16 with
-seeded random weights at batch 1024 as 2 x 512, and
+It trains the flagship preset (``chip_smoke.FLAGSHIP``) in bfloat16 (or,
+with ``--dtype float32``, in float32, TF32 off in cuBLAS and cuDNN, the
+recipes' default) with seeded random weights at batch 1024 as 2 x 512, and
 
 1. times steps with the Transformer1d stacks through the hand-written
    kernels and through the module composition (``disable_fusion``: cuBLAS
@@ -53,6 +54,8 @@ def main() -> int:
                         help="the checkout whose port package to profile")
     parser.add_argument("--resnet-fusion", action="store_true",
                         help="run the UNet's resnet runs through K8")
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float32"))
     args = parser.parse_args()
 
     import torch
@@ -77,9 +80,11 @@ def main() -> int:
     from moleculediffusiontransformer_tpu_torch.train import trainer
 
     rf.enable_resnet_fusion(args.resnet_fusion)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     dev = torch.device("cuda", 0)
-    model = QMDiffusion(**FLAGSHIP, dtype=torch.bfloat16)
+    model = QMDiffusion(**FLAGSHIP, dtype=getattr(torch, args.dtype))
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(dev).train()
     stacks = [m for m in model.modules() if isinstance(m, Transformer1d)]
@@ -127,7 +132,8 @@ def traced(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall ms (the profiler's
     cost included), device ms, kernel launches, the top kernels by device
     time and, of those, the stack GEMM's on the tensor cores
-    (``gemm_tc_kernel``) and on the CUDA cores (``gemm_kernel``)."""
+    (``gemm_tc_kernel``; float32 as three TF32 passes,
+    ``gemm_tf32x3_kernel``) and on the CUDA cores (``gemm_kernel``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -156,6 +162,7 @@ def traced(fn) -> dict:
     kernels.sort(key=lambda k: -k["device_ms"])
     gemm = {label: sum(k["device_ms"] for k in kernels if part in k["name"])
             for label, part in (("gemm_tc_ms", "gemm_tc_kernel"),
+                                ("gemm_tf32x3_ms", "gemm_tf32x3_kernel"),
                                 ("gemm_cuda_cores_ms", "gemm_kernel"))}
     return {"traced_wall_ms": wall_ms,
             "device_ms": sum(k["device_ms"] for k in kernels),
@@ -201,7 +208,7 @@ def serving_profile(model, gen, batch, cond_scale, num_steps) -> dict:
 def report(args, result: dict, package: str) -> int:
     import torch
     text = json.dumps({"device": torch.cuda.get_device_name(0),
-                       "package": package,
+                       "package": package, "dtype": args.dtype,
                        "resnet_fusion": args.resnet_fusion, **result},
                       indent=1)
     print(text)
